@@ -1,10 +1,11 @@
 """Product Quantization (Jégou et al., TPAMI'11): codebook training,
-encoding and ADC lookup tables for the compressed data plane (the
-``pq_adc_masked`` CUDA kernel scores the codes against the tables).
+encoding and ADC lookup tables, for the compressed data plane (the
+``pq_adc_masked`` CUDA kernel scores pooled codes against per-query
+tables) and for the DiskANN baseline's in-memory guidance distances
+(``adc_lut`` per query, ``adc_distances`` through the ``pq_adc`` CUDA
+kernel on the card).
 
-Training, encoding and the ADC tables run on a torch device. The
-reference's per-query ``adc_lut`` and numpy ``adc_distances`` serve its
-DiskANN baseline and come with that port.
+Training, encoding and the ADC tables run on a torch device.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.core.clustering import kmeans
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass
@@ -26,6 +28,11 @@ class PQCodebook:
     @property
     def d_sub(self) -> int:
         return self.d // self.M
+
+    def centroids_on(self, device) -> torch.Tensor:
+        """The centroids as a float32 tensor on ``device``."""
+        return torch.from_numpy(np.ascontiguousarray(
+            self.centroids, np.float32)).to(device)
 
 
 def train_pq(x: np.ndarray, M: int = 8, n_train: int = 4096,
@@ -69,7 +76,20 @@ def adc_lut_batch(cb: PQCodebook, q: torch.Tensor) -> torch.Tensor:
     on q's device (row q holds the squared distances of query q's
     subvectors to every centroid of each subspace)."""
     qb = q.float().reshape(len(q), cb.M, 1, cb.d_sub)
-    cents = torch.from_numpy(np.ascontiguousarray(cb.centroids,
-                                                  np.float32)).to(q.device)
-    diff = cents[None] - qb                     # [Q, M, 256, d_sub]
+    diff = cb.centroids_on(q.device)[None] - qb     # [Q, M, 256, d_sub]
     return torch.einsum("qmcd,qmcd->qmc", diff, diff)
+
+
+def adc_lut(cb: PQCodebook, q: torch.Tensor) -> torch.Tensor:
+    """Asymmetric-distance lookup table for one query q [d]: [M, 256] f32
+    on q's device, the reference's ``adc_lut`` (row m: squared distances
+    of q's m-th subvector to every centroid of subspace m)."""
+    diff = cb.centroids_on(q.device) - q.float().reshape(cb.M, 1, cb.d_sub)
+    return (diff * diff).sum(-1)
+
+
+def adc_distances(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Approximate sq-distances of code rows [n, M] under one LUT -> [n],
+    through the ``pq_adc`` kernel for a card LUT, its plain version for a
+    CPU one."""
+    return ops.pq_adc(lut, codes)

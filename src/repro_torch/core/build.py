@@ -16,8 +16,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.distances import cdist2
+from repro_torch.core.distances import cdist2, topk_l2
 from repro_torch.core.graph_search import greedy_search, robust_prune
+from repro_torch.device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass
@@ -245,3 +246,18 @@ def insert_nodes(pg: PG, new_x: np.ndarray, L: int = 48,
             0, pg.n_nodes, size=(k, n_rand))
     _insert_batch(pg, ids, L, float(alpha * alpha), device)
     return ids
+
+
+def exact_pg(x: np.ndarray, R: int = 16, device: DeviceLike = None) -> PG:
+    """Exact KNN graph (tiny oracle for tests): each row's R nearest other
+    rows by (d2, id) through ``topk_l2``; short rows pad with m."""
+    device = resolve_device(device)
+    m = x.shape[0]
+    x_dev = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    ids = topk_l2(x_dev, x_dev, R + 1)[0].cpu().numpy()
+    nbrs = np.full((m, R), m, np.int32)
+    for i in range(m):
+        row = [j for j in ids[i] if j != i and j >= 0][:R]
+        nbrs[i, :len(row)] = row
+    return PG(A=x.astype(np.float32).copy(), nbrs=nbrs, n_nodes=m,
+              entry=_medoid(x, device))

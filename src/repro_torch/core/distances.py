@@ -1,13 +1,16 @@
 """Distance primitives. δ(·,·) is SQUARED Euclidean throughout, matching
-the paper's notation (§II Table II). The hot path (the masked pool scan
-with top-k) is the CUDA kernel in ``kernels/l2_topk``; these are plain
-tensor ops for the graph phase, the build and ground truth.
+the paper's notation (§II Table II). ``topk_l2`` (every query against a
+shared set, exact top-k) goes through the ``l2_topk`` CUDA kernel on the
+card and its plain version on the CPU (``kernels/ops``); ``cdist2`` is a
+plain tensor op for the graph phase and the build.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels import ops
 
 
 def sq_norms(x: torch.Tensor) -> torch.Tensor:
@@ -25,7 +28,9 @@ def cdist2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k nearest (ids, sq-dists) of each query row against x;
-    ties go to the lower id, as with ``jax.lax.top_k``."""
-    d2, idx = torch.sort(cdist2(q, x), dim=1, stable=True)
-    return idx[:, :k], d2[:, :k]
+    """Exact top-k nearest (ids [Q, k] int32, sq-dists [Q, k]) of each
+    query row against x, ascending; ties go to the lower id, as with
+    ``jax.lax.top_k``. Where x has fewer than k rows the rest pad with
+    (-1, 3.4e38)."""
+    d2, ids = ops.l2_topk(q.float().contiguous(), x.float().contiguous(), k)
+    return ids, d2

@@ -4,8 +4,8 @@
 mixture with zipf-weighted cluster sizes and per-cluster anisotropy) so
 partition-balance pathologies the paper targets (long-tail partitions,
 boundary effects) actually appear. `uniform` is the adversarial no-structure
-case. Ground truth is exact brute force, computed in chunks on a torch
-device. The numpy generator is the reference's, call for call, so a seed
+case. Ground truth is exact brute force, computed in query chunks by
+``topk_l2`` (the ``l2_topk`` kernel on the card). The numpy generator is the reference's, call for call, so a seed
 gives bit-identical vectors.
 """
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.distances import cdist2
+from repro_torch.core.distances import topk_l2
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -40,7 +40,8 @@ class VectorDataset:
 def brute_force_knn(base: np.ndarray, queries: np.ndarray, k: int,
                     chunk: int = 512, device: DeviceLike = None
                     ) -> Tuple[np.ndarray, np.ndarray]:
-    """Exact k nearest of each query, ascending; ties to the lower id."""
+    """Exact k nearest of each query, ascending by (d2, id): ties go to
+    the lower id, as ``jax.lax.top_k`` gives them."""
     device = resolve_device(device)
     base_dev = torch.from_numpy(np.ascontiguousarray(base, np.float32)).to(
         device)
@@ -48,12 +49,8 @@ def brute_force_knn(base: np.ndarray, queries: np.ndarray, k: int,
     for i in range(0, queries.shape[0], chunk):
         q = torch.from_numpy(np.ascontiguousarray(
             queries[i:i + chunk], np.float32)).to(device)
-        dd, idx = torch.topk(cdist2(q, base_dev), k, dim=1, largest=False)
-        # topk leaves tie order open: re-sort by (d2, id)
-        idx, order = torch.sort(idx, dim=1)
-        dd = dd.gather(1, order)
-        dd, order = torch.sort(dd, dim=1, stable=True)
-        ids.append(idx.gather(1, order).cpu().numpy())
+        idx, dd = topk_l2(q, base_dev, k)
+        ids.append(idx.cpu().numpy())
         d2s.append(dd.cpu().numpy())
     return (np.concatenate(ids).astype(np.int32),
             np.concatenate(d2s).astype(np.float32))

@@ -1,14 +1,21 @@
-"""Masked ragged-pool squared-L2 scan + exact top-k (CUDA, Hopper).
+"""Squared-L2 scans with exact top-k (CUDA, Hopper).
 
-Port of the TPU kernel ``repro/kernels/l2_topk.py:l2_topk_masked``. The
-CUDA source is ``csrc/l2_topk_masked.cu`` (design and bound noted there);
-``l2_topk_masked`` launches it on CUDA tensors, and
-``l2_topk_masked_plain`` is the plain PyTorch version of the same
-function, used on the CPU and as the kernel's yardstick on the card.
+Ports of the two TPU kernels of ``repro/kernels/l2_topk.py``:
 
-Both return ``(d2 [Q, k] f32 ascending, ids [Q, k] i32)`` ordered by
-``(d2, pool position)``; rows with fewer than k candidates pad with
-``(3.4e38, -1)``.
+* ``l2_topk``: every query against a shared database, ``q [Q, d]`` and
+  ``x [N, d]`` give ``(d2 [Q, k], ids [Q, k])`` ordered by ``(d2, id)``
+  (``csrc/l2_topk.cu``; ground truth, SPANN's closure assignment,
+  ``exact_pg``);
+* ``l2_topk_masked``: every query against its own ragged candidate pool,
+  ordered by ``(d2, pool position)`` (``csrc/l2_topk_masked.cu``; the
+  search path's scan).
+
+Each CUDA wrapper launches its kernel on CUDA tensors; the ``*_plain``
+function beside it is the plain PyTorch version of the same function,
+used on the CPU and as the kernel's yardstick on the card. Both return
+d2 float32 ascending and ids int32; rows with fewer than k candidates pad
+with ``(3.4e38, -1)``. The design and bound of each kernel are noted in
+its source.
 """
 from __future__ import annotations
 
@@ -21,7 +28,22 @@ INF = 3.4e38
 MAX_K = 256
 MAX_D = 1024
 
-launches = 0   # kernel launches of this process (see ops.launch_counts)
+# CUDA launches of this process per kernel (see ops.launch_counts)
+launches = {"l2_topk": 0, "l2_topk_masked": 0}
+
+
+def l2_topk_plain(q: torch.Tensor, x: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [Q, d]; x [N, d]. The arithmetic of
+    ``repro.kernels.ref.l2_topk_ref``; the stable sort gives its tie rule
+    (lower id first). N < k pads ``(3.4e38, -1)``, as the TPU kernel's
+    padded rows do."""
+    q = q.float()
+    x = x.float()
+    d2 = ((q * q).sum(-1)[:, None] - 2 * (q @ x.T)
+          + (x * x).sum(-1)[None, :])
+    ids = torch.arange(x.shape[0], dtype=torch.int32, device=q.device)
+    return _masked_select(d2.clamp_min(0.0), ids.expand(q.shape[0], -1), k)
 
 
 def l2_topk_masked_plain(q: torch.Tensor, pools: torch.Tensor,
@@ -73,28 +95,96 @@ def check_cuda_args(name: str, tensors, dtypes, k: int):
         raise ValueError(f"{name}: k={k} outside [1, {MAX_K}]")
 
 
-def launch(lib, fn_name: str, tensors, sizes, k: int, c: int
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the scratch row [Q, C] and the outputs, launch
-    ``fn_name(*tensors, scratch, out_d, out_i, *sizes, k, stream)`` on the
-    current stream (no synchronise), raise on a refused launch."""
+def bind(lib, fn_name: str, n_ptrs: int, n_ints: int):
+    """``lib.fn_name`` with its C signature: ``n_ptrs`` pointers,
+    ``n_ints`` ints and the stream; returns a cudaError_t."""
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * (len(tensors) + 3) + \
-            [ctypes.c_int] * (len(sizes) + 1) + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + \
+            [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    return fn
+
+
+def call(fn, fn_name: str, device, ptrs, ints) -> None:
+    """Launch ``fn(*ptrs, *ints, stream)`` on the current stream of
+    ``device`` (no synchronise); raise on a refused launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*ptrs, *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed "
+                           f"(cudaError {err})")
+
+
+def launch(lib, fn_name: str, tensors, sizes, k: int, c: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked scans: allocate the scratch row [Q, C] and the outputs,
+    launch ``fn_name(*tensors, scratch, out_d, out_i, *sizes, k, stream)``."""
+    fn = bind(lib, fn_name, len(tensors) + 3, len(sizes) + 1)
     device = tensors[0].device
     q_count = sizes[0]
     scratch = torch.empty((q_count, c), dtype=torch.float32, device=device)
     out_d = torch.empty((q_count, k), dtype=torch.float32, device=device)
     out_i = torch.empty((q_count, k), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], scratch.data_ptr(),
-                 out_d.data_ptr(), out_i.data_ptr(), *sizes, k, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name}: kernel launch failed "
-                           f"(cudaError {err})")
+    call(fn, fn_name, device,
+         [t.data_ptr() for t in tensors] + [scratch.data_ptr(),
+                                            out_d.data_ptr(),
+                                            out_i.data_ptr()],
+         [*sizes, k])
+    return out_d, out_i
+
+
+def sentinels(q_count: int, k: int, device
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows with no candidate at all: ``(3.4e38, -1)`` everywhere."""
+    return (torch.full((q_count, k), INF, dtype=torch.float32, device=device),
+            torch.full((q_count, k), -1, dtype=torch.int32, device=device))
+
+
+# the scan kernel's tiles (csrc/l2_topk.cu): queries per block, rows per
+# tile; the rows are split so that about SCAN_BLOCKS blocks run
+TILE_Q, TILE_N = 32, 64
+SCAN_BLOCKS = 4 * 132
+MIN_SPLIT_ROWS = 4096
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_rows(q_count: int, n: int) -> Tuple[int, int]:
+    """(S, rows_per_split): the row slices of the scan kernel's grid."""
+    s = max(1, min(_cdiv(SCAN_BLOCKS, _cdiv(q_count, TILE_Q)),
+                   _cdiv(n, MIN_SPLIT_ROWS)))
+    rows = _cdiv(_cdiv(n, s), TILE_N) * TILE_N
+    return _cdiv(n, rows), rows
+
+
+def l2_topk(q: torch.Tensor, x: torch.Tensor, k: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel. q [Q, d] f32; x [N, d] f32; 1 <= k <= 256.
+    N == 0 returns the sentinels without a launch. Raises on anything
+    else, and on a non-CUDA tensor."""
+    check_cuda_args("l2_topk", (q, x), ((torch.float32,), (torch.float32,)),
+                    k)
+    if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1] \
+            or q.shape[1] < 1:
+        raise ValueError(f"l2_topk: shapes q {tuple(q.shape)}, x "
+                         f"{tuple(x.shape)} do not agree")
+    (q_count, d), n = q.shape, x.shape[0]
+    if q_count == 0 or n == 0:
+        return sentinels(q_count, k, q.device)
+    from repro_torch.kernels import build
+    s, rows = split_rows(q_count, n)
+    part = torch.empty((q_count, s, k) if s > 1 else (0,),
+                       dtype=torch.int64, device=q.device)
+    out_d = torch.empty((q_count, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((q_count, k), dtype=torch.int32, device=q.device)
+    call(bind(build.load("l2_topk"), "l2_topk", 5, 6), "l2_topk", q.device,
+         [q.data_ptr(), x.data_ptr(), part.data_ptr(), out_d.data_ptr(),
+          out_i.data_ptr()], [q_count, n, d, k, s, rows])
+    launches["l2_topk"] += 1
     return out_d, out_i
 
 
@@ -103,7 +193,6 @@ def l2_topk_masked(q: torch.Tensor, pools: torch.Tensor, ids: torch.Tensor,
     """Launch the CUDA kernel. q [Q, d] f32; pools [Q, C, d] f32 or bf16;
     ids [Q, C] i32 (-1 = padding); 1 <= k <= 256, C >= 1, d <= 1024.
     Raises on anything else, and on a non-CUDA tensor."""
-    global launches
     check_cuda_args("l2_topk_masked", (q, pools, ids),
                     ((torch.float32,), (torch.float32, torch.bfloat16),
                      (torch.int32,)), k)
@@ -125,5 +214,5 @@ def l2_topk_masked(q: torch.Tensor, pools: torch.Tensor, ids: torch.Tensor,
         else "l2_topk_masked_bf16"
     out = launch(build.load("l2_topk_masked"), fn_name, (q, pools, ids),
                  (q_count, c, d), k, c)
-    launches += 1
+    launches["l2_topk_masked"] += 1
     return out

@@ -23,12 +23,27 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
+def l2_topk(q, x, k: int = 10):
+    """q [Q, d], x [N, d] -> (d2 [Q, k] ascending, ids [Q, k]) by
+    (d2, id); N < k pads (3.4e38, -1)."""
+    if _on_cpu(q):
+        return _l2.l2_topk_plain(q, x, k)
+    return _l2.l2_topk(q, x, k)
+
+
 def l2_topk_masked(q, pools, ids, k: int = 10):
     """q [Q, d], pools [Q, C, d], ids [Q, C] (-1 pads ragged rows)
     -> (d2 [Q, k] ascending, ids [Q, k]); short rows pad (3.4e38, -1)."""
     if _on_cpu(q):
         return _l2.l2_topk_masked_plain(q, pools, ids, k)
     return _l2.l2_topk_masked(q, pools, ids, k)
+
+
+def pq_adc(lut, codes):
+    """lut [M, 256] f32, codes [N, M] -> dists [N] f32."""
+    if _on_cpu(lut):
+        return _pq.pq_adc_plain(lut, codes)
+    return _pq.pq_adc(lut, codes)
 
 
 def pq_adc_masked(luts, codes, ids, k: int = 10):
@@ -42,9 +57,10 @@ def pq_adc_masked(luts, codes, ids, k: int = 10):
 
 def launch_counts() -> Dict[str, int]:
     """CUDA launches per kernel since the last ``reset_launch_counts``."""
-    return {"l2_topk_masked": _l2.launches, "pq_adc_masked": _pq.launches}
+    return {**_l2.launches, **_pq.launches}
 
 
 def reset_launch_counts() -> None:
-    _l2.launches = 0
-    _pq.launches = 0
+    for counts in (_l2.launches, _pq.launches):
+        for name in counts:
+            counts[name] = 0

@@ -2,21 +2,29 @@
 against the reference's oracles (``repro.kernels.ref``) and its Pallas
 kernels in interpret mode, on the same numpy inputs.
 
-d2 is held to rtol=atol=1e-4 (float32 sums in another order, as in
-tests/test_kernels.py); id sets must match. On integer-valued inputs every
-sum is exact, so ids must match position by position: that checks the
-tie rule (lower pool position first). The CUDA kernels themselves are
-held against these plain versions on the card by ``chip_smoke.py``.
+Masked kernels: d2 is held to rtol=atol=1e-4 (float32 sums in another
+order, as in tests/test_kernels.py); id sets must match. Unmasked
+``l2_topk``: ids equal position by position, d2 to rtol 1e-5 with an atol
+of 1e-5 of the largest |q|^2 + |x|^2 (the expanded form's float32 error
+scales with the norms, not with the distance). ``pq_adc``: rtol 1e-5
+(8 terms summed in another order). On integer-valued inputs every sum is
+exact, so ids must match position by position: that checks the tie rule
+(lower pool position or id first). The CUDA kernels themselves are held
+against these plain versions on the card by ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
+from repro.data.vectors import brute_force_knn as ref_knn  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro_torch import resolve_device  # noqa: E402
+from repro_torch.core.distances import topk_l2  # noqa: E402
+from repro_torch.data.vectors import brute_force_knn  # noqa: E402
 from repro_torch.kernels import l2_topk, ops, pq_adc  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -112,9 +120,113 @@ def test_l2_tie_rule_on_exact_inputs(qn, c, d, k, block):
         np.testing.assert_array_equal(d2.numpy(), np.asarray(rd))
 
 
+# (Q, N, d, k, Pallas block_n): N off the block, N == block, k = 1,
+# k = 100 (make_dataset's k_gt)
+UNMASKED_SHAPES = [(4, 96, 16, 5, 32), (9, 257, 32, 10, 128),
+                   (6, 700, 24, 64, 256), (3, 50, 8, 1, 16),
+                   (5, 512, 16, 100, 512)]
+
+
+def _norm_atol(q, x):
+    return 1e-5 * float((q * q).sum(1).max() + (x * x).sum(1).max())
+
+
+@pytest.mark.parametrize("qn,n,d,k,block", UNMASKED_SHAPES)
+def test_l2_topk_plain_matches_ref_and_pallas(qn, n, d, k, block):
+    rng = np.random.default_rng(qn * n + k)
+    q = rng.standard_normal((qn, d)).astype(np.float32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    d2, oi = ops.l2_topk(*_t(q, x), k=k)
+    assert d2.dtype == torch.float32 and oi.dtype == torch.int32
+    for rd, ri in (ref.l2_topk_ref(jnp.asarray(q), jnp.asarray(x), k),
+                   ref_ops.l2_topk(jnp.asarray(q), jnp.asarray(x), k=k,
+                                   block_n=block, interpret=True)):
+        np.testing.assert_array_equal(oi.numpy(), np.asarray(ri))
+        np.testing.assert_allclose(d2.numpy(), np.asarray(rd), rtol=1e-5,
+                                   atol=_norm_atol(q, x))
+
+
+@pytest.mark.parametrize("qn,n,d,k,block", [(6, 300, 16, 10, 64),
+                                            (4, 500, 8, 40, 128),
+                                            (5, 3, 4, 8, 4)])
+def test_l2_topk_tie_rule_and_sentinels_on_exact_inputs(qn, n, d, k, block):
+    # integer vectors: exact distances, many ties across Pallas blocks;
+    # N < k in the last case: the missing places are (3.4e38, -1)
+    rng = np.random.default_rng(qn + n)
+    q = rng.integers(-2, 3, (qn, d)).astype(np.float32)
+    x = rng.integers(-2, 3, (n, d)).astype(np.float32)
+    d2, oi = ops.l2_topk(*_t(q, x), k=k)
+    pd, pi = ref_ops.l2_topk(jnp.asarray(q), jnp.asarray(x), k=k,
+                             block_n=block, interpret=True)
+    np.testing.assert_array_equal(oi.numpy(), np.asarray(pi))
+    np.testing.assert_array_equal(d2.numpy(), np.asarray(pd))
+    if n >= k:   # lax.top_k needs k <= N
+        rd, ri = ref.l2_topk_ref(jnp.asarray(q), jnp.asarray(x), k)
+        np.testing.assert_array_equal(oi.numpy(), np.asarray(ri))
+        np.testing.assert_array_equal(d2.numpy(), np.asarray(rd))
+    else:
+        assert (oi.numpy()[:, n:] == -1).all()
+
+
+@pytest.mark.parametrize("n,m,block,dtype", [(1, 8, 1024, np.uint8),
+                                             (300, 8, 128, np.uint8),
+                                             (1000, 16, 256, np.int32)])
+def test_pq_adc_plain_matches_ref_and_pallas(n, m, block, dtype):
+    rng = np.random.default_rng(n + m)
+    lut = rng.random((m, 256)).astype(np.float32)
+    codes = rng.integers(0, 256, (n, m)).astype(dtype)
+    codes[0] = 255
+    codes[-1, : m // 2] = 0
+    d = ops.pq_adc(*_t(lut, codes))
+    assert d.dtype == torch.float32 and d.shape == (n,)
+    for want in (ref.pq_adc_ref(jnp.asarray(lut),
+                                jnp.asarray(codes.astype(np.int32))),
+                 ref_ops.pq_adc(jnp.asarray(lut), jnp.asarray(codes),
+                                block_n=block, interpret=True)):
+        np.testing.assert_allclose(d.numpy(), np.asarray(want), rtol=1e-5)
+
+
+def test_topk_l2_keeps_the_reference_return_order():
+    from repro.core.distances import topk_l2 as ref_topk
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((7, 16)).astype(np.float32)
+    x = rng.standard_normal((200, 16)).astype(np.float32)
+    ids, d2 = topk_l2(*_t(q, x), 12)
+    rids, rd2 = ref_topk(jnp.asarray(q), jnp.asarray(x), 12)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(rids))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(rd2), rtol=1e-5,
+                               atol=_norm_atol(q, x))
+
+
+def test_ground_truth_ties_go_to_the_lower_id():
+    # duplicate rows straddle the k-th place: of four copies at the same
+    # distance two fit, and they must be the two lowest ids, as
+    # jax.lax.top_k keeps them
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal((400, 8)).astype(np.float32) + 10.0
+    queries = rng.standard_normal((3, 8)).astype(np.float32)
+    queries[1:] += 10.0                            # among the other rows
+    near = queries[0] + 0.5
+    base[[7, 50, 51, 300]] = near                  # d2 = 8 * 0.25 = 2.0
+    base[[120, 9, 260]] = queries[0] + 0.25        # three closer rows
+    k = 5
+    ids, d2 = brute_force_knn(base, queries, k, device="cpu")
+    assert ids.dtype == np.int32 and d2.dtype == np.float32
+    np.testing.assert_array_equal(ids[0], [9, 120, 260, 7, 50])
+    _, top_ids = jax.lax.top_k(-jnp.asarray(
+        ((queries[:1, None, :] - base[None]) ** 2).sum(-1)), k)
+    np.testing.assert_array_equal(ids[0], np.asarray(top_ids)[0])
+    # the reference's ground truth agrees wherever no tie straddles k
+    rids, rd2 = ref_knn(base, queries, k)
+    np.testing.assert_array_equal(ids[1:], rids[1:])
+    np.testing.assert_allclose(d2, rd2, rtol=1e-5, atol=1e-4)
+
+
 def test_ref_module_names_the_plain_versions():
     assert tref.l2_topk_masked_ref is l2_topk.l2_topk_masked_plain
     assert tref.pq_adc_masked_ref is pq_adc.pq_adc_masked_plain
+    assert tref.l2_topk_ref is l2_topk.l2_topk_plain
+    assert tref.pq_adc_ref is pq_adc.pq_adc_plain
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
@@ -122,11 +234,16 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
     q, pools, ids = _t(*_l2_inputs(2, 8, 4, seed=0))
     with pytest.raises(ValueError, match="CUDA"):
         l2_topk.l2_topk_masked(q, pools, ids, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        l2_topk.l2_topk(q, pools[0], 3)
     luts, codes = _t(np.zeros((2, 4, 256), np.float32),
                      np.zeros((2, 8, 4), np.uint8))
     with pytest.raises(ValueError, match="CUDA"):
         pq_adc.pq_adc_masked(luts, codes, ids, 3)
-    assert ops.launch_counts() == {"l2_topk_masked": 0, "pq_adc_masked": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        pq_adc.pq_adc(luts[0], codes[0])
+    assert ops.launch_counts() == {"l2_topk": 0, "l2_topk_masked": 0,
+                                   "pq_adc": 0, "pq_adc_masked": 0}
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
