@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``src/repro_torch/kernels/csrc``
+Builds the port's five CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (one process per source, all at once), holds each kernel
 against its plain PyTorch version on the card (edge cases and exact-tie
-inputs), then drives three paths, each with its kernel launches counted
+inputs), then drives four paths, each with its kernel launches counted
 from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
@@ -17,6 +17,14 @@ from zero and checked:
   queries the recall floor of the algorithm's working regime must hold;
   the main run is SIFT1M's shape (1,000,000 x 128 float32, made from a
   seed) with 2048 queries.
+* rag: the LM half of retrieval-augmented serving (the reference's
+  examples/rag_serve.py) at TinyLlama-1.1B's published width, weights
+  from a seed: ``search_pag`` on the quality index answers 8 queries
+  (``l2_topk_masked``), the retrieved ids open 500-token prompts, and
+  ``Engine.generate`` prefills them (``flash_attention`` in each of the
+  22 layers) and decodes 32 greedy tokens. Afterwards the prefill logits
+  are held against the same forward through the materialised-scores
+  attention, and every decode step against the teacher-forced forward.
 * compare: the paper's comparison (Table IV, Figs 8-10) at 100,000 x 128
   with 1000 queries: PAG, DiskANN (``pq_adc`` per hop), SPANN (closure
   assignment through ``l2_topk``) and HNSW built and searched, the CIC
@@ -26,8 +34,9 @@ from zero and checked:
   at the highest recall both reach.
 
 Last, each kernel is timed with CUDA events on the inputs its path gave
-it, beside its plain version, one PyTorch library formulation of the
-same function and its bound.
+it, beside its plain version, one PyTorch library call computing the
+same function (``scaled_dot_product_attention`` for ``flash_attention``;
+timed only, never called by the port) and its bound.
 
 Prints each phase's wall time, the card's name and power limit, one JSON
 line of kernel numbers, and as its last line
@@ -95,8 +104,24 @@ CMP_FLOORS = {("PAG", "L32/p16"): 0.2372,          # 0.2672
               ("HNSW", "L32"): 0.5686,             # 0.5986
               ("CIC", f"c4/n{CIC_N}/L{CIC_L}"): 0.1747}   # 0.2047
 
+# RAG serving at TinyLlama-1.1B's published width (examples/rag_serve.py
+# runs it REDUCED): 8 requests, each its k=10 retrieved ids then synthetic
+# tokens up to 500 (not a multiple of the kernel's 64-row tile), 32 greedy
+# new tokens
+RAG_ARCH, RAG_BATCH, RAG_PROMPT, RAG_NEW = "tinyllama-1.1b", 8, 500, 32
+# bf16 tolerances on logits of size ~4 (2^-6 is one bf16 step there):
+# the kernel and the plain attention round their bf16 outputs from f32
+# sums taken in other orders, and cuBLAS picks other bf16 product kernels
+# for the 8-row decode step than for the 4000-row prefill; 22 layers
+# carry those single steps into the logits
+RAG_LOGITS_ATOL = 0.25
+# one bf16 step of the output (both sides sum in f32, round once)
+FLASH_BF16_TOL = 2 ** -7
+FLASH_F32_TOL = 1e-5        # f32 sums in another order
+
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
 INF = 3.4e38
 
 
@@ -217,10 +242,78 @@ def check_unmasked_edges(dev) -> None:
     torch.cuda.synchronize()
 
 
+def flash_check(got: torch.Tensor, want: torch.Tensor, name: str) -> float:
+    """Hold a flash_attention output against its plain version's: one
+    bf16 step for bf16 outputs, FLASH_F32_TOL for f32. Returns the max
+    abs error."""
+    tol = FLASH_BF16_TOL if want.dtype == torch.bfloat16 else FLASH_F32_TOL
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape} {got.dtype} against "
+                             f"{want.shape} {want.dtype}")
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if not (torch.isfinite(got).all() and (err <= tol + tol * want.abs())
+            .all()):
+        raise AssertionError(f"{name}: off by {float(err.max()):.3g}")
+    return float(err.max())
+
+
+def check_flash_edges(dev) -> None:
+    """flash_attention against its plain version on the card: causal and
+    full, Sq = Sk and Sq < Sk (Sq > Sk when full), lengths off the 64-row
+    and 32-key tiles, GQA groups 1, 4 and 8, D 32, 64 and 128, f32 and
+    bf16, and the rag path's own shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (B, H, KVH, Sq, Sk, D, causal, dtype)
+    for b, h, kvh, sq, sk, d, causal, dtype in [
+            (1, 4, 4, 128, 128, 64, True, f32),
+            (2, 8, 2, 77, 77, 64, True, bf16),
+            (1, 8, 1, 100, 300, 128, True, f32),
+            (2, 8, 1, 65, 130, 128, True, bf16),
+            (1, 4, 1, 50, 93, 64, False, f32),
+            (1, 4, 4, 200, 33, 32, False, bf16),
+            (1, 2, 2, 1000, 1000, 128, False, f32),
+            (3, 32, 4, 1, 1, 64, True, bf16),
+            (1, 32, 4, 31, 531, 64, True, bf16),
+            (RAG_BATCH, 32, 4, RAG_PROMPT, RAG_PROMPT, 64, True, bf16)]:
+        q = torch.from_numpy(rng.standard_normal((b, sq, h, d), np.float32))
+        k = torch.from_numpy(rng.standard_normal((b, sk, kvh, d), np.float32))
+        v = torch.from_numpy(rng.standard_normal((b, sk, kvh, d), np.float32))
+        q, k, v = (t.to(dev, dtype) for t in (q, k, v))
+        flash_check(fa.flash_attention(q, k, v, causal),
+                    fa.flash_attention_plain(q, k, v, causal),
+                    f"flash_attention B{b} H{h}/{kvh} {sq}x{sk} D{d} "
+                    f"causal={causal} {dtype}")
+    # Sq == 0: an empty output without a launch
+    before = ops.launch_counts()["flash_attention"]
+    if fa.flash_attention(q[:, :0], k, v).shape != q[:, :0].shape \
+            or ops.launch_counts()["flash_attention"] != before:
+        raise AssertionError("flash_attention: Sq == 0 must not launch")
+    k1 = k[:, :10].contiguous()
+    for bad in (lambda: fa.flash_attention(q, k1, k1[:, :10]),  # Sq > Sk
+                lambda: fa.flash_attention(q[..., :48].contiguous(),
+                                           k[..., :48].contiguous(),
+                                           v[..., :48].contiguous()),
+                lambda: fa.flash_attention(q, k.float(), v),
+                lambda: fa.flash_attention(q[:, :, :30].contiguous(), k, v),
+                lambda: fa.flash_attention(q.transpose(1, 2), k, v),
+                lambda: fa.flash_attention(q.cpu(), k, v)):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("flash_attention took arguments it must refuse")
+    torch.cuda.synchronize()
+
+
 def check_kernel_edges(dev) -> None:
     """Kernel vs plain version on edge shapes and exact-tie inputs."""
     from repro_torch.kernels import l2_topk, ops, pq_adc
     check_unmasked_edges(dev)
+    check_flash_edges(dev)
     rng = np.random.default_rng(0)
     for q, c, d, k, dtype in [(4, 96, 16, 5, torch.float32),
                               (9, 257, 32, 10, torch.float32),
@@ -372,7 +465,8 @@ def index_and_serve(tag: str, n: int, n_queries: int, floor: float, dev,
     """make_dataset -> build_pag -> write_partitions -> both planes
     through the frontend, each step a phase; checks results and floors.
     ``other_rerank`` lists rerank_k values whose PQ-plane recall is
-    reported beside (no floor). Returns the reports."""
+    reported beside (no floor). Returns the reports and the index
+    ``(ds, pag, store)``."""
     from repro_torch.core.pag import build_pag
     from repro_torch.core.search import write_partitions
     from repro_torch.data.vectors import make_dataset
@@ -409,7 +503,130 @@ def index_and_serve(tag: str, n: int, n_queries: int, floor: float, dev,
         with phase(f"{tag}: serve pq plane at rerank_k={rk}"):
             rep = serve("pq", pag, store, ds, dev, rerank_k=rk)[2]
             print(f"{tag} serve pq rerank_k={rk}: {json.dumps(rep)}")
-    return reports
+    return reports, (ds, pag, store)
+
+
+def rag(dev, index) -> dict:
+    """Retrieval-augmented generation at TinyLlama-1.1B's width: 8 of the
+    index's queries retrieve k=10 ids each through ``search_pag``; each
+    prompt is its ids modulo the vocabulary, then ``batch_at`` tokens up
+    to RAG_PROMPT; ``Engine.generate`` prefills and decodes RAG_NEW greedy
+    tokens, once cold (first use of every kernel and library), once warm
+    and once under the profiler. Returns what the checks and the report
+    need."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.search import SearchConfig, search_pag
+    from repro_torch.data.lm import DataConfig, batch_at
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+    ds, pag, store = index
+    cfg = get_config(RAG_ARCH)
+    with phase(f"rag: init {RAG_ARCH} (seeded, on the card)"):
+        model = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+    with phase("rag: retrieve"):
+        ids, _, _ = search_pag(pag, D, ds.queries[:RAG_BATCH], store,
+                               SearchConfig(**SEARCH_ARGS),
+                               n_shards=N_SHARDS, device=dev)
+        if ids.shape != (RAG_BATCH, K) or (ids < 0).any():
+            raise AssertionError(f"rag: retrieval gave {ids.shape} ids "
+                                 f"with padding")
+    ctx = torch.from_numpy(ids.astype(np.int64) % cfg.vocab_size).to(dev)
+    filler = batch_at(DataConfig(seed=0, batch_size=RAG_BATCH,
+                                 seq_len=RAG_PROMPT - K), cfg, 0,
+                      device=dev)["tokens"]
+    prompt = torch.cat([ctx, filler], dim=1)
+    engine = Engine(cfg, model, ServeConfig(max_new_tokens=RAG_NEW))
+    runs = {}
+    for run in ("cold", "warm"):
+        with phase(f"rag: generate ({run})"):
+            gen = engine.generate({"tokens": prompt})
+        runs[run] = dict(engine.timing)
+    with phase("rag: generate (profiled)"):
+        profile = profile_generate(engine, prompt)
+    if gen.shape != (RAG_BATCH, RAG_NEW) or (gen < 0).any() \
+            or (gen >= cfg.vocab_size).any():
+        raise AssertionError(f"rag: generated {gen.shape} ids out of range")
+    return {"cfg": cfg, "model": model, "prompt": prompt, "gen": gen,
+            "timing": runs, "retrieved": ids, "profile": profile}
+
+
+def profile_generate(engine, prompt) -> dict:
+    """One more ``generate`` under ``torch.profiler``: the device's busy
+    time (the sum of its kernels' times; one stream, so they do not
+    overlap) against the host wall time of the traced call, and the
+    kernels that took most of it. The profiler slows the host, so the
+    idle share is an upper bound. Device times are None where the
+    profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate({"tokens": prompt})
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"traced_wall_s": wall, **dict(engine.timing),
+            "device_busy_s": busy_us / 1e6 if busy_us else None,
+            "device_idle_share": 1 - busy_us / 1e6 / wall if busy_us
+            else None,
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "device_ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's prefill attention through the materialised-scores
+    oracle instead of the kernel, for the duration."""
+    from repro_torch.models import attention, model
+    saved = model.attention
+    model.attention = attention.attention_reference
+    try:
+        yield
+    finally:
+        model.attention = saved
+
+
+def check_rag(r: dict) -> dict:
+    """At full width and in bf16: (1) the prefill logits through the
+    kernel against the same forward through the plain attention; (2) the
+    first token's logits and every decode step's against the
+    teacher-forced forward over prompt + generated tokens. Each to
+    RAG_LOGITS_ATOL; returns the max errors and greedy agreement."""
+    from repro_torch.models import decode_step, forward, prefill
+    cfg, model, prompt, gen = r["cfg"], r["model"], r["prompt"], r["gen"]
+    out = {}
+    with torch.inference_mode():
+        logits = forward(model, {"tokens": prompt}, cfg)
+        with plain_attention():
+            want = forward(model, {"tokens": prompt}, cfg)
+        out["prefill_vs_plain_max_abs"] = float((logits - want).abs().max())
+        out["logits_max_abs"] = float(want[..., :cfg.vocab_size].abs().max())
+        del logits, want
+        gen_t = torch.from_numpy(gen).to(prompt.device).long()
+        full = forward(model, {"tokens": torch.cat([prompt, gen_t[:, :-1]],
+                                                   1)}, cfg)
+        last, cache = prefill(model, {"tokens": prompt}, cfg,
+                              max_len=RAG_PROMPT + RAG_NEW)
+        errs = [float((last[:, -1] - full[:, RAG_PROMPT - 1]).abs().max())]
+        for t in range(RAG_NEW - 1):
+            step, cache = decode_step(model, gen_t[:, t:t + 1], cache,
+                                      RAG_PROMPT + t, cfg)
+            errs.append(float((step[:, 0] - full[:, RAG_PROMPT + t])
+                              .abs().max()))
+        teacher = full[:, RAG_PROMPT - 1:, :cfg.vocab_size].argmax(-1)
+        out["greedy_equal_teacher_argmax"] = float(
+            (teacher.cpu().numpy() == gen).mean())
+    out["decode_vs_forward_max_abs"] = max(errs)
+    print(f"rag checks: {json.dumps(out)}", flush=True)
+    if out["prefill_vs_plain_max_abs"] > RAG_LOGITS_ATOL \
+            or out["decode_vs_forward_max_abs"] > RAG_LOGITS_ATOL:
+        raise AssertionError(f"rag: logits off by more than "
+                             f"{RAG_LOGITS_ATOL}: {out}")
+    return out
 
 
 def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
@@ -567,16 +784,18 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
 
 
 def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
-                  source, replaces, check, shape) -> dict:
+                  source, replaces, check, shape,
+                  ops_per_s=FP32_OPS_PER_S) -> dict:
     """Times one kernel on captured path inputs beside its plain version,
-    a library formulation and its bound; ``check(got, want)`` holds the
-    kernel to the plain version and returns the max abs error."""
+    a library formulation and its bound (operations at ``ops_per_s``);
+    ``check(got, want)`` holds the kernel to the plain version and
+    returns the max abs error."""
     err = check(fn(*args), plain(*args))
     ms = cuda_time_ms(lambda: fn(*args), reps=20)
     plain_ms = cuda_time_ms(lambda: plain(*args), reps=5)
     library_ms = cuda_time_ms(library, reps=10)
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": n_ops / FP32_OPS_PER_S * 1e3}
+             "operations": n_ops / ops_per_s * 1e3}
     bound_by = max(bound, key=bound.get)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -589,6 +808,7 @@ def time_kernels(caps, counts) -> list:
     ``counts`` map each kernel to its captured inputs and to the launch
     counts of the path they came from."""
     from repro_torch.core.distances import cdist2
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import l2_topk, pq_adc
     rows = []
 
@@ -671,9 +891,71 @@ def time_kernels(caps, counts) -> list:
         source="src/repro_torch/kernels/csrc/pq_adc.cu",
         replaces="src/repro/kernels/pq_adc.py:44", check=adc_check,
         shape={"N": n, "M": m}))
-    for r, path in zip(rows, ("main", "main", "main", "compare")):
+
+    (q, k, v), kw = caps["flash_attention"].args
+    causal = kw["causal"]
+    (b, sq, h, d), (sk, kvh) = q.shape, k.shape[1:3]
+    # (query, key) pairs the mask lets through: each causal row r sees
+    # r + Sk - Sq + 1 keys
+    pairs = b * h * (sum(min(sk, r + sk - sq + 1) for r in range(sq))
+                     if causal else sq * sk)
+    n_ops = 4 * d * pairs   # q.k and p.v, a multiply and an add each
+    import torch.nn.functional as F
+    rows.append(kernel_report(
+        "flash_attention", lambda *a: fa.flash_attention(*a, causal=causal),
+        lambda *a: fa.flash_attention_plain(*a, causal=causal),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True),
+        (q, k, v), counts["flash_attention"]["flash_attention"],
+        nbytes=(2 * b * sq * h + 2 * b * sk * kvh) * d * q.element_size(),
+        n_ops=n_ops, ops_per_s=BF16_OPS_PER_S,
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:68",
+        check=lambda got, want: flash_check(got, want, "first prefill layer"),
+        shape={"B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh, "D": d,
+               "causal": causal, "dtype": str(q.dtype)}))
+    # the reference fixes f32 scores; on the f32 CUDA cores the same work
+    # takes this long at the least
+    rows[-1]["bound_f32_cores_ms"] = n_ops / FP32_OPS_PER_S * 1e3
+    for r, path in zip(rows, ("main", "main", "main", "compare", "rag")):
         r["path"] = path
     return rows
+
+
+def report_rag(r: dict, checks: dict) -> None:
+    """The rag path's numbers, each on its own line, then one JSON line."""
+    cfg, warm = r["cfg"], r["timing"]["warm"]
+    n_tok = RAG_BATCH * RAG_NEW
+    total = warm["prefill_s"] + warm["decode_s"]
+    # the prefill's model FLOPs: every weight but the embedding lookup in
+    # one multiply-add per token, and causal attention's q.k and p.v
+    matmul_params = cfg.param_count() - (0 if cfg.tie_embeddings
+                                         else cfg.vocab_padded * cfg.d_model)
+    prefill_flops = (2 * matmul_params * RAG_BATCH * RAG_PROMPT
+                     + cfg.n_layers * 4 * cfg.resolved_head_dim * cfg.n_heads
+                     * RAG_BATCH * RAG_PROMPT * (RAG_PROMPT + 1) // 2)
+    rep = {"arch": RAG_ARCH, "batch": RAG_BATCH, "prompt_len": RAG_PROMPT,
+           "new_tokens": RAG_NEW, "timing": r["timing"],
+           "tokens_per_s": n_tok / total,
+           "decode_tokens_per_s": RAG_BATCH * (RAG_NEW - 1)
+           / warm["decode_s"],
+           "prefill_tokens_per_s": RAG_BATCH * RAG_PROMPT
+           / warm["prefill_s"],
+           "prefill_model_tflops_per_s": prefill_flops / warm["prefill_s"]
+           / 1e12,
+           "retrieved_ids_0": r["retrieved"][0].tolist(),
+           "first_generated_ids_0": r["gen"][0, :10].tolist(), **checks}
+    print(f"rag prefill seconds (warm, to first tokens on the host): "
+          f"{warm['prefill_s']:.4f}")
+    print(f"rag decode seconds (warm, {RAG_NEW - 1} steps): "
+          f"{warm['decode_s']:.4f}")
+    print(f"rag tokens per second (warm, {n_tok} new tokens over prefill "
+          f"and decode): {rep['tokens_per_s']:.1f}")
+    print(f"rag first generated ids of request 0: "
+          f"{rep['first_generated_ids_0']}")
+    print(f"rag profile: {json.dumps(r['profile'])}")
+    print(f"rag report: {json.dumps(rep)}", flush=True)
 
 
 def main() -> int:
@@ -716,18 +998,35 @@ def main() -> int:
     # rerank_k=32 (the search default) beside 64: the PQ gap it leaves
     # is why SEARCH_ARGS takes 64
     with path("quality", serve_kernels):
-        index_and_serve("quality", QUALITY_N, QUALITY_QUERIES,
-                        QUALITY_FLOOR, dev, other_rerank=(32,))
+        _, quality_index = index_and_serve(
+            "quality", QUALITY_N, QUALITY_QUERIES, QUALITY_FLOOR, dev,
+            other_rerank=(32,))
 
-    caps = {"l2_topk_masked": Capture(ops, "l2_topk_masked",
-                                      lambda a: a[0].shape[0] == MAX_BATCH),
-            "pq_adc_masked": Capture(ops, "pq_adc_masked",
-                                     lambda a: a[0].shape[0] == MAX_BATCH),
-            # the first ground-truth chunk of make_dataset
-            "l2_topk": Capture(ops, "l2_topk",
-                               lambda a: a[1].shape[0] == N),
-            # a DiskANN hop (the entry point's launch scores one row)
-            "pq_adc": Capture(ops, "pq_adc", lambda a: a[1].shape[0] > 1)}
+    # the first prefill layer's attention
+    caps = {"flash_attention": Capture(ops, "flash_attention",
+                                       lambda a: True)}
+    with path("rag", ("flash_attention", "l2_topk_masked")), \
+            caps["flash_attention"]:
+        rag_run = rag(dev, quality_index)
+    if counts["rag"]["flash_attention"] < 3 * rag_run["cfg"].n_layers:
+        raise AssertionError("rag: fewer flash_attention launches than "
+                             "layers in the three prefills")
+    with phase("rag: checks (prefill vs plain attention, decode vs "
+               "forward)"):
+        rag_checks = check_rag(rag_run)
+    report_rag(rag_run, rag_checks)
+    del rag_run, quality_index
+    torch.cuda.empty_cache()
+
+    caps.update({
+        "l2_topk_masked": Capture(ops, "l2_topk_masked",
+                                  lambda a: a[0].shape[0] == MAX_BATCH),
+        "pq_adc_masked": Capture(ops, "pq_adc_masked",
+                                 lambda a: a[0].shape[0] == MAX_BATCH),
+        # the first ground-truth chunk of make_dataset
+        "l2_topk": Capture(ops, "l2_topk", lambda a: a[1].shape[0] == N),
+        # a DiskANN hop (the entry point's launch scores one row)
+        "pq_adc": Capture(ops, "pq_adc", lambda a: a[1].shape[0] > 1)})
     with path("main", serve_kernels), caps["l2_topk_masked"], \
             caps["pq_adc_masked"], caps["l2_topk"]:
         index_and_serve("main", N, N_QUERIES, SCALE_FLOOR, dev)
@@ -738,7 +1037,8 @@ def main() -> int:
     with phase("kernel timing at path shapes"):
         by_kernel = {"l2_topk_masked": counts["main"],
                      "pq_adc_masked": counts["main"],
-                     "l2_topk": counts["main"], "pq_adc": counts["compare"]}
+                     "l2_topk": counts["main"], "pq_adc": counts["compare"],
+                     "flash_attention": counts["rag"]}
         rows = time_kernels(caps, by_kernel)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}

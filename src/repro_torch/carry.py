@@ -6,14 +6,22 @@ reference package (or saved from an earlier run) load here unchanged:
 
     pag = pag_from_arrays(ref_pag.arrays())
     store = store_from_objects(ref_store._data, StorageConfig.preset("mem"))
+
+A language model's weights carry the same way: the reference's params
+pytree as numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the
+port's model with ``lm_params_from_arrays(cfg, params)``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pag import PAG
+from repro_torch.device import DeviceLike
+from repro_torch.models.model import LM
 from repro_torch.storage.simulator import ObjectStore, StorageConfig
 
 
@@ -31,3 +39,50 @@ def store_from_objects(objects: Dict[str, np.ndarray],
     for key, obj in objects.items():
         store.put(key, np.asarray(obj))
     return store
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (``ml_dtypes.bfloat16`` included) as a CPU tensor."""
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flatten(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
+                          device: DeviceLike = None) -> LM:
+    """The port's model holding the reference's weights. ``params`` is the
+    reference's params pytree as numpy arrays, with the per-layer leaves
+    stacked ``[L, ...]`` under ``blocks``; each layer's slice goes to its
+    own module, cast to ``cfg.dtype``. Raises unless every parameter of
+    the model is given exactly once, with its shape."""
+    model = LM(cfg, device)
+    target = dict(model.named_parameters())
+    given = {}
+    for name, arr in _flatten(params).items():
+        if name.startswith("blocks."):
+            rest = name[len("blocks."):]
+            for i, layer in enumerate(_tensor(arr).unbind(0)):
+                given[f"blocks.{i}.{rest}"] = layer
+        else:
+            given[name] = _tensor(arr)
+    if set(given) != set(target):
+        raise ValueError(f"parameters missing: {sorted(set(target) - set(given))}"
+                         f", unknown: {sorted(set(given) - set(target))}")
+    with torch.no_grad():
+        for name, t in given.items():
+            if t.shape != target[name].shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, the model "
+                                 f"holds {tuple(target[name].shape)}")
+            target[name].copy_(t)
+    return model

@@ -11,6 +11,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import l2_topk as _l2
 from repro_torch.kernels import pq_adc as _pq
 
@@ -55,12 +56,20 @@ def pq_adc_masked(luts, codes, ids, k: int = 10):
     return _pq.pq_adc_masked(luts, codes, ids, k)
 
 
+def flash_attention(q, k, v, causal: bool = True):
+    """q [B, Sq, H, D]; k, v [B, Sk, KVH, D] (H % KVH == 0) ->
+    [B, Sq, H, D] in q's dtype; causal masks ``k_pos > q_pos + Sk - Sq``."""
+    if _on_cpu(q):
+        return _fa.flash_attention_plain(q, k, v, causal)
+    return _fa.flash_attention(q, k, v, causal)
+
+
 def launch_counts() -> Dict[str, int]:
     """CUDA launches per kernel since the last ``reset_launch_counts``."""
-    return {**_l2.launches, **_pq.launches}
+    return {**_l2.launches, **_pq.launches, **_fa.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_l2.launches, _pq.launches):
+    for counts in (_l2.launches, _pq.launches, _fa.launches):
         for name in counts:
             counts[name] = 0

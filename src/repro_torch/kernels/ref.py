@@ -1,7 +1,13 @@
 """Plain PyTorch versions of the port's kernels, under the names of the
 reference's oracles (``repro/kernels/ref.py``): same signatures, same
 sentinels ``(3.4e38, -1)``, same tie rule. They live beside their
-kernels; this module only names them."""
+kernels; this module only names them. ``flash_attention_plain`` takes the
+model's layout (q [B, Sq, H, D], k/v [B, Sk, KVH, D]) where the
+reference's ``flash_attention_ref`` takes [B, H, S, D] with one KV head
+per query head."""
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention_plain,
+)
 from repro_torch.kernels.l2_topk import (  # noqa: F401
     l2_topk_masked_plain as l2_topk_masked_ref,
 )

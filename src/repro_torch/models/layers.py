@@ -1,0 +1,66 @@
+"""Shared layer primitives: RMS norm, rotary embeddings, init helpers.
+
+Ports of ``repro/models/layers.py``. Norms and rotary embeddings compute
+in float32 and cast back to the input's dtype, as the reference does.
+Initialisers draw from an explicit ``torch.Generator``: the numbers
+differ from ``jax.random``'s, so the tests carry the reference's weights
+across (``repro_torch.carry.lm_params_from_arrays``) instead.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """``x / rms(x) * (1 + scale)``: the scale is stored around zero."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [...]; returns cos/sin [..., head_dim // 2] in float32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, n, head_dim]; cos/sin [..., S, head_dim // 2]. Rotates
+    the two halves of each head (not interleaved pairs)."""
+    dtype = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dtype)
+
+
+def dense_init(gen: torch.Generator, shape: Sequence[int],
+               in_axis: Union[int, Tuple[int, ...]] = 0,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Normal with std 1/sqrt(fan_in), fan-in along ``in_axis`` (an axis or
+    a tuple of axes), drawn in float32 on ``gen``'s device."""
+    axes = (in_axis,) if isinstance(in_axis, int) else in_axis
+    fan_in = int(np.prod([shape[a] for a in axes]))
+    std = 1.0 / np.sqrt(max(fan_in, 1))
+    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
+            * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape: Sequence[int],
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
+            * 0.02).to(dtype)

@@ -1,0 +1,249 @@
+"""Dense-family language model: parameters, full-sequence forward (prefill),
+KV cache and single-token decode. Port of ``repro/models/model.py``.
+
+A pre-norm llama-style stack: per layer an RMS norm, GQA attention with
+rotary embeddings (``flash_attention`` kernel in the full-sequence
+forward), a second RMS norm and a SwiGLU MLP; a final norm and the LM
+head, whose padded vocabulary entries are masked to -1e30.
+
+The weights keep the reference's layouts (``wq [d, H, hd]``, ``wk``/``wv
+[d, KVH, hd]``, ``wo [H, hd, d]``, ``w_gate``/``w_up [d, f]``, ``w_down
+[f, d]``, ``tok_embed [Vpad, d]``, ``lm_head [d, Vpad]``), one module per
+layer where the reference stacks layers on a leading axis, so carrying
+its weights across is a copy (``repro_torch.carry.lm_params_from_arrays``).
+Parameters do not require gradients: this slice serves. The reference's
+sharding hints drop out on one card. Other families raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, check_family
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.layers import (
+    apply_rope,
+    dense_init,
+    embed_init,
+    rms_norm,
+    rope_cos_sin,
+)
+
+Cache = Dict[str, torch.Tensor]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, h, kvh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.resolved_head_dim
+        self.wq = _param((d, h, hd), dtype, device)
+        self.wk = _param((d, kvh, hd), dtype, device)
+        self.wv = _param((d, kvh, hd), dtype, device)
+        self.wo = _param((h, hd, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = _param((h, hd), dtype, device)
+            self.bk = _param((kvh, hd), dtype, device)
+            self.bv = _param((kvh, hd), dtype, device)
+
+    def project(self, x, cos, sin):
+        """x [B, S, d] -> q [B, S, H, hd], k and v [B, S, KVH, hd], with
+        rotary embeddings applied to q and k."""
+        b, s, _ = x.shape
+
+        def proj(w):
+            return (x @ w.reshape(w.shape[0], -1)).view(b, s, *w.shape[1:])
+        q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
+        if hasattr(self, "bq"):
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+    def out(self, a):
+        """a [B, S, H, hd] -> [B, S, d]."""
+        b, s = a.shape[:2]
+        return a.reshape(b, s, -1) @ self.wo.reshape(-1, self.wo.shape[-1])
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_gate = _param((d, f), dtype, device)
+        self.w_up = _param((d, f), dtype, device)
+        self.w_down = _param((f, d), dtype, device)
+
+    def forward(self, x):
+        g = x @ self.w_gate
+        u = x @ self.w_up
+        h = nn.functional.silu(g.float()).to(x.dtype) * u
+        return h @ self.w_down
+
+
+class DenseBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.attn_norm = _param((cfg.d_model,), dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.mlp_norm = _param((cfg.d_model,), dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+    def forward(self, x, cos, sin):
+        """Full sequence, causal. Returns (x, (k, v)) for the cache."""
+        q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
+                                    cos, sin)
+        x = x + self.attn.out(attention(q, k, v, causal=True))
+        return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps)), (k, v)
+
+    def decode(self, x, cos, sin, k_cache, v_cache, pos: int, slot_pos):
+        """One token at position ``pos``: writes its k/v into slot ``pos``
+        of this layer's caches [B, Smax, KVH, hd] in place."""
+        q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
+                                    cos, sin)
+        k_cache[:, pos] = k[:, 0]
+        v_cache[:, pos] = v[:, 0]
+        a = decode_attention(q, k_cache, v_cache, k_pos=slot_pos,
+                             cur_pos=pos)
+        x = x + self.attn.out(a)
+        return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps))
+
+
+class LM(nn.Module):
+    """The dense-family model: embedding, ``n_layers`` blocks, final norm,
+    LM head (the transposed embedding when ``tie_embeddings``)."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
+        super().__init__()
+        check_family(cfg)
+        dev = resolve_device(device)
+        dtype = _dtype(cfg)
+        self.cfg = cfg
+        self.tok_embed = _param((cfg.vocab_padded, cfg.d_model), dtype, dev)
+        self.blocks = nn.ModuleList(DenseBlock(cfg, dtype, dev)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = _param((cfg.d_model,), dtype, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((cfg.d_model, cfg.vocab_padded), dtype, dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.device
+
+    def logits(self, x):
+        cfg = self.cfg
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        head = self.tok_embed.T if cfg.tie_embeddings else self.lm_head
+        logits = (x @ head).float()
+        if cfg.vocab_padded != cfg.vocab_size:  # mask padded vocab entries
+            logits[..., cfg.vocab_size:] = -1e30
+        return logits
+
+
+# --------------------------------------------------------------------------
+# public entry points (the reference's names; the model takes the place
+# of its params pytree)
+# --------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: DeviceLike = None) -> LM:
+    """A model with the reference's initialisation (zero norms and
+    biases, fan-in normal projections, 0.02-normal embeddings), drawn
+    from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
+    CUDA card unless ``device="cpu"``)."""
+    model = LM(cfg, device)
+    gen = torch.Generator(model.device).manual_seed(seed)
+    dtype = _dtype(cfg)
+    with torch.no_grad():
+        model.tok_embed.copy_(embed_init(gen, model.tok_embed.shape, dtype))
+        for blk in model.blocks:
+            a = blk.attn
+            for w in (a.wq, a.wk, a.wv):
+                w.copy_(dense_init(gen, w.shape, 0, dtype))
+            a.wo.copy_(dense_init(gen, a.wo.shape, (0, 1), dtype))
+            for w in (blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down):
+                w.copy_(dense_init(gen, w.shape, 0, dtype))
+        if not cfg.tie_embeddings:
+            model.lm_head.copy_(dense_init(gen, model.lm_head.shape, 0,
+                                           dtype))
+    return model
+
+
+def _rope(model: LM, positions: torch.Tensor):
+    cfg = model.cfg
+    return rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def forward(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            collect_cache: bool = False):
+    """Teacher-forced full-sequence forward -> logits [B, S, Vpad] f32.
+
+    With ``collect_cache``, also returns ``{"k", "v"}`` stacked per layer,
+    ``[L, B, S, KVH, hd]`` (after the rotary embedding, as cached)."""
+    check_family(cfg)
+    tokens = batch["tokens"]
+    x = model.tok_embed[tokens]
+    cos, sin = _rope(model, torch.arange(x.shape[1], device=x.device))
+    ks, vs = [], []
+    for blk in model.blocks:
+        x, (k, v) = blk(x, cos, sin)
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    logits = model.logits(x)
+    if collect_cache:
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None,
+               device: DeviceLike = None) -> Cache:
+    """Decode cache: k, v ``[L, B, max_len, KVH, hd]`` zeros; slot i holds
+    position i."""
+    check_family(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve_device(device)
+    k = torch.zeros(shape, dtype=dtype or _dtype(cfg), device=dev)
+    return {"k": k, "v": torch.zeros_like(k)}
+
+
+def prefill(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    """Process a full prompt -> (logits [B, S, Vpad], decode cache with
+    slots [0, S) filled)."""
+    b, s = batch["tokens"].shape
+    logits, kv = forward(model, batch, cfg, collect_cache=True)
+    cache = init_cache(cfg, b, max_len or s, device=model.device)
+    for key in ("k", "v"):
+        cache[key][:, :, :s] = kv[key]
+    return logits, cache
+
+
+def decode_step(model: LM, tokens: torch.Tensor, cache: Cache, cur_pos: int,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
+    """tokens [B, 1]; ``cur_pos`` the position of this token. Returns
+    (logits [B, 1, Vpad], cache): the cache is the one passed in, its
+    slot ``cur_pos`` written in place (the reference returns a new one)."""
+    check_family(cfg)
+    cur_pos = int(cur_pos)
+    x = model.tok_embed[tokens]
+    cos, sin = _rope(model, torch.tensor([cur_pos], device=x.device))
+    slot_pos = torch.arange(cache["k"].shape[2], device=x.device)
+    for i, blk in enumerate(model.blocks):
+        x = blk.decode(x, cos, sin, cache["k"][i], cache["v"][i], cur_pos,
+                       slot_pos)
+    return model.logits(x), cache

@@ -1,16 +1,92 @@
-"""Serving tier: the ANN micro-batching front-end that feeds the batched
-DSANN data plane. The reference's batched LM ``Engine`` (the other half
-of the RAG-serving integration) is not ported yet.
+"""Serving tier: the batched LM engine (prefill once, greedy decode with
+a preallocated KV cache, per-sequence stop handling) and the ANN
+micro-batching front-end that feeds the batched DSANN data plane. The
+two halves of the RAG-serving integration (the reference's
+examples/rag_serve.py).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import decode_step, prefill
 from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.obs.metrics import COUNT_BUCKETS
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_new_tokens: int = 32
+    eos_id: int = -1           # -1: never stop early
+    temperature: float = 0.0   # 0 => greedy
+
+
+class Engine:
+    """Batched generation over one model (``models.init_params`` or
+    ``carry.lm_params_from_arrays``). Runs eagerly on the model's device;
+    the decode step writes the cache in place, slot by slot. After each
+    ``generate``, ``timing`` holds ``prefill_s`` (prompt in to first
+    tokens on the host) and ``decode_s`` (the rest), host wall seconds."""
+
+    def __init__(self, cfg: ModelConfig, model, scfg: ServeConfig):
+        self.cfg = cfg
+        self.model = model
+        self.scfg = scfg
+        self.timing: Dict[str, float] = {}
+
+    @torch.inference_mode()
+    def generate(self, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """batch: {"tokens": [B, S]} (a tensor or numpy array). Returns
+        generated token ids [B, <=max_new_tokens] int32; after a
+        sequence's EOS every later id is EOS. Sampling at
+        ``temperature > 0`` draws from ``generator``."""
+        cfg, scfg = self.cfg, self.scfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.model.device)
+        b, s = tokens.shape
+        t0 = time.perf_counter()
+        logits, cache = prefill(self.model, {"tokens": tokens}, cfg,
+                                max_len=s + scfg.max_new_tokens)
+        tok = self._sample(logits[:, -1:], generator)
+        out: List[np.ndarray] = []
+        done = np.zeros(b, bool)
+        for i in range(scfg.max_new_tokens):
+            out.append(tok[:, 0].cpu().numpy().astype(np.int32))
+            if i == 0:
+                t1 = time.perf_counter()
+            if scfg.eos_id >= 0:
+                done |= out[-1] == scfg.eos_id
+                if done.all():
+                    break
+            if i + 1 == scfg.max_new_tokens:
+                break   # the reference decodes once more and drops it
+            logits, cache = decode_step(self.model, tok, cache, s + i, cfg)
+            tok = self._sample(logits, generator)
+        self.timing = {"prefill_s": t1 - t0,
+                       "decode_s": time.perf_counter() - t1}
+        gen = np.stack(out, axis=1)
+        if scfg.eos_id >= 0:  # mask post-EOS tokens
+            seen = np.cumsum(gen == scfg.eos_id, axis=1) > 0
+            mask = np.concatenate(
+                [np.zeros((b, 1), bool), seen[:, :-1]], axis=1)
+            gen = np.where(mask, scfg.eos_id, gen)
+        return gen
+
+    def _sample(self, logits, generator):
+        """logits [B, 1, Vpad] -> tokens [B, 1] over the real vocab."""
+        logits = logits[:, :, : self.cfg.vocab_size]
+        if self.scfg.temperature <= 0:
+            return logits.argmax(-1)
+        if generator is None:
+            raise ValueError("temperature sampling needs a torch.Generator")
+        probs = torch.softmax(logits[:, 0].float() / self.scfg.temperature,
+                              dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)
 
 
 class AnnsFrontend:

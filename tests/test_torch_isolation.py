@@ -21,9 +21,17 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len([k for k in sys.modules if k.startswith("repro_torch")]))
+print(" ".join(k for k in sys.modules if k.startswith("repro_torch")))
 sys.exit(f"loaded: {bad}" if bad else 0)
 """
+
+# the LM serving path's modules, among those the walk must reach
+LM_MODULES = {"repro_torch.configs.base", "repro_torch.configs.tinyllama_1_1b",
+              "repro_torch.models", "repro_torch.models.attention",
+              "repro_torch.models.layers", "repro_torch.models.model",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.serving.engine", "repro_torch.data.lm",
+              "repro_torch.carry"}
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -31,7 +39,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", IMPORTS_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30   # every module was imported
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 40   # every module was imported
+    assert LM_MODULES <= loaded, LM_MODULES - loaded
 
 
 FORBIDDEN = re.compile(

@@ -9,8 +9,13 @@ of 1e-5 of the largest |q|^2 + |x|^2 (the expanded form's float32 error
 scales with the norms, not with the distance). ``pq_adc``: rtol 1e-5
 (8 terms summed in another order). On integer-valued inputs every sum is
 exact, so ids must match position by position: that checks the tie rule
-(lower pool position or id first). The CUDA kernels themselves are held
-against these plain versions on the card by ``chip_smoke.py``.
+(lower pool position or id first). ``flash_attention``: float32 outputs
+to rtol=atol=1e-5 (sums in another order, the scale applied before the
+product rather than after, the online softmax of the Pallas kernel against
+one softmax); bfloat16 outputs to one bfloat16 step (rtol=atol=2^-7), since
+both sides compute in float32 and round once at the end. The CUDA kernels
+themselves are held against these plain versions on the card by
+``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -25,6 +30,7 @@ from repro.kernels import ref  # noqa: E402
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.core.distances import topk_l2  # noqa: E402
 from repro_torch.data.vectors import brute_force_knn  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import l2_topk, ops, pq_adc  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -222,7 +228,71 @@ def test_ground_truth_ties_go_to_the_lower_id():
     np.testing.assert_allclose(d2, rd2, rtol=1e-5, atol=1e-4)
 
 
+# tests/test_kernels.py:143-148 as (b, h, kvh, sq, sk, d, bq, bk, causal),
+# plus grouped-query heads and lengths off every tile
+FLASH_SHAPES = [(1, 2, 2, 128, 128, 64, 64, 64, True),
+                (2, 1, 1, 256, 256, 32, 128, 128, True),
+                (1, 1, 1, 128, 256, 64, 64, 128, True),    # Sq != Sk
+                (1, 2, 2, 128, 128, 64, 64, 64, False),
+                (2, 8, 2, 64, 192, 32, 64, 64, True),      # GQA, group 4
+                (1, 8, 1, 77, 77, 16, 128, 128, True),     # group 8, ragged
+                (2, 4, 2, 50, 93, 128, 128, 128, False)]
+
+
+def _flash_inputs(b, h, kvh, sq, sk, d, seed, dtype=np.float32):
+    """numpy q [B, Sq, H, D], k, v [B, Sk, KVH, D]."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d)).astype(dtype),
+            rng.standard_normal((b, sk, kvh, d)).astype(dtype),
+            rng.standard_normal((b, sk, kvh, d)).astype(dtype))
+
+
+def _to_ref_layout(q, k, v):
+    """The reference kernel's [B, H, S, D], each query head with its own
+    copy of its KV head."""
+    g = q.shape[2] // k.shape[2]
+    return (jnp.asarray(q.transpose(0, 2, 1, 3)),
+            jnp.asarray(np.repeat(k, g, axis=2).transpose(0, 2, 1, 3)),
+            jnp.asarray(np.repeat(v, g, axis=2).transpose(0, 2, 1, 3)))
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,bq,bk,causal", FLASH_SHAPES)
+def test_flash_plain_matches_ref_and_pallas(b, h, kvh, sq, sk, d, bq, bk,
+                                            causal):
+    q, k, v = _flash_inputs(b, h, kvh, sq, sk, d, seed=sq + sk + h)
+    got = tref.flash_attention_plain(*_t(q, k, v), causal=causal).numpy()
+    assert got.shape == q.shape
+    rq, rk, rv = _to_ref_layout(q, k, v)
+    for want in (ref.flash_attention_ref(rq, rk, rv, causal=causal),
+                 ref_ops.flash_attention(rq, rk, rv, causal=causal,
+                                         block_q=bq, block_k=bk,
+                                         interpret=True)):
+        np.testing.assert_allclose(
+            got, np.asarray(want).transpose(0, 2, 1, 3), rtol=1e-5,
+            atol=1e-5)
+    # on the CPU the dispatcher takes the plain version
+    np.testing.assert_array_equal(
+        ops.flash_attention(*_t(q, k, v), causal=causal).numpy(), got)
+
+
+def test_flash_plain_bf16_matches_ref_and_pallas():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _flash_inputs(1, 4, 2, 128, 128, 64, seed=9))
+    got = tref.flash_attention_plain(q, k, v)
+    assert got.dtype == torch.bfloat16
+    rq, rk, rv = (x.astype(jnp.bfloat16) for x in _to_ref_layout(
+        *(t.float().numpy() for t in (q, k, v))))
+    for want in (ref.flash_attention_ref(rq, rk, rv),
+                 ref_ops.flash_attention(rq, rk, rv, block_q=64, block_k=64,
+                                         interpret=True)):
+        np.testing.assert_allclose(
+            got.float().numpy(),
+            np.asarray(want, np.float32).transpose(0, 2, 1, 3),
+            rtol=2 ** -7, atol=2 ** -7)
+
+
 def test_ref_module_names_the_plain_versions():
+    assert tref.flash_attention_plain is fa.flash_attention_plain
     assert tref.l2_topk_masked_ref is l2_topk.l2_topk_masked_plain
     assert tref.pq_adc_masked_ref is pq_adc.pq_adc_masked_plain
     assert tref.l2_topk_ref is l2_topk.l2_topk_plain
@@ -242,8 +312,11 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
         pq_adc.pq_adc_masked(luts, codes, ids, 3)
     with pytest.raises(ValueError, match="CUDA"):
         pq_adc.pq_adc(luts[0], codes[0])
-    assert ops.launch_counts() == {"l2_topk": 0, "l2_topk_masked": 0,
-                                   "pq_adc": 0, "pq_adc_masked": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(*_t(*_flash_inputs(1, 2, 1, 8, 8, 32, seed=0)))
+    assert ops.launch_counts() == {"flash_attention": 0, "l2_topk": 0,
+                                   "l2_topk_masked": 0, "pq_adc": 0,
+                                   "pq_adc_masked": 0}
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
