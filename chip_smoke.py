@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's five CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` (one process per source, all at once), holds each kernel
-against its plain PyTorch version on the card (edge cases and exact-tie
-inputs), then drives four paths, each with its kernel launches counted
-from zero and checked:
+with ``nvcc`` (one process per source, all at once), counts the tensor-core
+instructions (HMMA) of the bf16 ``flash_attention`` kernels with
+``cuobjdump``, holds each kernel against its plain PyTorch version on the
+card (edge cases and exact-tie inputs), then drives four paths, each with
+its kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
   -> ``build_pag`` -> ``write_partitions`` (PQ payloads, "dfs" storage
@@ -34,7 +35,8 @@ from zero and checked:
   at the highest recall both reach.
 
 Last, each kernel is timed with CUDA events on the inputs its path gave
-it, beside its plain version, one PyTorch library call computing the
+it (``l2_topk`` twice: SPANN's closure chunk and the 1M ground-truth
+chunk), beside its plain version, one PyTorch library call computing the
 same function (``scaled_dot_product_attention`` for ``flash_attention``;
 timed only, never called by the port) and its bound.
 
@@ -191,11 +193,17 @@ def check_unmasked_edges(dev) -> None:
     from repro_torch.kernels import l2_topk, pq_adc
     rng = np.random.default_rng(1)
     # (Q, N, d, k): N < k; N, d off every tile; k = 1, 100, 256; Q >> N
-    # (SPANN's closure shape); N >> Q (the ground truth's, rows split)
+    # (SPANN's closure shape); N >> Q (the ground truth's, rows split); Q
+    # and N off the 128 x 128 tiles; Q = 1; d off the 4-column chunks;
+    # k = 1 and 256 at N = 1M
     for qn, n, d, k in [(5, 7, 16, 10), (9, 1000, 24, 10),
                         (33, 777, 128, 1), (40, 5000, 128, 100),
                         (7, 3000, 64, 256), (20_000, 6250, 128, 8),
-                        (3, 200_000, 128, 10)]:
+                        (3, 200_000, 128, 10), (130, 1000, 128, 10),
+                        (257, 3001, 64, 17), (129, 129, 32, 129),
+                        (1, 50_000, 128, 10), (1, 129, 128, 1),
+                        (6, 4099, 13, 10), (4, 1_000_000, 128, 1),
+                        (4, 1_000_000, 128, 256)]:
         q = torch.from_numpy(rng.standard_normal((qn, d), np.float32)).to(dev)
         x = torch.from_numpy(rng.standard_normal((n, d), np.float32)).to(dev)
         compare(f"l2_topk {qn}x{n}x{d} k={k}", l2_topk.l2_topk(q, x, k),
@@ -210,6 +218,25 @@ def check_unmasked_edges(dev) -> None:
         q, x = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
         compare(f"l2_topk ties {qn}x{n} k={k}", l2_topk.l2_topk(q, x, k),
                 l2_topk.l2_topk_plain(q, x, k), exact=True)
+    # exact ties straddling the k-th place across row splits: each query
+    # sits far from the data; 7 rows at d2 = 0 and 20 at d2 = 1, spread
+    # over the slices, so places 8-10 go to the three lowest ids of 20
+    for qn, n, k in [(3, 200_000, 10), (130, 300_000, 10)]:
+        q = np.zeros((qn, 16), np.float32)
+        q[:, 0] = 10.0 + 10.0 * np.arange(qn)
+        x = rng.integers(-2, 3, (n, 16)).astype(np.float32)
+        planted = rng.permutation(n)[:27 * qn].reshape(qn, 27)
+        for i in range(qn):
+            x[planted[i]] = q[i]
+            x[planted[i, 7:], 1] += 1.0
+        q, x = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+        got = l2_topk.l2_topk(q, x, k)
+        compare(f"l2_topk split ties {qn}x{n} k={k}", got,
+                l2_topk.l2_topk_plain(q, x, k), exact=True)
+        if l2_topk.split_rows(qn, n)[0] < 8 or not (
+                got[0][:, 6] == 0).all() or not (got[0][:, 7:] == 1).all():
+            raise AssertionError("l2_topk split ties: the planted ties do "
+                                 "not straddle the k-th place over slices")
 
     # pq_adc sums in the plain version's order: bit for bit
     for n, m, dtype in [(1, 8, np.uint8), (64, 8, np.uint8),
@@ -278,6 +305,21 @@ def check_flash_edges(dev) -> None:
             (1, 2, 2, 1000, 1000, 128, False, f32),
             (3, 32, 4, 1, 1, 64, True, bf16),
             (1, 32, 4, 31, 531, 64, True, bf16),
+            # the bf16 kernel's edges: 64-row q tiles of 4 x 16-row warps,
+            # 64-key tiles. Sk < 16; Sq = 1 against 531 keys; Sq = 1
+            # (mod 16); Sk off the key tile; causal Sq < Sk at D = 32 and
+            # 128; groups 1 and 8
+            (2, 4, 2, 9, 9, 64, True, bf16),
+            (1, 4, 4, 5, 12, 32, False, bf16),
+            (2, 32, 4, 1, 531, 64, True, bf16),
+            (1, 8, 2, 17, 17, 64, True, bf16),
+            (2, 8, 8, 81, 200, 128, False, bf16),
+            (1, 8, 4, 100, 130, 64, True, bf16),
+            (1, 8, 2, 40, 300, 32, True, bf16),
+            (1, 8, 2, 70, 200, 128, True, bf16),
+            (1, 8, 8, 96, 96, 64, True, bf16),
+            (1, 16, 2, 96, 96, 64, True, bf16),
+            # last: the refusals below cut this shape
             (RAG_BATCH, 32, 4, RAG_PROMPT, RAG_PROMPT, 64, True, bf16)]:
         q = torch.from_numpy(rng.standard_normal((b, sq, h, d), np.float32))
         k = torch.from_numpy(rng.standard_normal((b, sk, kvh, d), np.float32))
@@ -307,6 +349,38 @@ def check_flash_edges(dev) -> None:
             continue
         raise AssertionError("flash_attention took arguments it must refuse")
     torch.cuda.synchronize()
+
+
+def sass_counts(lib: Path, opcode: str) -> dict:
+    """How many ``opcode`` instructions each kernel of a built library
+    holds, from ``cuobjdump -sass`` (by mangled function name)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and f" {opcode}" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_flash_tensor_cores() -> None:
+    """The bf16 flash kernels run on the tensor cores: their SASS holds
+    HMMA instructions (the f32 kernels hold none)."""
+    from repro_torch.kernels import build
+    counts = sass_counts(build.lib_path("flash_attention"), "HMMA")
+    by_variant = {v: {fn: n for fn, n in counts.items() if v in fn}
+                  for v in ("flash_fwd_bf16", "flash_fwd_f32")}
+    print(f"flash_attention SASS HMMA count: "
+          f"{json.dumps({v: sum(c.values()) for v, c in by_variant.items()})}"
+          f" per kernel {json.dumps(counts)}", flush=True)
+    bf16 = by_variant["flash_fwd_bf16"]
+    if len(bf16) != 3 or min(bf16.values()) == 0:
+        raise AssertionError("flash_attention: a bf16 kernel holds no HMMA")
 
 
 def check_kernel_edges(dev) -> None:
@@ -860,20 +934,28 @@ def time_kernels(caps, counts) -> list:
         check=masked_check(1e-4),
         shape={"Q": qn, "C": c, "real_rows": real, "M": m, "k": k}))
 
-    (q, x, k), _ = caps["l2_topk"].args
-    (qn, d), n = q.shape, x.shape[0]
-    rows.append(kernel_report(
-        "l2_topk", l2_topk.l2_topk, l2_topk.l2_topk_plain,
-        lambda: torch.topk(cdist2(q, x), k, dim=1, largest=False),
-        (q, x, k), counts["l2_topk"]["l2_topk"],
-        nbytes=(qn + n) * d * 4 + qn * k * 8,
-        # q.x for every pair, both norms, the combine and clamp
-        n_ops=2 * qn * n * d + 2 * (qn + n) * d + 4 * qn * n,
-        source="src/repro_torch/kernels/csrc/l2_topk.cu",
-        replaces="src/repro/kernels/l2_topk.py:70",
-        check=lambda got, want: compare("ground-truth chunk", got, want,
-                                        exact=False, atol=norm_atol(q, x)),
-        shape={"Q": qn, "N": n, "d": d, "k": k}))
+    def l2_row(cap, launches, what):
+        (q, x, k), _ = cap.args
+        (qn, d), n = q.shape, x.shape[0]
+        return kernel_report(
+            "l2_topk", l2_topk.l2_topk, l2_topk.l2_topk_plain,
+            lambda: torch.topk(cdist2(q, x), k, dim=1, largest=False),
+            (q, x, k), launches,
+            nbytes=(qn + n) * d * 4 + qn * k * 8,
+            # q.x for every pair, both norms, the combine and clamp
+            n_ops=2 * qn * n * d + 2 * (qn + n) * d + 4 * qn * n,
+            source="src/repro_torch/kernels/csrc/l2_topk.cu",
+            replaces="src/repro/kernels/l2_topk.py:70",
+            check=lambda got, want: compare(what, got, want, exact=False,
+                                            atol=norm_atol(q, x)),
+            shape={"Q": qn, "N": n, "d": d, "k": k})
+
+    # SPANN's closure assignment (13 of the compare path's launches), then
+    # the main path's ground-truth chunk
+    rows.append(l2_row(caps["l2_topk_closure"], counts["l2_closure"]
+                       ["l2_topk"], "SPANN closure chunk"))
+    rows.append(l2_row(caps["l2_topk"], counts["l2_topk"]["l2_topk"],
+                       "ground-truth chunk"))
 
     (lut, codes), _ = caps["pq_adc"].args
     n, m = codes.shape
@@ -918,7 +1000,8 @@ def time_kernels(caps, counts) -> list:
     # the reference fixes f32 scores; on the f32 CUDA cores the same work
     # takes this long at the least
     rows[-1]["bound_f32_cores_ms"] = n_ops / FP32_OPS_PER_S * 1e3
-    for r, path in zip(rows, ("main", "main", "main", "compare", "rag")):
+    for r, path in zip(rows, ("main", "main", "compare", "main", "compare",
+                              "rag")):
         r["path"] = path
     return rows
 
@@ -978,6 +1061,7 @@ def main() -> int:
         secs = build.build_all()
         print(f"nvcc build seconds: {json.dumps(secs)}")
     with phase("kernels vs plain (edge cases, exact ties)"):
+        check_flash_tensor_cores()
         check_kernel_edges(dev)
 
     counts = {}
@@ -1026,18 +1110,21 @@ def main() -> int:
         # the first ground-truth chunk of make_dataset
         "l2_topk": Capture(ops, "l2_topk", lambda a: a[1].shape[0] == N),
         # a DiskANN hop (the entry point's launch scores one row)
-        "pq_adc": Capture(ops, "pq_adc", lambda a: a[1].shape[0] > 1)})
+        "pq_adc": Capture(ops, "pq_adc", lambda a: a[1].shape[0] > 1),
+        # the first closure chunk of SPANN's build (k = N_CLOSURE = 8)
+        "l2_topk_closure": Capture(ops, "l2_topk", lambda a: a[2] == 8)})
     with path("main", serve_kernels), caps["l2_topk_masked"], \
             caps["pq_adc_masked"], caps["l2_topk"]:
         index_and_serve("main", N, N_QUERIES, SCALE_FLOOR, dev)
     with path("compare", ("l2_topk", "l2_topk_masked", "pq_adc")), \
-            caps["pq_adc"]:
+            caps["pq_adc"], caps["l2_topk_closure"]:
         comparison(dev)
 
     with phase("kernel timing at path shapes"):
         by_kernel = {"l2_topk_masked": counts["main"],
                      "pq_adc_masked": counts["main"],
                      "l2_topk": counts["main"], "pq_adc": counts["compare"],
+                     "l2_closure": counts["compare"],
                      "flash_attention": counts["rag"]}
         rows = time_kernels(caps, by_kernel)
     for r in rows:

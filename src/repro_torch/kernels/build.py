@@ -39,7 +39,9 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """The library of kernel ``name``, named by a hash of its sources and
+    of the ``nvcc`` flags (it exists once built)."""
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
@@ -54,11 +56,11 @@ def build_all(names=KERNELS) -> Dict[str, float]:
     (``-Xptxas -v``: registers, shared memory, spills) goes to
     ``_build/<name>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc() if any(not _lib_path(n).exists() for n in names) else ""
+    nvcc = _nvcc() if any(not lib_path(n).exists() for n in names) else ""
     procs: List[tuple] = []
     t0 = time.perf_counter()
     for name in names:
-        out = _lib_path(name)
+        out = lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -87,7 +89,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path = _lib_path(name)
+        path = lib_path(name)
         if not path.exists():
             build_all((name,))
         lib = _loaded[name] = ctypes.CDLL(str(path))

@@ -4,12 +4,17 @@ Port of the TPU kernel ``repro/kernels/flash_attention.py:flash_attention``
 at the model's own layout: q ``[B, Sq, H, D]``, k and v ``[B, Sk, KVH, D]``
 (grouped-query: query head h reads KV head ``h // (H // KVH)``), f32 or
 bf16, gives ``[B, Sq, H, D]`` in q's dtype. Numerics are the TPU
-kernel's: q cast to float32 and scaled by 1/sqrt(D) before the product,
-float32 scores, the causal mask ``k_pos <= q_pos + (Sk - Sq)`` at -1e30,
-float32 running (max, sum, accumulator) and ``acc / max(sum, 1e-30)``.
-Sq and Sk take any length (the kernel masks the ragged tail itself).
+kernel's: float32 scores, the causal mask ``k_pos <= q_pos + (Sk - Sq)``
+at -1e30, float32 running (max, sum, accumulator) and
+``acc / max(sum, 1e-30)`` rounded once. Sq and Sk take any length (the
+kernel masks the ragged tail itself).
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` on CUDA tensors;
+``flash_attention`` launches ``csrc/flash_attention.cu`` on CUDA tensors,
+one of two variants chosen by dtype, both counted as ``flash_attention``:
+bf16 runs on the tensor cores (``mma.sync``; the scale applied to the f32
+scores after the product, P rounded to bf16 before P.V), f32 on the CUDA
+cores (q scaled before the product, as the TPU kernel does). A refused
+launch raises; neither variant stands in for the other.
 ``flash_attention_plain`` beside it materialises the scores, as the
 reference oracle ``repro/kernels/ref.py:flash_attention_ref`` does, and is
 used on the CPU and as the kernel's yardstick on the card.
@@ -50,11 +55,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel. q [B, Sq, H, D]; k, v [B, Sk, KVH, D];
-    contiguous, one dtype (float32 or bfloat16), H % KVH == 0, D in
-    ``HEAD_DIMS``, Sk >= 1, and Sq <= Sk when causal (a longer query
-    would hold rows with no key to attend to). Sq == 0 or B == 0 returns
-    an empty tensor without a launch. Raises on anything else, and on a
-    non-CUDA tensor."""
+    contiguous, one dtype (float32 or bfloat16), 16-byte aligned, H % KVH
+    == 0, D in ``HEAD_DIMS``, Sk >= 1, and Sq <= Sk when causal (a longer
+    query would hold rows with no key to attend to). Sq == 0 or B == 0
+    returns an empty tensor without a launch. Raises on anything else, and
+    on a non-CUDA tensor."""
     check_cuda_args("flash_attention", (q, k, v),
                     ((torch.float32, torch.bfloat16),) * 3, 1)
     if not q.dtype == k.dtype == v.dtype:
@@ -75,6 +80,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if sq == 0 or b == 0:
         return out
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: inputs must be 16-byte aligned "
+                         "(the kernel stages them with 16-byte copies)")
     from repro_torch.kernels import build
     fn_name = ("flash_attention_bf16" if q.dtype == torch.bfloat16
                else "flash_attention_f32")

@@ -143,10 +143,11 @@ def sentinels(q_count: int, k: int, device
 
 
 # the scan kernel's tiles (csrc/l2_topk.cu): queries per block, rows per
-# tile; the rows are split so that about SCAN_BLOCKS blocks run
-TILE_Q, TILE_N = 32, 64
-SCAN_BLOCKS = 4 * 132
-MIN_SPLIT_ROWS = 4096
+# tile; the rows are split into at most N / MIN_SPLIT_ROWS slices so that
+# at most SCAN_BLOCKS blocks run (one wave, one per SM of the H100)
+TILE_Q, TILE_N = 128, 128
+SCAN_BLOCKS = 132
+MIN_SPLIT_ROWS = 1024
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -154,8 +155,10 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def split_rows(q_count: int, n: int) -> Tuple[int, int]:
-    """(S, rows_per_split): the row slices of the scan kernel's grid."""
-    s = max(1, min(_cdiv(SCAN_BLOCKS, _cdiv(q_count, TILE_Q)),
+    """(S, rows_per_split): the row slices of the scan kernel's grid, at
+    most SCAN_BLOCKS blocks in all (one wave) unless the query tiles alone
+    are more."""
+    s = max(1, min(SCAN_BLOCKS // _cdiv(q_count, TILE_Q),
                    _cdiv(n, MIN_SPLIT_ROWS)))
     rows = _cdiv(_cdiv(n, s), TILE_N) * TILE_N
     return _cdiv(n, rows), rows
@@ -177,8 +180,9 @@ def l2_topk(q: torch.Tensor, x: torch.Tensor, k: int
         return sentinels(q_count, k, q.device)
     from repro_torch.kernels import build
     s, rows = split_rows(q_count, n)
-    part = torch.empty((q_count, s, k) if s > 1 else (0,),
-                       dtype=torch.int64, device=q.device)
+    # the partial lists of the row slices (and the running lists when k
+    # is too large for shared memory)
+    part = torch.empty((q_count, s, k), dtype=torch.int64, device=q.device)
     out_d = torch.empty((q_count, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((q_count, k), dtype=torch.int32, device=q.device)
     call(bind(build.load("l2_topk"), "l2_topk", 5, 6), "l2_topk", q.device,

@@ -291,6 +291,103 @@ def test_flash_plain_bf16_matches_ref_and_pallas():
             rtol=2 ** -7, atol=2 ** -7)
 
 
+def _flash_tiled_bf16(q, k, v, causal, tile=64):
+    """The rounding of the bf16 tensor-core kernel
+    (csrc/flash_attention.cu:flash_fwd_bf16) in plain torch: 64-key tiles,
+    exact float32 products of the bf16 inputs, the scale 1/sqrt(D) * log2(e)
+    applied to the float32 scores after the product, a float32 online
+    softmax in base 2, P rounded to bf16 (the row sum l adds the rounded
+    P), and acc / max(l, 1e-30) rounded once."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    scale_log2 = float(np.float32(np.float32(1.0 / np.sqrt(d))
+                                  * np.float32(1.4426950408889634)))
+    q_pos = torch.arange(sq)[:, None] + (sk - sq)
+    m = torch.full(qf.shape[:-1], -1e30)
+    l = torch.zeros(qf.shape[:-1])
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, sk, tile):
+        s = (qf @ kf[..., k0:k0 + tile, :].transpose(-1, -2)) * scale_log2
+        if causal:
+            keys = torch.arange(k0, min(k0 + tile, sk))[None, :]
+            s = s.masked_fill(keys > q_pos, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None]).bfloat16().float()
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p @ vf[..., k0:k0 + tile, :]
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).bfloat16()
+
+
+# (b, h, kvh, sq, sk, d, causal): ragged q and key tiles, Sk < 16, Sq = 1,
+# Sq = 1 (mod 16), causal Sq < Sk, groups 1, 2, 4 and 8, D 32, 64 and 128
+FLASH_TILED_SHAPES = [(1, 4, 2, 77, 77, 64, True),
+                      (2, 4, 1, 1, 131, 32, True),
+                      (1, 2, 2, 9, 9, 64, True),
+                      (1, 4, 4, 50, 93, 128, False),
+                      (2, 8, 2, 65, 130, 64, True),
+                      (1, 8, 8, 17, 200, 32, False),
+                      (1, 8, 1, 40, 300, 128, True),
+                      (1, 2, 1, 128, 128, 64, True)]
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal", FLASH_TILED_SHAPES)
+def test_flash_bf16_kernel_rounding_holds_the_tolerance(b, h, kvh, sq, sk,
+                                                        d, causal):
+    """The bf16 kernel's own rounding stays within one bf16 step
+    (chip_smoke.FLASH_BF16_TOL = 2^-7, abs and rel) of the plain version
+    and of the Pallas kernel in interpret mode."""
+    tol = 2 ** -7
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in
+               _flash_inputs(b, h, kvh, sq, sk, d, seed=sq * sk + d))
+    got = _flash_tiled_bf16(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    plain = fa.flash_attention_plain(q, k, v, causal)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               rtol=tol, atol=tol)
+    rq, rk, rv = (x.astype(jnp.bfloat16) for x in _to_ref_layout(
+        *(t.float().numpy() for t in (q, k, v))))
+    pallas = ref_ops.flash_attention(rq, rk, rv, causal=causal, block_q=sq,
+                                     block_k=sk, interpret=True)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(pallas, np.float32).transpose(0, 2, 1, 3),
+        rtol=tol, atol=tol)
+
+
+# the (Q, N) of chip_smoke.check_unmasked_edges: every slice of the scan
+# kernel's grid is a whole number of 128-row tiles but the last, non-empty,
+# and together they cover [0, N) once
+SPLIT_SHAPES = [(5, 7), (9, 1000), (33, 777), (40, 5000), (7, 3000),
+                (20_000, 6250), (3, 200_000), (130, 1000), (257, 3001),
+                (129, 129), (1, 50_000), (1, 129), (6, 4099),
+                (4, 1_000_000), (6, 3000), (4, 100_000), (5, 2),
+                (130, 300_000), (512, 1_000_000), (8192, 6250)]
+
+
+@pytest.mark.parametrize("qn,n", SPLIT_SHAPES)
+def test_split_rows_covers_every_row_once(qn, n):
+    s, rows = l2_topk.split_rows(qn, n)
+    assert s >= 1 and rows % l2_topk.TILE_N == 0
+    seen = np.zeros(n, np.int64)
+    for i in range(s):
+        lo, hi = i * rows, min(n, (i + 1) * rows)
+        assert lo < hi   # no empty slice
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    # one wave of at most SCAN_BLOCKS blocks unless the query tiles alone
+    # are more; no more slices than N / MIN_SPLIT_ROWS, so none is under
+    # half of it
+    q_tiles = -(-qn // l2_topk.TILE_Q)
+    assert s == 1 or 2 * rows > l2_topk.MIN_SPLIT_ROWS
+    assert q_tiles * s <= max(l2_topk.SCAN_BLOCKS, q_tiles)
+
+
 def test_ref_module_names_the_plain_versions():
     assert tref.flash_attention_plain is fa.flash_attention_plain
     assert tref.l2_topk_masked_ref is l2_topk.l2_topk_masked_plain
