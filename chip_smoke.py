@@ -34,11 +34,13 @@ its kernel launches counted from zero and checked:
   wall seconds), then the PAG/DiskANN QPS ratio at recall >= 0.85 and
   at the highest recall both reach.
 
-Last, each kernel is timed with CUDA events on the inputs its path gave
-it (``l2_topk`` twice: SPANN's closure chunk and the 1M ground-truth
-chunk), beside its plain version, one PyTorch library call computing the
-same function (``scaled_dot_product_attention`` for ``flash_attention``;
-timed only, never called by the port) and its bound.
+Last, each kernel is timed on the inputs its path gave it (``l2_topk``
+twice: SPANN's closure chunk and the 1M ground-truth chunk): CUDA events
+around back-to-back wrapper calls (``ms``) and the kernel's own device
+time from ``torch.profiler`` (``device_ms``), beside its plain version,
+one PyTorch library call computing the same function
+(``scaled_dot_product_attention`` for ``flash_attention``; timed only,
+never called by the port) and its bound.
 
 Prints each phase's wall time, the card's name and power limit, one JSON
 line of kernel numbers, and as its last line
@@ -385,48 +387,118 @@ def check_flash_tensor_cores() -> None:
 
 def check_kernel_edges(dev) -> None:
     """Kernel vs plain version on edge shapes and exact-tie inputs."""
-    from repro_torch.kernels import l2_topk, ops, pq_adc
     check_unmasked_edges(dev)
     check_flash_edges(dev)
+    check_masked_edges(dev)
+
+
+def interleaved_ids(rng, q: int, c: int, frac: float, dev) -> torch.Tensor:
+    """Distinct ids per row with a share ``frac`` of the positions padding
+    (-1) anywhere in the row, not only at its tail."""
+    ids = np.tile(rng.permutation(1 << 22)[:c].astype(np.int32), (q, 1))
+    ids[rng.random((q, c)) < frac] = -1
+    return torch.from_numpy(ids).to(dev)
+
+
+def check_masked_edges(dev) -> None:
+    """l2_topk_masked and pq_adc_masked against their plain versions:
+    ragged and interleaved padding, C < k, k = 1 .. 256, bf16 pools at the
+    main path's C, all-equal and exactly tied distances (bit for bit, ids
+    included), pools long enough for the global-key branch, C == 0 and
+    the refusals."""
+    from repro_torch.kernels import l2_topk, ops, pq_adc
     rng = np.random.default_rng(0)
+
+    def l2(qv, pools, ids, k, name, exact=False):
+        compare(f"l2_topk_masked {name} {tuple(pools.shape)} k={k} "
+                f"{pools.dtype}", l2_topk.l2_topk_masked(qv, pools, ids, k),
+                l2_topk.l2_topk_masked_plain(qv, pools, ids, k), exact)
+
+    def adc(luts, codes, ids, k, name, exact=False):
+        compare(f"pq_adc_masked {name} {tuple(codes.shape)} k={k}",
+                pq_adc.pq_adc_masked(luts, codes, ids, k),
+                pq_adc.pq_adc_masked_plain(luts, codes, ids, k), exact)
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, dtype)
+
+    def small_ints(*shape):
+        return torch.from_numpy(rng.integers(-2, 3, shape).astype(
+            np.float32)).to(dev)
+
+    def codes_of(q, c, m):
+        return torch.from_numpy(rng.integers(0, 256, (q, c, m),
+                                             dtype=np.uint8)).to(dev)
+
+    # the main path's C (14,973) and the global-key C (60,000)
+    main_c, l2_global_c, adc_global_c = 14_973, 60_000, 120_000
+    if l2_topk.select_smem(main_c, 4 * 128)[0] is not True or \
+            l2_topk.select_smem(l2_global_c, 4 * 128)[0] is not False or \
+            l2_topk.select_smem(adc_global_c, 1024 * 8)[0] is not False:
+        raise AssertionError("the edge shapes miss a branch of the keys")
     for q, c, d, k, dtype in [(4, 96, 16, 5, torch.float32),
                               (9, 257, 32, 10, torch.float32),
                               (6, 40, 24, 64, torch.float32),   # C < k
                               (3, 1000, 128, 200, torch.float32),
-                              (5, 777, 128, 10, torch.bfloat16)]:
-        qv = torch.from_numpy(rng.standard_normal((q, d), np.float32)).to(dev)
-        pools = torch.from_numpy(
-            rng.standard_normal((q, c, d), np.float32)).to(dev, dtype)
-        ids = ragged_ids(rng, q, c, dev)
-        compare(f"l2_topk_masked {q}x{c}x{d} k={k} {dtype}",
-                l2_topk.l2_topk_masked(qv, pools, ids, k),
-                l2_topk.l2_topk_masked_plain(qv, pools, ids, k), exact=False)
-    # small integers: every distance exact, many exact ties
-    qv = torch.from_numpy(rng.integers(-2, 3, (8, 16)).astype(np.float32))
-    pools = torch.from_numpy(rng.integers(-2, 3, (8, 600, 16)).astype(
-        np.float32))
-    ids = ragged_ids(rng, 8, 600, "cpu")
-    args = (qv.to(dev), pools.to(dev), ids.to(dev), 64)
-    compare("l2_topk_masked ties", l2_topk.l2_topk_masked(*args),
-            l2_topk.l2_topk_masked_plain(*args), exact=True)
+                              (5, 777, 128, 10, torch.bfloat16),
+                              (4, 3000, 128, 256, torch.float32),
+                              (5, 1, 128, 10, torch.float32),
+                              (3, 500, 13, 10, torch.float32),  # d % 4 != 0
+                              (3, 500, 13, 10, torch.bfloat16),
+                              (2, 300, 1024, 10, torch.float32),
+                              (16, main_c, 128, 10, torch.bfloat16),
+                              (3, l2_global_c, 128, 10, torch.float32)]:
+        qv, pools = normal(q, d), normal(q, c, d, dtype=dtype)
+        l2(qv, pools, ragged_ids(rng, q, c, dev), k, "ragged")
+        l2(qv, pools, interleaved_ids(rng, q, c, 0.3, dev), k, "interleaved")
+    # small integers: every distance exact, many exact ties; tail and
+    # interleaved padding, k = 64 and 256, the global-key branch
+    for q, c, k in [(8, 600, 64), (4, 3000, 256), (3, l2_global_c, 10),
+                    (3, l2_global_c, 256)]:
+        qv, pools = small_ints(q, 16), small_ints(q, c, 16)
+        l2(qv, pools, ragged_ids(rng, q, c, dev), k, "ties", exact=True)
+        l2(qv, pools, interleaved_ids(rng, q, c, 0.3, dev), k,
+           "ties interleaved", exact=True)
+    # all distances equal (every pool row is one vector): the k lowest
+    # real positions win
+    for q, c, k, dtype in [(4, 900, 10, torch.float32),
+                           (4, 900, 64, torch.float32),
+                           (3, 5000, 256, torch.bfloat16),
+                           (2, l2_global_c, 64, torch.float32)]:
+        qv = small_ints(q, 32)
+        pools = small_ints(q, 1, 32).expand(q, c, 32).contiguous().to(dtype)
+        l2(qv, pools, interleaved_ids(rng, q, c, 0.3, dev), k, "all equal",
+           exact=True)
 
     for q, c, m, k in [(4, 96, 8, 5), (7, 257, 4, 10), (5, 40, 16, 64),
-                       (3, 1000, 64, 200)]:
+                       (3, 1000, 64, 200), (4, 3000, 8, 256),
+                       (5, 1, 8, 10), (6, 500, 12, 10),   # M % 8 != 0
+                       (3, 30_000, 64, 64),               # M = 64, shared
+                       (2, 40_000, 64, 10),               # M = 64, global
+                       (16, main_c, 8, 64), (3, adc_global_c, 8, 64)]:
         luts = torch.from_numpy(rng.random((q, m, 256), np.float32)).to(dev)
-        codes = torch.from_numpy(
-            rng.integers(0, 256, (q, c, m), dtype=np.uint8)).to(dev)
-        ids = ragged_ids(rng, q, c, dev)
-        compare(f"pq_adc_masked {q}x{c}x{m} k={k}",
-                pq_adc.pq_adc_masked(luts, codes, ids, k),
-                pq_adc.pq_adc_masked_plain(luts, codes, ids, k), exact=False)
-    luts = torch.from_numpy(rng.integers(0, 4, (6, 8, 256)).astype(
-        np.float32)).to(dev)
-    codes = torch.from_numpy(
-        rng.integers(0, 256, (6, 900, 8), dtype=np.uint8)).to(dev)
-    ids = ragged_ids(rng, 6, 900, dev)
-    compare("pq_adc_masked ties", pq_adc.pq_adc_masked(luts, codes, ids, 32),
-            pq_adc.pq_adc_masked_plain(luts, codes, ids, 32), exact=True)
+        codes = codes_of(q, c, m)
+        adc(luts, codes, ragged_ids(rng, q, c, dev), k, "ragged")
+        adc(luts, codes, interleaved_ids(rng, q, c, 0.3, dev), k,
+            "interleaved")
+    # integer LUTs: exact sums and ties; all-equal sums (one value per m)
+    for q, c, k in [(6, 900, 32), (4, 3000, 256), (3, adc_global_c, 64)]:
+        luts = torch.from_numpy(rng.integers(0, 4, (q, 8, 256)).astype(
+            np.float32)).to(dev)
+        codes = codes_of(q, c, 8)
+        adc(luts, codes, ragged_ids(rng, q, c, dev), k, "ties", exact=True)
+        adc(luts, codes, interleaved_ids(rng, q, c, 0.3, dev), k,
+            "ties interleaved", exact=True)
+    for q, c, k in [(4, 900, 10), (4, 900, 64), (3, 5000, 256),
+                    (2, adc_global_c, 10)]:
+        luts = torch.from_numpy(np.repeat(rng.integers(0, 4, (q, 8, 1)), 256,
+                                          axis=2).astype(np.float32)).to(dev)
+        adc(luts, codes_of(q, c, 8), interleaved_ids(rng, q, c, 0.3, dev), k,
+            "all equal", exact=True)
+
     # C == 0: sentinels without a launch
+    codes, ids = codes_of(q, 10, 8), ragged_ids(rng, q, 10, dev)
     before = ops.launch_counts()["pq_adc_masked"]
     out_d, out_i = pq_adc.pq_adc_masked(luts, codes[:, :0].contiguous(),
                                         ids[:, :0].contiguous(), 5)
@@ -435,8 +507,8 @@ def check_kernel_edges(dev) -> None:
         raise AssertionError("pq_adc_masked: C == 0 must return sentinels")
     # what the kernels do not take raises: C == 0 for l2, k > 256, a CPU
     # tensor, a non-contiguous pool
-    q2, p2 = args[0], args[1]
-    i2 = args[2]
+    q2, p2, i2 = small_ints(8, 16), small_ints(8, 600, 16), \
+        ragged_ids(rng, 8, 600, dev)
     for bad in (lambda: l2_topk.l2_topk_masked(
                     q2, p2[:, :0].contiguous(), i2[:, :0].contiguous(), 5),
                 lambda: l2_topk.l2_topk_masked(q2, p2, i2, 257),
@@ -857,15 +929,51 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
     return rows
 
 
+def device_ms(fn, reps: int, names, tries: int = 4) -> float | None:
+    """The device time of one call of ``fn()``, from ``torch.profiler``
+    over ``reps`` calls: for each kernel whose name contains one of
+    ``names``, the median duration of its recorded launches, summed over
+    those kernels (each call launches each of them once). Late in a long
+    process the profiler can drop a session's kernel records, or keep some
+    with wrong durations, so the median is taken over the records kept,
+    and a session that kept none is run again, up to ``tries`` sessions;
+    None if none kept one."""
+    from torch.profiler import ProfilerActivity, profile
+    seen = []
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name: dict = {}
+        for e in kernels:
+            if any(n in e.name for n in names) and e.device_time > 0:
+                by_name.setdefault(e.name, []).append(e.device_time)
+        if by_name:
+            return sum(float(np.median(t)) for t in by_name.values()) / 1e3
+        seen = sorted({e.name[:60] for e in kernels})[:4]
+    print(f"device_ms: no {names} kernel in {tries} profiler sessions "
+          f"(recorded: {seen})", flush=True)
+    return None
+
+
 def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
-                  source, replaces, check, shape,
+                  source, replaces, check, shape, device_names,
                   ops_per_s=FP32_OPS_PER_S) -> dict:
     """Times one kernel on captured path inputs beside its plain version,
     a library formulation and its bound (operations at ``ops_per_s``);
     ``check(got, want)`` holds the kernel to the plain version and
-    returns the max abs error."""
+    returns the max abs error. ``ms`` is the event time of back-to-back
+    wrapper calls (host time included where it is longer), ``device_ms``
+    the profiler's time of the kernels named ``device_names`` alone."""
     err = check(fn(*args), plain(*args))
     ms = cuda_time_ms(lambda: fn(*args), reps=20)
+    dev_ms = device_ms(lambda: fn(*args), 20, device_names)
     plain_ms = cuda_time_ms(lambda: plain(*args), reps=5)
     library_ms = cuda_time_ms(library, reps=10)
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -873,8 +981,9 @@ def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
     bound_by = max(bound, key=bound.get)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[bound_by],
-            "bound_by": bound_by, "library_ms": library_ms, "shape": shape}
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound[bound_by], "bound_by": bound_by,
+            "library_ms": library_ms, "shape": shape}
 
 
 def time_kernels(caps, counts) -> list:
@@ -911,7 +1020,8 @@ def time_kernels(caps, counts) -> list:
         source="src/repro_torch/kernels/csrc/l2_topk_masked.cu",
         replaces="src/repro/kernels/l2_topk.py:138",
         check=masked_check(norm_atol(q, pools.reshape(-1, d))),
-        shape={"Q": qn, "C": c, "real_rows": real, "d": d, "k": k}))
+        shape={"Q": qn, "C": c, "real_rows": real, "d": d, "k": k},
+        device_names=("l2_topk_masked_kernel",)))
 
     (luts, codes, pos), kw = caps["pq_adc_masked"].args
     k = kw["k"]
@@ -932,7 +1042,8 @@ def time_kernels(caps, counts) -> list:
         source="src/repro_torch/kernels/csrc/pq_adc_masked.cu",
         replaces="src/repro/kernels/pq_adc.py:100",
         check=masked_check(1e-4),
-        shape={"Q": qn, "C": c, "real_rows": real, "M": m, "k": k}))
+        shape={"Q": qn, "C": c, "real_rows": real, "M": m, "k": k},
+        device_names=("pq_adc_masked_kernel",)))
 
     def l2_row(cap, launches, what):
         (q, x, k), _ = cap.args
@@ -948,7 +1059,8 @@ def time_kernels(caps, counts) -> list:
             replaces="src/repro/kernels/l2_topk.py:70",
             check=lambda got, want: compare(what, got, want, exact=False,
                                             atol=norm_atol(q, x)),
-            shape={"Q": qn, "N": n, "d": d, "k": k})
+            shape={"Q": qn, "N": n, "d": d, "k": k},
+            device_names=("l2_topk_scan", "l2_topk_merge"))
 
     # SPANN's closure assignment (13 of the compare path's launches), then
     # the main path's ground-truth chunk
@@ -972,7 +1084,7 @@ def time_kernels(caps, counts) -> list:
         nbytes=m * 256 * 4 + n * m + n * 4, n_ops=n * m,
         source="src/repro_torch/kernels/csrc/pq_adc.cu",
         replaces="src/repro/kernels/pq_adc.py:44", check=adc_check,
-        shape={"N": n, "M": m}))
+        shape={"N": n, "M": m}, device_names=("pq_adc_kernel",)))
 
     (q, k, v), kw = caps["flash_attention"].args
     causal = kw["causal"]
@@ -996,7 +1108,8 @@ def time_kernels(caps, counts) -> list:
         replaces="src/repro/kernels/flash_attention.py:68",
         check=lambda got, want: flash_check(got, want, "first prefill layer"),
         shape={"B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh, "D": d,
-               "causal": causal, "dtype": str(q.dtype)}))
+               "causal": causal, "dtype": str(q.dtype)},
+        device_names=("flash_fwd",)))
     # the reference fixes f32 scores; on the f32 CUDA cores the same work
     # takes this long at the least
     rows[-1]["bound_f32_cores_ms"] = n_ops / FP32_OPS_PER_S * 1e3

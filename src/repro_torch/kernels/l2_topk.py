@@ -117,22 +117,48 @@ def call(fn, fn_name: str, device, ptrs, ints) -> None:
                            f"(cudaError {err})")
 
 
-def launch(lib, fn_name: str, tensors, sizes, k: int, c: int
+def launch(lib, fn_name: str, tensors, sizes, k: int, c: int, head: int
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked scans: allocate the scratch row [Q, C] and the outputs,
-    launch ``fn_name(*tensors, scratch, out_d, out_i, *sizes, k, stream)``."""
-    fn = bind(lib, fn_name, len(tensors) + 3, len(sizes) + 1)
+    """Masked scans: allocate the outputs, and the scratch key rows [Q, C
+    rounded up to 4] when ``select_smem`` puts the keys in device memory;
+    launch ``fn_name(*tensors, scratch or NULL, out_d, out_i, *sizes, k,
+    smem, stream)``. ``head``: bytes of the kernel's own shared arrays."""
+    fn = bind(lib, fn_name, len(tensors) + 3, len(sizes) + 2)
     device = tensors[0].device
     q_count = sizes[0]
-    scratch = torch.empty((q_count, c), dtype=torch.float32, device=device)
+    shared, smem = select_smem(c, head)
+    scratch = None if shared else torch.empty(
+        (q_count, _cdiv(c, 4) * 4), dtype=torch.int32, device=device)
     out_d = torch.empty((q_count, k), dtype=torch.float32, device=device)
     out_i = torch.empty((q_count, k), dtype=torch.int32, device=device)
     call(fn, fn_name, device,
-         [t.data_ptr() for t in tensors] + [scratch.data_ptr(),
-                                            out_d.data_ptr(),
-                                            out_i.data_ptr()],
-         [*sizes, k])
+         [t.data_ptr() for t in tensors]
+         + [0 if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr()],
+         [*sizes, k, smem])
     return out_d, out_i
+
+
+# Shared memory of a masked scan block (csrc/topk_select.cuh): the
+# survivors (MAX_K u64) and the radix histogram (2048 i32), the kernel's
+# own arrays (q, or the LUT), then one u32 key per pool position (C rounded
+# up to 4: the keys are read as uint4) when the whole fits SMEM_BUDGET of
+# the 227 KB a block may take
+SELECT_HEAD = MAX_K * 8 + 2048 * 4
+SMEM_BUDGET = 200 * 1024
+
+
+def select_smem(c: int, head: int) -> Tuple[bool, int]:
+    """(keys in shared memory, dynamic shared bytes) of a masked scan block
+    over a pool of C positions whose own arrays take ``head`` bytes:
+    ``l2_topk_masked`` 4 d (q), ``pq_adc_masked`` 1024 M (the LUT). Keys
+    that do not fit go to scratch rows in device memory, and the block
+    keeps the rest."""
+    base = SELECT_HEAD + _cdiv(head, 16) * 16
+    keys = 16 * _cdiv(c, 4)
+    if base + keys <= SMEM_BUDGET:
+        return True, base + keys
+    return False, base
 
 
 def sentinels(q_count: int, k: int, device
@@ -217,6 +243,6 @@ def l2_topk_masked(q: torch.Tensor, pools: torch.Tensor, ids: torch.Tensor,
     fn_name = "l2_topk_masked_f32" if pools.dtype == torch.float32 \
         else "l2_topk_masked_bf16"
     out = launch(build.load("l2_topk_masked"), fn_name, (q, pools, ids),
-                 (q_count, c, d), k, c)
+                 (q_count, c, d), k, c, head=4 * d)
     launches["l2_topk_masked"] += 1
     return out

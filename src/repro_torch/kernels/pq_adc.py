@@ -109,6 +109,6 @@ def pq_adc_masked(luts: torch.Tensor, codes: torch.Tensor,
         return sentinels(q_count, k, luts.device)
     from repro_torch.kernels import build
     out = launch(build.load("pq_adc_masked"), "pq_adc_masked",
-                 (luts, codes, ids), (q_count, c, m), k, c)
+                 (luts, codes, ids), (q_count, c, m), k, c, head=1024 * m)
     launches["pq_adc_masked"] += 1
     return out
