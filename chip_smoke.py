@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from ``src/repro_torch/kernels/csrc``
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (one process per source, all at once), counts the tensor-core
 instructions (HMMA) of the bf16 ``flash_attention`` kernels with
 ``cuobjdump``, holds each kernel against its plain PyTorch version on the
-card (edge cases and exact-tie inputs), then drives four paths, each with
-its kernel launches counted from zero and checked:
+card (edge cases and exact-tie inputs), prefills each dense REDUCED config
+through the attention kernel against the plain attention, then drives four
+paths, each with its kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
   -> ``build_pag`` -> ``write_partitions`` (PQ payloads, "dfs" storage
@@ -27,7 +28,8 @@ its kernel launches counted from zero and checked:
   are held against the same forward through the materialised-scores
   attention, and every decode step against the teacher-forced forward.
 * compare: the paper's comparison (Table IV, Figs 8-10) at 100,000 x 128
-  with 1000 queries: PAG, DiskANN (``pq_adc`` per hop), SPANN (closure
+  with 1000 queries: PAG, DiskANN (one ``pq_adc_rows`` launch per wave of
+  its lock-step traversal, the waves of each sweep printed), SPANN (closure
   assignment through ``l2_topk``) and HNSW built and searched, the CIC
   build on half the rows, and a checkpoint round trip of the PAG. One
   JSON row per method and setting (recall@10, simulated QPS, build and
@@ -35,7 +37,8 @@ its kernel launches counted from zero and checked:
   at the highest recall both reach.
 
 Last, each kernel is timed on the inputs its path gave it (``l2_topk``
-twice: SPANN's closure chunk and the 1M ground-truth chunk): CUDA events
+twice: SPANN's closure chunk and the 1M ground-truth chunk;
+``pq_adc_rows`` on the first full DiskANN wave): CUDA events
 around back-to-back wrapper calls (``ms``) and the kernel's own device
 time from ``torch.profiler`` (``device_ms``), beside its plain version,
 one PyTorch library call computing the same function
@@ -122,6 +125,13 @@ RAG_LOGITS_ATOL = 0.25
 # one bf16 step of the output (both sides sum in f32, round once)
 FLASH_BF16_TOL = 2 ** -7
 FLASH_F32_TOL = 1e-5        # f32 sums in another order
+# A prefill of each dense family's REDUCED config (2 layers, D = 16, qwen1.5
+# D = 12) through the kernel against the plain attention: logits of size
+# ~1-5, where 2^-3 is eight bf16 steps; the edge checks hold the kernel
+# itself to one step
+REDUCED_ARCHS = ("tinyllama-1.1b", "command-r-plus-104b", "stablelm-1.6b",
+                 "qwen1.5-4b")
+REDUCED_LOGITS_ATOL = 2 ** -3
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -271,6 +281,87 @@ def check_unmasked_edges(dev) -> None:
     torch.cuda.synchronize()
 
 
+def check_adc_rows_edges(dev) -> None:
+    """pq_adc_rows against its plain version on the card, bit for bit
+    (both sum m = 0 .. M-1): empty segments, one segment, segments off the
+    64- and 256-thread blocks, ids 0 and n-1, M = 1, 4, 8, 12, 16 and 64
+    (8-, 4- and 1-byte code loads; M = 64 stages 64 KB), both LUT variants
+    forced and chosen, a table off 8-byte alignment, a long single segment
+    (the single-LUT case), T == 0, an id outside the table (NaN), and the
+    refusals."""
+    from repro_torch.kernels import ops, pq_adc
+    rng = np.random.default_rng(3)
+
+    def case(q, lens, m, n, stage=None, table=None, name=""):
+        luts = torch.from_numpy(rng.random((q, m, 256), np.float32)).to(dev)
+        if table is None:
+            table = torch.from_numpy(rng.integers(0, 256, (n, m),
+                                                  dtype=np.uint8)).to(dev)
+        offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        rows = rng.integers(0, n, int(offsets[-1])).astype(np.int32)
+        if len(rows):
+            rows[0], rows[-1] = 0, n - 1
+        rows, offsets = (torch.from_numpy(a).to(dev) for a in (rows, offsets))
+        got = pq_adc.pq_adc_rows(luts, table, rows, offsets, stage=stage)
+        want = pq_adc.pq_adc_rows_plain(luts, table, rows, offsets)
+        if not torch.equal(got, want):
+            raise AssertionError(f"pq_adc_rows {name} Q={q} M={m} "
+                                 f"stage={stage}: off by "
+                                 f"{(got - want).abs().max():.3g}")
+
+    # the comparison's waves: 1000 queries, ~50 rows, some done (0 rows)
+    lens = rng.integers(0, 100, 1000)
+    lens[::7] = 0
+    for m in (1, 4, 8, 12, 16, 64):
+        for stage in (None, False, True):
+            case(1000, lens, m, 100_000, stage, name="wave")
+    for q, lens_q, m in [(1, [1], 8), (1, [65], 8), (3, [0, 257, 0], 8),
+                         (5, [0, 0, 0, 0, 0], 8), (2, [64, 63], 16),
+                         (1, [50_000], 8), (3, [10_000] * 3, 64),
+                         (4, [300, 0, 1, 513], 1)]:
+        for stage in (None, False, True):
+            case(q, np.asarray(lens_q), m, 100_000, stage, name="edge")
+    # a table 4 bytes off 8-byte alignment takes the 4-byte loads
+    flat = torch.from_numpy(rng.integers(0, 256, 8 * 5000 + 4,
+                                         dtype=np.uint8)).to(dev)
+    odd = flat[4:].view(5000, 8)
+    if odd.data_ptr() % 8 == 0:
+        raise AssertionError("the odd table is 8-byte aligned")
+    for stage in (False, True):
+        case(40, rng.integers(0, 80, 40), 8, 5000, stage, table=odd,
+             name="unaligned table")
+    luts = torch.rand((2, 8, 256), device=dev)
+    table = torch.zeros((10, 8), dtype=torch.uint8, device=dev)
+    rows = torch.tensor([0, 9, 10, -1], dtype=torch.int32, device=dev)
+    offsets = torch.tensor([0, 2, 4], dtype=torch.int32, device=dev)
+    got = pq_adc.pq_adc_rows(luts, table, rows, offsets)
+    if not (torch.isfinite(got[:2]).all() and torch.isnan(got[2:]).all()):
+        raise AssertionError("pq_adc_rows: an id outside the table must "
+                             "give NaN")
+    before = ops.launch_counts()["pq_adc_rows"]
+    empty = pq_adc.pq_adc_rows(luts, table, rows[:0], torch.zeros(
+        3, dtype=torch.int32, device=dev))
+    if empty.shape != (0,) or ops.launch_counts()["pq_adc_rows"] != before:
+        raise AssertionError("pq_adc_rows: T == 0 must not launch")
+    for bad in (lambda: pq_adc.pq_adc_rows(luts, table.int(), rows, offsets),
+                lambda: pq_adc.pq_adc_rows(luts, table, rows.long(), offsets),
+                lambda: pq_adc.pq_adc_rows(luts.double(), table, rows,
+                                           offsets),
+                lambda: pq_adc.pq_adc_rows(luts, table, rows, offsets[:2]),
+                lambda: pq_adc.pq_adc_rows(
+                    torch.zeros((2, 65, 256), device=dev),
+                    torch.zeros((10, 65), dtype=torch.uint8, device=dev),
+                    rows, offsets),
+                lambda: pq_adc.pq_adc_rows(luts.cpu(), table, rows, offsets),
+                lambda: pq_adc.pq_adc_rows(luts, table.cpu(), rows, offsets)):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("pq_adc_rows took arguments it must refuse")
+    torch.cuda.synchronize()
+
+
 def flash_check(got: torch.Tensor, want: torch.Tensor, name: str) -> float:
     """Hold a flash_attention output against its plain version's: one
     bf16 step for bf16 outputs, FLASH_F32_TOL for f32. Returns the max
@@ -290,8 +381,9 @@ def flash_check(got: torch.Tensor, want: torch.Tensor, name: str) -> float:
 def check_flash_edges(dev) -> None:
     """flash_attention against its plain version on the card: causal and
     full, Sq = Sk and Sq < Sk (Sq > Sk when full), lengths off the 64-row
-    and 32-key tiles, GQA groups 1, 4 and 8, D 32, 64 and 128, f32 and
-    bf16, and the rag path's own shape."""
+    and 32-key tiles, GQA groups 1, 4 and 8, every compiled D (16, 32, 64,
+    112, 128) and padded ones (12, 48, 100), f32 and bf16, and the rag
+    path's own shape."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     rng = np.random.default_rng(2)
@@ -321,6 +413,24 @@ def check_flash_edges(dev) -> None:
             (1, 8, 2, 70, 200, 128, True, bf16),
             (1, 8, 8, 96, 96, 64, True, bf16),
             (1, 16, 2, 96, 96, 64, True, bf16),
+            # the REDUCED configs' D = 16 and qwen1.5's D = 12 (padded to
+            # 16), kimi-k2's D = 112, and widths padded to 64 and 112:
+            # causal and full, ragged Sq and Sk, both dtypes
+            (2, 4, 2, 77, 77, 16, True, bf16),
+            (2, 4, 2, 77, 77, 16, True, f32),
+            (1, 4, 1, 50, 93, 16, False, bf16),
+            (1, 4, 1, 50, 93, 16, False, f32),
+            (2, 5, 5, 40, 40, 12, True, bf16),
+            (2, 5, 5, 40, 40, 12, True, f32),
+            (1, 5, 5, 33, 70, 12, False, bf16),
+            (1, 5, 5, 33, 70, 12, False, f32),
+            (1, 8, 1, 100, 130, 112, True, bf16),
+            (1, 8, 1, 100, 130, 112, True, f32),
+            (2, 8, 8, 81, 200, 112, False, bf16),
+            (2, 8, 8, 81, 200, 112, False, f32),
+            (1, 8, 2, 1, 531, 112, True, bf16),
+            (1, 4, 2, 65, 65, 48, True, bf16),
+            (1, 4, 2, 65, 65, 100, False, f32),
             # last: the refusals below cut this shape
             (RAG_BATCH, 32, 4, RAG_PROMPT, RAG_PROMPT, 64, True, bf16)]:
         q = torch.from_numpy(rng.standard_normal((b, sq, h, d), np.float32))
@@ -338,9 +448,8 @@ def check_flash_edges(dev) -> None:
         raise AssertionError("flash_attention: Sq == 0 must not launch")
     k1 = k[:, :10].contiguous()
     for bad in (lambda: fa.flash_attention(q, k1, k1[:, :10]),  # Sq > Sk
-                lambda: fa.flash_attention(q[..., :48].contiguous(),
-                                           k[..., :48].contiguous(),
-                                           v[..., :48].contiguous()),
+                lambda: fa.flash_attention(  # D above the widest width
+                    *(torch.nn.functional.pad(t, (0, 80)) for t in (q, k, v))),
                 lambda: fa.flash_attention(q, k.float(), v),
                 lambda: fa.flash_attention(q[:, :, :30].contiguous(), k, v),
                 lambda: fa.flash_attention(q.transpose(1, 2), k, v),
@@ -381,13 +490,15 @@ def check_flash_tensor_cores() -> None:
           f"{json.dumps({v: sum(c.values()) for v, c in by_variant.items()})}"
           f" per kernel {json.dumps(counts)}", flush=True)
     bf16 = by_variant["flash_fwd_bf16"]
-    if len(bf16) != 3 or min(bf16.values()) == 0:
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    if len(bf16) != len(HEAD_DIMS) or min(bf16.values()) == 0:
         raise AssertionError("flash_attention: a bf16 kernel holds no HMMA")
 
 
 def check_kernel_edges(dev) -> None:
     """Kernel vs plain version on edge shapes and exact-tie inputs."""
     check_unmasked_edges(dev)
+    check_adc_rows_edges(dev)
     check_flash_edges(dev)
     check_masked_edges(dev)
 
@@ -523,6 +634,16 @@ def check_masked_edges(dev) -> None:
             continue
         raise AssertionError("a kernel took arguments it must refuse")
     torch.cuda.synchronize()
+
+
+def nth_call(n: int):
+    """A ``Capture`` test that accepts the call numbered ``n`` (from 0)."""
+    seen = [-1]
+
+    def want(_args):
+        seen[0] += 1
+        return seen[0] == n
+    return want
 
 
 class Capture:
@@ -736,6 +857,39 @@ def plain_attention():
         model.attention = saved
 
 
+def check_reduced_prefills(dev) -> dict:
+    """A prefill (the teacher-forced forward) of each dense REDUCED
+    config on the card through the flash_attention kernel, one launch a
+    layer, against the same forward through the plain attention, to
+    REDUCED_LOGITS_ATOL. Returns each config's head dim, launches and
+    max abs error."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward, init_params
+    out = {}
+    for arch in REDUCED_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        model = init_params(cfg, seed=0, device=dev)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 77))).to(dev)
+        before = ops.launch_counts()["flash_attention"]
+        with torch.inference_mode():
+            got = forward(model, {"tokens": tokens}, cfg)
+            launched = ops.launch_counts()["flash_attention"] - before
+            with plain_attention():
+                want = forward(model, {"tokens": tokens}, cfg)
+        err = float((got - want).abs().max())
+        out[arch] = {"head_dim": cfg.resolved_head_dim, "launches": launched,
+                     "max_abs": err,
+                     "logits_max_abs": float(want.abs().max())}
+        if launched != cfg.n_layers or not torch.isfinite(got).all() \
+                or err > REDUCED_LOGITS_ATOL:
+            raise AssertionError(f"REDUCED prefill {arch}: {out[arch]}")
+    print(f"REDUCED prefills vs plain attention: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
 def check_rag(r: dict) -> dict:
     """At full width and in bf16: (1) the prefill logits through the
     kernel against the same forward through the plain attention; (2) the
@@ -787,6 +941,7 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
     import tempfile
     from repro_torch.baselines.diskann import build_diskann, search_diskann
     from repro_torch.baselines.hnsw import build_hnsw, search_hnsw
+    from repro_torch.baselines.pq import adc_lut, adc_luts
     from repro_torch.baselines.spann import build_spann, search_spann
     from repro_torch.core.cic import cic_build
     from repro_torch.core.graph_search import greedy_search
@@ -802,6 +957,7 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
         make_dataset,
         recall_at_k,
     )
+    from repro_torch.kernels import ops
     from repro_torch.storage.simulator import ObjectStore, StorageConfig
     with phase(f"compare: make_dataset n={n}"):
         ds = make_dataset("clustered", n=n, d=D, n_queries=n_queries,
@@ -853,12 +1009,23 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
         t0 = time.perf_counter()
         dk = build_diskann(ds.base, dk_store, R=16, L=48, M=8, device=dev)
         build_s["DiskANN"] = time.perf_counter() - t0
+    # the search's one batched LUT op must give each query's own LUT bit
+    # for bit: one flipped low bit moves a near-tie and the traversal
+    q_dev = torch.from_numpy(ds.queries).to(dev)
+    if not torch.equal(adc_luts(dk.cb, q_dev), torch.stack(
+            [adc_lut(dk.cb, q) for q in q_dev])):
+        raise AssertionError("adc_luts differs from the per-query adc_lut")
     for L in CMP_DK_SWEEP:
         with phase(f"compare: DiskANN L{L}"):
+            before = ops.launch_counts()["pq_adc_rows"]
             t0 = time.perf_counter()
             ids, _, lats = search_diskann(dk, ds.queries, dk_store, k=K, L=L)
             row("DiskANN", f"L{L}", ids, 1.0 / np.mean(lats),
                 time.perf_counter() - t0)
+            # one launch scores every entry point, then one launch a wave
+            n = ops.launch_counts()["pq_adc_rows"] - before
+            print(f"DiskANN L{L}: {n} pq_adc_rows launches (1 + {n - 1} "
+                  f"waves)", flush=True)
     del dk, dk_store
 
     with phase("compare: SPANN build"):
@@ -1069,22 +1236,42 @@ def time_kernels(caps, counts) -> list:
     rows.append(l2_row(caps["l2_topk"], counts["l2_topk"]["l2_topk"],
                        "ground-truth chunk"))
 
-    (lut, codes), _ = caps["pq_adc"].args
-    n, m = codes.shape
+    (luts, table, node_ids, offsets), _ = caps["pq_adc_rows"].args
+    qn, m = luts.shape[:2]
+    t_count = node_ids.shape[0]
 
-    def adc_check(got, want):
+    def rows_check(got, want):
         if not torch.equal(got, want):   # same summation order
-            raise AssertionError("pq_adc: the DiskANN hop disagrees")
+            raise AssertionError("pq_adc_rows: the DiskANN wave disagrees")
         return 0.0
 
+    def rows_library():
+        seg = torch.repeat_interleave(
+            torch.arange(qn, device=luts.device),
+            (offsets[1:] - offsets[:-1]).long(), output_size=t_count)
+        flat = (seg[:, None] * m + torch.arange(m, device=luts.device)) \
+            * 256 + table[node_ids.long()].long()
+        return luts.view(-1)[flat].sum(1)
+
+    # the bytes the wave must move: ids, offsets and outputs, and each
+    # table row and LUT entry it touches, once
+    lens = np.diff(offsets.cpu().numpy())
+    seg = np.repeat(np.arange(qn), lens)
+    codes = table[node_ids.long()].long().cpu().numpy()
+    lut_entries = np.unique((seg[:, None] * m + np.arange(m)) * 256 + codes)
+    nbytes = (2 * t_count + qn + 1) * 4 \
+        + len(np.unique(node_ids.cpu().numpy())) * m + len(lut_entries) * 4
     rows.append(kernel_report(
-        "pq_adc", pq_adc.pq_adc, pq_adc.pq_adc_plain,
-        lambda: torch.gather(lut, 1, codes.long().T).sum(0),
-        (lut, codes), counts["pq_adc"]["pq_adc"],
-        nbytes=m * 256 * 4 + n * m + n * 4, n_ops=n * m,
-        source="src/repro_torch/kernels/csrc/pq_adc.cu",
-        replaces="src/repro/kernels/pq_adc.py:44", check=adc_check,
-        shape={"N": n, "M": m}, device_names=("pq_adc_kernel",)))
+        "pq_adc_rows", pq_adc.pq_adc_rows, pq_adc.pq_adc_rows_plain,
+        rows_library, (luts, table, node_ids, offsets),
+        counts["pq_adc_rows"]["pq_adc_rows"], nbytes=nbytes,
+        n_ops=t_count * m, source="src/repro_torch/kernels/csrc/pq_adc.cu",
+        replaces="src/repro/kernels/pq_adc.py:44", check=rows_check,
+        shape={"Q": qn, "T": t_count, "M": m, "segments": int((lens > 0)
+                                                               .sum()),
+               "lut_entries": len(lut_entries),
+               "staged": t_count >= pq_adc.STAGE_ROWS * qn},
+        device_names=("pq_adc_rows_kernel",)))
 
     (q, k, v), kw = caps["flash_attention"].args
     causal = kw["causal"]
@@ -1176,6 +1363,8 @@ def main() -> int:
     with phase("kernels vs plain (edge cases, exact ties)"):
         check_flash_tensor_cores()
         check_kernel_edges(dev)
+    with phase("REDUCED prefills vs plain attention"):
+        check_reduced_prefills(dev)
 
     counts = {}
 
@@ -1222,21 +1411,25 @@ def main() -> int:
                                  lambda a: a[0].shape[0] == MAX_BATCH),
         # the first ground-truth chunk of make_dataset
         "l2_topk": Capture(ops, "l2_topk", lambda a: a[1].shape[0] == N),
-        # a DiskANN hop (the entry point's launch scores one row)
-        "pq_adc": Capture(ops, "pq_adc", lambda a: a[1].shape[0] > 1),
+        # the compare path's first full DiskANN wave: the second call of
+        # the L16 sweep (the first scores the entry points, the next the
+        # entry's neighbours), where every query scores the neighbours of
+        # a full beam of frontier nodes
+        "pq_adc_rows": Capture(ops, "pq_adc_rows", nth_call(2)),
         # the first closure chunk of SPANN's build (k = N_CLOSURE = 8)
         "l2_topk_closure": Capture(ops, "l2_topk", lambda a: a[2] == 8)})
     with path("main", serve_kernels), caps["l2_topk_masked"], \
             caps["pq_adc_masked"], caps["l2_topk"]:
         index_and_serve("main", N, N_QUERIES, SCALE_FLOOR, dev)
-    with path("compare", ("l2_topk", "l2_topk_masked", "pq_adc")), \
-            caps["pq_adc"], caps["l2_topk_closure"]:
+    with path("compare", ("l2_topk", "l2_topk_masked", "pq_adc_rows")), \
+            caps["pq_adc_rows"], caps["l2_topk_closure"]:
         comparison(dev)
 
     with phase("kernel timing at path shapes"):
         by_kernel = {"l2_topk_masked": counts["main"],
                      "pq_adc_masked": counts["main"],
-                     "l2_topk": counts["main"], "pq_adc": counts["compare"],
+                     "l2_topk": counts["main"],
+                     "pq_adc_rows": counts["compare"],
                      "l2_closure": counts["compare"],
                      "flash_attention": counts["rag"]}
         rows = time_kernels(caps, by_kernel)

@@ -3,7 +3,8 @@
 run's paths give them.
 
     python3 scripts/kernel_bench.py [--src DIR] [--label NAME] [--edges]
-                                    [--only masked|unmasked|all] [--clocks]
+                                    [--only masked|unmasked|adc|all]
+                                    [--clocks]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
 builds the kernels it times with ``nvcc``, prints ``nvcc``'s register and
@@ -23,7 +24,18 @@ wrapper calls, ``device_ms`` the kernel's own time from ``torch.profiler``.
   (one prefill layer of TinyLlama-1.1B on the RAG path), beside
   ``scaled_dot_product_attention`` on the same inputs.
 
-``--only all`` (the default) times both groups. ``--clocks`` adds, for
+* ``--only adc``: one DiskANN wave of the 100k comparison, seeded: Q=1000
+  queries with ~50 node ids each (a uniform length in [25, 75]; every
+  tenth query done, with none) in a code table of 100,000 x 8 u8 on the
+  card, each query with its own LUT. The pattern of one wave before the
+  lock-step traversal, per query one H2D copy of its ids, the index of
+  its code rows, one ``pq_adc`` launch and one ``.cpu()`` (host wall over
+  the wave), against one ``pq_adc_rows`` wave (one packed H2D copy, one
+  launch, one ``.cpu()``); the kernel alone (event and device ms, bound,
+  the gather + sum library call); and the crossover of its two LUT
+  variants over mean segment lengths 8 .. 4096.
+
+``--only all`` (the default) times every group but ``adc``. ``--clocks`` adds, for
 the two masked kernels, the clock64 cycles of each phase of a block
 (setup, scan, threshold, survivors, rank and output), median and max
 over the blocks, from the kernels rebuilt with -DREPRO_PHASE_CLOCKS
@@ -54,8 +66,11 @@ FLASH_SHAPE = (8, 500, 500, 32, 4, 64)   # B, Sq, Sk, H, KVH, D
 L2_MASKED_SHAPE = (256, 14_973, 128, 10)
 ADC_MASKED_SHAPE = (256, 14_941, 8, 64)
 REAL_SHARE = 10_201 / 14_973   # mean real rows of a pool over C
+ADC_WAVE = (1000, 100_000, 8)   # Q, table rows, M
+ADC_CROSSOVER_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 GROUPS = {"masked": ("l2_topk_masked", "pq_adc_masked"),
           "unmasked": ("flash_attention", "l2_topk"),
+          "adc": ("pq_adc",),
           "all": ("flash_attention", "l2_topk", "l2_topk_masked",
                   "pq_adc_masked")}
 
@@ -146,6 +161,118 @@ def bench_masked(cs, dev, report, clocks: bool = False) -> None:
             "pq_adc_masked", fn, qn)
 
 
+def adc_wave(gen, q: int, n: int, m: int, mean: int, dev, done=10):
+    """Seeded inputs of one DiskANN wave: luts [Q, M, 256] f32 and a code
+    table [n, M] u8 on the card, node ids [T] and offsets [Q + 1] on the
+    host (int32 numpy; segment lengths uniform in [mean/2, 3 mean/2],
+    every ``done``-th query empty)."""
+    luts = torch.rand((q, m, 256), generator=gen, device=dev)
+    table = torch.randint(0, 256, (n, m), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    rng = np.random.default_rng(mean)
+    lens = rng.integers(mean // 2, mean + mean // 2 + 1, q)
+    lens[::done] = 0
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    ids = rng.integers(0, n, int(offsets[-1])).astype(np.int32)
+    return luts, table, ids, offsets
+
+
+def bench_adc(cs, dev, report) -> None:
+    from repro_torch.baselines.pq import adc_distances_rows
+    from repro_torch.kernels import pq_adc
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qn, n, m = ADC_WAVE
+    luts, table, ids, offsets = adc_wave(gen, qn, n, m, 50, dev)
+    t_count = len(ids)
+    segs = [(q, ids[offsets[q]:offsets[q + 1]].astype(np.int64))
+            for q in range(qn) if offsets[q + 1] > offsets[q]]
+
+    def per_hop():
+        """The parent's pattern: per query one H2D copy, the index, one
+        pq_adc launch and one .cpu()."""
+        return [pq_adc.pq_adc(luts[q], table[torch.from_numpy(s).to(dev)])
+                .cpu() for q, s in segs]
+
+    def wave():
+        return adc_distances_rows(luts, table, ids, offsets).cpu()
+
+    got = wave().numpy()
+    want = np.concatenate([d.numpy() for d in per_hop()])
+    if not np.array_equal(got, want):
+        raise AssertionError("pq_adc_rows: the wave disagrees with the "
+                             "per-hop launches")
+
+    def host_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    rows_t = torch.from_numpy(ids).to(dev)
+    offsets_t = torch.from_numpy(offsets).to(dev)
+    args = (luts, table, rows_t, offsets_t)
+    fn = lambda: pq_adc.pq_adc_rows(*args)  # noqa: E731
+    err = 0.0 if torch.equal(fn(), pq_adc.pq_adc_rows_plain(*args)) else 1.0
+    if err:
+        raise AssertionError("pq_adc_rows: off its plain version")
+    lens = np.diff(offsets)
+    seg = np.repeat(np.arange(qn), lens)
+    codes = table[rows_t.long()].long().cpu().numpy()
+    lut_entries = len(np.unique((seg[:, None] * m + np.arange(m)) * 256
+                                + codes))
+    nbytes = (2 * t_count + qn + 1) * 4 + len(np.unique(ids)) * m \
+        + lut_entries * 4
+
+    def library():
+        s = torch.repeat_interleave(torch.arange(qn, device=dev),
+                                    (offsets_t[1:] - offsets_t[:-1]).long(),
+                                    output_size=t_count)
+        flat = (s[:, None] * m + torch.arange(m, device=dev)) * 256 \
+            + table[rows_t.long()].long()
+        return luts.view(-1)[flat].sum(1)
+
+    report["adc_wave"] = {
+        "Q": qn, "T": t_count, "M": m, "segments": len(segs),
+        "per_hop_host_ms": host_ms(per_hop, 5),
+        "wave_host_ms": host_ms(wave, 50),
+        "ms": cs.cuda_time_ms(fn, reps=50),
+        "device_ms": cs.device_ms(fn, 20, ("pq_adc_rows_kernel",)),
+        "per_hop_device_ms": cs.device_ms(
+            lambda: [pq_adc.pq_adc(luts[q], table[rows_t[offsets[q]:
+                                                         offsets[q + 1]]
+                                                  .long()])
+                     for q, _ in segs], 2, ("pq_adc_kernel",)),
+        "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+        "library_ms": cs.cuda_time_ms(library, reps=20),
+        "plain_ms": cs.cuda_time_ms(
+            lambda: pq_adc.pq_adc_rows_plain(*args), reps=10)}
+    # per_hop_device_ms: the profiler's median pq_adc_kernel launch times
+    # the number of launches of one wave
+    if report["adc_wave"]["per_hop_device_ms"] is not None:
+        report["adc_wave"]["per_hop_device_ms"] *= len(segs)
+    del luts, table
+    cross = {}
+    for mean in ADC_CROSSOVER_ROWS:
+        luts, table, ids, offsets = adc_wave(gen, qn, n, m, mean, dev)
+        args = tuple(torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+                     else a for a in (luts, table, ids, offsets))
+        want = pq_adc.pq_adc_rows_plain(*args)
+        cross[mean] = {}
+        for stage in (False, True):
+            f = lambda: pq_adc.pq_adc_rows(*args, stage=stage)  # noqa: E731
+            if not torch.equal(f(), want):
+                raise AssertionError(f"pq_adc_rows stage={stage} mean "
+                                     f"{mean}: off its plain version")
+            cross[mean]["staged" if stage else "read_only"] = cs.device_ms(
+                f, 20, ("pq_adc_rows_kernel",))
+        print(f"adc crossover mean rows {mean}: {json.dumps(cross[mean])}",
+              flush=True)
+    report["adc_crossover_device_ms"] = cross
+
+
 def bench_unmasked(cs, dev, report) -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import l2_topk
@@ -212,11 +339,15 @@ def main() -> int:
             cs.check_unmasked_edges(dev)
         if "l2_topk_masked" in names:
             cs.check_masked_edges(dev)
+        if names == GROUPS["adc"]:
+            cs.check_adc_rows_edges(dev)
         report["edges_s"] = time.perf_counter() - t0
     if "l2_topk_masked" in names:
         bench_masked(cs, dev, report, clocks=args.clocks)
     if "l2_topk" in names:
         bench_unmasked(cs, dev, report)
+    if names == GROUPS["adc"]:
+        bench_adc(cs, dev, report)
     report["card"] = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

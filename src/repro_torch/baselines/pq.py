@@ -2,8 +2,8 @@
 encoding and ADC lookup tables, for the compressed data plane (the
 ``pq_adc_masked`` CUDA kernel scores pooled codes against per-query
 tables) and for the DiskANN baseline's in-memory guidance distances
-(``adc_lut`` per query, ``adc_distances`` through the ``pq_adc`` CUDA
-kernel on the card).
+(``adc_luts`` for a query batch, ``adc_distances_rows`` through the
+``pq_adc_rows`` CUDA kernel on the card, one launch per search wave).
 
 Training, encoding and the ADC tables run on a torch device.
 """
@@ -88,8 +88,29 @@ def adc_lut(cb: PQCodebook, q: torch.Tensor) -> torch.Tensor:
     return (diff * diff).sum(-1)
 
 
-def adc_distances(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """Approximate sq-distances of code rows [n, M] under one LUT -> [n],
-    through the ``pq_adc`` kernel for a card LUT, its plain version for a
-    CPU one."""
-    return ops.pq_adc(lut, codes)
+def adc_luts(cb: PQCodebook, q: torch.Tensor) -> torch.Tensor:
+    """``adc_lut`` of every query of q [Q, d] -> [Q, M, 256] f32 on q's
+    device, in one batched op with ``adc_lut``'s own arithmetic (the
+    elementwise square, then the sum over the subvector's last axis), so
+    row q equals ``adc_lut(cb, q[q])`` bit for bit (``adc_lut_batch``
+    sums through ``einsum``, whose order may differ)."""
+    diff = cb.centroids_on(q.device)[None] \
+        - q.float().reshape(len(q), cb.M, 1, cb.d_sub)
+    return (diff * diff).sum(-1)
+
+
+def adc_distances_rows(luts: torch.Tensor, table: torch.Tensor,
+                       rows: np.ndarray, offsets: np.ndarray
+                       ) -> torch.Tensor:
+    """Approximate sq-distances of many queries' code rows in one call:
+    luts [Q, M, 256] and the code table [n, M] on one device, rows [T]
+    node ids and offsets [Q + 1] on the host (query q owns rows
+    [offsets[q], offsets[q + 1])) -> [T] f32 on the device. The ids and
+    offsets go up in one copy; the ``pq_adc_rows`` kernel gathers the code
+    rows itself (its plain version for CPU tensors)."""
+    q_count = luts.shape[0]
+    packed = torch.from_numpy(np.concatenate(
+        [np.asarray(offsets), np.asarray(rows)]).astype(np.int32)).to(
+        luts.device)
+    return ops.pq_adc_rows(luts, table, packed[q_count + 1:],
+                           packed[:q_count + 1])

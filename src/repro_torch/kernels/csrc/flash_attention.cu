@@ -7,6 +7,10 @@
 // is the model's: q, o [B, Sq, H, D]; k, v [B, Sk, KVH, D]; query head h
 // reads KV head h / (H / KVH). Sq and Sk take any length: ragged q tiles and
 // ragged key tiles are masked here (the TPU kernel asserted divisibility).
+// Head widths D = 16, 32, 64, 112 and 128 are compiled; the wrapper pads any
+// other D up to the next of them with zero columns (which leave every score
+// unchanged) and passes the scale 1/sqrt(D) of the true D, rounded once to
+// f32, so a padded launch computes the unpadded attention.
 //
 // Bound on the H100: at the prefill shape (B=8, H=32, KVH=4, Sq=Sk=500,
 // D=64, bf16, causal) the bytes are 37 MB (11 us at 3.35 TB/s) and the
@@ -21,7 +25,7 @@
 //    (ldmatrix). 64-key K and V tiles stream through a 2-stage shared ring
 //    filled by 16-byte cp.async.cg, rows padded by 16 bytes so that every
 //    ldmatrix phase hits 32 distinct banks. S = q.k^T is accumulated in f32
-//    on the tensor cores, then scaled by 1/sqrt(D) * log2(e) (exp2f below);
+//    on the tensor cores, then scaled by scale * log2(e) (exp2f below);
 //    masked entries (causal, and keys past Sk, whose shared rows are zero)
 //    are set to -1e30 and never weighed. Row max and row sum reduce over the
 //    4 lanes of a quad. P is rounded to bf16 and repacked in registers as A
@@ -37,7 +41,6 @@
 //    off). One thread per query row holds its running state and D
 //    accumulators; the scaled q tile and 32-key K/V tiles sit in shared
 //    memory as f32.
-#include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,6 +123,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KVH,
                int causal, float scale_log2) {
+  static_assert(D % 16 == 0, "the bf16 kernel steps D by 16 columns");
   constexpr int LD = D + 8;       // shared row stride, bf16
   constexpr int CH = D / 8;       // 16-byte chunks per row
   constexpr int KD = D / 16;      // k-steps of q.k^T
@@ -422,15 +426,10 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// 1 / sqrt(D), rounded once to f32 as the reference's scale
-template <int D>
-float inv_sqrt_d() {
-  return static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-}
-
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int H, int KVH, int causal, cudaStream_t s) {
+                int Sq, int Sk, int H, int KVH, int causal, float scale,
+                cudaStream_t s) {
   constexpr size_t smem = smem_bytes_bf16<D>();
   const cudaError_t err = allow_smem(flash_fwd_bf16<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -438,13 +437,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   flash_fwd_bf16<D><<<grid, kThreadsBF, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Sk, H, KVH, causal, inv_sqrt_d<D>() * kLog2e);
+      Sk, H, KVH, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KVH, int causal, cudaStream_t s) {
+               int Sq, int Sk, int H, int KVH, int causal, float scale,
+               cudaStream_t s) {
   constexpr size_t smem = smem_bytes_f32<D>();
   const cudaError_t err = allow_smem(flash_fwd_f32<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -452,7 +452,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   flash_fwd_f32<D><<<grid, kRows, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KVH,
-      causal, inv_sqrt_d<D>());
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -460,29 +460,34 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 
 // q, o [B, Sq, H, D]; k, v [B, Sk, KVH, D]; contiguous, one dtype (bf16
 // pointers 16-byte aligned). B, Sq >= 1; Sk >= 1; H % KVH == 0;
-// D in {32, 64, 128}; causal needs Sq <= Sk. Returns the cudaError_t of the
-// launch (0 = queued).
+// D in {16, 32, 64, 112, 128}; causal needs Sq <= Sk; the scores are
+// multiplied by scale (1 / sqrt of the caller's true head width). Returns
+// the cudaError_t of the launch (0 = queued).
+#define REPRO_FLASH_CASE(launch, W) \
+  case W:                           \
+    return launch<W>(q, k, v, o, B, Sq, Sk, H, KVH, causal, scale, s);
+#define REPRO_FLASH_DISPATCH(launch)                   \
+  switch (D) {                                         \
+    REPRO_FLASH_CASE(launch, 16)                       \
+    REPRO_FLASH_CASE(launch, 32)                       \
+    REPRO_FLASH_CASE(launch, 64)                       \
+    REPRO_FLASH_CASE(launch, 112)                      \
+    REPRO_FLASH_CASE(launch, 128)                      \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* o, int B, int Sq, int Sk, int H,
-                                   int KVH, int D, int causal, void* stream) {
+                                   int KVH, int D, int causal, float scale,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch_f32<32>(q, k, v, o, B, Sq, Sk, H, KVH, causal, s);
-    case 64: return launch_f32<64>(q, k, v, o, B, Sq, Sk, H, KVH, causal, s);
-    case 128: return launch_f32<128>(q, k, v, o, B, Sq, Sk, H, KVH, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  REPRO_FLASH_DISPATCH(launch_f32)
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int Sq,
                                     int Sk, int H, int KVH, int D, int causal,
-                                    void* stream) {
+                                    float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch_bf16<32>(q, k, v, o, B, Sq, Sk, H, KVH, causal, s);
-    case 64: return launch_bf16<64>(q, k, v, o, B, Sq, Sk, H, KVH, causal, s);
-    case 128: return launch_bf16<128>(q, k, v, o, B, Sq, Sk, H, KVH, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  REPRO_FLASH_DISPATCH(launch_bf16)
 }

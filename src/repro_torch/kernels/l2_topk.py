@@ -95,19 +95,22 @@ def check_cuda_args(name: str, tensors, dtypes, k: int):
         raise ValueError(f"{name}: k={k} outside [1, {MAX_K}]")
 
 
-def bind(lib, fn_name: str, n_ptrs: int, n_ints: int):
+def bind(lib, fn_name: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
     """``lib.fn_name`` with its C signature: ``n_ptrs`` pointers,
-    ``n_ints`` ints and the stream; returns a cudaError_t."""
+    ``n_ints`` ints, ``n_floats`` floats and the stream; returns a
+    cudaError_t."""
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + \
-            [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+            [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + \
+            [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def call(fn, fn_name: str, device, ptrs, ints) -> None:
-    """Launch ``fn(*ptrs, *ints, stream)`` on the current stream of
+    """Launch ``fn(*ptrs, *ints, stream)`` (``ints`` ends with the float
+    arguments, if any) on the current stream of
     ``device`` (no synchronise); raise on a refused launch."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

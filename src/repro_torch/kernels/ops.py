@@ -47,6 +47,15 @@ def pq_adc(lut, codes):
     return _pq.pq_adc(lut, codes)
 
 
+def pq_adc_rows(luts, table, rows, offsets):
+    """luts [Q, M, 256] f32, table [n, M] u8, rows [T] i32 ids, offsets
+    [Q + 1] i32 -> dists [T] f32: row t scored under the LUT of the query
+    whose segment [offsets[q], offsets[q + 1]) holds it."""
+    if _on_cpu(luts):
+        return _pq.pq_adc_rows_plain(luts, table, rows, offsets)
+    return _pq.pq_adc_rows(luts, table, rows, offsets)
+
+
 def pq_adc_masked(luts, codes, ids, k: int = 10):
     """luts [Q, M, 256] f32, codes [Q, C, M] u8, ids [Q, C] (-1 pads
     ragged rows) -> (d2 [Q, k] ascending, ids [Q, k]); short rows pad

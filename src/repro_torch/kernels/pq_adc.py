@@ -3,8 +3,11 @@
 Ports of the two TPU kernels of ``repro/kernels/pq_adc.py``:
 
 * ``pq_adc``: one query's ADC table ``lut [M, 256]`` against code rows
-  ``codes [N, M]`` gives ``d [N]`` (``csrc/pq_adc.cu``; the DiskANN
-  baseline's in-memory guidance distances);
+  ``codes [N, M]`` gives ``d [N]`` (``csrc/pq_adc.cu``);
+* ``pq_adc_rows``: the same sums for many queries in one launch, each
+  query's LUT against its own segment of node ids, whose code rows the
+  kernel reads from a resident code table (``csrc/pq_adc.cu``; one launch
+  per DiskANN wave, the baseline's in-memory guidance distances);
 * ``pq_adc_masked``: per query, its own LUT against its own ragged pool
   of code rows, with exact top-k (``csrc/pq_adc_masked.cu``; the PQ
   plane's selection). Selection, tie rule and sentinels are those of
@@ -30,9 +33,15 @@ from repro_torch.kernels.l2_topk import (
 )
 
 MAX_M = 64   # the [M, 256] f32 LUT must fit shared memory
+# pq_adc_rows copies each query's LUT to shared memory when its segments
+# hold at least this many rows on average, and reads it through the
+# read-only cache below that: at M = 8 and 1000 queries the read-only
+# variant is faster at 32 rows and the staged one at 64
+# (scripts/kernel_bench.py --only adc, PERF.md)
+STAGE_ROWS = 64
 
 # CUDA launches of this process per kernel (see ops.launch_counts)
-launches = {"pq_adc": 0, "pq_adc_masked": 0}
+launches = {"pq_adc": 0, "pq_adc_rows": 0, "pq_adc_masked": 0}
 
 
 def pq_adc_plain(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -69,6 +78,68 @@ def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     call(bind(build.load("pq_adc"), fn_name, 3, 2), fn_name, lut.device,
          [lut.data_ptr(), codes.data_ptr(), out.data_ptr()], [n, m])
     launches["pq_adc"] += 1
+    return out
+
+
+def pq_adc_rows_plain(luts: torch.Tensor, table: torch.Tensor,
+                      rows: torch.Tensor, offsets: torch.Tensor
+                      ) -> torch.Tensor:
+    """luts [Q, M, 256]; table [n, M] (uint8 or int32 codes in [0, 256));
+    rows [T] node ids; offsets [Q + 1], nondecreasing from 0 to T -> d [T]
+    f32 with d[t] = sum_m luts[q, m, table[rows[t], m]] for the query q
+    whose segment [offsets[q], offsets[q + 1]) holds t, summed in the
+    order m = 0 .. M-1 as ``pq_adc_plain`` and the kernel sum."""
+    q_count, m_count = luts.shape[0], luts.shape[1]
+    t_count = rows.shape[0]
+    offsets = offsets.long()
+    seg = torch.repeat_interleave(
+        torch.arange(q_count, device=luts.device), offsets[1:] - offsets[:-1],
+        output_size=t_count)
+    codes = table[rows.long()].long()
+    luts = luts.float()
+    d = torch.zeros(t_count, dtype=torch.float32, device=luts.device)
+    for m in range(m_count):
+        d = d + luts[seg, m, codes[:, m]]
+    return d
+
+
+def pq_adc_rows(luts: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
+                offsets: torch.Tensor, stage=None) -> torch.Tensor:
+    """Launch the CUDA kernel. luts [Q, M, 256] f32, 16-byte aligned;
+    table [n, M] u8; rows [T] i32 ids in [0, n) (any other id gives NaN);
+    offsets [Q + 1] i32, nondecreasing from 0 to T; 1 <= M <= 64. The LUTs
+    are staged in shared memory when the segments average ``STAGE_ROWS``
+    rows or more; ``stage`` forces either variant (the crossover
+    measurement and the edge checks time and test both). T == 0 returns an
+    empty tensor without a launch. Raises on anything else, and on a
+    non-CUDA tensor."""
+    check_cuda_args("pq_adc_rows", (luts, table, rows, offsets),
+                    ((torch.float32,), (torch.uint8,), (torch.int32,),
+                     (torch.int32,)), 1)
+    if luts.dim() != 3 or luts.shape[2] != 256 or table.dim() != 2 \
+            or table.shape[1] != luts.shape[1] or rows.dim() != 1 \
+            or tuple(offsets.shape) != (luts.shape[0] + 1,):
+        raise ValueError(f"pq_adc_rows: shapes luts {tuple(luts.shape)}, "
+                         f"table {tuple(table.shape)}, rows "
+                         f"{tuple(rows.shape)}, offsets "
+                         f"{tuple(offsets.shape)} do not agree")
+    q_count, m = luts.shape[0], luts.shape[1]
+    t_count = rows.shape[0]
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"pq_adc_rows: M={m} outside [1, {MAX_M}]")
+    if luts.data_ptr() % 16:
+        raise ValueError("pq_adc_rows: luts must be 16-byte aligned")
+    out = torch.empty(t_count, dtype=torch.float32, device=luts.device)
+    if t_count == 0 or q_count == 0:
+        return out
+    if stage is None:
+        stage = t_count >= STAGE_ROWS * q_count
+    from repro_torch.kernels import build
+    call(bind(build.load("pq_adc"), "pq_adc_rows", 5, 5), "pq_adc_rows",
+         luts.device, [luts.data_ptr(), table.data_ptr(), rows.data_ptr(),
+                       offsets.data_ptr(), out.data_ptr()],
+         [table.shape[0], m, t_count, q_count, int(bool(stage))])
+    launches["pq_adc_rows"] += 1
     return out
 
 

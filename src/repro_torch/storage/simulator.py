@@ -188,12 +188,26 @@ class ObjectStore:
 
     def get(self, key: str, now_s: float = 0.0, attempt: int = 0
             ) -> Tuple[np.ndarray, float]:
-        """Returns (value, simulated_latency_seconds).
+        """Returns (value, simulated_latency_seconds): the value step
+        (``value``), then the accounting step (counters, the latency draw,
+        metrics).
 
         ``now_s`` is the caller's event-clock time (flap windows are
         evaluated against it); ``attempt`` is the caller's retry index
         for this key (advances the deterministic fault stream unless the
         plan is sticky)."""
+        v = self.value(key, now_s=now_s, attempt=attempt)
+        return v, self._account(key, v.nbytes, attempt)
+
+    def value(self, key: str, now_s: float = 0.0, attempt: int = 0
+              ) -> np.ndarray:
+        """The value step of ``get``: the object as ``get`` would return
+        it, with the same errors raised (dead prefix, flap window,
+        transient error, each counted in its error metric) and the same
+        corruption, all deterministic in ``(key, attempt)`` and ``now_s``.
+        Draws no latency and counts no fetch: a caller that reads values
+        ahead (DiskANN's lock-step traversal) charges them later through
+        ``get`` in its own order."""
         for p in self._dead_prefixes:
             if key.startswith(p):
                 get_metrics().inc("storage.dead_shard_errors")
@@ -209,9 +223,19 @@ class ObjectStore:
                 get_metrics().inc("storage.transient_errors")
                 raise TransientError(f"transient error: {key}")
         v = self._data[key]
+        if plan is not None and plan.corrupt_p > 0 and \
+                plan._u(key, attempt, "crp") < plan.corrupt_p:
+            v = self._corrupted(key, v)
+        return v
+
+    def _account(self, key: str, nbytes: int, attempt: int) -> float:
+        """The accounting step of ``get`` for an object of ``nbytes``:
+        counters, the latency draw from the store's one RNG, slow
+        prefixes, timeout spikes and metrics. Returns the latency."""
         self.n_gets += 1
-        self.bytes_fetched += v.nbytes
-        lat = self._latency(v.nbytes)
+        self.bytes_fetched += nbytes
+        lat = self._latency(nbytes)
+        plan = self.fault_plan
         if plan is not None:
             for pref, mult in plan.slow_prefixes.items():
                 if key.startswith(pref):
@@ -219,15 +243,12 @@ class ObjectStore:
             if plan.timeout_p > 0 and \
                     plan._u(key, attempt, "tmo") < plan.timeout_p:
                 lat += plan.timeout_spike_s
-            if plan.corrupt_p > 0 and \
-                    plan._u(key, attempt, "crp") < plan.corrupt_p:
-                v = self._corrupted(key, v)
         m = get_metrics()
         m.inc("storage.gets")
-        m.inc("storage.bytes_fetched", v.nbytes)
+        m.inc("storage.bytes_fetched", nbytes)
         m.observe("storage.rpc_latency_s", lat)
-        m.observe("storage.object_bytes", v.nbytes, BYTE_BUCKETS)
-        return v, lat
+        m.observe("storage.object_bytes", nbytes, BYTE_BUCKETS)
+        return lat
 
     def get_hedged(self, key: str, hedge_after_s: float,
                    now_s: float = 0.0, attempt: int = 0) -> Tuple[

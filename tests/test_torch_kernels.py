@@ -291,19 +291,20 @@ def test_flash_plain_bf16_matches_ref_and_pallas():
             rtol=2 ** -7, atol=2 ** -7)
 
 
-def _flash_tiled_bf16(q, k, v, causal, tile=64):
+def _flash_tiled_bf16(q, k, v, causal, tile=64, true_d=None):
     """The rounding of the bf16 tensor-core kernel
     (csrc/flash_attention.cu:flash_fwd_bf16) in plain torch: 64-key tiles,
     exact float32 products of the bf16 inputs, the scale 1/sqrt(D) * log2(e)
     applied to the float32 scores after the product, a float32 online
     softmax in base 2, P rounded to bf16 (the row sum l adds the rounded
-    P), and acc / max(l, 1e-30) rounded once."""
+    P), and acc / max(l, 1e-30) rounded once. ``true_d``: the head dim
+    whose scale a padded launch takes (default: q's own)."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, sq, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
-    scale_log2 = float(np.float32(np.float32(1.0 / np.sqrt(d))
+    scale_log2 = float(np.float32(np.float32(1.0 / np.sqrt(true_d or d))
                                   * np.float32(1.4426950408889634)))
     q_pos = torch.arange(sq)[:, None] + (sk - sq)
     m = torch.full(qf.shape[:-1], -1e30)
@@ -325,8 +326,11 @@ def _flash_tiled_bf16(q, k, v, causal, tile=64):
 
 
 # (b, h, kvh, sq, sk, d, causal): ragged q and key tiles, Sk < 16, Sq = 1,
-# Sq = 1 (mod 16), causal Sq < Sk, groups 1, 2, 4 and 8, D 32, 64 and 128
-FLASH_TILED_SHAPES = [(1, 4, 2, 77, 77, 64, True),
+# Sq = 1 (mod 16), causal Sq < Sk, groups 1, 2, 4 and 8, D 16, 32, 64, 112
+# and 128
+FLASH_TILED_SHAPES = [(1, 4, 2, 77, 77, 16, True),
+                      (1, 4, 1, 50, 93, 112, False),
+                      (1, 4, 2, 77, 77, 64, True),
                       (2, 4, 1, 1, 131, 32, True),
                       (1, 2, 2, 9, 9, 64, True),
                       (1, 4, 4, 50, 93, 128, False),
@@ -358,6 +362,54 @@ def test_flash_bf16_kernel_rounding_holds_the_tolerance(b, h, kvh, sq, sk,
         got.float().numpy(),
         np.asarray(pallas, np.float32).transpose(0, 2, 1, 3),
         rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [1, 12, 16, 17, 48, 100, 112, 128])
+def test_flash_head_width_pads_up_to_the_next_compiled_width(d):
+    width = fa.head_width(d)
+    assert width in fa.HEAD_DIMS and width >= d
+    assert all(w < d for w in fa.HEAD_DIMS if w < width)
+
+
+@pytest.mark.parametrize("d", [0, 129, 256])
+def test_flash_head_width_refuses_0_and_above_the_widest(d):
+    with pytest.raises(ValueError, match="head dim"):
+        fa.head_width(d)
+
+
+# (b, h, kvh, sq, sk, d, causal): qwen1.5's REDUCED D = 12 (to 16), widths
+# padded to 64 and 112, causal and full, ragged Sq < Sk
+FLASH_PADDED_SHAPES = [(2, 5, 5, 40, 40, 12, True),
+                       (1, 5, 5, 33, 70, 12, False),
+                       (1, 4, 2, 65, 65, 48, True),
+                       (1, 4, 2, 50, 93, 100, False)]
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal", FLASH_PADDED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plain_on_zero_padded_heads_equals_unpadded(b, h, kvh, sq, sk,
+                                                          d, causal, dtype):
+    """What the wrapper launches for a D it does not compile: q, k, v
+    zero-padded to the next width, the true D's scale, the output's
+    padding columns cut off — the same attention as at D itself (the zero
+    columns add exact zeros to every score)."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in
+               _flash_inputs(b, h, kvh, sq, sk, d, seed=sq + d))
+    width = fa.head_width(d)
+    qp, kp, vp = fa.pad_head_dim(q, k, v, width)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == width
+    assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
+    got = fa.flash_attention_plain(qp, kp, vp, causal,
+                                   scale=1.0 / d ** 0.5)[..., :d]
+    want = fa.flash_attention_plain(q, k, v, causal)
+    assert torch.equal(got, want)
+    if dtype == torch.bfloat16:
+        # the bf16 kernel's rounding on the padded launch holds the
+        # one-step tolerance against the unpadded plain version
+        tiled = _flash_tiled_bf16(qp, kp, vp, causal, true_d=d)[..., :d]
+        np.testing.assert_allclose(tiled.float().numpy(),
+                                   want.float().numpy(), rtol=2 ** -7,
+                                   atol=2 ** -7)
 
 
 # the (Q, N) of chip_smoke.check_unmasked_edges: every slice of the scan
@@ -410,10 +462,13 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
     with pytest.raises(ValueError, match="CUDA"):
         pq_adc.pq_adc(luts[0], codes[0])
     with pytest.raises(ValueError, match="CUDA"):
+        pq_adc.pq_adc_rows(luts, codes[0], torch.zeros(3, dtype=torch.int32),
+                           torch.tensor([0, 1, 3], dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(*_t(*_flash_inputs(1, 2, 1, 8, 8, 32, seed=0)))
     assert ops.launch_counts() == {"flash_attention": 0, "l2_topk": 0,
                                    "l2_topk_masked": 0, "pq_adc": 0,
-                                   "pq_adc_masked": 0}
+                                   "pq_adc_rows": 0, "pq_adc_masked": 0}
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
