@@ -5,11 +5,12 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (one process per source, all at once), counts the tensor-core
-instructions (HMMA) of the bf16 ``flash_attention`` kernels with
-``cuobjdump``, holds each kernel against its plain PyTorch version on the
-card (edge cases and exact-tie inputs), prefills each dense REDUCED config
-through the attention kernel against the plain attention, then drives four
-paths, each with its kernel launches counted from zero and checked:
+instructions (HMMA) of the bf16 ``flash_attention`` kernels, forward and
+backward, with ``cuobjdump``, holds each kernel against its plain PyTorch
+version on the card (edge cases and exact-tie inputs), prefills each dense
+REDUCED config through the attention kernel against the plain attention,
+then drives five paths, each with its kernel launches counted from zero
+and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
   -> ``build_pag`` -> ``write_partitions`` (PQ payloads, "dfs" storage
@@ -27,6 +28,15 @@ paths, each with its kernel launches counted from zero and checked:
   22 layers) and decodes 32 greedy tokens. Afterwards the prefill logits
   are held against the same forward through the materialised-scores
   attention, and every decode step against the teacher-forced forward.
+* train: ``launch/train.py``'s setup and step at TinyLlama-1.1B's
+  published width (22 layers, d 2048, 32 / 4 heads, bf16, seeded weights),
+  B=8 x S=2048: 6 AdamW steps on one repeated batch, each layer's
+  attention forward through ``flash_attention`` (twice: the block is
+  recomputed in the backward) and its gradient through
+  ``flash_attention_bwd``; the loss must fall, step 0's must agree with
+  the forward through the plain attention, and layer 0's attention
+  gradients with autograd through the plain attention. Prints step wall
+  time, tokens/s, peak memory and a profile of the last step.
 * compare: the paper's comparison (Table IV, Figs 8-10) at 100,000 x 128
   with 1000 queries: PAG, DiskANN (one ``pq_adc_rows`` launch per wave of
   its lock-step traversal, the waves of each sweep printed), SPANN (closure
@@ -42,8 +52,9 @@ twice: SPANN's closure chunk and the 1M ground-truth chunk;
 around back-to-back wrapper calls (``ms``) and the kernel's own device
 time from ``torch.profiler`` (``device_ms``), beside its plain version,
 one PyTorch library call computing the same function
-(``scaled_dot_product_attention`` for ``flash_attention``; timed only,
-never called by the port) and its bound.
+(``scaled_dot_product_attention`` for ``flash_attention``, its backward
+for ``flash_attention_bwd``; timed only, never called by the port) and
+its bound.
 
 Prints each phase's wall time, the card's name and power limit, one JSON
 line of kernel numbers, and as its last line
@@ -132,6 +143,33 @@ FLASH_F32_TOL = 1e-5        # f32 sums in another order
 REDUCED_ARCHS = ("tinyllama-1.1b", "command-r-plus-104b", "stablelm-1.6b",
                  "qwen1.5-4b")
 REDUCED_LOGITS_ATOL = 2 ** -3
+
+# Training at TinyLlama-1.1B's published width (configs/tinyllama_1_1b.py,
+# arXiv:2401.02385: 22 layers, d 2048, 32 / 4 heads, bf16), seeded weights,
+# B=8 x S=2048 (its published context): 6 AdamW steps of
+# launch/train.py's step on one repeated batch, which it overfits (step 5's
+# loss below step 0's); step 5 runs under torch.profiler. With remat the
+# step fits one card without microbatches (21.8 GiB peak, H100 80GB). The
+# learning rate: the trainer's default of 1e-3 suits REDUCED widths; at
+# d 2048 with one warmup step, 1e-3, 3e-4 and 1e-4 made the loss bounce on
+# this batch, 3e-5 lowered it at every step (10.94 to 8.76)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "tinyllama-1.1b", 8, 2048, 6
+TRAIN_MICROBATCHES = 1
+TRAIN_LR = 3e-5
+# step 0's loss (~10.4, the mean over 16,384 tokens) against the same
+# forward through the plain attention: per-token bf16 logit differences of
+# a few bf16 steps (RAG_LOGITS_ATOL at most) average out in the mean
+TRAIN_LOSS_ATOL = 2 ** -5
+# flash_attention_bwd against its plain version on the same (q, k, v, O,
+# lse, dO), each gradient within this share of its largest magnitude: bf16
+# rounds P and dS before their products (tests/test_torch_attention_bwd.py
+# emulates it at 0.3-0.6%); f32 sums in another order. flash_bwd_check adds
+# an f32 floor at the scale of the largest of the three gradients
+FLASH_BWD_BF16_TOL = 2 ** -6
+FLASH_BWD_F32_TOL = 2e-5
+# the forward's lse against the plain log-sum-exp: bf16 P enters l
+FLASH_LSE_BF16_TOL = 2 ** -7
+FLASH_LSE_F32_TOL = 1e-5
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -462,6 +500,118 @@ def check_flash_edges(dev) -> None:
     torch.cuda.synchronize()
 
 
+def flash_bwd_check(got, want, name: str) -> float:
+    """Hold (dq, dk, dv) against the plain version's: each within
+    FLASH_BWD_BF16_TOL (bf16) or FLASH_BWD_F32_TOL (f32) of its largest
+    magnitude, plus FLASH_BWD_F32_TOL of the largest magnitude of the
+    three: an f32 rounding floor for a gradient that cancels to about 0
+    (at Sq = Sk = 1, dP - delta is 0 in exact arithmetic, so dQ is).
+    Returns the max abs error."""
+    scale = max((float(w.float().abs().max()) for w in want
+                 if w.numel()), default=0.0)
+    worst = 0.0
+    for part, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} {part}: {g.shape} {g.dtype} "
+                                 f"against {w.shape} {w.dtype}")
+        if not w.numel():
+            continue
+        tol = FLASH_BWD_BF16_TOL if w.dtype == torch.bfloat16 \
+            else FLASH_BWD_F32_TOL
+        g, w = g.float(), w.float()
+        err = float((g - w).abs().max())
+        bound = tol * float(w.abs().max()) + FLASH_BWD_F32_TOL * scale
+        if not torch.isfinite(g).all() or err > bound:
+            raise AssertionError(f"{name} {part}: off by {err:.3g} "
+                                 f"(bound {bound:.3g})")
+        worst = max(worst, err)
+    return worst
+
+
+def check_flash_bwd_edges(dev) -> None:
+    """flash_attention_bwd against its plain version on the card, fed the
+    kernel forward's (out, lse) (lse itself held to the plain
+    log-sum-exp): bf16 and f32, every compiled D (16, 32, 64, 112, 128)
+    and padded ones (12, 48), ragged Sq and Sk off the 64-row tiles,
+    causal (Sq <= Sk) and full (Sq < Sk and Sq > Sk), H/KVH = 1, 2 and 8,
+    Sk < 16, Sq = 1, and TinyLlama's 32 / 4 heads; then the refusals."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (B, H, KVH, Sq, Sk, D, causal, dtype)
+    for b, h, kvh, sq, sk, d, causal, dtype in [
+            (1, 4, 4, 128, 128, 64, True, f32),
+            (1, 4, 4, 128, 128, 64, True, bf16),
+            (2, 8, 1, 77, 77, 64, True, bf16),
+            (1, 8, 1, 65, 130, 64, True, f32),
+            (1, 4, 1, 50, 93, 64, False, bf16),
+            (1, 4, 4, 200, 33, 32, False, bf16),
+            (1, 4, 4, 200, 33, 32, False, f32),
+            (1, 8, 1, 100, 130, 112, True, bf16),
+            (1, 8, 1, 100, 130, 112, True, f32),
+            (2, 8, 8, 81, 200, 112, False, bf16),
+            (1, 8, 8, 100, 300, 128, True, bf16),
+            (1, 2, 2, 300, 300, 128, False, f32),
+            (2, 5, 5, 40, 40, 12, True, bf16),
+            (2, 5, 5, 40, 40, 12, True, f32),
+            (1, 5, 5, 33, 70, 12, False, bf16),
+            (2, 4, 2, 77, 77, 16, True, bf16),
+            (1, 4, 1, 50, 93, 16, False, f32),
+            (1, 8, 8, 9, 9, 16, True, bf16),
+            (1, 4, 2, 65, 65, 48, True, bf16),
+            (3, 32, 4, 1, 1, 64, True, bf16),
+            (2, 32, 4, 1, 531, 64, True, bf16),
+            (1, 32, 4, 256, 256, 64, True, bf16),
+            (1, 16, 2, 96, 96, 64, True, bf16)]:
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+            shape, np.float32)).to(dev, dtype) for shape in
+            ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d), (b, sq, h, d)))
+        name = (f"flash_attention_bwd B{b} H{h}/{kvh} {sq}x{sk} D{d} "
+                f"causal={causal} {dtype}")
+        out, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
+        _, want_lse = fa.flash_attention_plain(q, k, v, causal,
+                                               return_lse=True)
+        tol = FLASH_LSE_BF16_TOL if dtype == bf16 else FLASH_LSE_F32_TOL
+        lse_err = (lse - want_lse).abs()
+        if not (lse_err <= tol + tol * want_lse.abs()).all():
+            raise AssertionError(f"{name}: lse off by "
+                                 f"{float(lse_err.max()):.3g}")
+        flash_bwd_check(
+            fa.flash_attention_bwd(q, k, v, out, lse, dout, causal),
+            fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal),
+            name)
+    # Sq == 0: zeros without a launch
+    before = ops.launch_counts()["flash_attention_bwd"]
+    z = fa.flash_attention_bwd(q[:, :0], k, v, out[:, :0], lse[:, :, :0],
+                               dout[:, :0])
+    if ops.launch_counts()["flash_attention_bwd"] != before \
+            or z[1].abs().sum() != 0 or z[0].shape != q[:, :0].shape:
+        raise AssertionError("flash_attention_bwd: Sq == 0 must not launch")
+    k1 = k[:, :10].contiguous()
+    for bad in (lambda: fa.flash_attention_bwd(  # causal Sq > Sk
+                    q, k1, k1, out, lse, dout, True),
+                lambda: fa.flash_attention_bwd(  # D above the widest width
+                    *(torch.nn.functional.pad(t, (0, 80))
+                      for t in (q, k, v, out)), lse,
+                    torch.nn.functional.pad(dout, (0, 80))),
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse,
+                                               dout.float()),
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse[:, :1],
+                                               dout),
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse,
+                                               dout.transpose(1, 2)),
+                lambda: fa.flash_attention_bwd(q.cpu(), k, v, out, lse,
+                                               dout)):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("flash_attention_bwd took arguments it must "
+                             "refuse")
+    torch.cuda.synchronize()
+
+
 def sass_counts(lib: Path, opcode: str) -> dict:
     """How many ``opcode`` instructions each kernel of a built library
     holds, from ``cuobjdump -sass`` (by mangled function name)."""
@@ -480,19 +630,28 @@ def sass_counts(lib: Path, opcode: str) -> dict:
 
 
 def check_flash_tensor_cores() -> None:
-    """The bf16 flash kernels run on the tensor cores: their SASS holds
-    HMMA instructions (the f32 kernels hold none)."""
+    """The bf16 flash kernels, forward and backward, run on the tensor
+    cores: their SASS holds HMMA instructions (the f32 kernels hold
+    none)."""
     from repro_torch.kernels import build
-    counts = sass_counts(build.lib_path("flash_attention"), "HMMA")
-    by_variant = {v: {fn: n for fn, n in counts.items() if v in fn}
-                  for v in ("flash_fwd_bf16", "flash_fwd_f32")}
-    print(f"flash_attention SASS HMMA count: "
-          f"{json.dumps({v: sum(c.values()) for v, c in by_variant.items()})}"
-          f" per kernel {json.dumps(counts)}", flush=True)
-    bf16 = by_variant["flash_fwd_bf16"]
     from repro_torch.kernels.flash_attention import HEAD_DIMS
-    if len(bf16) != len(HEAD_DIMS) or min(bf16.values()) == 0:
-        raise AssertionError("flash_attention: a bf16 kernel holds no HMMA")
+    for lib, variants in (("flash_attention", ("flash_fwd_bf16",
+                                               "flash_fwd_f32")),
+                          ("flash_attention_bwd", ("bwd_dkdv_bf16",
+                                                   "bwd_dq_bf16",
+                                                   "bwd_dkdv_f32",
+                                                   "bwd_dq_f32"))):
+        build.build_all((lib,))   # a no-op once built
+        counts = sass_counts(build.lib_path(lib), "HMMA")
+        by_variant = {v: {fn: n for fn, n in counts.items() if v in fn}
+                      for v in variants}
+        print(f"{lib} SASS HMMA count: "
+              f"{json.dumps({v: sum(c.values()) for v, c in by_variant.items()})}"
+              f" per kernel {json.dumps(counts)}", flush=True)
+        for v in variants:
+            if "bf16" in v and (len(by_variant[v]) != len(HEAD_DIMS)
+                                or min(by_variant[v].values()) == 0):
+                raise AssertionError(f"{lib}: a {v} kernel holds no HMMA")
 
 
 def check_kernel_edges(dev) -> None:
@@ -500,6 +659,7 @@ def check_kernel_edges(dev) -> None:
     check_unmasked_edges(dev)
     check_adc_rows_edges(dev)
     check_flash_edges(dev)
+    check_flash_bwd_edges(dev)
     check_masked_edges(dev)
 
 
@@ -929,6 +1089,133 @@ def check_rag(r: dict) -> dict:
     return out
 
 
+def train(dev) -> dict:
+    """Training at TinyLlama-1.1B's width through ``launch/train.py``'s
+    own setup and step: the seeded model and AdamW state on the card, the
+    loss of the first batch through the plain attention (before any
+    step), then TRAIN_STEPS steps on that one batch, the last under
+    ``torch.profiler``. Returns the losses, walls, peak memory and
+    profile."""
+    from repro_torch.data.lm import batch_at
+    from repro_torch.launch import train as trainer
+    from repro_torch.training.train_step import TrainConfig, loss_fn
+    args = trainer.parser().parse_args([
+        "--arch", TRAIN_ARCH, "--full", "--batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+        "--microbatches", str(TRAIN_MICROBATCHES), "--lr", str(TRAIN_LR),
+        "--device", str(dev)])
+    with phase(f"train: init {TRAIN_ARCH} and AdamW state (seeded, on the "
+               f"card)"):
+        cfg, dcfg, model, opt, step_fn = trainer.setup(args)
+        batch = batch_at(dcfg, cfg, 0, device=dev)
+        torch.cuda.synchronize()
+    with phase("train: step 0's loss through the plain attention"), \
+            torch.no_grad(), plain_attention():
+        plain_loss = float(loss_fn(model, batch, cfg, TrainConfig())[1]
+                           ["loss"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    from torch.profiler import ProfilerActivity, profile
+    losses, gnorms, walls, prof = [], [], [], None
+    for s in range(TRAIN_STEPS):
+        with phase(f"train: step {s}"):
+            ctx = profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) \
+                if s == TRAIN_STEPS - 1 else contextlib.nullcontext()
+            with ctx as prof_s:
+                t0 = time.perf_counter()
+                _, opt, m = step_fn(model, opt, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            prof = prof_s or prof
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        print(f"train step {s} loss={losses[-1]:.4f} gnorm={gnorms[-1]:.3f}"
+              f" lr={float(m['lr']):.3g} wall={walls[-1]:.4f} s",
+              flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    profile_rep = {
+        "traced_wall_s": walls[-1],
+        "device_busy_s": busy_us / 1e6 if busy_us else None,
+        "device_idle_share": 1 - busy_us / 1e6 / walls[-1] if busy_us
+        else None,
+        "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                         "device_ms": e.self_device_time_total / 1e3}
+                        for e in top]}
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, opt, m, batch
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "losses": losses, "gnorms": gnorms, "walls": walls,
+            "plain_loss": plain_loss, "peak_bytes": peak,
+            "n_params": n_params, "profile": profile_rep}
+
+
+def check_train(r: dict, layer_args) -> dict:
+    """The train path's checks: finite losses that fall (step 5 below step
+    0, on the repeated batch), step 0's loss within TRAIN_LOSS_ATOL of the
+    forward through the plain attention, and the first layer's attention
+    gradients (its captured q, k, v and a seeded dO, bf16) through the
+    kernels within FLASH_BWD_BF16_TOL of autograd through the
+    materialised-scores attention."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    losses = r["losses"]
+    out = {"loss_step0": losses[0], "loss_last": losses[-1],
+           "plain_loss_step0": r["plain_loss"],
+           "loss_vs_plain_abs": abs(losses[0] - r["plain_loss"])}
+    q, k, v = (t.detach() for t in layer_args)
+    gen = torch.Generator(q.device).manual_seed(0)
+    dout = torch.randn(q.shape, generator=gen, device=q.device) \
+        .to(q.dtype)
+    got = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention(*got, causal=True).backward(dout)
+    want = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention_plain(*want, causal=True).backward(dout)
+    out["layer0_grad_max_abs"] = flash_bwd_check(
+        [t.grad for t in got], [t.grad for t in want],
+        "train: layer 0 attention gradients vs plain autograd")
+    out["layer0_grad_scale"] = max(float(t.grad.float().abs().max())
+                                   for t in want)
+    print(f"train checks: {json.dumps(out)}", flush=True)
+    if not all(np.isfinite(losses + r["gnorms"])) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} do not fall")
+    if out["loss_vs_plain_abs"] > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"train: step 0 loss {losses[0]} against "
+                             f"{r['plain_loss']} through plain attention")
+    return out
+
+
+def report_train(r: dict, checks: dict, counts: dict) -> None:
+    """The train path's numbers, each on its own line, then one JSON
+    line. Warm: steps 1 .. TRAIN_STEPS - 2 (step 0 pays first use, the
+    last runs under the profiler)."""
+    warm = r["walls"][1:-1]
+    step_s = sum(warm) / len(warm)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rep = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "microbatches": TRAIN_MICROBATCHES,
+           "params": r["n_params"], "losses": r["losses"],
+           "grad_norms": r["gnorms"], "step_walls_s": r["walls"],
+           "warm_step_s": step_s, "tokens_per_s": tokens / step_s,
+           "peak_memory_bytes": r["peak_bytes"],
+           "launches_per_step": {k: counts[k] / TRAIN_STEPS
+                                 for k in ("flash_attention",
+                                           "flash_attention_bwd")},
+           "profile": r["profile"], **checks}
+    print(f"train step seconds (warm mean of steps 1-{TRAIN_STEPS - 2}): "
+          f"{step_s:.4f}")
+    print(f"train tokens per second (warm, {tokens} tokens a step): "
+          f"{tokens / step_s:.1f}")
+    print(f"train peak memory (torch.cuda.max_memory_allocated): "
+          f"{r['peak_bytes'] / 2 ** 30:.2f} GiB")
+    print(f"train report: {json.dumps(rep)}", flush=True)
+
+
 def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
                cic_n: int = CIC_N) -> list:
     """The paper's comparison (benchmarks/qps_recall.py _curves and
@@ -1153,10 +1440,56 @@ def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
             "library_ms": library_ms, "shape": shape}
 
 
+def flash_bwd_row(layer_args, launches: int) -> dict:
+    """The kernel row of ``flash_attention_bwd`` on one training layer's
+    (q, k, v) (the train path's first, step 0), with the kernel forward's
+    (out, lse) and a seeded dO; the library time is the backward of
+    ``scaled_dot_product_attention`` (causal, GQA) on the same inputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (t.detach() for t in layer_args)
+    (b, sq, h, d), (sk, kvh) = q.shape, k.shape[1:3]
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    gen = torch.Generator(q.device).manual_seed(1)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    pairs = b * h * sum(min(sk, r + sk - sq + 1) for r in range(sq))
+    # S = q.k and dP = dO.v recomputed, then dV, dQ and dK: five products
+    # of 2 D FLOPs per unmasked pair
+    n_ops = 10 * d * pairs
+    # q, O, dO, dQ and k, v, dK, dV in the inputs' dtype; lse and delta f32
+    nbytes = (4 * b * sq * h + 4 * b * sk * kvh) * d * q.element_size() \
+        + 2 * b * h * sq * 4
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    row = kernel_report(
+        "flash_attention_bwd",
+        lambda *a: fa.flash_attention_bwd(*a, causal=True),
+        lambda *a: fa.flash_attention_bwd_plain(*a, causal=True),
+        lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
+                                    retain_graph=True),
+        (q, k, v, out, lse, dout), launches,
+        nbytes=nbytes, n_ops=n_ops, ops_per_s=BF16_OPS_PER_S,
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:136",
+        check=lambda got, want: flash_bwd_check(got, want,
+                                                "train layer 0"),
+        shape={"B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh, "D": d,
+               "causal": True, "dtype": str(q.dtype)},
+        device_names=("bwd_dkdv", "bwd_dq"))
+    row["note"] = ("counterpart of the reference's jnp custom_vjp backward, "
+                   "not of a pallas_call; library: the backward of "
+                   "scaled_dot_product_attention")
+    return row
+
+
 def time_kernels(caps, counts) -> list:
     """One row per kernel at the shapes its path gave it. ``caps`` and
     ``counts`` map each kernel to its captured inputs and to the launch
     counts of the path they came from."""
+    import torch.nn.functional as F
     from repro_torch.core.distances import cdist2
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import l2_topk, pq_adc
@@ -1281,7 +1614,6 @@ def time_kernels(caps, counts) -> list:
     pairs = b * h * (sum(min(sk, r + sk - sq + 1) for r in range(sq))
                      if causal else sq * sk)
     n_ops = 4 * d * pairs   # q.k and p.v, a multiply and an add each
-    import torch.nn.functional as F
     rows.append(kernel_report(
         "flash_attention", lambda *a: fa.flash_attention(*a, causal=causal),
         lambda *a: fa.flash_attention_plain(*a, causal=causal),
@@ -1300,8 +1632,12 @@ def time_kernels(caps, counts) -> list:
     # the reference fixes f32 scores; on the f32 CUDA cores the same work
     # takes this long at the least
     rows[-1]["bound_f32_cores_ms"] = n_ops / FP32_OPS_PER_S * 1e3
+
+    rows.append(flash_bwd_row(caps["flash_attention_bwd"].args[0],
+                              counts["flash_attention_bwd"]
+                              ["flash_attention_bwd"]))
     for r, path in zip(rows, ("main", "main", "compare", "main", "compare",
-                              "rag")):
+                              "rag", "train")):
         r["path"] = path
     return rows
 
@@ -1404,6 +1740,25 @@ def main() -> int:
     del rag_run, quality_index
     torch.cuda.empty_cache()
 
+    # the first attention call with gradients: layer 0 of step 0
+    caps["flash_attention_bwd"] = Capture(ops, "flash_attention",
+                                          lambda a: a[0].requires_grad)
+    with path("train", ("flash_attention", "flash_attention_bwd")), \
+            caps["flash_attention_bwd"]:
+        train_run = train(dev)
+    n_layers = train_run["cfg"].n_layers
+    if counts["train"]["flash_attention_bwd"] != TRAIN_STEPS * n_layers:
+        raise AssertionError("train: not one flash_attention_bwd a layer "
+                             "and step")
+    with phase("train: checks (losses, step 0 vs plain attention, layer 0 "
+               "gradients vs plain autograd)"):
+        train_checks = check_train(train_run,
+                                   caps["flash_attention_bwd"].args[0])
+    print(card)
+    report_train(train_run, train_checks, counts["train"])
+    del train_run
+    torch.cuda.empty_cache()
+
     caps.update({
         "l2_topk_masked": Capture(ops, "l2_topk_masked",
                                   lambda a: a[0].shape[0] == MAX_BATCH),
@@ -1431,7 +1786,8 @@ def main() -> int:
                      "l2_topk": counts["main"],
                      "pq_adc_rows": counts["compare"],
                      "l2_closure": counts["compare"],
-                     "flash_attention": counts["rag"]}
+                     "flash_attention": counts["rag"],
+                     "flash_attention_bwd": counts["train"]}
         rows = time_kernels(caps, by_kernel)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}

@@ -3,7 +3,7 @@
 run's paths give them.
 
     python3 scripts/kernel_bench.py [--src DIR] [--label NAME] [--edges]
-                                    [--only masked|unmasked|adc|all]
+                                    [--only masked|unmasked|adc|train|all]
                                     [--clocks]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
@@ -24,6 +24,13 @@ wrapper calls, ``device_ms`` the kernel's own time from ``torch.profiler``.
   (one prefill layer of TinyLlama-1.1B on the RAG path), beside
   ``scaled_dot_product_attention`` on the same inputs.
 
+* ``--only train``: ``flash_attention`` (with its ``lse``) and
+  ``flash_attention_bwd`` at one training layer of TinyLlama-1.1B on the
+  smoke run's train path (B=8, Sq=Sk=2048, H=32, KVH=4, D=64, bf16,
+  causal), seeded q, k, v and dO, each beside its plain version and its
+  library call (``scaled_dot_product_attention`` forward, and its
+  backward), with the bound (``chip_smoke.flash_bwd_row``'s count).
+
 * ``--only adc``: one DiskANN wave of the 100k comparison, seeded: Q=1000
   queries with ~50 node ids each (a uniform length in [25, 75]; every
   tenth query done, with none) in a code table of 100,000 x 8 u8 on the
@@ -35,7 +42,8 @@ wrapper calls, ``device_ms`` the kernel's own time from ``torch.profiler``.
   the gather + sum library call); and the crossover of its two LUT
   variants over mean segment lengths 8 .. 4096.
 
-``--only all`` (the default) times every group but ``adc``. ``--clocks`` adds, for
+``--only all`` (the default) times every group but ``adc`` and
+``train``. ``--clocks`` adds, for
 the two masked kernels, the clock64 cycles of each phase of a block
 (setup, scan, threshold, survivors, rank and output), median and max
 over the blocks, from the kernels rebuilt with -DREPRO_PHASE_CLOCKS
@@ -62,6 +70,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 L2_SHAPES = [(512, 1_000_000, 128, 10), (8192, 6250, 128, 8)]
 FLASH_SHAPE = (8, 500, 500, 32, 4, 64)   # B, Sq, Sk, H, KVH, D
+TRAIN_SHAPE = (8, 2048, 2048, 32, 4, 64)
 # the main path's first full serving batch (PERF.md): Q, C, d or M, k
 L2_MASKED_SHAPE = (256, 14_973, 128, 10)
 ADC_MASKED_SHAPE = (256, 14_941, 8, 64)
@@ -71,6 +80,7 @@ ADC_CROSSOVER_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 GROUPS = {"masked": ("l2_topk_masked", "pq_adc_masked"),
           "unmasked": ("flash_attention", "l2_topk"),
           "adc": ("pq_adc",),
+          "train": ("flash_attention", "flash_attention_bwd"),
           "all": ("flash_attention", "l2_topk", "l2_topk_masked",
                   "pq_adc_masked")}
 
@@ -284,8 +294,10 @@ def bench_unmasked(cs, dev, report) -> None:
                          l2_topk.l2_topk_plain(q, x, k), exact=False,
                          atol=cs.norm_atol(q, x))
         ms = cs.cuda_time_ms(lambda: l2_topk.l2_topk(q, x, k), reps=20)
+        dev_ms = cs.device_ms(lambda: l2_topk.l2_topk(q, x, k), 20,
+                              ("l2_topk_scan", "l2_topk_merge"))
         report[f"l2_topk_{qn}x{n}x{d}_k{k}"] = {
-            "ms": ms, "max_abs_err": err,
+            "ms": ms, "device_ms": dev_ms, "max_abs_err": err,
             "tflops": 2 * qn * n * d / ms / 1e9}
         del q, x
 
@@ -303,6 +315,37 @@ def bench_unmasked(cs, dev, report) -> None:
             qt, kt, vt, is_causal=True, enable_gqa=True), reps=50)
     report["flash_attention_bf16_prefill"] = {
         "ms": ms, "max_abs_err": err, "sdpa_ms": sdpa_ms}
+
+
+def bench_train(cs, dev, report) -> None:
+    """The attention forward and backward of one training layer, seeded."""
+    from repro_torch.kernels import flash_attention as fa
+    b, sq, sk, h, kvh, d = TRAIN_SHAPE
+    gen = torch.Generator(dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               .to(torch.bfloat16) for shape in
+               ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+    err = cs.flash_check(fa.flash_attention(q, k, v),
+                         fa.flash_attention_plain(q, k, v), "train layer")
+
+    def fwd():
+        return fa.flash_attention(q, k, v, return_lse=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    report["flash_attention_bf16_train_fwd"] = {
+        "ms": cs.cuda_time_ms(fwd, reps=20),
+        "device_ms": cs.device_ms(fwd, 20, ("flash_fwd",)),
+        "max_abs_err": err,
+        "sdpa_ms": cs.cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)}
+    print(f"train forward: "
+          f"{json.dumps(report['flash_attention_bf16_train_fwd'])}",
+          flush=True)
+    report["flash_attention_bwd_bf16_train"] = cs.flash_bwd_row((q, k, v),
+                                                                None)
+    print(f"train backward: "
+          f"{json.dumps(report['flash_attention_bwd_bf16_train'])}",
+          flush=True)
 
 
 def main() -> int:
@@ -336,11 +379,14 @@ def main() -> int:
         if "flash_attention" in names:
             cs.check_flash_tensor_cores()
             cs.check_flash_edges(dev)
+        if "l2_topk" in names:
             cs.check_unmasked_edges(dev)
         if "l2_topk_masked" in names:
             cs.check_masked_edges(dev)
         if names == GROUPS["adc"]:
             cs.check_adc_rows_edges(dev)
+        if "flash_attention_bwd" in names:
+            cs.check_flash_bwd_edges(dev)
         report["edges_s"] = time.perf_counter() - t0
     if "l2_topk_masked" in names:
         bench_masked(cs, dev, report, clocks=args.clocks)
@@ -348,6 +394,8 @@ def main() -> int:
         bench_unmasked(cs, dev, report)
     if names == GROUPS["adc"]:
         bench_adc(cs, dev, report)
+    if "flash_attention_bwd" in names:
+        bench_train(cs, dev, report)
     report["card"] = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -9,7 +9,9 @@ reference package (or saved from an earlier run) load here unchanged:
 
 A language model's weights carry the same way: the reference's params
 pytree as numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the
-port's model with ``lm_params_from_arrays(cfg, params)``.
+port's model with ``lm_params_from_arrays(cfg, params)``, and its AdamW
+state (``repro.training.optimizer.init_state`` or a later step's) the
+port's with ``opt_state_from_arrays(cfg, state)``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pag import PAG
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import LM
 from repro_torch.storage.simulator import ObjectStore, StorageConfig
 
@@ -59,6 +61,20 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def _per_layer(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The reference's nested leaves by the port's parameter names, each
+    stacked ``[L, ...]`` leaf under ``blocks`` split into its layers."""
+    given = {}
+    for name, arr in _flatten(tree).items():
+        if name.startswith("blocks."):
+            rest = name[len("blocks."):]
+            for i, layer in enumerate(_tensor(arr).unbind(0)):
+                given[f"blocks.{i}.{rest}"] = layer
+        else:
+            given[name] = _tensor(arr)
+    return given
+
+
 def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
                           device: DeviceLike = None) -> LM:
     """The port's model holding the reference's weights. ``params`` is the
@@ -68,14 +84,7 @@ def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
     the model is given exactly once, with its shape."""
     model = LM(cfg, device)
     target = dict(model.named_parameters())
-    given = {}
-    for name, arr in _flatten(params).items():
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
-            for i, layer in enumerate(_tensor(arr).unbind(0)):
-                given[f"blocks.{i}.{rest}"] = layer
-        else:
-            given[name] = _tensor(arr)
+    given = _per_layer(params)
     if set(given) != set(target):
         raise ValueError(f"parameters missing: {sorted(set(target) - set(given))}"
                          f", unknown: {sorted(set(given) - set(target))}")
@@ -86,3 +95,44 @@ def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
                                  f"holds {tuple(target[name].shape)}")
             target[name].copy_(t)
     return model
+
+
+def _split_factored(v: Dict[str, Any]):
+    """The reference's v tree -> (plain leaves, {"row"}, {"col"}) trees:
+    a factored leaf is a dict of exactly ``row`` and ``col``."""
+    plain, row, col = {}, {}, {}
+    for key, val in v.items():
+        if isinstance(val, dict) and set(val) == {"row", "col"}:
+            row[key], col[key] = val["row"], val["col"]
+        elif isinstance(val, dict):
+            plain[key], row[key], col[key] = _split_factored(val)
+        else:
+            plain[key] = val
+    return plain, row, col
+
+
+def opt_state_from_arrays(cfg: ModelConfig, state: Dict[str, Any],
+                          device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's optimizer state (``repro_torch.training.optimizer``)
+    holding the reference's: ``state`` is its ``{"step", "m", "v"}`` as
+    numpy arrays, per-layer moments stacked ``[L, ...]`` under
+    ``blocks`` and factored second moments as ``{"row", "col"}`` leaves.
+    Each layer's slice goes to its parameter's name, in the stored dtype
+    (``state_dtype``), on ``device`` (the CUDA card unless ``"cpu"``).
+    Raises unless ``m`` names every parameter of ``cfg``'s model."""
+    dev = resolve_device(device)
+    names = set(dict(LM(cfg, "meta").named_parameters()))
+    m = _per_layer(state["m"])
+    if set(m) != names:
+        raise ValueError(f"moments missing: {sorted(names - set(m))}, "
+                         f"unknown: {sorted(set(m) - names)}")
+    plain, row, col = (_per_layer(t) for t in _split_factored(state["v"]))
+    v = {n: t.to(dev) for n, t in plain.items()}
+    v.update({n: {"row": row[n].to(dev), "col": col[n].to(dev)}
+              for n in row})
+    if set(v) != names:
+        raise ValueError(f"second moments do not name the parameters: "
+                         f"{sorted(set(v) ^ names)}")
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "m": {n: t.to(dev) for n, t in m.items()}, "v": v}

@@ -23,8 +23,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("flash_attention", "l2_topk", "l2_topk_masked", "pq_adc",
-           "pq_adc_masked")
+KERNELS = ("flash_attention", "flash_attention_bwd", "l2_topk",
+           "l2_topk_masked", "pq_adc", "pq_adc_masked")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

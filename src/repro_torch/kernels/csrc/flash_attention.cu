@@ -56,6 +56,7 @@ constexpr int kBN = 64;        // keys per tile
 constexpr int kWarpsBF = 4;    // 16 query rows each
 constexpr int kThreadsBF = 32 * kWarpsBF;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -121,8 +122,8 @@ __global__ void __launch_bounds__(kThreadsBF)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KVH,
-               int causal, float scale_log2) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+               int Sk, int H, int KVH, int causal, float scale_log2) {
   static_assert(D % 16 == 0, "the bf16 kernel steps D by 16 columns");
   constexpr int LD = D + 8;       // shared row stride, bf16
   constexpr int CH = D / 8;       // 16-byte chunks per row
@@ -287,6 +288,12 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   const int r0 = row0 + g, r1 = r0 + 8;
+  if (lse != nullptr && tg == 0) {
+    // natural log-sum-exp of the scaled scores: m is in log2 units
+    float* lb = lse + (static_cast<size_t>(b) * H + h) * Sq + q0;
+    if (r0 < rows) lb[r0] = m0 * kLn2 + logf(fmaxf(l0, 1e-30f));
+    if (r1 < rows) lb[r1] = m1 * kLn2 + logf(fmaxf(l1, 1e-30f));
+  }
   __nv_bfloat16* o0 = o + ((static_cast<size_t>(b) * Sq + q0 + r0) * H + h) * D;
   __nv_bfloat16* o1 = o0 + 8 * q_step;
 #pragma unroll
@@ -316,8 +323,9 @@ constexpr size_t smem_bytes_f32() {
 template <int D>
 __global__ void __launch_bounds__(kRows)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int Sq,
-              int Sk, int H, int KVH, int causal, float scale) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
+              int causal, float scale) {
   constexpr int QS = D + 4;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // [kRows][QS]
@@ -411,6 +419,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   if (t < rows) {
     const float den = fmaxf(l, 1e-30f);
+    if (lse != nullptr)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + q0 + t] = m + logf(den);
     float* ob = o + ((static_cast<size_t>(b) * Sq + q0 + t) * H + h) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) ob[d] = acc[d] / den;
@@ -427,32 +437,32 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int H, int KVH, int causal, float scale,
-                cudaStream_t s) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Sq, int Sk, int H, int KVH, int causal,
+                float scale, cudaStream_t s) {
   constexpr size_t smem = smem_bytes_bf16<D>();
   const cudaError_t err = allow_smem(flash_fwd_bf16<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBM - 1) / kBM, H, B);
   flash_fwd_bf16<D><<<grid, kThreadsBF, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Sk, H, KVH, causal, scale * kLog2e);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      Sq, Sk, H, KVH, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KVH, int causal, float scale,
-               cudaStream_t s) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Sk, int H, int KVH, int causal,
+               float scale, cudaStream_t s) {
   constexpr size_t smem = smem_bytes_f32<D>();
   const cudaError_t err = allow_smem(flash_fwd_f32<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kRows - 1) / kRows, H, B);
   flash_fwd_f32<D><<<grid, kRows, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KVH,
-      causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H,
+      KVH, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,11 +471,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 // q, o [B, Sq, H, D]; k, v [B, Sk, KVH, D]; contiguous, one dtype (bf16
 // pointers 16-byte aligned). B, Sq >= 1; Sk >= 1; H % KVH == 0;
 // D in {16, 32, 64, 112, 128}; causal needs Sq <= Sk; the scores are
-// multiplied by scale (1 / sqrt of the caller's true head width). Returns
-// the cudaError_t of the launch (0 = queued).
+// multiplied by scale (1 / sqrt of the caller's true head width). lse, f32
+// [B, H, Sq], receives the natural log-sum-exp of each row's scaled scores,
+// m + log(max(l, 1e-30)), for the backward; null (serving) writes none.
+// Returns the cudaError_t of the launch (0 = queued).
 #define REPRO_FLASH_CASE(launch, W) \
   case W:                           \
-    return launch<W>(q, k, v, o, B, Sq, Sk, H, KVH, causal, scale, s);
+    return launch<W>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, \
+                     KVH, causal, scale, s);
 #define REPRO_FLASH_DISPATCH(launch)                   \
   switch (D) {                                         \
     REPRO_FLASH_CASE(launch, 16)                       \
@@ -477,17 +490,17 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Sq, int Sk, int H,
-                                   int KVH, int D, int causal, float scale,
-                                   void* stream) {
+                                   void* o, void* lse, int B, int Sq, int Sk,
+                                   int H, int KVH, int D, int causal,
+                                   float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_FLASH_DISPATCH(launch_f32)
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int Sq,
-                                    int Sk, int H, int KVH, int D, int causal,
-                                    float scale, void* stream) {
+                                    const void* v, void* o, void* lse, int B,
+                                    int Sq, int Sk, int H, int KVH, int D,
+                                    int causal, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_FLASH_DISPATCH(launch_bf16)
 }

@@ -22,6 +22,18 @@ output's padding columns are cut off.
 ``flash_attention_plain`` beside it materialises the scores, as the
 reference oracle ``repro/kernels/ref.py:flash_attention_ref`` does, and is
 used on the CPU and as the kernel's yardstick on the card.
+
+For training, both can also return ``lse`` f32 ``[B, H, Sq]``, the natural
+log-sum-exp of each row's scaled scores (the residual the reference's
+``_flash_fwd_impl`` keeps, ``repro/models/attention.py:113-116``), and
+``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu``, the
+counterpart of the reference's ``custom_vjp`` backward
+(``repro/models/attention.py:136 bwd``): dQ, dK and dV from (q, k, v, O,
+lse, dO), recomputing the scores tile by tile, never storing them. Its
+plain version ``flash_attention_bwd_plain`` follows the reference's
+formula on the materialised scores in f32. ``FlashAttention`` is the
+``torch.autograd.Function`` over the two: the kernels on CUDA tensors, the
+plain versions on CPU tensors, and no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -30,13 +42,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.l2_topk import bind, call, check_cuda_args
+from repro_torch.kernels.l2_topk import bind, call, check_cuda_args, on_cpu
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 112, 128)   # the kernel's compiled head widths
 
 # CUDA launches of this process per kernel (see ops.launch_counts)
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def head_width(d: int) -> int:
@@ -62,57 +74,121 @@ def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
 
 
+def _grouped(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """[B, S, H, D] -> f32 [B, KVH, G, S, D] (query head h = kvh G + g)."""
+    b, s, h, d = x.shape
+    return x.float().reshape(b, s, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
+
+
+def _ungrouped(x: torch.Tensor) -> torch.Tensor:
+    """[B, KVH, G, S, D] -> [B, S, H, D]."""
+    b, kvh, g, s, d = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, d)
+
+
+def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
+    """[Sq, Sk], True where the key lies past the query row's diagonal."""
+    q_pos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    return torch.arange(sk, device=device)[None, :] > q_pos
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """q [B, Sq, H, D]; k, v [B, Sk, KVH, D] -> [B, Sq, H, D] (q's dtype),
     through the whole [Sq, Sk] score matrix of each head. ``scale``
-    multiplies q (default 1/sqrt(D))."""
+    multiplies q (default 1/sqrt(D)). With ``return_lse``, also the
+    log-sum-exp of each row's scaled scores, f32 [B, H, Sq]."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / d ** 0.5
     # [B, KVH, G, Sq, D] against [B, KVH, 1, Sk, D]: no copy of K/V per group
-    qg = (q.float() * scale).reshape(b, sq, kvh, h // kvh, d) \
-        .permute(0, 2, 3, 1, 4)
+    qg = _grouped(q, kvh) * scale
     kg = k.float().permute(0, 2, 1, 3)[:, :, None]
     vg = v.float().permute(0, 2, 1, 3)[:, :, None]
     s = qg @ kg.transpose(-1, -2)
     if causal:
-        q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-        s = s.masked_fill(torch.arange(sk, device=q.device)[None, :] > q_pos,
-                          NEG_INF)
-    out = torch.softmax(s, dim=-1) @ vg
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+        s = s.masked_fill(_causal_mask(sq, sk, q.device), NEG_INF)
+    out = _ungrouped(torch.softmax(s, dim=-1) @ vg).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+    return out
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor,
+                              causal: bool = True,
+                              scale: Optional[float] = None):
+    """(dq, dk, dv) of attention, the reference's backward
+    (``repro/models/attention.py:136``) on the materialised scores in f32:
+    P = exp(scale q.k - lse) (0 where the causal mask hides the key),
+    delta = rowsum(dO * O), dV = P^T dO, dS = P (dO V^T - delta) scale,
+    dQ = dS K, dK = dS^T Q, dK and dV summed over each KV head's query
+    heads. Shapes as ``flash_attention``'s; lse f32 [B, H, Sq]; each
+    gradient in its input's dtype."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / d ** 0.5
+    qg, og, dog = (_grouped(t, kvh) for t in (q, out, dout))
+    kg = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vg = v.float().permute(0, 2, 1, 3)[:, :, None]
+    s = scale * (qg @ kg.transpose(-1, -2))
+    p = torch.exp(s - lse.float().reshape(b, kvh, h // kvh, sq)[..., None])
+    if causal:
+        p = p.masked_fill(_causal_mask(sq, sk, q.device), 0.0)
+    delta = (dog * og).sum(-1)
+    dv = (p.transpose(-1, -2) @ dog).sum(2)
+    ds = p * (dog @ vg.transpose(-1, -2) - delta[..., None]) * scale
+    dq = _ungrouped(ds @ kg)
+    dk = (ds.transpose(-1, -2) @ qg).sum(2)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def _check_args(name: str, q, k, v, causal: bool, extra=()) -> int:
+    """Raise unless the kernels take these inputs; returns the compiled
+    head width they run at."""
+    check_cuda_args(name, (q, k, v, *extra),
+                    ((torch.float32, torch.bfloat16),) * (3 + len(extra)), 1)
+    if not all(t.dtype == q.dtype for t in (k, v, *extra)):
+        raise TypeError(f"{name}: dtypes {q.dtype}, {k.dtype}, {v.dtype} "
+                        f"differ")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or k.shape[2] == 0 or q.shape[2] % k.shape[2] \
+            or any(t.shape != q.shape for t in extra):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[3]
+    width = head_width(d)
+    if sk == 0 or (causal and sq > sk):
+        raise ValueError(f"{name}: Sq={sq}, Sk={sk} "
+                         f"(causal={causal}) leaves rows with no key")
+    return width
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, return_lse: bool = False):
     """Launch the CUDA kernel. q [B, Sq, H, D]; k, v [B, Sk, KVH, D];
     contiguous, one dtype (float32 or bfloat16), 16-byte aligned, H % KVH
     == 0, 1 <= D <= 128 (padded up to the next of ``HEAD_DIMS``), Sk >=
     1, and Sq <= Sk when causal (a longer query would hold rows with no
     key to attend to). Sq == 0 or B == 0
     returns an empty tensor without a launch. Raises on anything else, and
-    on a non-CUDA tensor."""
-    check_cuda_args("flash_attention", (q, k, v),
-                    ((torch.float32, torch.bfloat16),) * 3, 1)
-    if not q.dtype == k.dtype == v.dtype:
-        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
-                        f"{v.dtype} differ")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
-            or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
+    on a non-CUDA tensor. With ``return_lse`` the kernel also writes the
+    rows' log-sum-exp, returned as ``(out, lse)``."""
+    width = _check_args("flash_attention", q, k, v, causal)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    width = head_width(d)
-    if sk == 0 or (causal and sq > sk):
-        raise ValueError(f"flash_attention: Sq={sq}, Sk={sk} "
-                         f"(causal={causal}) leaves rows with no key")
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if sq == 0 or b == 0:
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        return (out, lse) if return_lse else out
     qp, kp, vp = pad_head_dim(q, k, v, width)
     if any(t.data_ptr() % 16 for t in (qp, kp, vp)):
         raise ValueError("flash_attention: inputs must be 16-byte aligned "
@@ -122,9 +198,77 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn_name = ("flash_attention_bf16" if q.dtype == torch.bfloat16
                else "flash_attention_f32")
     # the true D's scale, rounded once to f32 by ctypes
-    call(bind(build.load("flash_attention"), fn_name, 4, 7, 1), fn_name,
+    call(bind(build.load("flash_attention"), fn_name, 5, 7, 1), fn_name,
          q.device, [qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                    out.data_ptr()],
+                    out.data_ptr(), 0 if lse is None else lse.data_ptr()],
          [b, sq, sk, h, kvh, width, int(causal), 1.0 / math.sqrt(d)])
     launches["flash_attention"] += 1
-    return out if width == d else out[..., :d].contiguous()
+    out = out if width == d else out[..., :d].contiguous()
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True):
+    """Launch the backward kernels: (dq, dk, dv) in the inputs' dtype from
+    the forward's inputs, output ``out`` and ``lse`` (f32 [B, H, Sq]) and
+    the output's gradient ``dout`` [B, Sq, H, D]. Takes what
+    ``flash_attention`` takes (``out`` and ``dout`` with q's shape and
+    dtype) and raises on anything else. delta = rowsum(dO * O) is formed
+    here in f32 from ``out`` as given (rounded to bf16 by a bf16 forward);
+    then one dK/dV launch and one dQ launch, counted together as one
+    ``flash_attention_bwd``. Sq == 0 or B == 0 gives zeros without a
+    launch."""
+    width = _check_args("flash_attention_bwd", q, k, v, causal,
+                        extra=(out, dout))
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} is not f32 [B, H, Sq] on q's device")
+    if sq == 0 or b == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    qp, kp, vp = pad_head_dim(q, k, v, width)
+    dop = pad_head_dim(dout, dout, dout, width)[0]
+    if any(t.data_ptr() % 16 for t in (qp, kp, vp, dop)):
+        raise ValueError("flash_attention_bwd: inputs must be 16-byte "
+                         "aligned (the kernel stages them with 16-byte "
+                         "copies)")
+    dq, dk, dv = (torch.empty_like(t) for t in (qp, kp, vp))
+    from repro_torch.kernels import build
+    fn_name = ("flash_attention_bwd_bf16" if q.dtype == torch.bfloat16
+               else "flash_attention_bwd_f32")
+    call(bind(build.load("flash_attention_bwd"), fn_name, 9, 7, 1), fn_name,
+         q.device, [t.data_ptr() for t in (qp, kp, vp, dop, lse, delta, dq,
+                                           dk, dv)],
+         [b, sq, sk, h, kvh, width, int(causal), 1.0 / math.sqrt(d)])
+    launches["flash_attention_bwd"] += 1
+    if width != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose gradient is the flash backward: the forward keeps
+    (q, k, v, out, lse), the backward recomputes the scores from them. On
+    CUDA tensors both directions are the kernels (a refused launch
+    raises); on CPU tensors both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        fwd = flash_attention_plain if on_cpu(q) else flash_attention
+        out, lse = fwd(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_plain if on_cpu(q) \
+            else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(),
+                         causal=ctx.causal)
+        return dq, dk, dv, None

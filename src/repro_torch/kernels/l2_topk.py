@@ -79,6 +79,16 @@ def _masked_select(d2: torch.Tensor, ids: torch.Tensor, k: int
     return out_d, out_i
 
 
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version's), False for a CUDA one
+    (the kernel's); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.is_cuda:
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
 def check_cuda_args(name: str, tensors, dtypes, k: int):
     """Raise unless every tensor is contiguous, on one CUDA device, with
     the given dtypes (one tuple of allowed dtypes per tensor)."""

@@ -14,20 +14,13 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import l2_topk as _l2
 from repro_torch.kernels import pq_adc as _pq
-
-
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.is_cuda:
-        return False
-    raise ValueError(f"unsupported device {t.device}")
+from repro_torch.kernels.l2_topk import on_cpu
 
 
 def l2_topk(q, x, k: int = 10):
     """q [Q, d], x [N, d] -> (d2 [Q, k] ascending, ids [Q, k]) by
     (d2, id); N < k pads (3.4e38, -1)."""
-    if _on_cpu(q):
+    if on_cpu(q):
         return _l2.l2_topk_plain(q, x, k)
     return _l2.l2_topk(q, x, k)
 
@@ -35,14 +28,14 @@ def l2_topk(q, x, k: int = 10):
 def l2_topk_masked(q, pools, ids, k: int = 10):
     """q [Q, d], pools [Q, C, d], ids [Q, C] (-1 pads ragged rows)
     -> (d2 [Q, k] ascending, ids [Q, k]); short rows pad (3.4e38, -1)."""
-    if _on_cpu(q):
+    if on_cpu(q):
         return _l2.l2_topk_masked_plain(q, pools, ids, k)
     return _l2.l2_topk_masked(q, pools, ids, k)
 
 
 def pq_adc(lut, codes):
     """lut [M, 256] f32, codes [N, M] -> dists [N] f32."""
-    if _on_cpu(lut):
+    if on_cpu(lut):
         return _pq.pq_adc_plain(lut, codes)
     return _pq.pq_adc(lut, codes)
 
@@ -51,7 +44,7 @@ def pq_adc_rows(luts, table, rows, offsets):
     """luts [Q, M, 256] f32, table [n, M] u8, rows [T] i32 ids, offsets
     [Q + 1] i32 -> dists [T] f32: row t scored under the LUT of the query
     whose segment [offsets[q], offsets[q + 1]) holds it."""
-    if _on_cpu(luts):
+    if on_cpu(luts):
         return _pq.pq_adc_rows_plain(luts, table, rows, offsets)
     return _pq.pq_adc_rows(luts, table, rows, offsets)
 
@@ -60,15 +53,19 @@ def pq_adc_masked(luts, codes, ids, k: int = 10):
     """luts [Q, M, 256] f32, codes [Q, C, M] u8, ids [Q, C] (-1 pads
     ragged rows) -> (d2 [Q, k] ascending, ids [Q, k]); short rows pad
     (3.4e38, -1)."""
-    if _on_cpu(luts):
+    if on_cpu(luts):
         return _pq.pq_adc_masked_plain(luts, codes, ids, k)
     return _pq.pq_adc_masked(luts, codes, ids, k)
 
 
 def flash_attention(q, k, v, causal: bool = True):
     """q [B, Sq, H, D]; k, v [B, Sk, KVH, D] (H % KVH == 0) ->
-    [B, Sq, H, D] in q's dtype; causal masks ``k_pos > q_pos + Sk - Sq``."""
-    if _on_cpu(q):
+    [B, Sq, H, D] in q's dtype; causal masks ``k_pos > q_pos + Sk - Sq``.
+    When autograd records and an input requires grad, through
+    ``FlashAttention``, whose backward is ``flash_attention_bwd``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _fa.FlashAttention.apply(q, k, v, bool(causal))
+    if on_cpu(q):
         return _fa.flash_attention_plain(q, k, v, causal)
     return _fa.flash_attention(q, k, v, causal)
 

@@ -2,7 +2,12 @@
 
 Prefill (full-sequence) attention goes to the ``flash_attention`` kernel
 through ``kernels.ops``, the computation the reference's jnp chunked
-online softmax performs and its Pallas kernel targets. Decode is one
+online softmax performs and its Pallas kernel targets. It is
+differentiable: when an input requires grad it runs through
+``kernels.flash_attention.FlashAttention``, whose backward is the
+``flash_attention_bwd`` kernel (the reference's ``custom_vjp`` backward,
+scores recomputed per tile from q, k, v, the output and its
+log-sum-exp). Decode is one
 query token against the KV cache and stays plain PyTorch: it has no
 Pallas counterpart.
 

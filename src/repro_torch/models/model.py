@@ -11,9 +11,13 @@ The weights keep the reference's layouts (``wq [d, H, hd]``, ``wk``/``wv
 [f, d]``, ``tok_embed [Vpad, d]``, ``lm_head [d, Vpad]``), one module per
 layer where the reference stacks layers on a leading axis, so carrying
 its weights across is a copy (``repro_torch.carry.lm_params_from_arrays``).
-Parameters do not require gradients: this slice serves. The reference's
-sharding hints drop out on one card. Other families raise
-``NotImplementedError``.
+Parameters are made without gradients, for serving; a trainer switches
+them on (``model.requires_grad_()``, as ``repro_torch.launch.train``
+does). Then the full-sequence forward recomputes each block in the
+backward when ``cfg.remat`` is set, as the reference's
+``jax.checkpoint`` over its layer scan does, so activation memory holds
+one block's input per layer. The reference's sharding hints drop out on
+one card. Other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, check_family
 from repro_torch.device import DeviceLike, resolve_device
@@ -187,25 +192,35 @@ def _rope(model: LM, positions: torch.Tensor):
 
 
 def forward(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            collect_cache: bool = False):
+            collect_cache: bool = False, return_aux: bool = False):
     """Teacher-forced full-sequence forward -> logits [B, S, Vpad] f32.
 
     With ``collect_cache``, also returns ``{"k", "v"}`` stacked per layer,
-    ``[L, B, S, KVH, hd]`` (after the rotary embedding, as cached)."""
+    ``[L, B, S, KVH, hd]`` (after the rotary embedding, as cached). With
+    ``return_aux``, also the load-balance aux loss, a zero f32 scalar for
+    the dense family (the reference sums its MoE layers' here)."""
     check_family(cfg)
     tokens = batch["tokens"]
     x = model.tok_embed[tokens]
     cos, sin = _rope(model, torch.arange(x.shape[1], device=x.device))
+    remat = cfg.remat and not collect_cache and torch.is_grad_enabled() \
+        and x.requires_grad
     ks, vs = [], []
     for blk in model.blocks:
+        if remat:
+            x = checkpoint(lambda x_, b=blk: b(x_, cos, sin)[0], x,
+                           use_reentrant=False)
+            continue
         x, (k, v) = blk(x, cos, sin)
         if collect_cache:
             ks.append(k)
             vs.append(v)
-    logits = model.logits(x)
+    out = (model.logits(x),)
     if collect_cache:
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return logits
+        out += ({"k": torch.stack(ks), "v": torch.stack(vs)},)
+    if return_aux:
+        out += (torch.zeros((), dtype=torch.float32, device=x.device),)
+    return out if len(out) > 1 else out[0]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

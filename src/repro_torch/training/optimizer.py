@@ -1,0 +1,146 @@
+"""AdamW, as the reference implements it (``repro/training/optimizer.py``).
+
+With a configurable state dtype, an optional Adafactor-style factored
+second moment (row and column statistics on the trailing two dims),
+global-norm gradient clipping and a linear warmup + cosine schedule with
+a floor of 0.1. The arithmetic is the reference's, in float32, cast back
+to each parameter's dtype.
+
+Parameters, gradients and the moments are dicts keyed by the model's
+parameter names (``model.named_parameters()``); the state is
+``{"step": int32 scalar, "m": {name: tensor}, "v": {name: tensor or
+{"row", "col"}}}``. ``apply_updates`` writes the new parameters and
+moments in place (the reference returns new arrays; in place, a step at
+TinyLlama-1.1B's width holds no second copy of them).
+
+The reference stacks a layer's parameters on a leading ``[L, ...]`` axis
+where the port keeps one tensor per layer (``blocks.<i>.<name>``). The
+trailing two dims, which the factored moment reads, are the same either
+way, but the rule "weight decay only on leaves with ndim >= 2" sees the
+stacked leaf: a layer's norm scale is ``[L, d]`` there and decays. So
+the port counts a layer's parameter with its layer axis
+(``reference_ndim``), and decays what the reference decays. A per-layer
+vector is never factored; the reference would factor its stacked
+``[L, d]`` only at a depth of ``min_dim_size_to_factor`` (128) layers or
+more, which no config has.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Mapping, Tuple, Union
+
+import torch
+
+Tensors = Mapping[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    state_dtype: str = "float32"
+    factored: bool = False           # Adafactor-style factored 2nd moment
+    min_dim_size_to_factor: int = 128
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def schedule(cfg: OptimizerConfig,
+             step: Union[int, torch.Tensor]) -> torch.Tensor:
+    """The learning rate at ``step``, f32: linear warmup, then cosine decay
+    to 0.1 of ``lr`` at ``total_steps``."""
+    step = _f32(step)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    cos = 0.5 * (1 + torch.cos(_f32(math.pi) * t))
+    return cfg.lr * warm * (0.1 + 0.9 * cos)
+
+
+def reference_ndim(name: str, p: torch.Tensor) -> int:
+    """The ndim of the reference's leaf holding ``p``: a layer's parameter
+    (``blocks.<i>.…``) carries the stacked layer axis there."""
+    return p.dim() + (1 if name.startswith("blocks.") else 0)
+
+
+def _factorable(shape, cfg: OptimizerConfig) -> bool:
+    return (len(shape) >= 2 and shape[-1] >= cfg.min_dim_size_to_factor
+            and shape[-2] >= cfg.min_dim_size_to_factor)
+
+
+def init_state(params: Tensors, cfg: OptimizerConfig) -> Dict[str, Any]:
+    """Zero moments in ``cfg.state_dtype`` on each parameter's device."""
+    dt = getattr(torch, cfg.state_dtype)
+
+    def init_v(p):
+        if cfg.factored and _factorable(p.shape, cfg):
+            return {"row": p.new_zeros(p.shape[:-1], dtype=dt),
+                    "col": p.new_zeros(p.shape[:-2] + p.shape[-1:],
+                                       dtype=dt)}
+        return p.new_zeros(p.shape, dtype=dt)
+
+    dev = next(iter(params.values())).device
+    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+            "m": {n: p.new_zeros(p.shape, dtype=dt)
+                  for n, p in params.items()},
+            "v": {n: init_v(p) for n, p in params.items()}}
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor (a dict's values or a
+    sequence), in f32."""
+    if isinstance(tensors, Mapping):
+        tensors = tensors.values()
+    return torch.sqrt(torch.stack([x.float().square().sum()
+                                   for x in tensors]).sum())
+
+
+@torch.no_grad()
+def apply_updates(params: Tensors, grads: Tensors, state: Dict[str, Any],
+                  cfg: OptimizerConfig
+                  ) -> Tuple[Tensors, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step: writes the new parameters into ``params`` and the
+    new moments into ``state`` (both in place) and returns (params, state,
+    {"grad_norm", "lr"})."""
+    step = state["step"] + 1
+    lr = schedule(cfg, step).to(step.device)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0) if cfg.clip_norm else 1.0
+    stepf = step.float()
+    b1c = 1 - _f32(cfg.b1).to(step.device) ** stepf
+    b2c = 1 - _f32(cfg.b2).to(step.device) ** stepf
+    dt = getattr(torch, cfg.state_dtype)
+
+    for name, p in params.items():
+        g = grads[name].float() * scale
+        m_new = cfg.b1 * state["m"][name].float() + (1 - cfg.b1) * g
+        v = state["v"][name]
+        if isinstance(v, dict):  # factored
+            g2 = g.square() + 1e-30
+            row = cfg.b2 * v["row"].float() + (1 - cfg.b2) * g2.mean(-1)
+            col = cfg.b2 * v["col"].float() + (1 - cfg.b2) * g2.mean(-2)
+            # reconstruct: v ~ row x col / mean(row)
+            denom = torch.clamp(row.mean(-1, keepdim=True), min=1e-30)
+            v_hat = (row / denom)[..., None] * col[..., None, :]
+            v["row"].copy_(row)
+            v["col"].copy_(col)
+        else:
+            v_hat = cfg.b2 * v.float() + (1 - cfg.b2) * g.square()
+            v.copy_(v_hat)
+        delta = (m_new / b1c) / (torch.sqrt(v_hat / b2c) + cfg.eps)
+        if cfg.weight_decay and reference_ndim(name, p) >= 2:
+            delta = delta + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        state["m"][name].copy_(m_new.to(dt))
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}

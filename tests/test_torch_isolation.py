@@ -32,6 +32,12 @@ LM_MODULES = {"repro_torch.configs.base", "repro_torch.configs.tinyllama_1_1b",
               "repro_torch.kernels.flash_attention",
               "repro_torch.serving.engine", "repro_torch.data.lm",
               "repro_torch.carry"}
+# the training path's modules
+TRAIN_MODULES = {"repro_torch.training", "repro_torch.training.optimizer",
+                 "repro_torch.training.train_step",
+                 "repro_torch.training.compression", "repro_torch.launch",
+                 "repro_torch.launch.train", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.kernels.flash_attention", "repro_torch.carry"}
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -42,6 +48,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     loaded = set(out.stdout.split())
     assert len(loaded) >= 40   # every module was imported
     assert LM_MODULES <= loaded, LM_MODULES - loaded
+    assert TRAIN_MODULES <= loaded, TRAIN_MODULES - loaded
 
 
 FORBIDDEN = re.compile(

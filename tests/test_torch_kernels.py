@@ -466,7 +466,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
                            torch.tensor([0, 1, 3], dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(*_t(*_flash_inputs(1, 2, 1, 8, 8, 32, seed=0)))
-    assert ops.launch_counts() == {"flash_attention": 0, "l2_topk": 0,
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_bwd": 0, "l2_topk": 0,
                                    "l2_topk_masked": 0, "pq_adc": 0,
                                    "pq_adc_rows": 0, "pq_adc_masked": 0}
 
