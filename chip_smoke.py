@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (one process per source, all at once), counts the tensor-core
-instructions (HMMA) of the bf16 ``flash_attention`` kernels, forward and
-backward, with ``cuobjdump``, holds each kernel against its plain PyTorch
+instructions of the bf16 ``flash_attention`` kernels with ``cuobjdump``
+(HMMA in the forward, HGMMA in the backward's two product kernels), holds
+each kernel against its plain PyTorch
 version on the card (edge cases and exact-tie inputs), prefills each dense
 REDUCED config through the attention kernel against the plain attention,
 then drives five paths, each with its kernel launches counted from zero
@@ -531,10 +532,11 @@ def flash_bwd_check(got, want, name: str) -> float:
 def check_flash_bwd_edges(dev) -> None:
     """flash_attention_bwd against its plain version on the card, fed the
     kernel forward's (out, lse) (lse itself held to the plain
-    log-sum-exp): bf16 and f32, every compiled D (16, 32, 64, 112, 128)
-    and padded ones (12, 48), ragged Sq and Sk off the 64-row tiles,
-    causal (Sq <= Sk) and full (Sq < Sk and Sq > Sk), H/KVH = 1, 2 and 8,
-    Sk < 16, Sq = 1, and TinyLlama's 32 / 4 heads; then the refusals."""
+    log-sum-exp): bf16 and f32, every compiled D (16, 32, 64, 128) and
+    padded ones (12, 48, 112), ragged Sq and Sk off the 64-row tiles and
+    the 128-key blocks, causal (Sq <= Sk) and full (Sq < Sk and Sq > Sk),
+    H/KVH = 1, 2 and 8, Sk < 16, Sq = 1, B = 2, grids of a few blocks and
+    TinyLlama's 32 / 4 heads; then the refusals."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     rng = np.random.default_rng(3)
@@ -563,7 +565,17 @@ def check_flash_bwd_edges(dev) -> None:
             (3, 32, 4, 1, 1, 64, True, bf16),
             (2, 32, 4, 1, 531, 64, True, bf16),
             (1, 32, 4, 256, 256, 64, True, bf16),
-            (1, 16, 2, 96, 96, 64, True, bf16)]:
+            (1, 16, 2, 96, 96, 64, True, bf16),
+            # the wgmma tiling: Sk off the 128-key blocks, causal Sq < Sk
+            # at G = 8, D = 128 (32-row query steps) and D = 32, grids of
+            # a few blocks, B = 2 with ragged rows (a map that read past
+            # a batch's last row would read the next batch's)
+            (1, 4, 2, 200, 200, 64, True, bf16),
+            (1, 8, 1, 70, 250, 64, True, bf16),
+            (2, 16, 2, 200, 260, 128, True, bf16),
+            (1, 2, 2, 64, 64, 64, True, bf16),
+            (2, 4, 4, 100, 100, 64, False, bf16),
+            (2, 4, 2, 70, 70, 32, True, bf16)]:
         q, k, v, dout = (torch.from_numpy(rng.standard_normal(
             shape, np.float32)).to(dev, dtype) for shape in
             ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d), (b, sq, h, d)))
@@ -592,9 +604,9 @@ def check_flash_bwd_edges(dev) -> None:
     for bad in (lambda: fa.flash_attention_bwd(  # causal Sq > Sk
                     q, k1, k1, out, lse, dout, True),
                 lambda: fa.flash_attention_bwd(  # D above the widest width
-                    *(torch.nn.functional.pad(t, (0, 80))
+                    *(torch.nn.functional.pad(t, (0, 129 - d))
                       for t in (q, k, v, out)), lse,
-                    torch.nn.functional.pad(dout, (0, 80))),
+                    torch.nn.functional.pad(dout, (0, 129 - d))),
                 lambda: fa.flash_attention_bwd(q, k, v, out, lse,
                                                dout.float()),
                 lambda: fa.flash_attention_bwd(q, k, v, out, lse[:, :1],
@@ -630,28 +642,29 @@ def sass_counts(lib: Path, opcode: str) -> dict:
 
 
 def check_flash_tensor_cores() -> None:
-    """The bf16 flash kernels, forward and backward, run on the tensor
-    cores: their SASS holds HMMA instructions (the f32 kernels hold
-    none)."""
+    """The bf16 flash kernels run on the tensor cores: the forward's SASS
+    holds HMMA (``mma.sync``) instructions at every width of
+    ``HEAD_DIMS``, the backward's two product kernels HGMMA (``wgmma``)
+    instructions at every width of ``BWD_HEAD_DIMS``. Prints every
+    kernel's count (the f32 kernels and ``bwd_delta`` hold none)."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
-    for lib, variants in (("flash_attention", ("flash_fwd_bf16",
-                                               "flash_fwd_f32")),
-                          ("flash_attention_bwd", ("bwd_dkdv_bf16",
-                                                   "bwd_dq_bf16",
-                                                   "bwd_dkdv_f32",
-                                                   "bwd_dq_f32"))):
+    from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS, HEAD_DIMS
+    for lib, opcode, widths, variants in (
+            ("flash_attention", "HMMA", HEAD_DIMS, ("flash_fwd_bf16",)),
+            ("flash_attention_bwd", "HGMMA", BWD_HEAD_DIMS,
+             ("bwd_dkdv_wgmma", "bwd_dq_wgmma"))):
         build.build_all((lib,))   # a no-op once built
-        counts = sass_counts(build.lib_path(lib), "HMMA")
+        counts = sass_counts(build.lib_path(lib), opcode)
         by_variant = {v: {fn: n for fn, n in counts.items() if v in fn}
                       for v in variants}
-        print(f"{lib} SASS HMMA count: "
+        print(f"{lib} SASS {opcode} count: "
               f"{json.dumps({v: sum(c.values()) for v, c in by_variant.items()})}"
               f" per kernel {json.dumps(counts)}", flush=True)
         for v in variants:
-            if "bf16" in v and (len(by_variant[v]) != len(HEAD_DIMS)
-                                or min(by_variant[v].values()) == 0):
-                raise AssertionError(f"{lib}: a {v} kernel holds no HMMA")
+            if len(by_variant[v]) != len(widths) \
+                    or min(by_variant[v].values()) == 0:
+                raise AssertionError(f"{lib}: a {v} kernel holds no "
+                                     f"{opcode}")
 
 
 def check_kernel_edges(dev) -> None:
@@ -1383,11 +1396,11 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
     return rows
 
 
-def device_ms(fn, reps: int, names, tries: int = 4) -> float | None:
-    """The device time of one call of ``fn()``, from ``torch.profiler``
-    over ``reps`` calls: for each kernel whose name contains one of
-    ``names``, the median duration of its recorded launches, summed over
-    those kernels (each call launches each of them once). Late in a long
+def device_split(fn, reps: int, names, tries: int = 4) -> dict | None:
+    """The device time of one call of ``fn()`` by kernel, from
+    ``torch.profiler`` over ``reps`` calls: for each kernel whose name
+    contains one of ``names``, the median duration of its recorded
+    launches in ms (each call launches each of them once). Late in a long
     process the profiler can drop a session's kernel records, or keep some
     with wrong durations, so the median is taken over the records kept,
     and a session that kept none is run again, up to ``tries`` sessions;
@@ -1409,11 +1422,17 @@ def device_ms(fn, reps: int, names, tries: int = 4) -> float | None:
             if any(n in e.name for n in names) and e.device_time > 0:
                 by_name.setdefault(e.name, []).append(e.device_time)
         if by_name:
-            return sum(float(np.median(t)) for t in by_name.values()) / 1e3
+            return {n: float(np.median(t)) / 1e3 for n, t in by_name.items()}
         seen = sorted({e.name[:60] for e in kernels})[:4]
     print(f"device_ms: no {names} kernel in {tries} profiler sessions "
           f"(recorded: {seen})", flush=True)
     return None
+
+
+def device_ms(fn, reps: int, names, tries: int = 4) -> float | None:
+    """``device_split``'s times summed: the device time of one call."""
+    split = device_split(fn, reps, names, tries)
+    return None if split is None else sum(split.values())
 
 
 def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
@@ -1427,7 +1446,8 @@ def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
     the profiler's time of the kernels named ``device_names`` alone."""
     err = check(fn(*args), plain(*args))
     ms = cuda_time_ms(lambda: fn(*args), reps=20)
-    dev_ms = device_ms(lambda: fn(*args), 20, device_names)
+    split = device_split(lambda: fn(*args), 20, device_names)
+    dev_ms = None if split is None else sum(split.values())
     plain_ms = cuda_time_ms(lambda: plain(*args), reps=5)
     library_ms = cuda_time_ms(library, reps=10)
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1435,9 +1455,24 @@ def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
     bound_by = max(bound, key=bound.get)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "ms": ms, "device_ms": dev_ms,
+            "device_ms_by_kernel": {n[:60]: t for n, t in (split or {}).items()},
+            "plain_ms": plain_ms,
             "bound_ms": bound[bound_by], "bound_by": bound_by,
             "library_ms": library_ms, "shape": shape}
+
+
+def check_flash_bwd_deterministic(*args) -> None:
+    """Two backward calls on the same inputs give bit-identical dq, dk and
+    dv: the kernels sum each element in one order, with no atomics."""
+    from repro_torch.kernels import flash_attention as fa
+    first = fa.flash_attention_bwd(*args, causal=True)
+    second = fa.flash_attention_bwd(*args, causal=True)
+    for part, x, y in zip(("dq", "dk", "dv"), first, second):
+        if not torch.equal(x.view(torch.int16), y.view(torch.int16)):
+            raise AssertionError(f"flash_attention_bwd: two calls give "
+                                 f"different {part}")
+    print("flash_attention_bwd: two calls bit-identical", flush=True)
 
 
 def flash_bwd_row(layer_args, launches: int) -> dict:
@@ -1452,6 +1487,7 @@ def flash_bwd_row(layer_args, launches: int) -> dict:
     out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
     gen = torch.Generator(q.device).manual_seed(1)
     dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    check_flash_bwd_deterministic(q, k, v, out, lse, dout)
     pairs = b * h * sum(min(sk, r + sk - sq + 1) for r in range(sq))
     # S = q.k and dP = dO.v recomputed, then dV, dQ and dK: five products
     # of 2 D FLOPs per unmasked pair
@@ -1478,7 +1514,7 @@ def flash_bwd_row(layer_args, launches: int) -> dict:
                                                 "train layer 0"),
         shape={"B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh, "D": d,
                "causal": True, "dtype": str(q.dtype)},
-        device_names=("bwd_dkdv", "bwd_dq"))
+        device_names=("bwd_delta", "bwd_dkdv", "bwd_dq"))
     row["note"] = ("counterpart of the reference's jnp custom_vjp backward, "
                    "not of a pallas_call; library: the backward of "
                    "scaled_dot_product_attention")

@@ -1,441 +1,764 @@
 // The backward of attention with an online softmax, causal or full,
-// grouped-query heads: dQ, dK, dV from (q, k, v, dO, lse, delta).
+// grouped-query heads: dQ, dK, dV from (q, k, v, O, dO, lse).
 //
 // Counterpart of the reference's custom_vjp backward
 // src/repro/models/attention.py:136 (bwd, a jnp scan over key chunks; not
 // a pallas_call): per (query, key) pair P = exp(scale q.k - lse), zero
-// where the causal mask k_pos > q_pos + (Sk - Sq) hides the key; dV = P^T
-// dO; dP = dO V^T; dS = P (dP - delta) scale; dQ = dS K; dK = dS^T Q; dK
-// and dV summed over the G = H / KVH query heads of each KV head. lse
-// [B, H, Sq] is the forward's log-sum-exp (flash_attention.cu writes it)
-// and delta [B, H, Sq] = rowsum(dO * O), both f32. Layout is the model's:
-// q, dO, dQ [B, Sq, H, D]; k, v, dK, dV [B, Sk, KVH, D]. Scores are never
-// stored: each pair is recomputed from q and k, so memory stays O(S D).
+// where the causal mask k_pos > q_pos + (Sk - Sq) hides the key; delta =
+// rowsum(dO * O); dV = P^T dO; dP = dO V^T; dS = P (dP - delta) scale;
+// dQ = dS K; dK = dS^T Q; dK and dV summed over the G = H / KVH query
+// heads of each KV head. lse [B, H, Sq] is the forward's log-sum-exp
+// (flash_attention.cu writes it). Layout is the model's: q, O, dO, dQ
+// [B, Sq, H, D]; k, v, dK, dV [B, Sk, KVH, D]. Scores are never stored:
+// each pair is recomputed from q and k, so memory stays O(S D).
 //
 // Bound on the H100: at a TinyLlama-1.1B training layer (B=8, Sq=Sk=2048,
 // H=32, KVH=4, D=64, bf16, causal) the five products are 10 D FLOPs per
 // unmasked pair, 0.35 ms on the bf16 tensor cores, against 0.09 ms for the
-// bytes of q, k, v, O, dO, lse, delta, dQ, dK and dV: operations bound it,
-// so the products run on the tensor cores.
+// bytes of q, k, v, O, dO, lse, dQ, dK and dV: operations bound it.
 //
-// Two launches, both deterministic (no atomics: each output element is
-// summed by one thread in one order):
-//  * dK/dV: one block of 4 warps per (b, KV head, 64-key tile); each warp
-//    owns 16 keys and keeps their dK and dV rows in f32 registers. The
-//    block walks the G query heads of its KV head and, for each, the 64-row
-//    query tiles at or after its causal diagonal, streaming (q, dO) tiles
-//    and their lse and delta through a 2-stage cp.async ring. Per tile a
-//    warp computes S^T = K q^T and dP^T = V dO^T (K and V A-fragments by
-//    ldmatrix from the block's resident tiles; q and dO as B-fragments),
-//    P^T, then dV += P^T dO and dK += dS^T q (P^T and dS^T repacked in
-//    registers as A-fragments; dO and q as B-fragments by ldmatrix.trans).
-//  * dQ: one block of 4 warps per (b, head, 64-row query tile), 16 rows a
-//    warp, dQ in f32 registers; (K, V) tiles up to the causal diagonal
-//    stream through the same ring. Per tile S = q K^T, dP = dO V^T, then
-//    dQ += dS K (K by ldmatrix.trans).
+// What held the first port (mma.sync) back, and what this design does
+// about each:
+//  * Too little in flight: 222 registers a thread in dK/dV, two 4-warp
+//    blocks an SM, every warp re-reading its K and V fragments with
+//    ldmatrix each step and crossing two __syncthreads around a 2-stage
+//    cp.async ring. Here both product launches run one block of three
+//    warpgroups an SM: two consumer warpgroups issue wgmma (the operands
+//    read by the tensor cores from shared memory, no ldmatrix) while one
+//    producer thread keeps TMA loads of the streamed tiles in flight
+//    through a ring of kStages stages, guarded by full and empty mbarriers
+//    instead of block-wide barriers; setmaxnreg moves the producer's
+//    registers to the consumers (24 / 240 a thread). Named barriers take
+//    the two consumers' first products in turn, so one warpgroup's
+//    exponentials run while the other's products hold the tensor cores.
+//  * Instructions, not products, bound a step once wgmma does the math:
+//    stage, phase and tile counters are kept incremental (no division
+//    in the loop), a descriptor is a base plus a constant per k-step, the
+//    mask is one branch taken only on ragged or diagonal tiles, and P is
+//    ex2.approx.ftz on the MUFU alone. A step's last products stay in
+//    flight while the next step's first are issued.
+//  * Launch order: dK/dV blocks went out group by group, so the longest
+//    blocks of the last groups started in the last wave. Blocks are now
+//    numbered key tile first (dK/dV) or longest query block first (dQ), so
+//    every group's long blocks start in the first wave.
+//  * delta in eager torch (0.94 GB of f32 copies a call) and outside the
+//    kernel times: it is launch 0 here, bwd_delta, 16-byte loads of the
+//    bf16 O and dO and a shuffle sum per row; it also writes lse log2(e),
+//    both with rows padded to whole 128-row blocks for the bulk copies.
+//
+// Three launches, all deterministic (no atomics, no waits across blocks:
+// each output element is summed by one thread in one order):
+//  0. bwd_delta: delta and lse2 = lse log2(e), f32 [B, H, ld].
+//  1. bwd_dkdv_wgmma: one block per (b, KV head, 128 keys); each consumer
+//     warpgroup owns 64 keys and keeps their dK and dV rows in f32
+//     registers; K and V are loaded once; (q, dO, lse2, delta) tiles of NQ
+//     query rows stream through the ring, every head of the KV head in
+//     turn, from the block's causal diagonal on. A step: S^T = K q^T and
+//     dP^T = V dO^T (wgmma, both operands in shared memory), P^T and dS^T
+//     in registers, then dV += P^T dO and dK += dS^T q with P^T and dS^T
+//     as wgmma's register A operand (the m64nNk16 accumulator layout is
+//     the A fragment's, so P never goes to shared memory; dO and q read
+//     through a transposed, MN-major descriptor).
+//  2. bwd_dq_wgmma: one block per (b, head, 128 query rows), 64 rows a
+//     consumer warpgroup, dQ in f32 registers; q and dO loaded once;
+//     (K, V) tiles of 64 keys up to the causal diagonal stream through the
+//     ring. S = q K^T, dP = dO V^T, dS in registers, dQ += dS K (K
+//     transposed).
 // So S and dP are computed twice (once per launch): 7 products per pair
-// where a fused single pass needs 5. Rows are padded by 16 bytes in shared
-// memory, so every ldmatrix phase, transposed or not, hits 32 distinct
-// banks (the forward's layout).
+// where a fused single pass needs 5, and dQ would need an ordered sum
+// across key blocks (ROADMAP).
+//
+// Tiles: TMA reads q, dO, k and v through 3-D tensor maps (heads * D
+// columns, S rows, B batches), so rows past S are zero-filled and never
+// the next batch's; boxes are W = min(D, 64) columns wide with the swizzle
+// of a W * 2-byte row (128, 64 or 32 bytes), the one wgmma's descriptors
+// name; D = 128 is two boxes side by side. NQ is 64 query rows a step, 32
+// at D = 128 (the dK and dV accumulators take 128 registers a thread
+// there). Widths: D in {16, 32, 64, 128}; the wrapper zero-pads any other.
 //
 // Two variants, chosen by dtype as in the forward:
-//  * bf16: mma.sync m16n8k16 with f32 accumulators. P is exp2 of the f32
-//    score times scale*log2(e) less lse*log2(e); P and dS are rounded to
-//    bf16 before their products (dS from the unrounded f32 P). The outputs
-//    are rounded once from f32. tests/test_torch_attention_bwd.py emulates
-//    these rounding points in plain torch.
+//  * bf16, on the tensor cores: P is exp2 of the f32 score times
+//    scale*log2(e) less lse*log2(e) (a P below 2^-126 flushed to 0); P
+//    and dS are rounded to bf16 before their products (dS from the
+//    unrounded f32 P). The outputs are rounded once from f32.
+//    tests/test_torch_attention_bwd.py emulates these tiles and rounding
+//    points in plain torch.
 //  * f32, on the CUDA cores (f32 gradients hold the reference to 1e-5,
 //    which TF32 would not): one thread per key row (dK/dV) or query row
 //    (dQ), accumulators in registers, the streamed tiles in shared memory
-//    read as broadcasts.
+//    read as broadcasts; delta from launch 0 (ld = Sq).
 // Masking sets P to 0 by selection (keys past Sk, query rows past Sq, the
 // causal mask), never through exp(-1e30 - lse), so no NaN or inf appears.
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 64;    // query rows and keys per tile
-constexpr int kWarps = 4;    // 16 rows (keys or queries) each
-constexpr int kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// ---------------------------------------------------------------- PTX ---
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Fragment helpers over a shared tile of rows of LD bf16 (the accumulator
-// element e of 8-column block j sits at row g + 8 (e >> 1), column
-// 8 j + 2 tg + (e & 1)).
+// 2^x on the MUFU alone (exp2f adds a rescaling for results below 2^-126,
+// which this flushes to 0: such a P lies far below a bf16 step of any sum
+// it enters)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// spin until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+// a box of the 3-D tensor map at (column, row, batch) into shared memory;
+// its bytes complete a transaction of the barrier (rows past the end are
+// zeros)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, int batch,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(batch),
+      "r"(bar)
+      : "memory");
+}
+// `bytes` (a multiple of 16, 16-byte aligned) global -> shared, likewise
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pin registers a wgmma writes or reads asynchronously to this point of
+// the program, so the compiler neither reads them early nor reuses them
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+// Named barriers 1 and 2 take the two consumer warpgroups' S and dP issues
+// in turn: warpgroup w syncs on 1 + w before it issues and arrives on the
+// other's barrier after, so one warpgroup's exponentials and dS run while
+// the other's products hold the tensor cores (rather than both waiting,
+// then both computing, in step)
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, f32 accumulate (d: the 64 x N
+// accumulator, N / 2 floats a thread). _ss: A and B from shared memory
+// through K-major descriptors; acc 0 overwrites d. _rs: A (4 registers
+// of packed bf16) from registers, B through an MN-major (transposed)
+// descriptor; always accumulates.
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// ------------------------------------------------------ bf16 layouts ---
 //
-// c[NB][4] += A (16 rows at row0 of a, all D columns) . B^T, B the 64 rows
-// of b: S = X Y^T with both operands stored row-major [rows][D].
-template <int D, int LD>
-__device__ __forceinline__ void mma_abt(float (&c)[kTile / 8][4],
-                                        const __nv_bfloat16* a, int row0,
-                                        const __nv_bfloat16* b, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    const int ra = row0 + (lane & 7) + 8 * ((lane >> 3) & 1);
-    ldsm_x4(smem_u32(a + ra * LD + kk * 16 + 8 * (lane >> 4)), af);
-#pragma unroll
-    for (int nb = 0; nb < kTile / 16; ++nb) {
-      uint32_t bf[4];
-      const int rb = nb * 16 + (lane & 7) + 8 * (lane >> 4);
-      ldsm_x4(smem_u32(b + rb * LD + kk * 16 + 8 * ((lane >> 3) & 1)), bf);
-      mma_bf16(c[2 * nb], af, bf[0], bf[1]);
-      mma_bf16(c[2 * nb + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[D/8][4] += P (16 x 64, as packed bf16 A-fragments pf) . Z, Z the 64
-// rows of z [rows][D] (ldmatrix.trans gives its column-major B-fragments)
-template <int D, int LD>
-__device__ __forceinline__ void mma_pz(float (&acc)[D / 8][4],
-                                       const uint32_t (&pf)[kTile / 8][2],
-                                       const __nv_bfloat16* z, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
-                           pf[2 * kk + 1][1]};
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t bf[4];
-      const int r = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-      ldsm_x4_t(smem_u32(z + r * LD + dn * 16 + 8 * (lane >> 4)), bf);
-      mma_bf16(acc[2 * dn], a, bf[0], bf[1]);
-      mma_bf16(acc[2 * dn + 1], a, bf[2], bf[3]);
-    }
-  }
-}
-
-// rows [r0, r0 + 64) of a [*, stride]-strided tensor (row r at src + r *
-// stride) into a shared tile; rows at or past n are zero-filled
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          size_t stride, int r0, int n,
-                                          int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < kTile * CH; i += kThreads) {
-    const int r = i / CH, c = i % CH;
-    const bool in = r0 + r < n;
-    cp_async16(smem_u32(dst + r * LD + c * 8),
-               in ? src + (r0 + r) * stride + c * 8 : src, in ? 16 : 0);
-  }
-}
+// A tile of R rows by D bf16 columns sits in shared memory as D / W boxes
+// of R rows by W columns (W = min(D, 64)), each box as TMA writes it with
+// the swizzle of its W * 2-byte rows (128, 64 or 32 bytes): the 16-byte
+// chunk c of row r lands at chunk c ^ (r % 8) (128-byte rows; the 64- and
+// 32-byte patterns are the same XOR on fewer bits). Tiles start at 1024-
+// byte boundaries, so the hardware's swizzle, a function of the address,
+// is the one wgmma's descriptors name.
 
 template <int D>
-constexpr size_t smem_bytes_bf16() {
-  // two resident tiles, two stages of two streamed tiles; then two stages
-  // of 64 floats each of lse and delta
-  return static_cast<size_t>(6 * kTile) * (D + 8) * 2 + 4 * kTile * 4;
+struct Cfg {
+  static constexpr int W = D < 64 ? D : 64;        // columns per box
+  static constexpr int NB = D / W;                 // boxes per tile
+  static constexpr int NQ = D == 128 ? 32 : 64;    // dK/dV: query rows a step
+  static constexpr int NK = 64;                    // dQ: keys a step
+  static constexpr uint32_t kRowBytes = W * 2;
+  // a descriptor's high word: the 8-row group stride and the swizzle
+  static constexpr uint32_t kDescHi =
+      (8 * kRowBytes >> 4) | (W == 64 ? 1u : W == 32 ? 2u : 3u) << 30;
+};
+constexpr int kRes = 128;     // resident rows a block: two warpgroups of 64
+constexpr int kStages = 3;    // streamed tiles in flight
+constexpr int kBlock = 384;   // two consumer warpgroups, one producer
+
+// wgmma shared-memory descriptors of width D. The low word holds the start
+// address and the leading byte offset, both in 16-byte units; a k-step
+// adds a constant to it (the start address stays below 2^14 units, so the
+// sum never carries into the offset field).
+template <int D>
+__device__ __forceinline__ uint32_t desc_lo(uint32_t addr, uint32_t lbo) {
+  return ((addr & 0x3FFFF) >> 4) | (lbo >> 4) << 16;
+}
+template <int D>
+__device__ __forceinline__ uint64_t desc(uint32_t lo) {
+  return static_cast<uint64_t>(Cfg<D>::kDescHi) << 32 | lo;
+}
+// K-major operand (A, or B stored N rows by K columns): tile rows from the
+// descriptor's start, the 16 columns of k-step kk, an R-row tile
+template <int D>
+__device__ __forceinline__ uint32_t desc_k(uint32_t addr) {
+  return desc_lo<D>(addr, 16);
+}
+template <int D, int R>
+__host__ __device__ constexpr uint32_t k_step(int kk) {
+  using C = Cfg<D>;
+  return ((kk * 16 / C::W) * R * C::kRowBytes + (kk * 16 % C::W) * 2) >> 4;
+}
+// MN-major operand B (K along an R-row tile's rows, N along its columns,
+// read transposed): rows 16 kk .. 16 kk + 15, box c's W columns
+template <int D, int R>
+__device__ __forceinline__ uint32_t desc_mn(uint32_t addr) {
+  return desc_lo<D>(addr, R * Cfg<D>::kRowBytes);
+}
+template <int D, int R>
+__host__ __device__ constexpr uint32_t mn_step(int c, int kk) {
+  using C = Cfg<D>;
+  return (c * R * C::kRowBytes + kk * 16 * C::kRowBytes) >> 4;
 }
 
-// ------------------------------------------------------ bf16 dK / dV ---
+// -------------------------------------------------------- bf16 dK / dV ---
 
+// One block per (b, KV head, 128 keys), blocks ordered key tile first: the
+// blocks of key tile 0, the longest under the causal mask, go out first.
+// Warpgroups 0 and 1 own 64 keys each and keep their dK and dV rows in f32
+// registers; warpgroup 2's first thread loads the block's K and V once,
+// then streams (q, dO, lse2, delta) tiles of NQ query rows through a ring
+// of kStages stages: every query tile of every head of the KV head, head
+// by head, from the block's causal diagonal on. A step: S^T = K q^T and
+// dP^T = V dO^T (both operands from shared memory), P^T and dS^T in
+// registers, then dV += P^T dO and dK += dS^T q with P^T and dS^T as the
+// register A operand (the accumulator's layout is the A fragment's). The
+// step's loop keeps its counters (stage, phase, tile) incremental and its
+// descriptors as a base plus constants: its instruction count, not the
+// tensor cores, bounds it.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-              int Sq, int Sk, int H, int KVH, int causal, float scale) {
-  static_assert(D % 16 == 0, "the bf16 kernel steps D by 16 columns");
-  constexpr int LD = D + 8;
-  constexpr int NB = kTile / 8;   // 8-query blocks of S^T
-  constexpr int ND = D / 8;       // 8-column blocks of dK, dV
-  extern __shared__ uint4 smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + kTile * LD;
-  __nv_bfloat16* q_s = v_s + kTile * LD;     // [2][kTile][LD]
-  __nv_bfloat16* do_s = q_s + 2 * kTile * LD;  // [2][kTile][LD]
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTile * LD);  // [2][64]
-  float* dl_s = lse_s + 2 * kTile;                                  // [2][64]
+__global__ void __launch_bounds__(kBlock, 1)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_do,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const float* __restrict__ lse2,
+               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv, int B, int Sq, int Sk, int H,
+               int KVH, int causal, int ld, float scale) {
+  using C = Cfg<D>;
+  constexpr int W = C::W, NB = C::NB, NQ = C::NQ;
+  constexpr uint32_t kResBytes = kRes * D * 2, kQBytes = NQ * D * 2;
+  constexpr uint32_t kStageBytes = 2 * kQBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[2 * kStages + 1];  // full, empty, resident
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_s = base, v_s = base + kResBytes;
+  const uint32_t ring = base + 2 * kResBytes;
+  const uint32_t stats = ring + kStages * kStageBytes;  // [stage][lse2, delta][NQ]
+  const float* stats_f =
+      reinterpret_cast<const float*>(smem_raw + (stats - raw));
+  const uint32_t full = smem_u32(&bars[0]), empty = smem_u32(&bars[kStages]);
+  const uint32_t res = smem_u32(&bars[2 * kStages]);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tg = lane & 3;
-  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kTile;
-  const int G = H / KVH;
-  const int off = Sk - Sq;  // query row r sits at key position r + off
+  const int groups = B * KVH;
+  const int b = blockIdx.x % groups / KVH, kvh = blockIdx.x % KVH;
+  const int k0 = blockIdx.x / groups * kRes;
+  const int G = H / KVH, off = Sk - Sq;  // query row r sits at key r + off
+  // causal: query tiles wholly above the block's first key add nothing
+  const int q_first = causal ? max(0, k0 - off) / NQ * NQ : 0;
+  const int q_end = (Sq + NQ - 1) / NQ * NQ;
+  const int n_steps = G * ((q_end - q_first) / NQ);  // (head, tile), head-major
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    mbar_init(res, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 256) return;
+    mbar_expect_tx(res, 2 * kResBytes);
+    for (int c = 0; c < NB; ++c) {
+      tma_load(k_s + c * kRes * W * 2, &tm_k, kvh * D + c * W, k0, b, res);
+      tma_load(v_s + c * kRes * W * 2, &tm_v, kvh * D + c * W, k0, b, res);
+    }
+    int s = 0, h = kvh * G, q0 = q_first;
+    uint32_t phase = 0;
+    for (int i = 0; i < n_steps; ++i) {
+      if (i >= kStages) mbar_wait(empty + 8 * s, phase ^ 1);
+      const uint32_t qs = ring + s * kStageBytes, dos = qs + kQBytes;
+      const uint32_t bar = full + 8 * s;
+      mbar_expect_tx(bar, kStageBytes + 2 * NQ * 4);
+      for (int c = 0; c < NB; ++c) {
+        tma_load(qs + c * NQ * W * 2, &tm_q, h * D + c * W, q0, b, bar);
+        tma_load(dos + c * NQ * W * 2, &tm_do, h * D + c * W, q0, b, bar);
+      }
+      const size_t row = (static_cast<size_t>(b) * H + h) * ld + q0;
+      bulk_load(stats + s * 2 * NQ * 4, lse2 + row, NQ * 4, bar);
+      bulk_load(stats + s * 2 * NQ * 4 + NQ * 4, delta + row, NQ * 4, bar);
+      if ((q0 += NQ) == q_end) {
+        q0 = q_first;
+        ++h;
+      }
+      if (++s == kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int kw0 = k0 + 64 * wg;           // the warpgroup's first key
+  const int key0 = kw0 + 16 * warp + g;   // this thread's rows: key0, +8
   const float scale_log2 = scale * kLog2e;
-
-  const size_t q_step = static_cast<size_t>(H) * D;
-  const size_t kv_step = static_cast<size_t>(KVH) * D;
-  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Sk * KVH + kvh) * D;
-  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Sk * KVH + kvh) * D;
-
-  // causal: query rows below the tile's first key see none of its keys
-  const int qt0 = causal ? max(0, k0 - off) / kTile : 0;
-  const int n_qt = (Sq + kTile - 1) / kTile - qt0;
-  const int n_steps = G * n_qt;  // (head, query tile) pairs, head-major
-
-  load_tile<D, LD>(k_s, kb, kv_step, k0, Sk, tid);
-  load_tile<D, LD>(v_s, vb, kv_step, k0, Sk, tid);
-  auto load_step = [&](int stage, int i) {
-    const int h = kvh * G + i / n_qt, q0 = (qt0 + i % n_qt) * kTile;
-    const size_t base = (static_cast<size_t>(b) * Sq * H + h) * D;
-    load_tile<D, LD>(q_s + stage * kTile * LD, q + base, q_step, q0, Sq, tid);
-    load_tile<D, LD>(do_s + stage * kTile * LD, dout + base, q_step, q0, Sq,
-                     tid);
-    if (tid < kTile) {
-      const size_t row = (static_cast<size_t>(b) * H + h) * Sq;
-      const bool in = q0 + tid < Sq;
-      lse_s[stage * kTile + tid] = in ? lse[row + q0 + tid] * kLog2e : 0.f;
-      dl_s[stage * kTile + tid] = in ? delta[row + q0 + tid] : 0.f;
-    }
-  };
-  if (n_steps > 0) load_step(0, 0);
-  cp_async_commit();
-  if (n_steps > 1) {
-    load_step(1, 1);
-    cp_async_commit();
-  }
-
-  const int kr0 = warp * 16;                  // this warp's first key
-  const int key0 = k0 + kr0 + g, key1 = key0 + 8;  // its two rows' keys
-  float acc_k[ND][4], acc_v[ND][4];
+  const uint32_t k_desc = desc_k<D>(k_s + 64 * wg * C::kRowBytes);
+  const uint32_t v_desc = desc_k<D>(v_s + 64 * wg * C::kRowBytes);
+  float acc_k[NB][W / 2], acc_v[NB][W / 2];
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+  for (int c = 0; c < NB; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+    for (int e = 0; e < W / 2; ++e) acc_k[c][e] = acc_v[c][e] = 0.f;
 
+  // A step's dV and dK products stay in flight while the next step's
+  // S^T and dP^T are issued; the next step's first wait retires them, and
+  // only then is their stage released and their A registers rewritten.
+  uint32_t pf[NQ / 4], dsf[NQ / 4];
+  int in_flight = -1;  // the stage the products in flight read, or -1
+  int s = 0, q0 = q_first;
+  uint32_t phase = 0;
+  mbar_wait(res, 0);
+  if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
   for (int i = 0; i < n_steps; ++i) {
-    if (i + 1 < n_steps) cp_async_wait<1>(); else cp_async_wait<0>();
-    __syncthreads();
-    const int stage = i & 1, q0 = (qt0 + i % n_qt) * kTile;
-    const __nv_bfloat16* qs = q_s + stage * kTile * LD;
-    const __nv_bfloat16* dos = do_s + stage * kTile * LD;
-    const float* ls = lse_s + stage * kTile;
-    const float* dls = dl_s + stage * kTile;
-    // a warp whose keys all lie past Sk, or right of every query row's
-    // diagonal in this tile, adds nothing
-    const bool active = k0 + kr0 < Sk &&
-        !(causal && k0 + kr0 > min(Sq, q0 + kTile) - 1 + off);
+    mbar_wait(full + 8 * s, phase);
+    turn_wait(wg);
+    // no key of this warpgroup reaches a row of the tile
+    const bool active =
+        kw0 < Sk && !(causal && kw0 > min(Sq, q0 + NQ) - 1 + off);
+    if (!active && (wg == 0 || i + 1 < n_steps)) turn_pass(wg);
     if (active) {
-      float st[NB][4];
+      // some pair is masked: keys past Sk, rows past Sq, the diagonal
+      const bool masked = kw0 + 64 > Sk || q0 + NQ > Sq ||
+                          (causal && kw0 + 63 > q0 + off);
+      const uint32_t qs = ring + s * kStageBytes, dos = qs + kQBytes;
+      const uint32_t q_desc = desc_k<D>(qs), do_desc = desc_k<D>(dos);
+      const float* ls = stats_f + s * 2 * NQ;
+      const float* dls = ls + NQ;
+      float st[NQ / 2], dpt[NQ / 2];
+      wg_fence();
 #pragma unroll
-      for (int j = 0; j < NB; ++j) st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-      mma_abt<D, LD>(st, k_s, kr0, qs, lane);
-      // P^T in f32 (kept in st) and rounded to bf16 as A-fragments
-      uint32_t pf[NB][2];
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<NQ>(st, desc<D>(k_desc + k_step<D, kRes>(kk)),
+                     desc<D>(q_desc + k_step<D, NQ>(kk)), kk > 0);
+      wg_commit();
 #pragma unroll
-      for (int j = 0; j < NB; ++j) {
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<NQ>(dpt, desc<D>(v_desc + k_step<D, kRes>(kk)),
+                     desc<D>(do_desc + k_step<D, NQ>(kk)), kk > 0);
+      wg_commit();
+      if (wg == 0 || i + 1 < n_steps) turn_pass(wg);
+      wg_wait<1>();  // S^T, and the previous step's products
+      pin(st);
+      pin(pf);
+      pin(dsf);
+      if (in_flight >= 0) mbar_arrive(empty + 8 * in_flight);
+      // P^T: element e at key key0 + 8 ((e >> 1) & 1), query row
+      // q0 + 8 (e >> 2) + 2 tg + (e & 1)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qr = j * 8 + 2 * tg + (e & 1);   // query row in the tile
-          const int key = e < 2 ? key0 : key1;
-          const bool keep = q0 + qr < Sq && key < Sk &&
-                            !(causal && key > q0 + qr + off);
-          st[j][e] = keep ? exp2f(st[j][e] * scale_log2 - ls[qr]) : 0.f;
+      for (int e = 0; e < NQ / 2; ++e)
+        st[e] = ex2(st[e] * scale_log2 - ls[8 * (e >> 2) + 2 * tg + (e & 1)]);
+      if (masked) {
+#pragma unroll
+        for (int e = 0; e < NQ / 2; ++e) {
+          const int key = key0 + 8 * ((e >> 1) & 1);
+          const int r = q0 + 8 * (e >> 2) + 2 * tg + (e & 1);
+          st[e] = r < Sq && key < Sk && !(causal && key > r + off) ? st[e]
+                                                                   : 0.f;
         }
-        pf[j][0] = pack_bf16(st[j][0], st[j][1]);
-        pf[j][1] = pack_bf16(st[j][2], st[j][3]);
       }
-      mma_pz<D, LD>(acc_v, pf, dos, lane);
-      float dpt[NB][4];
 #pragma unroll
-      for (int j = 0; j < NB; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-      mma_abt<D, LD>(dpt, v_s, kr0, dos, lane);
+      for (int m = 0; m < NQ / 4; ++m) pf[m] = pack_bf16(st[2 * m], st[2 * m + 1]);
+      const uint32_t dom_desc = desc_mn<D, NQ>(dos);
+      wg_fence();
 #pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        const int qr = j * 8 + 2 * tg;
-        const float d0 = dls[qr], d1 = dls[qr + 1];
-        pf[j][0] = pack_bf16(st[j][0] * (dpt[j][0] - d0) * scale,
-                             st[j][1] * (dpt[j][1] - d1) * scale);
-        pf[j][1] = pack_bf16(st[j][2] * (dpt[j][2] - d0) * scale,
-                             st[j][3] * (dpt[j][3] - d1) * scale);
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk)
+          wgmma_rs<W>(acc_v[c], pf + 4 * kk,
+                      desc<D>(dom_desc + mn_step<D, NQ>(c, kk)));
+      wg_commit();
+      wg_wait<1>();  // dP^T
+      pin(dpt);
+#pragma unroll
+      for (int m = 0; m < NQ / 4; ++m) {
+        const int qr = 8 * (m >> 1) + 2 * tg;
+        dsf[m] = pack_bf16(st[2 * m] * (dpt[2 * m] - dls[qr]) * scale,
+                           st[2 * m + 1] * (dpt[2 * m + 1] - dls[qr + 1]) * scale);
       }
-      mma_pz<D, LD>(acc_k, pf, qs, lane);
+      const uint32_t qm_desc = desc_mn<D, NQ>(qs);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk)
+          wgmma_rs<W>(acc_k[c], dsf + 4 * kk,
+                      desc<D>(qm_desc + mn_step<D, NQ>(c, kk)));
+      wg_commit();
+      in_flight = s;
+    } else {
+      if (in_flight >= 0) {
+        wg_wait<0>();
+        pin(pf);
+        pin(dsf);
+        mbar_arrive(empty + 8 * in_flight);
+        in_flight = -1;
+      }
+      mbar_arrive(empty + 8 * s);
     }
-    __syncthreads();  // every warp is done with this stage
-    if (i + 2 < n_steps) {
-      load_step(stage, i + 2);
-      cp_async_commit();
+    if ((q0 += NQ) == q_end) q0 = q_first;
+    if (++s == kStages) {
+      s = 0;
+      phase ^= 1;
     }
+  }
+  wg_wait<0>();
+  pin(pf);
+  pin(dsf);
+  if (in_flight >= 0) mbar_arrive(empty + 8 * in_flight);
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    pin(acc_k[c]);
+    pin(acc_v[c]);
   }
 
-  __nv_bfloat16* dk0 = dk + ((static_cast<size_t>(b) * Sk + key0) * KVH + kvh) * D;
-  __nv_bfloat16* dv0 = dv + ((static_cast<size_t>(b) * Sk + key0) * KVH + kvh) * D;
+  const size_t kv_step = static_cast<size_t>(KVH) * D;
+  const size_t o0 = ((static_cast<size_t>(b) * Sk + key0) * KVH + kvh) * D;
 #pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    const int c = j * 8 + 2 * tg;
-    if (key0 < Sk) {
-      *reinterpret_cast<uint32_t*>(dk0 + c) = pack_bf16(acc_k[j][0], acc_k[j][1]);
-      *reinterpret_cast<uint32_t*>(dv0 + c) = pack_bf16(acc_v[j][0], acc_v[j][1]);
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int e = 0; e < W / 2; e += 2) {
+      const int half = (e >> 1) & 1;
+      const size_t o = o0 + half * 8 * kv_step + c * W + 8 * (e >> 2) + 2 * tg;
+      if (key0 + 8 * half < Sk) {
+        *reinterpret_cast<uint32_t*>(dk + o) = pack_bf16(acc_k[c][e], acc_k[c][e + 1]);
+        *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(acc_v[c][e], acc_v[c][e + 1]);
+      }
     }
-    if (key1 < Sk) {
-      *reinterpret_cast<uint32_t*>(dk0 + 8 * kv_step + c) =
-          pack_bf16(acc_k[j][2], acc_k[j][3]);
-      *reinterpret_cast<uint32_t*>(dv0 + 8 * kv_step + c) =
-          pack_bf16(acc_v[j][2], acc_v[j][3]);
-    }
-  }
 }
 
 // ------------------------------------------------------------ bf16 dQ ---
 
+// One block per (b, head, 128 query rows), blocks ordered query block
+// first, the last (longest under the causal mask) first. Warpgroups 0
+// and 1 own 64 rows each, their dQ rows in f32 registers; warpgroup 2's
+// first thread loads the block's q and dO once, then streams (K, V) tiles
+// of NK keys up to the causal diagonal through the ring. A step: S = q K^T
+// and dP = dO V^T from shared memory, dS in registers, dQ += dS K with dS
+// as the register A operand and K read transposed.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
-            const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v,
-            const __nv_bfloat16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int KVH,
-            int causal, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int NB = kTile / 8;
-  constexpr int ND = D / 8;
-  extern __shared__ uint4 smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* do_s = q_s + kTile * LD;
-  __nv_bfloat16* k_s = do_s + kTile * LD;     // [2][kTile][LD]
-  __nv_bfloat16* v_s = k_s + 2 * kTile * LD;  // [2][kTile][LD]
+__global__ void __launch_bounds__(kBlock, 1)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_do,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const float* __restrict__ lse2, const float* __restrict__ delta,
+             __nv_bfloat16* __restrict__ dq, int B, int Sq, int Sk, int H,
+             int KVH, int causal, int ld, float scale) {
+  using C = Cfg<D>;
+  constexpr int W = C::W, NB = C::NB, NK = C::NK;
+  constexpr uint32_t kResBytes = kRes * D * 2, kKBytes = NK * D * 2;
+  constexpr uint32_t kStageBytes = 2 * kKBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[2 * kStages + 1];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, do_s = base + kResBytes;
+  const uint32_t ring = base + 2 * kResBytes;
+  const uint32_t full = smem_u32(&bars[0]), empty = smem_u32(&bars[kStages]);
+  const uint32_t res = smem_u32(&bars[2 * kStages]);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tg = lane & 3;
-  // causal: the longest query tiles first, so the last wave is short ones
-  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = qt * kTile;
-  const int kvh = h / (H / KVH);
-  const int rows = min(kTile, Sq - q0);
-  const int off = Sk - Sq;
+  const int groups = B * H;
+  const int b = blockIdx.x % groups / H, h = blockIdx.x % H;
+  const int n_qb = (Sq + kRes - 1) / kRes;
+  const int qb = causal ? n_qb - 1 - blockIdx.x / groups : blockIdx.x / groups;
+  const int q0 = qb * kRes, kvh = h / (H / KVH), off = Sk - Sq;
+  const int k_end = causal ? min(Sk, min(Sq, q0 + kRes) + off) : Sk;
+  const int n_steps = (k_end + NK - 1) / NK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    mbar_init(res, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 256) return;
+    mbar_expect_tx(res, 2 * kResBytes);
+    for (int c = 0; c < NB; ++c) {
+      tma_load(q_s + c * kRes * W * 2, &tm_q, h * D + c * W, q0, b, res);
+      tma_load(do_s + c * kRes * W * 2, &tm_do, h * D + c * W, q0, b, res);
+    }
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_steps; ++t) {
+      if (t >= kStages) mbar_wait(empty + 8 * s, phase ^ 1);
+      const uint32_t ks = ring + s * kStageBytes, vs = ks + kKBytes;
+      const uint32_t bar = full + 8 * s;
+      mbar_expect_tx(bar, kStageBytes);
+      for (int c = 0; c < NB; ++c) {
+        tma_load(ks + c * NK * W * 2, &tm_k, kvh * D + c * W, t * NK, b, bar);
+        tma_load(vs + c * NK * W * 2, &tm_v, kvh * D + c * W, t * NK, b, bar);
+      }
+      if (++s == kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int qw0 = q0 + 64 * wg;                   // the warpgroup's first row
+  const int rows = min(64, Sq - qw0);             // its rows (<= 0: none)
+  const int r0 = 16 * warp + g;                   // this thread's rows: r0, +8
   const float scale_log2 = scale * kLog2e;
+  const uint32_t q_desc = desc_k<D>(q_s + 64 * wg * C::kRowBytes);
+  const uint32_t do_desc = desc_k<D>(do_s + 64 * wg * C::kRowBytes);
+  // lse2 and delta are 0 past Sq up to ld, a multiple of kRes
+  const size_t lrow = (static_cast<size_t>(b) * H + h) * ld + qw0 + r0;
+  const float l0 = lse2[lrow], l1 = lse2[lrow + 8];
+  const float dl0 = delta[lrow], dl1 = delta[lrow + 8];
+  float acc[NB][W / 2];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int e = 0; e < W / 2; ++e) acc[c][e] = 0.f;
+
+  // a step's dQ product stays in flight while the next step's S and dP
+  // are issued (as in the dK/dV kernel)
+  uint32_t dsf[NK / 4];
+  int in_flight = -1;
+  int s = 0;
+  uint32_t phase = 0;
+  mbar_wait(res, 0);
+  if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+  for (int kt0 = 0; kt0 < n_steps * NK; kt0 += NK) {
+    mbar_wait(full + 8 * s, phase);
+    turn_wait(wg);
+    const bool last = kt0 + NK >= n_steps * NK;
+    const bool active =
+        rows > 0 && !(causal && kt0 > qw0 + rows - 1 + off);
+    if (!active && (wg == 0 || !last)) turn_pass(wg);
+    if (active) {
+      const bool masked = rows < 64 || kt0 + NK > Sk ||
+                          (causal && kt0 + NK - 1 > qw0 + off);
+      const uint32_t ks = ring + s * kStageBytes, vs = ks + kKBytes;
+      const uint32_t k_desc = desc_k<D>(ks), v_desc = desc_k<D>(vs);
+      float sc[NK / 2], dp[NK / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<NK>(sc, desc<D>(q_desc + k_step<D, kRes>(kk)),
+                     desc<D>(k_desc + k_step<D, NK>(kk)), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<NK>(dp, desc<D>(do_desc + k_step<D, kRes>(kk)),
+                     desc<D>(v_desc + k_step<D, NK>(kk)), kk > 0);
+      wg_commit();
+      if (wg == 0 || !last) turn_pass(wg);
+      wg_wait<1>();  // S, and the previous step's dQ product
+      pin(sc);
+      pin(dsf);
+      if (in_flight >= 0) mbar_arrive(empty + 8 * in_flight);
+      // P: element e at row r0 + 8 ((e >> 1) & 1), key
+      // kt0 + 8 (e >> 2) + 2 tg + (e & 1)
+#pragma unroll
+      for (int e = 0; e < NK / 2; ++e)
+        sc[e] = ex2(sc[e] * scale_log2 - ((e >> 1) & 1 ? l1 : l0));
+      if (masked) {
+#pragma unroll
+        for (int e = 0; e < NK / 2; ++e) {
+          const int r = r0 + 8 * ((e >> 1) & 1);
+          const int key = kt0 + 8 * (e >> 2) + 2 * tg + (e & 1);
+          sc[e] = r < rows && key < Sk && !(causal && key > qw0 + r + off)
+                      ? sc[e] : 0.f;
+        }
+      }
+      wg_wait<0>();  // dP
+      pin(dp);
+#pragma unroll
+      for (int m = 0; m < NK / 4; ++m) {
+        const float dl = (m & 1) ? dl1 : dl0;
+        dsf[m] = pack_bf16(sc[2 * m] * (dp[2 * m] - dl) * scale,
+                           sc[2 * m + 1] * (dp[2 * m + 1] - dl) * scale);
+      }
+      const uint32_t km_desc = desc_mn<D, NK>(ks);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int kk = 0; kk < NK / 16; ++kk)
+          wgmma_rs<W>(acc[c], dsf + 4 * kk,
+                      desc<D>(km_desc + mn_step<D, NK>(c, kk)));
+      wg_commit();
+      in_flight = s;
+    } else {
+      if (in_flight >= 0) {
+        wg_wait<0>();
+        pin(dsf);
+        mbar_arrive(empty + 8 * in_flight);
+        in_flight = -1;
+      }
+      mbar_arrive(empty + 8 * s);
+    }
+    if (++s == kStages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  wg_wait<0>();
+  pin(dsf);
+  if (in_flight >= 0) mbar_arrive(empty + 8 * in_flight);
+#pragma unroll
+  for (int c = 0; c < NB; ++c) pin(acc[c]);
 
   const size_t q_step = static_cast<size_t>(H) * D;
-  const size_t kv_step = static_cast<size_t>(KVH) * D;
-  const size_t qbase = (static_cast<size_t>(b) * Sq * H + h) * D;
-  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Sk * KVH + kvh) * D;
-  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Sk * KVH + kvh) * D;
-
-  const int k_end = causal ? min(Sk, q0 + rows + off) : Sk;
-  const int n_tiles = (k_end + kTile - 1) / kTile;
-
-  load_tile<D, LD>(q_s, q + qbase, q_step, q0, Sq, tid);
-  load_tile<D, LD>(do_s, dout + qbase, q_step, q0, Sq, tid);
-  auto load_kv = [&](int stage, int kt) {
-    load_tile<D, LD>(k_s + stage * kTile * LD, kb, kv_step, kt * kTile, Sk,
-                     tid);
-    load_tile<D, LD>(v_s + stage * kTile * LD, vb, kv_step, kt * kTile, Sk,
-                     tid);
-  };
-  load_kv(0, 0);
-  cp_async_commit();
-  if (n_tiles > 1) {
-    load_kv(1, 1);
-    cp_async_commit();
-  }
-
-  const int row0 = warp * 16;
-  const int r0 = row0 + g, r1 = r0 + 8;  // this lane's two rows in the tile
-  const size_t lrow = (static_cast<size_t>(b) * H + h) * Sq + q0;
-  const float lse0 = r0 < rows ? lse[lrow + r0] * kLog2e : 0.f;
-  const float lse1 = r1 < rows ? lse[lrow + r1] * kLog2e : 0.f;
-  const float dl0 = r0 < rows ? delta[lrow + r0] : 0.f;
-  const float dl1 = r1 < rows ? delta[lrow + r1] : 0.f;
-  float acc[ND][4];
+  const size_t o0 = ((static_cast<size_t>(b) * Sq + qw0 + r0) * H + h) * D;
 #pragma unroll
-  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) cp_async_wait<1>(); else cp_async_wait<0>();
-    __syncthreads();
-    const int stage = t & 1, kt0 = t * kTile;
-    const __nv_bfloat16* ks = k_s + stage * kTile * LD;
-    const __nv_bfloat16* vs = v_s + stage * kTile * LD;
-    const bool active = row0 < rows &&
-        !(causal && kt0 > q0 + min(rows, row0 + 16) - 1 + off);
-    if (active) {
-      float s[NB][4];
+  for (int c = 0; c < NB; ++c)
 #pragma unroll
-      for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      mma_abt<D, LD>(s, q_s, row0, ks, lane);
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = kt0 + j * 8 + 2 * tg + (e & 1);
-          const int r = e < 2 ? r0 : r1;
-          const bool keep = r < rows && key < Sk &&
-                            !(causal && key > q0 + r + off);
-          s[j][e] = keep ? exp2f(s[j][e] * scale_log2 - (e < 2 ? lse0 : lse1))
-                         : 0.f;
-        }
-      float dp[NB][4];
-#pragma unroll
-      for (int j = 0; j < NB; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      mma_abt<D, LD>(dp, do_s, row0, vs, lane);
-      uint32_t pf[NB][2];
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        pf[j][0] = pack_bf16(s[j][0] * (dp[j][0] - dl0) * scale,
-                             s[j][1] * (dp[j][1] - dl0) * scale);
-        pf[j][1] = pack_bf16(s[j][2] * (dp[j][2] - dl1) * scale,
-                             s[j][3] * (dp[j][3] - dl1) * scale);
-      }
-      mma_pz<D, LD>(acc, pf, ks, lane);
+    for (int e = 0; e < W / 2; e += 2) {
+      const int half = (e >> 1) & 1;
+      if (r0 + 8 * half < rows)
+        *reinterpret_cast<uint32_t*>(dq + o0 + half * 8 * q_step + c * W +
+                                     8 * (e >> 2) + 2 * tg) =
+            pack_bf16(acc[c][e], acc[c][e + 1]);
     }
-    __syncthreads();
-    if (t + 2 < n_tiles) {
-      load_kv(stage, t + 2);
-      cp_async_commit();
-    }
-  }
-
-  __nv_bfloat16* o0 = dq + qbase + (q0 + r0) * q_step;
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    const int c = j * 8 + 2 * tg;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(o0 + c) = pack_bf16(acc[j][0], acc[j][1]);
-    if (r1 < rows)
-      *reinterpret_cast<uint32_t*>(o0 + 8 * q_step + c) =
-          pack_bf16(acc[j][2], acc[j][3]);
-  }
 }
 
 // ----------------------------------------------------------------- f32 ---
@@ -622,6 +945,62 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+
+// ------------------------------------------------------------ delta ---
+
+// delta[b, h, r] = rowsum(dO * O) in f32 for r < Sq, 0 for Sq <= r < ld
+// (the row stride ld pads each (b, h) row for the bulk copies of the bf16
+// kernels); with lse2 non-null also lse2 = lse * log2(e) (0 past Sq).
+// L lanes read one W-wide row of O and of dO with 16-byte loads and sum
+// their products through shuffles: one warp covers 32 / L rows.
+template <typename T, int W>
+__global__ void __launch_bounds__(256)
+bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
+          const float* __restrict__ lse, float* __restrict__ delta,
+          float* __restrict__ lse2, int B, int Sq, int H, int ld) {
+  constexpr int EPV = 16 / static_cast<int>(sizeof(T));  // per 16 bytes
+  constexpr int L = W / EPV;                              // lanes a row
+  static_assert(L >= 1 && L <= 32 && W % EPV == 0, "row of whole vectors");
+  const int lane = threadIdx.x & 31;
+  const long long o =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / L;
+  const long long n_out = static_cast<long long>(B) * H * ld;
+  const int bh = static_cast<int>(o / ld), r = static_cast<int>(o % ld);
+  const bool in = o < n_out && r < Sq;
+  float s = 0.f;
+  if (in) {
+    const int b = bh / H, h = bh % H;
+    const size_t row =
+        ((static_cast<size_t>(b) * Sq + r) * H + h) * W + (lane % L) * EPV;
+    const uint4 x = *reinterpret_cast<const uint4*>(out + row);
+    const uint4 y = *reinterpret_cast<const uint4*>(dout + row);
+    if constexpr (sizeof(T) == 2) {
+      const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(xs[e]), c = __bfloat1622float2(ys[e]);
+        s = fmaf(a.x, c.x, s);
+        s = fmaf(a.y, c.y, s);
+      }
+    } else {
+      const float4 a = *reinterpret_cast<const float4*>(&x);
+      const float4 c = *reinterpret_cast<const float4*>(&y);
+      s = fmaf(a.x, c.x, s);
+      s = fmaf(a.y, c.y, s);
+      s = fmaf(a.z, c.z, s);
+      s = fmaf(a.w, c.w, s);
+    }
+  }
+#pragma unroll
+  for (int m = L / 2; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+  if (o < n_out && lane % L == 0) {
+    delta[o] = s;
+    if (lse2 != nullptr)
+      lse2[o] = r < Sq ? lse[static_cast<size_t>(bh) * Sq + r] * kLog2e : 0.f;
+  }
+}
+
 // ------------------------------------------------------------- launches ---
 
 template <typename Kernel>
@@ -632,34 +1011,106 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
+  const void *q, *k, *v, *out, *dout;
+  const float* lse;
+  float *delta, *lse2;
   void *dq, *dk, *dv;
-  int B, Sq, Sk, H, KVH, causal;
+  int B, Sq, Sk, H, KVH, causal, ld;
   float scale;
 };
 
+// launch 0: delta (and lse2 where given) for every (b, h) row
+template <typename T, int D>
+cudaError_t launch_delta(const Args& a, cudaStream_t s) {
+  constexpr int L = D * static_cast<int>(sizeof(T)) / 16;
+  const long long threads = static_cast<long long>(a.B) * a.H * a.ld * L;
+  bwd_delta<T, D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
+      static_cast<const T*>(a.out), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.lse2, a.B, a.Sq, a.H, a.ld);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// the bf16 tensor [B, S, heads, D] as a 3-D map (heads * D columns, S rows,
+// B batches), boxes of `rows` rows by W columns with W's swizzle: rows past
+// S read as zeros, never as the next batch's rows
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+                int rows) {
+  using C = Cfg<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t cols = static_cast<cuuint64_t>(heads) * D;
+  const cuuint64_t dims[3] = {cols, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {cols * 2, cols * 2 * S};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(C::W),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      C::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : C::W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
 int launch_bf16(const Args& a, cudaStream_t s) {
+  using C = Cfg<D>;
   using T = __nv_bfloat16;
-  constexpr size_t smem = smem_bytes_bf16<D>();
-  cudaError_t err = allow_smem(bwd_dkdv_bf16<D>, smem);
-  if (err == cudaSuccess) err = allow_smem(bwd_dq_bf16<D>, smem);
+  constexpr size_t smem_kv = 1024 + 2 * kRes * D * 2 +
+                             kStages * (2 * C::NQ * D * 2 + 2 * C::NQ * 4);
+  constexpr size_t smem_q = 1024 + 2 * kRes * D * 2 + kStages * 2 * C::NK * D * 2;
+  cudaError_t err = allow_smem(bwd_dkdv_wgmma<D>, smem_kv);
+  if (err == cudaSuccess) err = allow_smem(bwd_dq_wgmma<D>, smem_q);
+  if (err == cudaSuccess) err = launch_delta<T, D>(a, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv((a.Sk + kTile - 1) / kTile, a.KVH, a.B);
-  bwd_dkdv_bf16<D><<<grid_kv, kThreads, smem, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Sk, a.H,
-      a.KVH, a.causal, a.scale);
+  CUtensorMap mq, mdo, mk, mv;
+  if (!tensor_map<D>(&mq, a.q, a.B, a.Sq, a.H, C::NQ) ||
+      !tensor_map<D>(&mdo, a.dout, a.B, a.Sq, a.H, C::NQ) ||
+      !tensor_map<D>(&mk, a.k, a.B, a.Sk, a.KVH, kRes) ||
+      !tensor_map<D>(&mv, a.v, a.B, a.Sk, a.KVH, kRes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_kt = (a.Sk + kRes - 1) / kRes;
+  bwd_dkdv_wgmma<D><<<n_kt * a.B * a.KVH, kBlock, smem_kv, s>>>(
+      mq, mdo, mk, mv, a.lse2, a.delta, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.B, a.Sq, a.Sk, a.H, a.KVH, a.causal, a.ld,
+      a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q((a.Sq + kTile - 1) / kTile, a.H, a.B);
-  bwd_dq_bf16<D><<<grid_q, kThreads, smem, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dq), a.Sq, a.Sk, a.H, a.KVH, a.causal,
-      a.scale);
+  if (!tensor_map<D>(&mq, a.q, a.B, a.Sq, a.H, kRes) ||
+      !tensor_map<D>(&mdo, a.dout, a.B, a.Sq, a.H, kRes) ||
+      !tensor_map<D>(&mk, a.k, a.B, a.Sk, a.KVH, C::NK) ||
+      !tensor_map<D>(&mv, a.v, a.B, a.Sk, a.KVH, C::NK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_qb = (a.Sq + kRes - 1) / kRes;
+  bwd_dq_wgmma<D><<<n_qb * a.B * a.H, kBlock, smem_q, s>>>(
+      mq, mdo, mk, mv, a.lse2, a.delta, static_cast<T*>(a.dq), a.B, a.Sq,
+      a.Sk, a.H, a.KVH, a.causal, a.ld, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -668,6 +1119,7 @@ int launch_f32(const Args& a, cudaStream_t s) {
   constexpr size_t smem = smem_bytes_f32<D>();
   cudaError_t err = allow_smem(bwd_dkdv_f32<D>, smem);
   if (err == cudaSuccess) err = allow_smem(bwd_dq_f32<D>, smem);
+  if (err == cudaSuccess) err = launch_delta<float, D>(a, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_kv((a.Sk + kRows - 1) / kRows, a.KVH, a.B);
   bwd_dkdv_f32<D><<<grid_kv, kRows, smem, s>>>(
@@ -688,33 +1140,33 @@ int launch_f32(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// q, dout, dq [B, Sq, H, D]; k, v, dk, dv [B, Sk, KVH, D]; one dtype,
-// contiguous (bf16 pointers 16-byte aligned); lse, delta f32 [B, H, Sq].
-// B, Sq, Sk >= 1; H % KVH == 0; D in {16, 32, 64, 112, 128}; causal needs
-// Sq <= Sk; scale is 1 / sqrt of the caller's true head width. Two launches
-// (dK/dV, then dQ) on one stream; returns the first cudaError_t (0 =
-// queued).
+// q, out, dout, dq [B, Sq, H, D]; k, v, dk, dv [B, Sk, KVH, D]; one dtype,
+// contiguous, 16-byte aligned; lse f32 [B, H, Sq]; delta f32 [B, H, ld]
+// and (bf16) lse2 f32 [B, H, ld], scratch that launch 0 fills, ld >= Sq
+// (bf16: a multiple of 128; f32: Sq). B, Sq, Sk >= 1; H % KVH == 0; D in
+// {16, 32, 64, 128}; causal needs Sq <= Sk; scale is 1 / sqrt of the
+// caller's true head width. Three launches (delta, dK/dV, dQ) on one
+// stream; returns the first error (a cudaError_t; 0 = all queued).
 #define REPRO_BWD_CASE(launch, W) \
   case W:                         \
     return launch<W>(a, s);
-#define REPRO_BWD_ENTRY(name, launch)                                        \
-  extern "C" int name(const void* q, const void* k, const void* v,          \
-                      const void* dout, const void* lse, const void* delta, \
-                      void* dq, void* dk, void* dv, int B, int Sq, int Sk,  \
-                      int H, int KVH, int D, int causal, float scale,       \
-                      void* stream) {                                       \
-    const Args a{q, k, v, dout, static_cast<const float*>(lse),             \
-                 static_cast<const float*>(delta), dq, dk, dv, B, Sq, Sk,   \
-                 H, KVH, causal, scale};                                    \
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);               \
-    switch (D) {                                                            \
-      REPRO_BWD_CASE(launch, 16)                                            \
-      REPRO_BWD_CASE(launch, 32)                                            \
-      REPRO_BWD_CASE(launch, 64)                                            \
-      REPRO_BWD_CASE(launch, 112)                                           \
-      REPRO_BWD_CASE(launch, 128)                                           \
-      default: return static_cast<int>(cudaErrorInvalidValue);              \
-    }                                                                       \
+#define REPRO_BWD_ENTRY(name, launch)                                         \
+  extern "C" int name(const void* q, const void* k, const void* v,           \
+                      const void* out, const void* dout, const void* lse,    \
+                      void* delta, void* lse2, void* dq, void* dk, void* dv, \
+                      int B, int Sq, int Sk, int H, int KVH, int D,          \
+                      int causal, int ld, float scale, void* stream) {       \
+    const Args a{q, k, v, out, dout, static_cast<const float*>(lse),         \
+                 static_cast<float*>(delta), static_cast<float*>(lse2), dq,  \
+                 dk, dv, B, Sq, Sk, H, KVH, causal, ld, scale};              \
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);                \
+    switch (D) {                                                             \
+      REPRO_BWD_CASE(launch, 16)                                             \
+      REPRO_BWD_CASE(launch, 32)                                             \
+      REPRO_BWD_CASE(launch, 64)                                             \
+      REPRO_BWD_CASE(launch, 128)                                            \
+      default: return static_cast<int>(cudaErrorInvalidValue);               \
+    }                                                                        \
   }
 
 REPRO_BWD_ENTRY(flash_attention_bwd_bf16, launch_bf16)

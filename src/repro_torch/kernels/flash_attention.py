@@ -29,8 +29,11 @@ log-sum-exp of each row's scaled scores (the residual the reference's
 ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu``, the
 counterpart of the reference's ``custom_vjp`` backward
 (``repro/models/attention.py:136 bwd``): dQ, dK and dV from (q, k, v, O,
-lse, dO), recomputing the scores tile by tile, never storing them. Its
-plain version ``flash_attention_bwd_plain`` follows the reference's
+lse, dO), recomputing the scores tile by tile, never storing them. Three
+launches: delta = rowsum(dO * O) (launch 0), then dK/dV and dQ, each on
+``wgmma`` with a TMA ring (bf16; the f32 variant runs on the CUDA cores),
+at the head widths ``BWD_HEAD_DIMS`` (any other D zero-padded to the next).
+Its plain version ``flash_attention_bwd_plain`` follows the reference's
 formula on the materialised scores in f32. ``FlashAttention`` is the
 ``torch.autograd.Function`` over the two: the kernels on CUDA tensors, the
 plain versions on CPU tensors, and no fallback from one to the other.
@@ -46,20 +49,25 @@ from repro_torch.kernels.l2_topk import bind, call, check_cuda_args, on_cpu
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 112, 128)   # the kernel's compiled head widths
+BWD_HEAD_DIMS = (16, 32, 64, 128)    # the backward's (112 runs at 128)
+# delta's row stride: each (b, h) row padded to whole 128-row query blocks
+# for the bf16 kernels' 16-byte bulk copies
+DELTA_ROWS = 128
 
 # CUDA launches of this process per kernel (see ops.launch_counts)
 launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
-def head_width(d: int) -> int:
+def head_width(d: int, widths=HEAD_DIMS) -> int:
     """The compiled head width a launch at head dim ``d`` runs at: ``d``
-    itself, else the next wider of ``HEAD_DIMS``. Raises for 0 and above
-    the widest."""
-    for width in HEAD_DIMS:
+    itself, else the next wider of ``widths`` (the forward's
+    ``HEAD_DIMS`` or the backward's ``BWD_HEAD_DIMS``). Raises for 0 and
+    above the widest."""
+    for width in widths:
         if 1 <= d <= width:
             return width
     raise ValueError(f"flash_attention: head dim {d} outside [1, "
-                     f"{HEAD_DIMS[-1]}]")
+                     f"{widths[-1]}]")
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -149,9 +157,10 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
-def _check_args(name: str, q, k, v, causal: bool, extra=()) -> int:
+def _check_args(name: str, q, k, v, causal: bool, extra=(),
+                widths=HEAD_DIMS) -> int:
     """Raise unless the kernels take these inputs; returns the compiled
-    head width they run at."""
+    head width (of ``widths``) they run at."""
     check_cuda_args(name, (q, k, v, *extra),
                     ((torch.float32, torch.bfloat16),) * (3 + len(extra)), 1)
     if not all(t.dtype == q.dtype for t in (k, v, *extra)):
@@ -164,7 +173,7 @@ def _check_args(name: str, q, k, v, causal: bool, extra=()) -> int:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
     sq, sk, d = q.shape[1], k.shape[1], q.shape[3]
-    width = head_width(d)
+    width = head_width(d, widths)
     if sk == 0 or (causal and sq > sk):
         raise ValueError(f"{name}: Sq={sq}, Sk={sk} "
                          f"(causal={causal}) leaves rows with no key")
@@ -214,13 +223,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the forward's inputs, output ``out`` and ``lse`` (f32 [B, H, Sq]) and
     the output's gradient ``dout`` [B, Sq, H, D]. Takes what
     ``flash_attention`` takes (``out`` and ``dout`` with q's shape and
-    dtype) and raises on anything else. delta = rowsum(dO * O) is formed
-    here in f32 from ``out`` as given (rounded to bf16 by a bf16 forward);
-    then one dK/dV launch and one dQ launch, counted together as one
-    ``flash_attention_bwd``. Sq == 0 or B == 0 gives zeros without a
-    launch."""
+    dtype) and raises on anything else. Three launches, counted together
+    as one ``flash_attention_bwd``: delta = rowsum(dO * O) in f32 from
+    ``out`` as given (rounded to bf16 by a bf16 forward), then dK/dV,
+    then dQ. D runs at the next of ``BWD_HEAD_DIMS``, zero-padded. Sq == 0
+    or B == 0 gives zeros without a launch."""
     width = _check_args("flash_attention_bwd", q, k, v, causal,
-                        extra=(out, dout))
+                        extra=(out, dout), widths=BWD_HEAD_DIMS)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
@@ -229,21 +238,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.dtype} is not f32 [B, H, Sq] on q's device")
     if sq == 0 or b == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     qp, kp, vp = pad_head_dim(q, k, v, width)
-    dop = pad_head_dim(dout, dout, dout, width)[0]
-    if any(t.data_ptr() % 16 for t in (qp, kp, vp, dop)):
+    outp, dop = pad_head_dim(out, dout, dout, width)[:2]
+    if any(t.data_ptr() % 16 for t in (qp, kp, vp, outp, dop)):
         raise ValueError("flash_attention_bwd: inputs must be 16-byte "
-                         "aligned (the kernel stages them with 16-byte "
+                         "aligned (the kernels read them with 16-byte "
                          "copies)")
+    bf16 = q.dtype == torch.bfloat16
+    ld = -(-sq // DELTA_ROWS) * DELTA_ROWS if bf16 else sq
+    delta = torch.empty((b, h, ld), dtype=torch.float32, device=q.device)
+    lse2 = torch.empty_like(delta) if bf16 else None
     dq, dk, dv = (torch.empty_like(t) for t in (qp, kp, vp))
     from repro_torch.kernels import build
-    fn_name = ("flash_attention_bwd_bf16" if q.dtype == torch.bfloat16
+    fn_name = ("flash_attention_bwd_bf16" if bf16
                else "flash_attention_bwd_f32")
-    call(bind(build.load("flash_attention_bwd"), fn_name, 9, 7, 1), fn_name,
-         q.device, [t.data_ptr() for t in (qp, kp, vp, dop, lse, delta, dq,
-                                           dk, dv)],
-         [b, sq, sk, h, kvh, width, int(causal), 1.0 / math.sqrt(d)])
+    call(bind(build.load("flash_attention_bwd"), fn_name, 11, 8, 1), fn_name,
+         q.device, [t.data_ptr() for t in (qp, kp, vp, outp, dop, lse,
+                                           delta)]
+         + [0 if lse2 is None else lse2.data_ptr()]
+         + [t.data_ptr() for t in (dq, dk, dv)],
+         [b, sq, sk, h, kvh, width, int(causal), ld, 1.0 / math.sqrt(d)])
     launches["flash_attention_bwd"] += 1
     if width != d:
         dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))

@@ -154,33 +154,125 @@ def _fwd_tiled_bf16(q, k, v, causal, tile=64):
     return out, lse.reshape(b, h, sq)
 
 
+def _delta_launch0(out, dout):
+    """delta f32 [B, H, Sq] as ``bwd_delta`` forms it from the bf16 O and
+    dO: each of L lanes sums the products of its 8 columns in order (a
+    bf16 product is exact in f32, so fmaf rounds only the sum), then the
+    lanes' partial sums meet in a butterfly of shuffles (xor L/2 .. 1),
+    whose lane 0 writes the row."""
+    b, sq, h, d = out.shape
+    width = fa.head_width(d, fa.BWD_HEAD_DIMS)   # the zero-padded row
+    lanes = width // 8
+    prod = torch.nn.functional.pad(out.float() * dout.float(),
+                                   (0, width - d)).reshape(b, sq, h, lanes, 8)
+    part = torch.zeros(b, sq, h, lanes)
+    for c in range(8):
+        part = part + prod[..., c]
+    m = lanes // 2
+    while m:
+        part = part + part[..., torch.arange(lanes) ^ m]
+        m //= 2
+    return part[..., 0].transpose(1, 2).contiguous()
+
+
+def _rows(x, r0, n):
+    """Rows r0 .. r0 + n - 1 of x [S, D], zeros past its end (TMA's
+    zero fill)."""
+    got = x[r0:r0 + n]
+    return torch.cat([got, got.new_zeros(n - got.shape[0], x.shape[1])]) \
+        if got.shape[0] < n else got
+
+
 def _bwd_bf16(q, k, v, out, lse, dout, causal, true_d=None):
-    """(dq, dk, dv) as ``csrc/flash_attention_bwd.cu``'s bf16 variant
-    computes them: products of bf16 values exact in f32, P = exp2(s *
-    f32(scale log2 e) - f32(lse log2 e)), P rounded to bf16 for dV, dS
-    from the f32 P rounded to bf16 for dQ and dK, delta from the bf16 O,
-    outputs rounded once."""
+    """(dq, dk, dv) as ``csrc/flash_attention_bwd.cu``'s bf16 kernels
+    compute them, tile by tile and in their order: delta from launch 0;
+    dK/dV blocks of 128 keys, two warpgroups of 64, walking every query
+    head of their KV head and, for each, the NQ-row query tiles (NQ = 32
+    at the padded width 128, else 64) from the block's causal diagonal
+    on, skipping a tile where no key of the warpgroup reaches a row and
+    masking (P = 0 by selection) only where the kernel's ``masked`` flag
+    says so; dQ blocks of 128 rows, two warpgroups of 64, over 64-key
+    tiles up to the diagonal. Per tile: S = exp2(s * f32(scale log2 e) -
+    f32(lse log2 e)), P rounded to bf16 for dV, dS from the f32 P rounded
+    to bf16 for dQ and dK, f32 sums, outputs rounded once."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
+    nq = 32 if fa.head_width(d, fa.BWD_HEAD_DIMS) == 128 else 64
+    nk = 64
     scale = float(np.float32(1 / np.sqrt(true_d or d)))
     sl2 = float(np.float32(np.float32(scale) * LOG2E))
-    qg, dog = _grouped(q, kvh), _grouped(dout, kvh)
-    kg = k.float().permute(0, 2, 1, 3)[:, :, None]
-    vg = v.float().permute(0, 2, 1, 3)[:, :, None]
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
-        .reshape(b, kvh, g, sq)
-    l2 = (lse.float() * float(LOG2E)).reshape(b, kvh, g, sq)
-    p = torch.exp2((qg @ kg.transpose(-1, -2)) * sl2 - l2[..., None])
-    if causal:
-        p = p.masked_fill(~_causal_keep(sq, sk), 0.0)
-    dv = (p.bfloat16().float().transpose(-1, -2) @ dog).sum(2)
-    ds = (p * (dog @ vg.transpose(-1, -2) - delta[..., None]) * scale) \
-        .bfloat16().float()
-    dq = _ungrouped(ds @ kg)
-    dk = (ds.transpose(-1, -2) @ qg).sum(2)
-    return (dq.bfloat16(), dk.permute(0, 2, 1, 3).bfloat16(),
-            dv.permute(0, 2, 1, 3).bfloat16())
+    off = sk - sq
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = _delta_launch0(out, dout)
+    l2 = lse.float() * float(LOG2E)
+    dq, dk, dv = torch.zeros(q.shape), torch.zeros(k.shape), \
+        torch.zeros(v.shape)
+    for bi in range(b):
+        for kvi in range(kvh):
+            for k0 in range(0, sk, 128):
+                qt0 = max(0, k0 - off) // nq if causal else 0
+                for kw0 in (k0, k0 + 64):
+                    if kw0 >= sk:
+                        continue
+                    keys = torch.arange(kw0, kw0 + 64)[:, None]
+                    kt, vt = (_rows(x[bi, :, kvi], kw0, 64) for x in (kf, vf))
+                    acc_k, acc_v = torch.zeros(64, d), torch.zeros(64, d)
+                    for hh in range(kvi * g, kvi * g + g):
+                        for q0 in range(qt0 * nq, sq, nq):
+                            if causal and kw0 > min(sq, q0 + nq) - 1 + off:
+                                continue
+                            masked = kw0 + 64 > sk or q0 + nq > sq or (
+                                causal and kw0 + 63 > q0 + off)
+                            qt, dot = (_rows(x[bi, :, hh], q0, nq)
+                                       for x in (qf, dof))
+                            lt, dlt = (_rows(x[bi, hh, :, None], q0, nq)[:, 0]
+                                       for x in (l2, delta))
+                            p = torch.exp2((kt @ qt.T) * sl2 - lt)
+                            if masked:
+                                rows = torch.arange(q0, q0 + nq)[None, :]
+                                keep = (rows < sq) & (keys < sk)
+                                if causal:
+                                    keep &= keys <= rows + off
+                                p = torch.where(keep, p, 0.0)
+                            acc_v += p.bfloat16().float() @ dot
+                            ds = p * ((vt @ dot.T) - dlt) * scale
+                            acc_k += ds.bfloat16().float() @ qt
+                    n = min(64, sk - kw0)
+                    dk[bi, kw0:kw0 + n, kvi] = acc_k[:n]
+                    dv[bi, kw0:kw0 + n, kvi] = acc_v[:n]
+    for bi in range(b):
+        for hh in range(h):
+            kvi = hh // g
+            for q0 in range(0, sq, 128):
+                k_end = min(sk, min(sq, q0 + 128) + off) if causal else sk
+                for qw0 in (q0, q0 + 64):
+                    rows = min(64, sq - qw0)
+                    if rows <= 0:
+                        continue
+                    r = torch.arange(qw0, qw0 + 64)[:, None]
+                    qt, dot = (_rows(x[bi, :, hh], qw0, 64) for x in (qf, dof))
+                    lt, dlt = (_rows(x[bi, hh, :, None], qw0, 64)
+                               for x in (l2, delta))
+                    acc = torch.zeros(64, d)
+                    for kt0 in range(0, k_end, nk):
+                        if causal and kt0 > qw0 + rows - 1 + off:
+                            continue
+                        masked = rows < 64 or kt0 + nk > sk or (
+                            causal and kt0 + nk - 1 > qw0 + off)
+                        kt, vt = (_rows(x[bi, :, kvi], kt0, nk)
+                                  for x in (kf, vf))
+                        p = torch.exp2((qt @ kt.T) * sl2 - lt)
+                        if masked:
+                            keys = torch.arange(kt0, kt0 + nk)[None, :]
+                            keep = (r < sq) & (keys < sk)
+                            if causal:
+                                keep &= keys <= r + off
+                            p = torch.where(keep, p, 0.0)
+                        ds = p * ((dot @ vt.T) - dlt) * scale
+                        acc += ds.bfloat16().float() @ kt
+                    dq[bi, qw0:qw0 + rows, hh] = acc[:rows]
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
 def _bf16(*arrays):
@@ -196,11 +288,14 @@ def _assert_within(got, want, tol, names=("dq", "dk", "dv")):
         assert torch.isfinite(g).all() and err <= bound, (name, err, bound)
 
 
-# ragged tiles, GQA 1, 2 and 8, D 16, 64, 112, causal Sq < Sk, full
-# Sq > Sk, a 64-row multiple and TinyLlama's 32/4 heads
+# ragged tiles, GQA 1, 2 and 8, D 16, 64, 128 and the padded 48 and 112,
+# causal Sq < Sk (G = 2 and 8), full Sq > Sk, Sk off the 128-key blocks,
+# a 64-row multiple and TinyLlama's 32/4 heads
 EMUL_SHAPES = [(1, 8, 1, 77, 77, 64, True), (1, 8, 8, 100, 130, 16, False),
                (1, 4, 1, 33, 70, 112, True), (2, 4, 2, 65, 65, 64, True),
-               (1, 4, 4, 90, 40, 16, False), (1, 32, 4, 192, 192, 64, True)]
+               (1, 4, 4, 90, 40, 16, False), (1, 32, 4, 192, 192, 64, True),
+               (1, 4, 2, 100, 300, 128, True), (1, 8, 1, 70, 200, 48, True),
+               (2, 8, 1, 130, 130, 128, False)]
 
 
 @pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal", EMUL_SHAPES)
@@ -236,6 +331,26 @@ def test_bf16_pipeline_holds_the_tolerance_against_plain_autograd(
     _assert_within(got, (qr.grad, kr.grad, vr.grad), BWD_BF16_TOL)
 
 
+@pytest.mark.parametrize("d", [16, 48, 64, 112, 128])
+def test_delta_as_launch_0_forms_it_matches_the_f32_formula(d):
+    """delta summed as ``bwd_delta`` sums it (per-lane runs of 8 columns,
+    then a shuffle butterfly) from bf16 O and dO, against rowsum(dO * O)
+    in f64 and in the f32 formula the wrapper used before launch 0: both
+    within f32 rounding of a sum of d terms (1e-5 of the sum of the
+    products' magnitudes)."""
+    out, dout = (t.bfloat16() for t in (torch.from_numpy(a) for a in
+                                        _inputs(2, 4, 4, 37, 37, d,
+                                                seed=d)[::3]))
+    got = _delta_launch0(out, dout)
+    prod = out.double() * dout.double()
+    bound = 1e-5 * prod.abs().sum(-1).transpose(1, 2)
+    assert got.shape == (2, 4, 37) and got.dtype == torch.float32
+    assert ((got.double() - prod.sum(-1).transpose(1, 2)).abs()
+            <= bound).all()
+    old = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    assert ((got - old).abs().double() <= bound).all()
+
+
 def test_delta_from_the_bf16_output_costs_under_2_to_the_minus_7():
     """The reference takes delta from its f32 output; the port's forward
     rounds O to bf16 and delta is formed from that. The cost, on the
@@ -260,7 +375,7 @@ def test_bwd_plain_on_zero_padded_heads_equals_unpadded(d, causal):
                      _inputs(1, 4, 2, 33, 50, d, seed=d))
     out, lse = fa.flash_attention_plain(q, k, v, causal, return_lse=True)
     want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
-    width = fa.head_width(d)
+    width = fa.head_width(d, fa.BWD_HEAD_DIMS)
     qp, kp, vp = fa.pad_head_dim(q, k, v, width)
     dop, outp = (torch.nn.functional.pad(t, (0, width - d))
                  for t in (dout, out))
