@@ -9,9 +9,9 @@ instructions of the bf16 ``flash_attention`` kernels with ``cuobjdump``
 (HMMA in the forward, HGMMA in the backward's two product kernels), holds
 each kernel against its plain PyTorch
 version on the card (edge cases and exact-tie inputs), prefills each dense
-REDUCED config through the attention kernel against the plain attention,
-then drives five paths, each with its kernel launches counted from zero
-and checked:
+and moe REDUCED config through the attention kernel against the plain
+attention, then drives seven paths, each with its kernel launches
+counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
   -> ``build_pag`` -> ``write_partitions`` (PQ payloads, "dfs" storage
@@ -29,6 +29,22 @@ and checked:
   22 layers) and decodes 32 greedy tokens. Afterwards the prefill logits
   are held against the same forward through the materialised-scores
   attention, and every decode step against the teacher-forced forward.
+* moe: the moe family served as rag serves TinyLlama (8 x 500-token
+  prompts, 32 greedy tokens, cold, warm and profiled) at its published
+  widths with its depth cut to fit one card, seeded weights: DBRX-132B
+  (4 of 40 layers: d 6144, 48 / 8 heads, D 128, 16 experts top-4), freed,
+  then Kimi-K2 (2 of 61: its dense prefix layer and one MoE layer; d
+  7168, 64 / 8 heads, D 112, 384 experts top-8, a shared expert), each
+  prefill layer through ``flash_attention``, the experts as batched
+  cuBLAS products with capacity 1.25. Afterwards, under the route rule
+  (ROUTE_AGREEMENT, ROUTE_TIE_RTOL): the prefill logits against the same
+  forward through the plain attention, a second prefill bit for bit, and
+  the first decode step against the same step after a plain prefill.
+  Prints each arch's cut, walls, tokens/s, idle share, peak memory,
+  tokens dropped for capacity and route agreement.
+* moe_train: three steps of ``launch/train.py``'s setup for each REDUCED
+  moe config (aux loss above 0, one ``flash_attention_bwd`` a layer and
+  step).
 * train: ``launch/train.py``'s setup and step at TinyLlama-1.1B's
   published width (22 layers, d 2048, 32 / 4 heads, bf16, seeded weights),
   B=8 x S=2048: 6 AdamW steps on one repeated batch, each layer's
@@ -49,7 +65,8 @@ and checked:
 
 Last, each kernel is timed on the inputs its path gave it (``l2_topk``
 twice: SPANN's closure chunk and the 1M ground-truth chunk;
-``pq_adc_rows`` on the first full DiskANN wave): CUDA events
+``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` three
+times: rag's first prefill layer and the moe path's two): CUDA events
 around back-to-back wrapper calls (``ms``) and the kernel's own device
 time from ``torch.profiler`` (``device_ms``), beside its plain version,
 one PyTorch library call computing the same function
@@ -137,13 +154,51 @@ RAG_LOGITS_ATOL = 0.25
 # one bf16 step of the output (both sides sum in f32, round once)
 FLASH_BF16_TOL = 2 ** -7
 FLASH_F32_TOL = 1e-5        # f32 sums in another order
-# A prefill of each dense family's REDUCED config (2 layers, D = 16, qwen1.5
-# D = 12) through the kernel against the plain attention: logits of size
-# ~1-5, where 2^-3 is eight bf16 steps; the edge checks hold the kernel
-# itself to one step
+# A prefill of each dense and moe REDUCED config (2-3 layers, D = 16,
+# qwen1.5 D = 12) through the kernel against the plain attention: logits of
+# size ~1-5, where 2^-3 is eight bf16 steps; the edge checks hold the
+# kernel itself to one step. The moe configs' capacity_factor 8 drops no
+# token; their logits are held under the route rule below
 REDUCED_ARCHS = ("tinyllama-1.1b", "command-r-plus-104b", "stablelm-1.6b",
-                 "qwen1.5-4b")
+                 "qwen1.5-4b", "dbrx-132b", "kimi-k2-1t-a32b")
 REDUCED_LOGITS_ATOL = 2 ** -3
+
+# The moe family at its published widths, seeded weights, served as rag
+# serves TinyLlama: 8 x 500-token batch_at prompts, 32 greedy tokens.
+# DBRX-132B (configs/dbrx_132b.py, hf:databricks/dbrx-base: d 6144, 48 / 8
+# heads, D 128, d_ff 10752, 16 experts top-4, vocab 100,352) with its depth
+# cut from 40 to 4 layers (14.3 B parameters, 28.5 GB bf16); then
+# Kimi-K2 (configs/kimi_k2_1t_a32b.py: d 7168, 64 / 8 heads, D 112, d_ff
+# 2048, 384 experts top-8, 1 shared expert, vocab 163,840) cut from 61 to
+# 2: its dense prefix layer and one MoE layer (19.6 B, 39 GB). Nothing
+# else of either config changes: capacity_factor 1.25 drops tokens, in
+# the prefill and more at decode (capacity 2 and 1 a step of 8 tokens)
+MOE_ARCHS = (("dbrx-132b", 4), ("kimi-k2-1t-a32b", 2))
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 8, 500, 32
+# The route rule. A bf16 step in an attention output can flip a near-tied
+# routing choice, which changes that token's layer output by a whole
+# expert's, so logits alone cannot be gated: the kernel run's and the
+# plain run's (token, layer) routes (the expert ids taken) must be
+# identical for at least ROUTE_AGREEMENT of them, and each token's first
+# difference must be a near-tie: the experts swapped within
+# ROUTE_TIE_RTOL of each other in the plain run's router probability (a
+# router-logit gap of 0.125), or, with the same ids, a kept flag moved by
+# an earlier token's change of route to that expert (its queue grew or
+# shrank). The bound is not a few bf16 steps: a token whose route
+# changed changes its keys and values, and every later token attends to
+# them, so a layer's routers see the changes of the layers before it
+# (DBRX, 4 layers: first differences up to 7.2% apart at layer 3, H100
+# 80GB HBM3 at 700 W). Logits are then held to RAG_LOGITS_ATOL on the
+# tokens whose ids and kept flags agree at every layer. Kimi-K2 takes 8
+# of 384 experts: its 8th and 9th router probabilities lie within a bf16
+# step of the router logit (1-2%) far more often than DBRX's 4th and 5th
+# of 16, and 8.2% of its routes differ at its one MoE layer, every first
+# difference within 3.1% (same card): its floor is 0.90
+ROUTE_AGREEMENT = {"dbrx-132b": 0.95, "kimi-k2-1t-a32b": 0.90}
+ROUTE_TIE_RTOL = 2 ** -3
+# REDUCED moe training on the card: 3 steps of launch/train.py's setup
+# (its defaults: B=8 x S=128, lr 1e-3)
+MOE_TRAIN_STEPS = 3
 
 # Training at TinyLlama-1.1B's published width (configs/tinyllama_1_1b.py,
 # arXiv:2401.02385: 22 layers, d 2048, 32 / 4 heads, bf16), seeded weights,
@@ -1031,11 +1086,12 @@ def plain_attention():
 
 
 def check_reduced_prefills(dev) -> dict:
-    """A prefill (the teacher-forced forward) of each dense REDUCED
-    config on the card through the flash_attention kernel, one launch a
-    layer, against the same forward through the plain attention, to
-    REDUCED_LOGITS_ATOL. Returns each config's head dim, launches and
-    max abs error."""
+    """A prefill (the teacher-forced forward) of each REDUCED config on
+    the card through the flash_attention kernel, one launch a layer,
+    against the same forward through the plain attention, to
+    REDUCED_LOGITS_ATOL (a moe config's under the route rule, on the
+    tokens whose routes agree). Returns each config's head dim, launches
+    and max abs error."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import forward, init_params
@@ -1045,18 +1101,30 @@ def check_reduced_prefills(dev) -> dict:
         model = init_params(cfg, seed=0, device=dev)
         tokens = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (2, 77))).to(dev)
+        moe = cfg.family == "moe"
+        routes = [RouteRecorder(cfg) if moe else contextlib.nullcontext()
+                  for _ in range(2)]
         before = ops.launch_counts()["flash_attention"]
         with torch.inference_mode():
-            got = forward(model, {"tokens": tokens}, cfg)
+            with routes[0]:
+                got = forward(model, {"tokens": tokens}, cfg)
             launched = ops.launch_counts()["flash_attention"] - before
-            with plain_attention():
+            with plain_attention(), routes[1]:
                 want = forward(model, {"tokens": tokens}, cfg)
-        err = float((got - want).abs().max())
+        agree = torch.ones(tokens.numel(), dtype=torch.bool, device=dev)
+        rep = {}
+        if moe:
+            rep, agree = route_rule(routes[0].calls, routes[1].calls,
+                                    cfg.n_experts)
+        err = float((got - want)[agree.view(tokens.shape)].abs().max())
         out[arch] = {"head_dim": cfg.resolved_head_dim, "launches": launched,
                      "max_abs": err,
                      "logits_max_abs": float(want.abs().max())}
+        if moe:
+            out[arch]["routes"] = rep
         if launched != cfg.n_layers or not torch.isfinite(got).all() \
-                or err > REDUCED_LOGITS_ATOL:
+                or err > REDUCED_LOGITS_ATOL or rep.get("violations") \
+                or rep.get("agreement", 1.0) < ROUTE_AGREEMENT.get(arch, 0):
             raise AssertionError(f"REDUCED prefill {arch}: {out[arch]}")
     print(f"REDUCED prefills vs plain attention: {json.dumps(out)}",
           flush=True)
@@ -1099,6 +1167,285 @@ def check_rag(r: dict) -> dict:
             or out["decode_vs_forward_max_abs"] > RAG_LOGITS_ATOL:
         raise AssertionError(f"rag: logits off by more than "
                              f"{RAG_LOGITS_ATOL}: {out}")
+    return out
+
+
+class RouteRecorder:
+    """While active, records every routing call of the MoE layers
+    (``repro_torch.models.moe.route``, one call a MoE layer a forward or
+    decode step): each call's expert ids [T, k], which of them its
+    capacity keeps [T, k] and the router probabilities [T, E], on the
+    card, in call order."""
+
+    def __init__(self, cfg):
+        self.cfg, self.calls = cfg, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.route
+        cfg = self.cfg
+
+        def wrapped(xf, router, top_k):
+            gate_w, gate_e = self.orig(xf, router, top_k)
+            keep = moe.capacity_keep(gate_e, cfg.n_experts,
+                                     moe.capacity(cfg, xf.shape[0]))
+            probs = moe.softmax_fp32((xf @ router).float())
+            self.calls.append((gate_e, keep, probs))
+            return gate_w, gate_e
+        moe.route = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def dropped(self, n_tokens: int) -> dict:
+        """Over the calls of ``n_tokens`` tokens: how many (token, expert)
+        assignments capacity dropped, and how many tokens lost at least
+        one (summed over layers and steps)."""
+        calls = [keep for e, keep, _ in self.calls
+                 if e.shape[0] == n_tokens]
+        return {"calls": len(calls),
+                "assignments": sum(int((~k).sum()) for k in calls),
+                "token_layers": sum(int((~k).any(1).sum()) for k in calls),
+                "of_assignments": sum(k.numel() for k in calls)}
+
+
+def route_rule(got_calls, want_calls, n_experts: int):
+    """The route rule between a kernel run's routing calls (``got``) and a
+    plain run's (``want``), layer by layer over the same T tokens: the
+    share of (token, layer) routes (expert ids) that are identical, and
+    for each token its first difference, in ids (a near-tie) or, with the
+    same ids, in a kept flag (displaced). Returns (report, [T] bool: the
+    tokens whose ids and kept flags agree at every layer); the report
+    lists first differences that are neither under ``violations``."""
+    n_tok = got_calls[0][0].shape[0]
+    dev = got_calls[0][0].device
+    undecided = torch.ones(n_tok, dtype=torch.bool, device=dev)
+    ids_same, by_layer, violations = [], [], []
+    for layer, ((ge, gk, _), (we, wk, wp)) in enumerate(zip(got_calls,
+                                                            want_calls)):
+        def member(e, keep):
+            routed = torch.zeros(n_tok, n_experts, dtype=torch.bool,
+                                 device=dev).scatter_(1, e, True)
+            return routed, torch.zeros_like(routed).scatter_(1, e, keep)
+        (ra, ka), (rb, kb) = member(ge, gk), member(we, wk)
+        routes_same = (ra == rb).all(1)
+        same = routes_same & (ka == kb).all(1)
+        # experts swapped: the plain run's best one left out against the
+        # kernel run's worst one taken, in the plain run's probability
+        hi = torch.where(rb & ~ra, wp, 0.0).amax(1)
+        lo = torch.where(ra & ~rb, wp, float("inf")).amin(1)
+        tie = hi - lo <= ROUTE_TIE_RTOL * hi
+        # a kept flag that moved because an earlier token's route to that
+        # expert changed
+        moved = (ra != rb).int()
+        ahead = torch.cumsum(moved, 0) - moved > 0
+        displaced = ((ka != kb) & ~ahead).sum(1) == 0
+        now = undecided & ~same
+        bad = now & torch.where(routes_same, ~displaced, ~tie)
+        by_layer.append({"ids_identical": int(routes_same.sum()),
+                         "first_in_ids": int((now & ~routes_same).sum()),
+                         "first_in_kept": int((now & routes_same).sum()),
+                         "max_ids_gap": float(((hi - lo) / hi)[
+                             now & ~routes_same].max())
+                         if (now & ~routes_same).any() else 0.0})
+        for t in torch.nonzero(bad)[:5, 0].tolist():
+            union = sorted(set(ge[t].tolist()) | set(we[t].tolist()))
+            violations.append({"token": t, "layer": layer,
+                               "got": sorted(ge[t].tolist()),
+                               "want": sorted(we[t].tolist()),
+                               "want_probs": {e: float(wp[t, e])
+                                              for e in union}})
+        undecided &= same
+        ids_same.append(routes_same)
+    ids_same = torch.stack(ids_same)
+    report = {"routes": ids_same.numel(), "identical": int(ids_same.sum()),
+              "agreement": float(ids_same.float().mean()),
+              "tokens_all_layers_agree": int(undecided.sum()),
+              "by_layer": by_layer, "violations": violations}
+    return report, undecided
+
+
+def moe_serve(dev, arch: str, depth: int) -> dict:
+    """One moe arch at its published widths with its depth cut to
+    ``depth`` layers, seeded weights on the card: ``Engine.generate`` over
+    MOE_BATCH x MOE_PROMPT ``batch_at`` prompts, MOE_NEW greedy tokens,
+    cold (with the routes recorded, for the capacity drops), warm (with
+    the peak memory) and under the profiler."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import DataConfig, batch_at
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+    published = get_config(arch)
+    cfg = dataclasses.replace(published, n_layers=depth)
+    with phase(f"moe: init {arch} ({depth} of {published.n_layers} layers, "
+               f"seeded, on the card)"):
+        model = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+    prompt = batch_at(DataConfig(seed=0, batch_size=MOE_BATCH,
+                                 seq_len=MOE_PROMPT), cfg, 0,
+                      device=dev)["tokens"]
+    engine = Engine(cfg, model, ServeConfig(max_new_tokens=MOE_NEW))
+    runs = {}
+    with phase(f"moe: {arch} generate (cold, routes recorded)"), \
+            RouteRecorder(cfg) as rec:
+        engine.generate({"tokens": prompt})
+    runs["cold"] = dict(engine.timing)
+    drops = {"prefill": rec.dropped(MOE_BATCH * MOE_PROMPT),
+             "decode": rec.dropped(MOE_BATCH)}
+    del rec
+    torch.cuda.reset_peak_memory_stats()
+    with phase(f"moe: {arch} generate (warm)"):
+        gen = engine.generate({"tokens": prompt})
+    runs["warm"] = dict(engine.timing)
+    peak = torch.cuda.max_memory_allocated()
+    with phase(f"moe: {arch} generate (profiled)"):
+        profile = profile_generate(engine, prompt)
+    if gen.shape != (MOE_BATCH, MOE_NEW) or (gen < 0).any() \
+            or (gen >= cfg.vocab_size).any():
+        raise AssertionError(f"moe {arch}: generated {gen.shape} ids out "
+                             f"of range")
+    return {"arch": arch, "cfg": cfg, "published_layers": published.n_layers,
+            "model": model, "prompt": prompt, "gen": gen, "timing": runs,
+            "peak_bytes": peak, "drops": drops, "profile": profile}
+
+
+def check_moe(r: dict) -> dict:
+    """At full width and in bf16, under the route rule: (1) the prefill
+    logits through the kernel against the same forward through the plain
+    attention, and a second kernel forward bit for bit against the first
+    (no atomics in attention, dispatch or combine); (2) the first decode
+    step (the first generated token) after a kernel prefill against the
+    same step after a plain prefill (a decode step's own capacity drops
+    tokens the prefill keeps, so decode is not held to the teacher-forced
+    forward). Routes pooled over both for the arch's ROUTE_AGREEMENT;
+    logits within RAG_LOGITS_ATOL on the tokens whose routes agree."""
+    from repro_torch.models import decode_step, forward, prefill
+    cfg, model, prompt = r["cfg"], r["model"], r["prompt"]
+    tokens = {"tokens": prompt}
+    first = torch.from_numpy(r["gen"][:, :1]).to(prompt.device).long()
+    out = {}
+    with torch.inference_mode():
+        with RouteRecorder(cfg) as got_r:
+            logits = forward(model, tokens, cfg)
+        out["prefill_bit_identical"] = bool(torch.equal(
+            logits, forward(model, tokens, cfg)))
+        with plain_attention(), RouteRecorder(cfg) as want_r:
+            want = forward(model, tokens, cfg)
+        pre, agree = route_rule(got_r.calls, want_r.calls, cfg.n_experts)
+        agree = agree.view(MOE_BATCH, MOE_PROMPT)
+        out["prefill_vs_plain_max_abs"] = float(
+            (logits - want)[agree].abs().max())
+        out["prefill_vs_plain_max_abs_all_tokens"] = float(
+            (logits - want).abs().max())
+        out["logits_max_abs"] = float(want[..., :cfg.vocab_size].abs().max())
+        del logits, want, got_r, want_r
+        steps = {}
+        for name, ctx in (("kernel", contextlib.nullcontext),
+                          ("plain", plain_attention)):
+            with ctx():
+                _, cache = prefill(model, tokens, cfg,
+                                   max_len=MOE_PROMPT + 1)
+            with RouteRecorder(cfg) as rec:
+                step, _ = decode_step(model, first, cache, MOE_PROMPT, cfg)
+            steps[name] = (step[:, 0], rec.calls)
+            del cache
+        dec, dec_agree = route_rule(steps["kernel"][1], steps["plain"][1],
+                                    cfg.n_experts)
+        diff = steps["kernel"][0] - steps["plain"][0]
+        out["decode_vs_plain_max_abs"] = float(diff[dec_agree].abs().max()) \
+            if dec_agree.any() else 0.0
+    out["routes_prefill"], out["routes_decode"] = pre, dec
+    pooled = (pre["identical"] + dec["identical"]) \
+        / (pre["routes"] + dec["routes"])
+    out["route_agreement"] = pooled
+    print(f"moe {r['arch']} checks: {json.dumps(out)}", flush=True)
+    if not out["prefill_bit_identical"]:
+        raise AssertionError(f"moe {r['arch']}: two prefills differ")
+    if pooled < ROUTE_AGREEMENT[r["arch"]] or pre["violations"] \
+            or dec["violations"]:
+        raise AssertionError(f"moe {r['arch']}: routes break the route "
+                             f"rule")
+    if out["prefill_vs_plain_max_abs"] > RAG_LOGITS_ATOL \
+            or out["decode_vs_plain_max_abs"] > RAG_LOGITS_ATOL:
+        raise AssertionError(f"moe {r['arch']}: logits off by more than "
+                             f"{RAG_LOGITS_ATOL} on agreeing routes")
+    return out
+
+
+def report_moe(r: dict, checks: dict, launches: int) -> None:
+    """One moe arch's numbers, each on its own line, then one JSON line,
+    beside its yardsticks: a decode step reads every weight but the
+    embedding table once (bytes over 3.35 TB/s); the prefill's expert
+    FLOPs are 2 T k 3 d f a MoE layer (at 989 TFLOP/s)."""
+    cfg, model, warm = r["cfg"], r["model"], r["timing"]["warm"]
+    arch, n_tok = r["arch"], MOE_BATCH * MOE_NEW
+    total = warm["prefill_s"] + warm["decode_s"]
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for n, p in model.named_parameters()
+                       if n != "tok_embed")
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    tokens = MOE_BATCH * MOE_PROMPT
+    expert_flops = n_moe * 2 * tokens * cfg.moe_top_k * 3 * cfg.d_model \
+        * cfg.d_ff
+    rep = {"arch": arch, "reduced": {"n_layers": [r["published_layers"],
+                                                  cfg.n_layers]},
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": MOE_BATCH, "prompt_len": MOE_PROMPT,
+           "new_tokens": MOE_NEW, "capacity_factor": cfg.capacity_factor,
+           "flash_attention_launches": launches, "timing": r["timing"],
+           "tokens_per_s": n_tok / total,
+           "decode_tokens_per_s": MOE_BATCH * (MOE_NEW - 1)
+           / warm["decode_s"],
+           "prefill_tokens_per_s": tokens / warm["prefill_s"],
+           "decode_step_s": warm["decode_s"] / (MOE_NEW - 1),
+           "decode_step_bound_s": weight_bytes / HBM_BYTES_PER_S,
+           "prefill_expert_tflop": expert_flops / 1e12,
+           "prefill_expert_bound_s": expert_flops / BF16_OPS_PER_S,
+           "peak_memory_bytes": r["peak_bytes"], "dropped": r["drops"],
+           "first_generated_ids_0": r["gen"][0, :10].tolist(),
+           "profile": r["profile"], **checks}
+    print(f"moe {arch} reduced: {json.dumps(rep['reduced'])}")
+    print(f"moe {arch} prefill seconds (warm): {warm['prefill_s']:.4f}")
+    print(f"moe {arch} decode seconds (warm, {MOE_NEW - 1} steps): "
+          f"{warm['decode_s']:.4f} (bound {rep['decode_step_bound_s']:.4f}"
+          f" s a step)")
+    print(f"moe {arch} tokens per second (warm): {rep['tokens_per_s']:.1f}")
+    print(f"moe {arch} peak memory: {r['peak_bytes'] / 2 ** 30:.2f} GiB")
+    print(f"moe {arch} dropped for capacity: {json.dumps(r['drops'])}")
+    print(f"moe {arch} route agreement: {checks['route_agreement']:.5f}")
+    print(f"moe {arch} report: {json.dumps(rep)}", flush=True)
+
+
+def moe_train(dev) -> dict:
+    """MOE_TRAIN_STEPS steps of ``launch/train.py``'s setup and step for
+    each REDUCED moe config on the card (the trainer's defaults): finite
+    loss and aux loss, aux loss above 0, one ``flash_attention_bwd`` a
+    layer and step."""
+    from repro_torch.data.lm import batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as trainer
+    out = {}
+    for arch, _ in MOE_ARCHS:
+        args = trainer.parser().parse_args([
+            "--arch", arch, "--steps", str(MOE_TRAIN_STEPS),
+            "--device", str(dev)])
+        cfg, dcfg, model, opt, step_fn = trainer.setup(args)
+        before = ops.launch_counts()["flash_attention_bwd"]
+        losses, aux = [], []
+        for s in range(MOE_TRAIN_STEPS):
+            _, opt, m = step_fn(model, opt, batch_at(dcfg, cfg, s,
+                                                     device=dev))
+            losses.append(float(m["loss"]))
+            aux.append(float(m["aux_loss"]))
+        bwd = ops.launch_counts()["flash_attention_bwd"] - before
+        out[arch] = {"losses": losses, "aux_losses": aux,
+                     "flash_attention_bwd": bwd, "layers": cfg.n_layers}
+        if not np.isfinite(losses + aux).all() or min(aux) <= 0 \
+                or bwd != MOE_TRAIN_STEPS * cfg.n_layers:
+            raise AssertionError(f"moe train {arch}: {out[arch]}")
+    print(f"moe train (REDUCED): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1521,13 +1868,48 @@ def flash_bwd_row(layer_args, launches: int) -> dict:
     return row
 
 
+def flash_row(cap, launches: int, what: str) -> dict:
+    """The kernel row of ``flash_attention`` on the inputs ``cap`` kept
+    (a path's first prefill layer) beside its plain version and
+    ``scaled_dot_product_attention`` (causal, GQA)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v), kw = cap.args
+    causal = kw["causal"]
+    (b, sq, h, d), (sk, kvh) = q.shape, k.shape[1:3]
+    # (query, key) pairs the mask lets through: each causal row r sees
+    # r + Sk - Sq + 1 keys
+    pairs = b * h * (sum(min(sk, r + sk - sq + 1) for r in range(sq))
+                     if causal else sq * sk)
+    n_ops = 4 * d * pairs   # q.k and p.v, a multiply and an add each
+    row = kernel_report(
+        "flash_attention",
+        lambda *a: fa.flash_attention(*a, causal=causal),
+        lambda *a: fa.flash_attention_plain(*a, causal=causal),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True),
+        (q, k, v), launches,
+        nbytes=(2 * b * sq * h + 2 * b * sk * kvh) * d
+        * q.element_size(),
+        n_ops=n_ops, ops_per_s=BF16_OPS_PER_S,
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:68",
+        check=lambda got, want: flash_check(got, want, what),
+        shape={"B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh, "D": d,
+               "causal": causal, "dtype": str(q.dtype)},
+        device_names=("flash_fwd",))
+    # the reference fixes f32 scores; on the f32 CUDA cores the same
+    # work takes this long at the least
+    row["bound_f32_cores_ms"] = n_ops / FP32_OPS_PER_S * 1e3
+    return row
+
+
 def time_kernels(caps, counts) -> list:
     """One row per kernel at the shapes its path gave it. ``caps`` and
     ``counts`` map each kernel to its captured inputs and to the launch
     counts of the path they came from."""
-    import torch.nn.functional as F
     from repro_torch.core.distances import cdist2
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import l2_topk, pq_adc
     rows = []
 
@@ -1642,39 +2024,22 @@ def time_kernels(caps, counts) -> list:
                "staged": t_count >= pq_adc.STAGE_ROWS * qn},
         device_names=("pq_adc_rows_kernel",)))
 
-    (q, k, v), kw = caps["flash_attention"].args
-    causal = kw["causal"]
-    (b, sq, h, d), (sk, kvh) = q.shape, k.shape[1:3]
-    # (query, key) pairs the mask lets through: each causal row r sees
-    # r + Sk - Sq + 1 keys
-    pairs = b * h * (sum(min(sk, r + sk - sq + 1) for r in range(sq))
-                     if causal else sq * sk)
-    n_ops = 4 * d * pairs   # q.k and p.v, a multiply and an add each
-    rows.append(kernel_report(
-        "flash_attention", lambda *a: fa.flash_attention(*a, causal=causal),
-        lambda *a: fa.flash_attention_plain(*a, causal=causal),
-        lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True),
-        (q, k, v), counts["flash_attention"]["flash_attention"],
-        nbytes=(2 * b * sq * h + 2 * b * sk * kvh) * d * q.element_size(),
-        n_ops=n_ops, ops_per_s=BF16_OPS_PER_S,
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:68",
-        check=lambda got, want: flash_check(got, want, "first prefill layer"),
-        shape={"B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh, "D": d,
-               "causal": causal, "dtype": str(q.dtype)},
-        device_names=("flash_fwd",)))
-    # the reference fixes f32 scores; on the f32 CUDA cores the same work
-    # takes this long at the least
-    rows[-1]["bound_f32_cores_ms"] = n_ops / FP32_OPS_PER_S * 1e3
-
+    rows.append(flash_row(caps["flash_attention"],
+                          counts["flash_attention"]["flash_attention"],
+                          "first prefill layer"))
     rows.append(flash_bwd_row(caps["flash_attention_bwd"].args[0],
                               counts["flash_attention_bwd"]
                               ["flash_attention_bwd"]))
     for r, path in zip(rows, ("main", "main", "compare", "main", "compare",
                               "rag", "train")):
         r["path"] = path
+    # the moe path's first prefill layers: DBRX-132B (D 128, 48 / 8 heads)
+    # and Kimi-K2 (D 112, 64 / 8)
+    for arch, _ in MOE_ARCHS:
+        rows.append(flash_row(caps[f"flash_attention:{arch}"],
+                              counts[f"moe:{arch}"]["flash_attention"],
+                              f"{arch} first prefill layer"))
+        rows[-1]["path"] = "moe"
     return rows
 
 
@@ -1741,16 +2106,19 @@ def main() -> int:
     counts = {}
 
     @contextlib.contextmanager
-    def path(name: str, kernels):
-        """Counts every launch of one path (from 0) and fails if one of
-        its kernels was launched no time on it."""
+    def path(name: str, kernels, part: str = ""):
+        """Counts every launch of one path (from 0; a path run in parts,
+        one ``part`` at a time, adds them up) and fails if one of its
+        kernels was launched no time on it (on this part)."""
         ops.reset_launch_counts()
         yield
-        counts[name] = ops.launch_counts()
-        print(f"[launches] {name}: {json.dumps(counts[name])}", flush=True)
-        missing = [k for k in kernels if counts[name][k] == 0]
+        got = ops.launch_counts()
+        counts[name] = {k: counts.get(name, {}).get(k, 0) + c
+                        for k, c in got.items()}
+        print(f"[launches] {name}{part}: {json.dumps(got)}", flush=True)
+        missing = [k for k in kernels if got[k] == 0]
         if missing:
-            raise AssertionError(f"{name}: not launched: {missing}")
+            raise AssertionError(f"{name}{part}: not launched: {missing}")
 
     serve_kernels = ("l2_topk", "l2_topk_masked", "pq_adc_masked")
     # rerank_k=32 (the search default) beside 64: the PQ gap it leaves
@@ -1775,6 +2143,31 @@ def main() -> int:
     report_rag(rag_run, rag_checks)
     del rag_run, quality_index
     torch.cuda.empty_cache()
+
+    # one arch at a time, each freed before the next; the first prefill
+    # layer's attention of each
+    moe_launches = {}
+    for arch, depth in MOE_ARCHS:
+        cap = caps[f"flash_attention:{arch}"] = Capture(
+            ops, "flash_attention", lambda a: True)
+        with path("moe", ("flash_attention",), f" ({arch})"), cap:
+            moe_run = moe_serve(dev, arch, depth)
+        moe_launches[f"moe:{arch}"] = ops.launch_counts()
+        launched = moe_launches[f"moe:{arch}"]["flash_attention"]
+        if launched < 3 * depth:
+            raise AssertionError(f"moe {arch}: fewer flash_attention "
+                                 f"launches than layers in the three "
+                                 f"prefills")
+        with phase(f"moe: {arch} checks (prefill vs plain attention and "
+                   f"bit for bit, first decode step vs plain prefill, "
+                   f"routes)"):
+            moe_checks = check_moe(moe_run)
+        report_moe(moe_run, moe_checks, launched)
+        del moe_run
+        torch.cuda.empty_cache()
+    with path("moe_train", ("flash_attention", "flash_attention_bwd")), \
+            phase("moe: REDUCED train steps"):
+        moe_train(dev)
 
     # the first attention call with gradients: layer 0 of step 0
     caps["flash_attention_bwd"] = Capture(ops, "flash_attention",
@@ -1823,7 +2216,8 @@ def main() -> int:
                      "pq_adc_rows": counts["compare"],
                      "l2_closure": counts["compare"],
                      "flash_attention": counts["rag"],
-                     "flash_attention_bwd": counts["train"]}
+                     "flash_attention_bwd": counts["train"],
+                     **moe_launches}
         rows = time_kernels(caps, by_kernel)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}

@@ -61,15 +61,19 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+STACKS = ("blocks", "dense_blocks")   # the reference's [L, ...] stacks
+
+
 def _per_layer(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The reference's nested leaves by the port's parameter names, each
-    stacked ``[L, ...]`` leaf under ``blocks`` split into its layers."""
+    stacked ``[L, ...]`` leaf under ``blocks`` or ``dense_blocks`` split
+    into its layers (``blocks.<i>.…``, ``dense_blocks.<i>.…``)."""
     given = {}
     for name, arr in _flatten(tree).items():
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
+        stack, _, rest = name.partition(".")
+        if stack in STACKS:
             for i, layer in enumerate(_tensor(arr).unbind(0)):
-                given[f"blocks.{i}.{rest}"] = layer
+                given[f"{stack}.{i}.{rest}"] = layer
         else:
             given[name] = _tensor(arr)
     return given
@@ -79,8 +83,9 @@ def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
                           device: DeviceLike = None) -> LM:
     """The port's model holding the reference's weights. ``params`` is the
     reference's params pytree as numpy arrays, with the per-layer leaves
-    stacked ``[L, ...]`` under ``blocks``; each layer's slice goes to its
-    own module, cast to ``cfg.dtype``. Raises unless every parameter of
+    stacked ``[L, ...]`` under ``blocks`` (and ``dense_blocks``, the moe
+    family's dense prefix); each layer's slice goes to its own module,
+    cast to ``cfg.dtype``. Raises unless every parameter of
     the model is given exactly once, with its shape."""
     model = LM(cfg, device)
     target = dict(model.named_parameters())
@@ -116,9 +121,10 @@ def opt_state_from_arrays(cfg: ModelConfig, state: Dict[str, Any],
     """The port's optimizer state (``repro_torch.training.optimizer``)
     holding the reference's: ``state`` is its ``{"step", "m", "v"}`` as
     numpy arrays, per-layer moments stacked ``[L, ...]`` under
-    ``blocks`` and factored second moments as ``{"row", "col"}`` leaves.
-    Each layer's slice goes to its parameter's name, in the stored dtype
-    (``state_dtype``), on ``device`` (the CUDA card unless ``"cpu"``).
+    ``blocks`` and ``dense_blocks`` and factored second moments as
+    ``{"row", "col"}`` leaves. Each layer's slice goes to its
+    parameter's name, in the stored dtype (``state_dtype``), on
+    ``device`` (the CUDA card unless ``"cpu"``).
     Raises unless ``m`` names every parameter of ``cfg``'s model."""
     dev = resolve_device(device)
     names = set(dict(LM(cfg, "meta").named_parameters()))

@@ -85,14 +85,33 @@ class ModelConfig:
         return _round_up(self.vocab_size, 128)
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense-family model."""
+        """Analytic parameter count of a dense- or moe-family model (the
+        reference's, for the families the port runs)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_padded
         hd = self.resolved_head_dim
         attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
             + (self.n_heads * hd) * d
-        per_layer = attn + 3 * d * f + 2 * d  # attention, SwiGLU, norms
-        return int(self.n_layers * per_layer
-                   + v * d * (1 if self.tie_embeddings else 2))
+        dense_ffn = 3 * d * f  # SwiGLU
+        per_layer = 2 * d  # norms
+        if self.family == "moe":
+            n_moe = self.n_layers - self.n_dense_layers
+            moe_layer = attn + (self.n_experts + self.n_shared_experts) \
+                * dense_ffn + d * self.n_experts
+            total = n_moe * (moe_layer + per_layer) \
+                + self.n_dense_layers * (attn + dense_ffn + per_layer)
+        else:
+            total = self.n_layers * (attn + dense_ffn + per_layer)
+        return int(total + v * d * (1 if self.tie_embeddings else 2))
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through (MoE: only its routed
+        experts count)."""
+        if self.family != "moe":
+            return self.param_count()
+        inactive = (self.n_experts - self.moe_top_k) * 3 * self.d_model \
+            * self.d_ff
+        return int(self.param_count()
+                   - (self.n_layers - self.n_dense_layers) * inactive)
 
 
 # the reference's architectures (repro/configs/base.py ARCH_IDS) and their
@@ -110,7 +129,7 @@ FAMILIES = {
     "hymba_1_5b": "hybrid",
 }
 ARCH_IDS = tuple(FAMILIES)
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 # canonical ids as given in the assignment (hyphenated) -> module names
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

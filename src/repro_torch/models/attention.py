@@ -11,7 +11,7 @@ log-sum-exp). Decode is one
 query token against the KV cache and stays plain PyTorch: it has no
 Pallas counterpart.
 
-This slice ports the dense family: causal or full attention without a
+The dense and moe families need causal or full attention without a
 sliding window or meta tokens. ``window > 0`` and ``meta_tokens > 0``
 (the hybrid family) raise ``NotImplementedError``.
 """

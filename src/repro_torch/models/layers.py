@@ -1,4 +1,5 @@
-"""Shared layer primitives: RMS norm, rotary embeddings, init helpers.
+"""Shared layer primitives: RMS norm, rotary embeddings, the f32
+softmax, init helpers.
 
 Ports of ``repro/models/layers.py``. Norms and rotary embeddings compute
 in float32 and cast back to the input's dtype, as the reference does.
@@ -22,6 +23,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.square().mean(-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dtype)
+
+
+def softmax_fp32(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax in float32, as the reference writes it: shift by the max
+    (outside the gradient), exponentiate, divide by the sum."""
+    s = scores.float()
+    s = s - s.amax(dim, keepdim=True).detach()
+    e = torch.exp(s)
+    return e / e.sum(dim, keepdim=True)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float

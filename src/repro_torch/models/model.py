@@ -1,15 +1,22 @@
-"""Dense-family language model: parameters, full-sequence forward (prefill),
-KV cache and single-token decode. Port of ``repro/models/model.py``.
+"""Language models of the dense and moe families: parameters,
+full-sequence forward (prefill), KV cache and single-token decode. Port
+of ``repro/models/model.py``.
 
 A pre-norm llama-style stack: per layer an RMS norm, GQA attention with
 rotary embeddings (``flash_attention`` kernel in the full-sequence
-forward), a second RMS norm and a SwiGLU MLP; a final norm and the LM
-head, whose padded vocabulary entries are masked to -1e30.
+forward), a second RMS norm and a feed-forward; a final norm and the LM
+head, whose padded vocabulary entries are masked to -1e30. The dense
+family's feed-forward is a SwiGLU MLP (``DenseBlock``); the moe family's
+layers take a top-k mixture of experts in its place (``MoEBlock``,
+``models/moe.py``), after ``n_dense_layers`` dense layers
+(``dense_blocks``; Kimi-K2 has one), and ``forward(...,
+return_aux=True)`` sums their load-balance losses.
 
 The weights keep the reference's layouts (``wq [d, H, hd]``, ``wk``/``wv
 [d, KVH, hd]``, ``wo [H, hd, d]``, ``w_gate``/``w_up [d, f]``, ``w_down
-[f, d]``, ``tok_embed [Vpad, d]``, ``lm_head [d, Vpad]``), one module per
-layer where the reference stacks layers on a leading axis, so carrying
+[f, d]``, ``tok_embed [Vpad, d]``, ``lm_head [d, Vpad]``, the experts'
+in ``models/moe.py``), one module per layer where the reference stacks
+layers on a leading axis (``blocks`` and ``dense_blocks``), so carrying
 its weights across is a copy (``repro_torch.carry.lm_params_from_arrays``).
 Parameters are made without gradients, for serving; a trainer switches
 them on (``model.requires_grad_()``, as ``repro_torch.launch.train``
@@ -29,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, check_family
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import (
     apply_rope,
@@ -104,14 +112,23 @@ class DenseBlock(nn.Module):
         self.attn_norm = _param((cfg.d_model,), dtype, device)
         self.attn = Attention(cfg, dtype, device)
         self.mlp_norm = _param((cfg.d_model,), dtype, device)
+        self.add_ffn(cfg, dtype, device)
+
+    def add_ffn(self, cfg: ModelConfig, dtype, device) -> None:
         self.mlp = MLP(cfg, dtype, device)
 
-    def forward(self, x, cos, sin):
-        """Full sequence, causal. Returns (x, (k, v)) for the cache."""
+    def ffn(self, h, with_aux: bool = False):
+        """(the feed-forward of h, its aux loss or None)."""
+        return self.mlp(h), None
+
+    def forward(self, x, cos, sin, with_aux: bool = False):
+        """Full sequence, causal. Returns (x, (k, v) for the cache, the
+        aux loss when ``with_aux`` and the block has one, else None)."""
         q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
                                     cos, sin)
         x = x + self.attn.out(attention(q, k, v, causal=True))
-        return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps)), (k, v)
+        y, aux = self.ffn(rms_norm(x, self.mlp_norm, self.eps), with_aux)
+        return x + y, (k, v), aux
 
     def decode(self, x, cos, sin, k_cache, v_cache, pos: int, slot_pos):
         """One token at position ``pos``: writes its k/v into slot ``pos``
@@ -123,12 +140,25 @@ class DenseBlock(nn.Module):
         a = decode_attention(q, k_cache, v_cache, k_pos=slot_pos,
                              cur_pos=pos)
         x = x + self.attn.out(a)
-        return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps))
+        return x + self.ffn(rms_norm(x, self.mlp_norm, self.eps))[0]
+
+
+class MoEBlock(DenseBlock):
+    """The dense block with a top-k MoE (``self.moe``) in place of the
+    MLP."""
+
+    def add_ffn(self, cfg: ModelConfig, dtype, device) -> None:
+        self.moe = moe_lib.MoE(cfg, dtype, device)
+
+    def ffn(self, h, with_aux: bool = False):
+        return self.moe(h, with_aux)
 
 
 class LM(nn.Module):
-    """The dense-family model: embedding, ``n_layers`` blocks, final norm,
-    LM head (the transposed embedding when ``tie_embeddings``)."""
+    """Embedding, ``n_dense_layers`` dense blocks (``dense_blocks``; none
+    outside the moe family), the family's ``n_layers - n_dense_layers``
+    blocks (``blocks``), final norm, LM head (the transposed embedding
+    when ``tie_embeddings``)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
@@ -137,8 +167,12 @@ class LM(nn.Module):
         dtype = _dtype(cfg)
         self.cfg = cfg
         self.tok_embed = _param((cfg.vocab_padded, cfg.d_model), dtype, dev)
-        self.blocks = nn.ModuleList(DenseBlock(cfg, dtype, dev)
-                                    for _ in range(cfg.n_layers))
+        block = MoEBlock if cfg.family == "moe" else DenseBlock
+        self.dense_blocks = nn.ModuleList(
+            DenseBlock(cfg, dtype, dev) for _ in range(cfg.n_dense_layers))
+        self.blocks = nn.ModuleList(
+            block(cfg, dtype, dev)
+            for _ in range(cfg.n_layers - cfg.n_dense_layers))
         self.final_norm = _param((cfg.d_model,), dtype, dev)
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab_padded), dtype, dev)
@@ -146,6 +180,10 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.tok_embed.device
+
+    def layers(self):
+        """Every block in depth order: the dense prefix, then ``blocks``."""
+        return [*self.dense_blocks, *self.blocks]
 
     def logits(self, x):
         cfg = self.cfg
@@ -165,19 +203,22 @@ class LM(nn.Module):
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> LM:
     """A model with the reference's initialisation (zero norms and
-    biases, fan-in normal projections, 0.02-normal embeddings), drawn
-    from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
-    CUDA card unless ``device="cpu"``)."""
+    biases, fan-in normal projections and experts, 0.02-normal
+    embeddings), drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (the CUDA card unless ``device="cpu"``)."""
     model = LM(cfg, device)
     gen = torch.Generator(model.device).manual_seed(seed)
     dtype = _dtype(cfg)
     with torch.no_grad():
         model.tok_embed.copy_(embed_init(gen, model.tok_embed.shape, dtype))
-        for blk in model.blocks:
+        for blk in model.layers():
             a = blk.attn
             for w in (a.wq, a.wk, a.wv):
                 w.copy_(dense_init(gen, w.shape, 0, dtype))
             a.wo.copy_(dense_init(gen, a.wo.shape, (0, 1), dtype))
+            if isinstance(blk, MoEBlock):
+                moe_lib.init_moe(blk.moe, gen)
+                continue
             for w in (blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down):
                 w.copy_(dense_init(gen, w.shape, 0, dtype))
         if not cfg.tie_embeddings:
@@ -196,38 +237,43 @@ def forward(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Teacher-forced full-sequence forward -> logits [B, S, Vpad] f32.
 
     With ``collect_cache``, also returns ``{"k", "v"}`` stacked per layer,
-    ``[L, B, S, KVH, hd]`` (after the rotary embedding, as cached). With
-    ``return_aux``, also the load-balance aux loss, a zero f32 scalar for
-    the dense family (the reference sums its MoE layers' here)."""
+    ``[L, B, S, KVH, hd]``, the dense prefix first (after the rotary
+    embedding, as cached). With ``return_aux``, also the load-balance aux
+    loss summed over the MoE layers, an f32 scalar (zero for the dense
+    family)."""
     check_family(cfg)
     tokens = batch["tokens"]
     x = model.tok_embed[tokens]
     cos, sin = _rope(model, torch.arange(x.shape[1], device=x.device))
     remat = cfg.remat and not collect_cache and torch.is_grad_enabled() \
         and x.requires_grad
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
-    for blk in model.blocks:
-        if remat:
-            x = checkpoint(lambda x_, b=blk: b(x_, cos, sin)[0], x,
-                           use_reentrant=False)
-            continue
-        x, (k, v) = blk(x, cos, sin)
-        if collect_cache:
-            ks.append(k)
-            vs.append(v)
+    for blk in model.layers():
+        if remat:   # (x, aux): no cache is collected under remat
+            x, a = checkpoint(
+                lambda x_, b=blk: b(x_, cos, sin, return_aux)[::2], x,
+                use_reentrant=False)
+        else:
+            x, (k, v), a = blk(x, cos, sin, return_aux)
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
+        if a is not None:
+            aux = aux + a
     out = (model.logits(x),)
     if collect_cache:
         out += ({"k": torch.stack(ks), "v": torch.stack(vs)},)
     if return_aux:
-        out += (torch.zeros((), dtype=torch.float32, device=x.device),)
+        out += (aux,)
     return out if len(out) > 1 else out[0]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = None) -> Cache:
-    """Decode cache: k, v ``[L, B, max_len, KVH, hd]`` zeros; slot i holds
-    position i."""
+    """Decode cache: k, v ``[L, B, max_len, KVH, hd]`` zeros, every layer
+    (the dense prefix first); slot i holds position i."""
     check_family(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
@@ -258,7 +304,7 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: Cache, cur_pos: int,
     x = model.tok_embed[tokens]
     cos, sin = _rope(model, torch.tensor([cur_pos], device=x.device))
     slot_pos = torch.arange(cache["k"].shape[2], device=x.device)
-    for i, blk in enumerate(model.blocks):
+    for i, blk in enumerate(model.layers()):
         x = blk.decode(x, cos, sin, cache["k"][i], cache["v"][i], cur_pos,
                        slot_pos)
     return model.logits(x), cache

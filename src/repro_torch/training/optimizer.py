@@ -14,9 +14,9 @@ moments in place (the reference returns new arrays; in place, a step at
 TinyLlama-1.1B's width holds no second copy of them).
 
 The reference stacks a layer's parameters on a leading ``[L, ...]`` axis
-where the port keeps one tensor per layer (``blocks.<i>.<name>``). The
-trailing two dims, which the factored moment reads, are the same either
-way, but the rule "weight decay only on leaves with ndim >= 2" sees the
+where the port keeps one tensor per layer (``blocks.<i>.<name>``,
+``dense_blocks.<i>.<name>``). The trailing two dims, which the factored
+moment reads, are the same either way, but the rule "weight decay only on leaves with ndim >= 2" sees the
 stacked leaf: a layer's norm scale is ``[L, d]`` there and decays. So
 the port counts a layer's parameter with its layer axis
 (``reference_ndim``), and decays what the reference decays. A per-layer
@@ -68,8 +68,10 @@ def schedule(cfg: OptimizerConfig,
 
 def reference_ndim(name: str, p: torch.Tensor) -> int:
     """The ndim of the reference's leaf holding ``p``: a layer's parameter
-    (``blocks.<i>.…``) carries the stacked layer axis there."""
-    return p.dim() + (1 if name.startswith("blocks.") else 0)
+    (``blocks.<i>.…``, or ``dense_blocks.<i>.…`` in the moe family's dense
+    prefix) carries the stacked layer axis there."""
+    stacked = name.startswith(("blocks.", "dense_blocks."))
+    return p.dim() + (1 if stacked else 0)
 
 
 def _factorable(shape, cfg: OptimizerConfig) -> bool:

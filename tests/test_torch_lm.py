@@ -40,8 +40,8 @@ torch.set_num_threads(2)   # xdist runs several workers on the same cores
 
 DENSE = ("tinyllama-1.1b", "stablelm-1.6b", "command-r-plus-104b",
          "qwen1.5-4b")
+MOE = ("dbrx-132b", "kimi-k2-1t-a32b")   # tests/test_torch_moe.py
 OTHER = {"internvl2-76b": "vlm", "whisper-small": "audio",
-         "dbrx-132b": "moe", "kimi-k2-1t-a32b": "moe",
          "mamba2-370m": "ssm", "hymba-1.5b": "hybrid"}
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_ATOL = 0.1
@@ -87,15 +87,17 @@ def tiny_f32():
 
 # ------------------------------------------------------------------ configs
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_dense_configs_copy_the_reference(arch, reduced):
-    want = dataclasses.asdict(ref_get_config(arch, reduced=reduced))
+    """The dense and moe families' configs, and their analytic counts."""
+    ref = ref_get_config(arch, reduced=reduced)
     got = get_config(arch, reduced=reduced)
-    assert dataclasses.asdict(got) == want
-    assert got.vocab_padded == ref_get_config(arch, reduced).vocab_padded
-    assert got.resolved_head_dim == \
-        ref_get_config(arch, reduced).resolved_head_dim
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert got.vocab_padded == ref.vocab_padded
+    assert got.resolved_head_dim == ref.resolved_head_dim
+    assert got.param_count() == ref.param_count()
+    assert got.active_param_count() == ref.active_param_count()
 
 
 @pytest.mark.parametrize("arch,family", sorted(OTHER.items()))
