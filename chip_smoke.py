@@ -8,9 +8,10 @@ with ``nvcc`` (one process per source, all at once), counts the tensor-core
 instructions of the bf16 ``flash_attention`` kernels with ``cuobjdump``
 (HMMA in the forward, HGMMA in the backward's two product kernels), holds
 each kernel against its plain PyTorch
-version on the card (edge cases and exact-tie inputs), prefills each dense
-and moe REDUCED config through the attention kernel against the plain
-attention, then drives seven paths, each with its kernel launches
+version on the card (edge cases, the sliding window and meta tokens
+included, and exact-tie inputs), prefills each dense, moe and hybrid
+REDUCED config through the attention kernel against the plain
+attention, then drives nine paths, each with its kernel launches
 counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
@@ -45,6 +46,20 @@ counted from zero and checked:
 * moe_train: three steps of ``launch/train.py``'s setup for each REDUCED
   moe config (aux loss above 0, one ``flash_attention_bwd`` a layer and
   step).
+* ssm and hybrid: the ssm family (mamba2-370m: 48 layers, d 1024,
+  attention-free) and the hybrid family (hymba-1.5b: 32 layers, d 1600,
+  25 / 5 heads, sliding window 1024 with global layers 0, 15 and 31, 128
+  meta tokens) served at their published widths, uncut, seeded bf16
+  weights: 8 x 2048-token ``batch_at`` prompts, 32 greedy tokens, cold,
+  warm and profiled, and one profiled prefill split into cuBLAS, the
+  attention kernel and the rest (the SSD's ``[B, nc, H, Q, Q]`` f32
+  passes timed alone). Hymba's prefill runs ``flash_attention`` with the
+  window and meta-token mask in each layer; mamba2 runs no kernel.
+  Afterwards: two prefills bit for bit, the first decode step against
+  the teacher-forced forward (f32 and bf16), hymba's prefill
+  against the plain attention, and mamba2's chunked SSD in f32 against
+  its recurrence. Prints walls, decode step against its byte bound,
+  tokens/s, peak memory and idle share.
 * train: ``launch/train.py``'s setup and step at TinyLlama-1.1B's
   published width (22 layers, d 2048, 32 / 4 heads, bf16, seeded weights),
   B=8 x S=2048: 6 AdamW steps on one repeated batch, each layer's
@@ -65,12 +80,14 @@ counted from zero and checked:
 
 Last, each kernel is timed on the inputs its path gave it (``l2_topk``
 twice: SPANN's closure chunk and the 1M ground-truth chunk;
-``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` three
-times: rag's first prefill layer and the moe path's two): CUDA events
+``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` five
+times: rag's first prefill layer, the moe path's two, and hymba's first
+windowed and first global layer): CUDA events
 around back-to-back wrapper calls (``ms``) and the kernel's own device
 time from ``torch.profiler`` (``device_ms``), beside its plain version,
 one PyTorch library call computing the same function
-(``scaled_dot_product_attention`` for ``flash_attention``, its backward
+(``scaled_dot_product_attention`` for ``flash_attention``, with the
+boolean mask as ``attn_mask`` for a window; its backward
 for ``flash_attention_bwd``; timed only, never called by the port) and
 its bound.
 
@@ -154,13 +171,14 @@ RAG_LOGITS_ATOL = 0.25
 # one bf16 step of the output (both sides sum in f32, round once)
 FLASH_BF16_TOL = 2 ** -7
 FLASH_F32_TOL = 1e-5        # f32 sums in another order
-# A prefill of each dense and moe REDUCED config (2-3 layers, D = 16,
-# qwen1.5 D = 12) through the kernel against the plain attention: logits of
+# A prefill of each dense, moe and hybrid REDUCED config (2-3 layers, D =
+# 16, qwen1.5 D = 12; hymba's window 32 and 8 meta tokens over 85 slots)
+# through the kernel against the plain attention: logits of
 # size ~1-5, where 2^-3 is eight bf16 steps; the edge checks hold the
 # kernel itself to one step. The moe configs' capacity_factor 8 drops no
 # token; their logits are held under the route rule below
 REDUCED_ARCHS = ("tinyllama-1.1b", "command-r-plus-104b", "stablelm-1.6b",
-                 "qwen1.5-4b", "dbrx-132b", "kimi-k2-1t-a32b")
+                 "qwen1.5-4b", "dbrx-132b", "kimi-k2-1t-a32b", "hymba-1.5b")
 REDUCED_LOGITS_ATOL = 2 ** -3
 
 # The moe family at its published widths, seeded weights, served as rag
@@ -226,6 +244,57 @@ FLASH_BWD_F32_TOL = 2e-5
 # the forward's lse against the plain log-sum-exp: bf16 P enters l
 FLASH_LSE_BF16_TOL = 2 ** -7
 FLASH_LSE_F32_TOL = 1e-5
+
+# The ssm and hybrid families at their published widths, uncut, seeded
+# bf16 weights, served as rag serves TinyLlama but at their training
+# context: 8 x 2048-token batch_at prompts, 32 greedy tokens. Mamba2-370m
+# (configs/mamba2_370m.py, arXiv:2405.21060, state-spaces/mamba2-370m:
+# 48 layers, d 1024, 32 SSD heads of 64, N 128): 8 SSD chunks of 256 a
+# sequence, so the inter-chunk recurrence runs. Hymba-1.5B
+# (configs/hymba_1_5b.py, arXiv:2411.13676, nvidia/Hymba-1.5B-Base: 32
+# layers, d 1600, 25 / 5 heads of 64, window 1024, global layers 0, 15,
+# 31, 128 meta tokens): 2176 slots a sequence, past the window, so it
+# masks in prefill and in decode
+LONG_PATHS = (("ssm", "mamba2-370m"), ("hybrid", "hymba-1.5b"))
+LONG_BATCH, LONG_PROMPT, LONG_NEW = 8, 2048, 32
+# the first decode step against the teacher-forced forward over prompt +
+# token. In float32 (the bf16 model's weights cast up; f32 products, TF32
+# off) the chunked SSD and its recurrence differ only in the order of f32
+# sums: within DECODE_F32_ATOL, the reference's bound for the families
+# without a recurrence (tests/test_decode_consistency.py:10). In bf16 the
+# reference allows 0.05 (ssm) and 0.08 (hybrid) on its 2-layer REDUCED
+# configs; at full width the decode step's 8-row products round to bf16
+# otherwise than the prefill's 16,384-row ones (other cuBLAS kernels) and
+# 48 or 32 layers carry those single steps into the logits: mamba2-370m's
+# first step was 0.0879 off (H100 80GB HBM3 at 700 W), so bf16 is held
+# to RAG_LOGITS_ATOL, the bound rag holds the same comparison to
+DECODE_F32_ATOL = 1e-3
+DECODE_REFERENCE_ATOL = {"ssm": 0.05, "hybrid": 0.08}
+# the chunked SSD against its recurrence on the card: one layer in f32 at
+# S = 600 (two whole chunks of 256 and a padded one) against 600 decode
+# steps from a zero state, relative to the largest magnitude
+SSD_HOLD_S, SSD_HOLD_RTOL = 600, 1e-3
+# windowed flash_attention edge cases: (B, H, KVH, Sq, Sk, D, window,
+# meta_tokens, dtype). Windows of 1, 17, 64 and 1024 keys (inside a
+# 64-key tile, across a tile edge, a whole tile, hymba's), no, 8 and 128
+# meta tokens, Sq 1, 63 and 2176 against Sk >= Sq, groups 1 and 5
+# (hymba's 25 / 5), D 16, 64 and 112, both dtypes
+FLASH_WINDOW_EDGES = [
+    (b, h, kvh, sq, sk, d, window, meta, dtype)
+    for dtype in (torch.bfloat16, torch.float32)
+    for b, h, kvh, sq, sk, d, window, meta in [
+        (1, 5, 1, 63, 63, 64, 17, 0),
+        (2, 4, 4, 63, 200, 16, 1, 8),
+        (1, 10, 2, 1, 300, 112, 64, 128),
+        (1, 5, 1, 1, 2176, 64, 17, 0),
+        (1, 4, 4, 63, 130, 112, 64, 0),
+        (1, 4, 2, 200, 200, 64, 1, 128),
+        (1, 2, 2, 100, 100, 16, 17, 8),
+        (1, 5, 1, 63, 2176, 112, 1024, 128),
+        (1, 25, 5, 2176, 2176, 64, 1024, 128),
+        (1, 5, 5, 2176, 2176, 16, 64, 8),
+        (2, 5, 1, 300, 2176, 64, 17, 128),
+        (1, 5, 1, 2176, 2176, 112, 1, 0)]]
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -553,7 +622,40 @@ def check_flash_edges(dev) -> None:
         except (ValueError, TypeError):
             continue
         raise AssertionError("flash_attention took arguments it must refuse")
+    check_flash_window_edges(dev)
     torch.cuda.synchronize()
+
+
+def check_flash_window_edges(dev) -> None:
+    """The sliding window and meta tokens: flash_attention against its
+    plain version over FLASH_WINDOW_EDGES; a window of at least Sk
+    (meta tokens or none) equal to the causal launch bit for bit; a
+    window with causal=False and negative arguments refused."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(4)
+    for b, h, kvh, sq, sk, d, window, meta, dtype in FLASH_WINDOW_EDGES:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            shape, np.float32)).to(dev, dtype) for shape in
+            ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+        kw = dict(window=window, meta_tokens=meta)
+        flash_check(fa.flash_attention(q, k, v, **kw),
+                    fa.flash_attention_plain(q, k, v, **kw),
+                    f"flash_attention B{b} H{h}/{kvh} {sq}x{sk} D{d} "
+                    f"window={window} meta={meta} {dtype}")
+        causal = fa.flash_attention(q, k, v)
+        for wide, m in ((sk, 0), (sk, meta), (sk + 7, 3)):
+            if not torch.equal(fa.flash_attention(
+                    q, k, v, window=wide, meta_tokens=m), causal):
+                raise AssertionError(
+                    f"flash_attention: window {wide} >= Sk {sk} differs "
+                    f"from causal ({dtype}, {b}x{h}/{kvh}x{sq}x{sk}x{d})")
+    for kw in (dict(causal=False, window=8), dict(window=-1),
+               dict(window=8, meta_tokens=-1)):
+        try:
+            fa.flash_attention(q, k, v, **kw)
+        except ValueError:
+            continue
+        raise AssertionError(f"flash_attention took {kw}")
 
 
 def flash_bwd_check(got, want, name: str) -> float:
@@ -868,7 +970,7 @@ def nth_call(n: int):
     """A ``Capture`` test that accepts the call numbered ``n`` (from 0)."""
     seen = [-1]
 
-    def want(_args):
+    def want(_args, _kw):
         seen[0] += 1
         return seen[0] == n
     return want
@@ -876,18 +978,20 @@ def nth_call(n: int):
 
 class Capture:
     """Keeps the inputs of the first call of a kernel entry point in
-    ``repro_torch.kernels.ops`` that ``want(args)`` accepts (for timing at
+    ``repro_torch.kernels.ops`` that ``want(args, kw)`` accepts (for timing at
     a path's own shapes); the call itself goes on to the real wrapper
     unchanged."""
 
     def __init__(self, ops, name: str, want):
         self.ops, self.name, self.want = ops, name, want
-        self.orig = getattr(ops, name)
         self.args = None
 
     def __enter__(self):
+        # the entry point as it stands now: captures of one name nest
+        self.orig = getattr(self.ops, self.name)
+
         def wrapped(*args, **kw):
-            if self.args is None and self.want(args):
+            if self.args is None and self.want(args, kw):
                 self.args = (args, kw)
             return self.orig(*args, **kw)
         setattr(self.ops, self.name, wrapped)
@@ -1052,10 +1156,11 @@ def profile_generate(engine, prompt) -> dict:
     overlap) against the host wall time of the traced call, and the
     kernels that took most of it. The profiler slows the host, so the
     idle share is an upper bound. Device times are None where the
-    profiler records none."""
+    profiler records none. Only the device is traced: host operator
+    events would add several times the kernels' count to the trace
+    (~4,000 kernels a decode step on hymba-1.5b)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.generate({"tokens": prompt})
         wall = time.perf_counter() - t0
@@ -1447,6 +1552,287 @@ def moe_train(dev) -> dict:
             raise AssertionError(f"moe train {arch}: {out[arch]}")
     print(f"moe train (REDUCED): {json.dumps(out)}", flush=True)
     return out
+
+
+def long_serve(dev, tag: str, arch: str) -> dict:
+    """One long-context path at its published width, uncut, seeded bf16
+    weights on the card: ``Engine.generate`` over LONG_BATCH x
+    LONG_PROMPT ``batch_at`` prompts, LONG_NEW greedy tokens, cold, warm
+    (with the peak memory) and under the profiler; then one profiled warm
+    prefill, its device time split by kernel class."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import DataConfig, batch_at
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+    cfg = get_config(arch)
+    with phase(f"{tag}: init {arch} (seeded, on the card)"):
+        model = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+    prompt = batch_at(DataConfig(seed=0, batch_size=LONG_BATCH,
+                                 seq_len=LONG_PROMPT), cfg, 0,
+                      device=dev)["tokens"]
+    engine = Engine(cfg, model, ServeConfig(max_new_tokens=LONG_NEW))
+    runs = {}
+    with phase(f"{tag}: {arch} generate (cold)"):
+        engine.generate({"tokens": prompt})
+    runs["cold"] = dict(engine.timing)
+    torch.cuda.reset_peak_memory_stats()
+    with phase(f"{tag}: {arch} generate (warm)"):
+        gen = engine.generate({"tokens": prompt})
+    runs["warm"] = dict(engine.timing)
+    peak = torch.cuda.max_memory_allocated()
+    with phase(f"{tag}: {arch} generate (profiled)"):
+        profile = profile_generate(engine, prompt)
+    with phase(f"{tag}: {arch} prefill (profiled, by kernel class)"):
+        split = prefill_split(model, cfg, prompt)
+    if gen.shape != (LONG_BATCH, LONG_NEW) or (gen < 0).any() \
+            or (gen >= cfg.vocab_size).any():
+        raise AssertionError(f"{tag} {arch}: generated {gen.shape} ids out "
+                             f"of range")
+    return {"tag": tag, "arch": arch, "cfg": cfg, "model": model,
+            "prompt": prompt, "gen": gen, "timing": runs, "peak_bytes": peak,
+            "profile": profile, "prefill_split": split}
+
+
+def kernel_class(name: str) -> str:
+    """cuBLAS products, the flash_attention kernel, or the rest
+    (elementwise passes, reductions, copies, scans)."""
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "flash_attention"
+    if any(s in low for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas",
+                              "sm90_")):
+        return "cublas"
+    return "elementwise_and_other"
+
+
+def prefill_split(model, cfg, prompt) -> dict:
+    """A warm ``prefill`` under ``torch.profiler``: its device time by
+    ``kernel_class``, its top kernels, and the SSD's ``[B, nc, H, Q, Q]``
+    f32 passes of one layer timed alone (``ssd_quadratic_ms``) times the
+    layers, against that device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import prefill
+    with torch.inference_mode():
+        prefill(model, {"tokens": prompt}, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prefill(model, {"tokens": prompt}, cfg)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_class: dict = {}
+    for e in kernels:
+        c = kernel_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(by_class.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    s = prompt.shape[1] + cfg.meta_tokens
+    quad = ssd_quadratic_ms(cfg, prompt.shape[0], s, prompt.device)
+    return {"device_ms": busy, "by_class_ms": by_class,
+            "ssd_quadratic_ms_a_layer": quad,
+            "ssd_quadratic_ms": quad * cfg.n_layers,
+            "ssd_quadratic_share": quad * cfg.n_layers / busy if busy
+            else None,
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "device_ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def ssd_quadratic_ms(cfg, b: int, s: int, dev) -> float:
+    """CUDA-event time of one layer's ``[B, nc, H, Q, Q]`` f32 elementwise
+    passes of ``ssm.ssd_forward`` at a prefill of ``b`` x ``s`` positions,
+    run as it runs them: the exponent difference, its clamp above the
+    diagonal, the exponential, and the products with C.B and dt (on
+    seeded inputs of those shapes)."""
+    q = min(cfg.ssm_chunk, s)
+    nc, nh = -(-s // q), cfg.ssm_heads
+    gen = torch.Generator(dev).manual_seed(5)
+    cum = -torch.rand((b, nc, nh, q), generator=gen, device=dev).cumsum(-1)
+    cb = torch.randn((b, nc, q, q), generator=gen, device=dev)
+    dt = torch.rand((b, nc, nh, q), generator=gen, device=dev)
+    tri = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
+
+    def passes():
+        diff = cum[..., :, None] - cum[..., None, :]
+        w = torch.exp(diff.masked_fill(~tri, -1e30))
+        return cb[:, :, None] * w * dt[:, :, :, None, :]
+    return cuda_time_ms(passes, reps=5)
+
+
+def check_ssd_recurrence(r: dict) -> dict:
+    """Layer 0's SSD in f32 on the card: ``ssd_forward`` over S =
+    SSD_HOLD_S seeded inputs (ragged chunks, the inter-chunk recurrence)
+    against SSD_HOLD_S calls of ``ssd_decode_step`` from a zero state,
+    outputs and final state within SSD_HOLD_RTOL of their largest
+    magnitudes."""
+    import dataclasses
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(r["cfg"], dtype="float32")
+    dev = r["prompt"].device
+    params = {n: p.float() for n, p in
+              r["model"].blocks[0].ssm.named_parameters()}
+    gen = torch.Generator(dev).manual_seed(3)
+    x = torch.randn((2, SSD_HOLD_S, cfg.d_model), generator=gen,
+                    device=dev)
+    shapes = ssm.ssm_cache_shapes(cfg, 2)
+    state = {k: torch.zeros(v, device=dev) for k, v in shapes.items()}
+    with torch.inference_mode():
+        want, want_state = ssm.ssd_forward(params, x, cfg, return_state=True)
+        ys = []
+        for t in range(SSD_HOLD_S):
+            y, state = ssm.ssd_decode_step(params, x[:, t:t + 1], state, cfg)
+            ys.append(y)
+        got = torch.cat(ys, 1)
+    out = {"S": SSD_HOLD_S, "chunks": -(-SSD_HOLD_S // cfg.ssm_chunk),
+           "y_rel": float((got - want).abs().max() / want.abs().max()),
+           "h_rel": float((state["h"] - want_state["h"]).abs().max()
+                          / want_state["h"].abs().max())}
+    print(f"ssm chunked SSD vs recurrence (f32, layer 0): "
+          f"{json.dumps(out)}", flush=True)
+    if not (out["y_rel"] <= SSD_HOLD_RTOL and out["h_rel"] <= SSD_HOLD_RTOL):
+        raise AssertionError(f"ssm: chunked SSD off its recurrence: {out}")
+    return out
+
+
+def first_step_errors(model, cfg, prompt, first) -> tuple:
+    """(the prefill's last logits, the first decode step's logits) against
+    the teacher-forced forward over prompt + ``first``, max abs over the
+    real vocabulary."""
+    from repro_torch.models import decode_step, forward, prefill
+    v = cfg.vocab_size
+    full = forward(model, {"tokens": torch.cat([prompt, first], 1)},
+                   cfg)[:, -2:, :v]
+    last, cache = prefill(model, {"tokens": prompt}, cfg,
+                          max_len=prompt.shape[1] + 1)
+    step, _ = decode_step(model, first, cache, prompt.shape[1], cfg)
+    return (float((last[:, -1, :v] - full[:, 0]).abs().max()),
+            float((step[:, 0, :v] - full[:, 1]).abs().max()))
+
+
+def check_long(r: dict) -> dict:
+    """At full width: two prefills bit for bit (bf16); the first decode
+    step after a prefill against the teacher-forced forward over prompt
+    + that token, in float32 (DECODE_F32_ATOL) and in bf16
+    (RAG_LOGITS_ATOL; the reference's REDUCED bound printed beside it);
+    the hybrid prefill through the kernel against the plain attention
+    (RAG_LOGITS_ATOL); the ssm's chunked SSD against its recurrence."""
+    import dataclasses
+    from repro_torch.models import forward
+    from repro_torch.models.model import LM
+    tag, cfg, model, prompt = r["tag"], r["cfg"], r["model"], r["prompt"]
+    tokens = {"tokens": prompt}
+    v = cfg.vocab_size
+    out = {}
+    with torch.inference_mode():
+        logits = forward(model, tokens, cfg)
+        out["prefill_bit_identical"] = bool(torch.equal(
+            logits, forward(model, tokens, cfg)))
+        out["logits_max_abs"] = float(logits[..., :v].abs().max())
+        if tag == "hybrid":
+            with plain_attention():
+                want = forward(model, tokens, cfg)
+            out["prefill_vs_plain_max_abs"] = float(
+                (logits - want).abs().max())
+            del want
+        del logits
+        first = torch.from_numpy(r["gen"][:, :1]).to(prompt.device).long()
+        out["prefill_last_vs_forward_max_abs"], \
+            out["decode_vs_forward_max_abs"] = first_step_errors(
+                model, cfg, prompt, first)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = LM(cfg32, prompt.device)
+        model32.load_state_dict(model.state_dict())   # cast up
+        out["prefill_last_vs_forward_max_abs_f32"], \
+            out["decode_vs_forward_max_abs_f32"] = first_step_errors(
+                model32, cfg32, prompt, first)
+        del model32
+    out["decode_reference_atol"] = DECODE_REFERENCE_ATOL[tag]
+    if tag == "ssm":
+        out["ssd_recurrence"] = check_ssd_recurrence(r)
+    print(f"{tag} checks: {json.dumps(out)}", flush=True)
+    if not out["prefill_bit_identical"]:
+        raise AssertionError(f"{tag}: two prefills differ")
+    if out["decode_vs_forward_max_abs_f32"] > DECODE_F32_ATOL \
+            or out["decode_vs_forward_max_abs"] > RAG_LOGITS_ATOL:
+        raise AssertionError(f"{tag}: the first decode step is off the "
+                             f"forward by more than {DECODE_F32_ATOL} in "
+                             f"f32 or {RAG_LOGITS_ATOL} in bf16: {out}")
+    if out.get("prefill_vs_plain_max_abs", 0.0) > RAG_LOGITS_ATOL:
+        raise AssertionError(f"{tag}: prefill off the plain attention by "
+                             f"more than {RAG_LOGITS_ATOL}: {out}")
+    return out
+
+
+def decode_bound_bytes(cfg, model) -> float:
+    """The bytes a warm decode step must move, averaged over the LONG_NEW
+    - 1 steps: every weight it reads once (all but the embedding table,
+    which a tied head reads whole), the KV slots each attention layer can
+    see (the window and the meta tokens, or every slot on a global
+    layer), its new k/v, and each SSD layer's state ``h`` (f32) and conv
+    window read and written."""
+    b = LONG_BATCH
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters()
+                  if n != "tok_embed" or cfg.tie_embeddings)
+    elem = 2   # bf16 caches
+    state = 0
+    if cfg.family in ("ssm", "hybrid"):
+        state = cfg.n_layers * 2 * b * (
+            cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+            + (cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * elem)
+    kv = 0
+    if not cfg.is_attention_free:
+        slot = 2 * b * cfg.n_kv_heads * cfg.resolved_head_dim * elem
+        for t in range(LONG_NEW - 1):
+            pos = cfg.meta_tokens + LONG_PROMPT + t
+            for i in range(cfg.n_layers):
+                seen = pos + 1
+                if cfg.attn_window and i not in cfg.global_layers:
+                    seen = min(pos + 1, cfg.attn_window) + max(
+                        0, min(cfg.meta_tokens, pos + 1 - cfg.attn_window))
+                kv += (seen + 1) * slot
+        kv /= LONG_NEW - 1
+    return weights + state + kv
+
+
+def report_long(r: dict, checks: dict, launches: dict) -> None:
+    """One long path's numbers, each on its own line, then one JSON
+    line."""
+    tag, arch, cfg, warm = r["tag"], r["arch"], r["cfg"], r["timing"]["warm"]
+    n_tok = LONG_BATCH * LONG_NEW
+    step_s = warm["decode_s"] / (LONG_NEW - 1)
+    bound = decode_bound_bytes(cfg, r["model"])
+    rep = {"arch": arch, "reduced": {}, "params": sum(
+        p.numel() for p in r["model"].parameters()),
+           "batch": LONG_BATCH, "prompt_len": LONG_PROMPT,
+           "meta_tokens": cfg.meta_tokens, "new_tokens": LONG_NEW,
+           "launches": launches, "timing": r["timing"],
+           "tokens_per_s": n_tok / (warm["prefill_s"] + warm["decode_s"]),
+           "decode_tokens_per_s": LONG_BATCH * (LONG_NEW - 1)
+           / warm["decode_s"],
+           "prefill_tokens_per_s": LONG_BATCH * LONG_PROMPT
+           / warm["prefill_s"],
+           "decode_step_s": step_s, "decode_step_bound_bytes": bound,
+           "decode_step_bound_s": bound / HBM_BYTES_PER_S,
+           "peak_memory_bytes": r["peak_bytes"],
+           "first_generated_ids_0": r["gen"][0, :10].tolist(),
+           "profile": r["profile"], "prefill_split": r["prefill_split"],
+           **checks}
+    print(f"{tag} {arch} prefill seconds (warm): {warm['prefill_s']:.4f}")
+    print(f"{tag} {arch} decode ms a step (warm, {LONG_NEW - 1} steps): "
+          f"{step_s * 1e3:.3f} (byte bound "
+          f"{rep['decode_step_bound_s'] * 1e3:.3f})")
+    print(f"{tag} {arch} tokens per second (warm): "
+          f"{rep['tokens_per_s']:.1f}")
+    print(f"{tag} {arch} peak memory: {r['peak_bytes'] / 2 ** 30:.2f} GiB")
+    print(f"{tag} {arch} idle share (profiled generate): "
+          f"{r['profile']['device_idle_share']}")
+    print(f"{tag} {arch} prefill device ms by class: "
+          f"{json.dumps(r['prefill_split']['by_class_ms'])}, SSD "
+          f"[B, nc, H, Q, Q] passes "
+          f"{r['prefill_split']['ssd_quadratic_ms']:.3f} ms")
+    print(f"{tag} report: {json.dumps(rep)}", flush=True)
 
 
 def train(dev) -> dict:
@@ -1870,25 +2256,35 @@ def flash_bwd_row(layer_args, launches: int) -> dict:
 
 def flash_row(cap, launches: int, what: str) -> dict:
     """The kernel row of ``flash_attention`` on the inputs ``cap`` kept
-    (a path's first prefill layer) beside its plain version and
-    ``scaled_dot_product_attention`` (causal, GQA)."""
+    (a path's prefill layer) beside its plain version and
+    ``scaled_dot_product_attention`` (GQA; causal, or with a sliding
+    window the boolean mask as ``attn_mask``, the one library call
+    computing the same function)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     (q, k, v), kw = cap.args
     causal = kw["causal"]
+    mask = dict(window=kw.get("window", 0),
+                meta_tokens=kw.get("meta_tokens", 0))
     (b, sq, h, d), (sk, kvh) = q.shape, k.shape[1:3]
-    # (query, key) pairs the mask lets through: each causal row r sees
-    # r + Sk - Sq + 1 keys
-    pairs = b * h * (sum(min(sk, r + sk - sq + 1) for r in range(sq))
-                     if causal else sq * sk)
+    # (query, key) pairs the mask lets through, the row at p = r + Sk - Sq
+    # seeing keys j <= p, and with a window j > p - window or j < meta
+    pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    key = torch.arange(sk, device=q.device)[None, :]
+    seen = (key <= pos) if causal else torch.ones_like(key <= pos)
+    if mask["window"]:
+        seen &= (key > pos - mask["window"]) | (key < mask["meta_tokens"])
+    pairs = b * h * int(seen.sum())
     n_ops = 4 * d * pairs   # q.k and p.v, a multiply and an add each
+    library = dict(attn_mask=seen) if mask["window"] \
+        else dict(is_causal=causal)
     row = kernel_report(
         "flash_attention",
-        lambda *a: fa.flash_attention(*a, causal=causal),
-        lambda *a: fa.flash_attention_plain(*a, causal=causal),
+        lambda *a: fa.flash_attention(*a, causal=causal, **mask),
+        lambda *a: fa.flash_attention_plain(*a, causal=causal, **mask),
         lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True),
+            enable_gqa=True, **library),
         (q, k, v), launches,
         nbytes=(2 * b * sq * h + 2 * b * sk * kvh) * d
         * q.element_size(),
@@ -1897,7 +2293,7 @@ def flash_row(cap, launches: int, what: str) -> dict:
         replaces="src/repro/kernels/flash_attention.py:68",
         check=lambda got, want: flash_check(got, want, what),
         shape={"B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh, "D": d,
-               "causal": causal, "dtype": str(q.dtype)},
+               "causal": causal, **mask, "dtype": str(q.dtype)},
         device_names=("flash_fwd",))
     # the reference fixes f32 scores; on the f32 CUDA cores the same
     # work takes this long at the least
@@ -2040,6 +2436,17 @@ def time_kernels(caps, counts) -> list:
                               counts[f"moe:{arch}"]["flash_attention"],
                               f"{arch} first prefill layer"))
         rows[-1]["path"] = "moe"
+    # the hybrid path's first windowed prefill layer (layer 1) and its
+    # first global one (layer 0): hymba-1.5b, 25 / 5 heads, D 64
+    for kind in ("windowed", "global"):
+        rows.append(flash_row(caps[f"flash_attention:hybrid {kind}"],
+                              counts["hybrid"]["flash_attention"],
+                              f"hymba-1.5b {kind} prefill layer"))
+        rows[-1]["path"] = "hybrid"
+        rows[-1]["note"] = ("launches: the hybrid path's, 29 windowed and 3 "
+                            "global layers a prefill; the window and meta "
+                            "tokens are the mask of the reference's jnp "
+                            "attention, src/repro/models/attention.py:50")
     return rows
 
 
@@ -2130,7 +2537,7 @@ def main() -> int:
 
     # the first prefill layer's attention
     caps = {"flash_attention": Capture(ops, "flash_attention",
-                                       lambda a: True)}
+                                       lambda a, kw: True)}
     with path("rag", ("flash_attention", "l2_topk_masked")), \
             caps["flash_attention"]:
         rag_run = rag(dev, quality_index)
@@ -2149,7 +2556,7 @@ def main() -> int:
     moe_launches = {}
     for arch, depth in MOE_ARCHS:
         cap = caps[f"flash_attention:{arch}"] = Capture(
-            ops, "flash_attention", lambda a: True)
+            ops, "flash_attention", lambda a, kw: True)
         with path("moe", ("flash_attention",), f" ({arch})"), cap:
             moe_run = moe_serve(dev, arch, depth)
         moe_launches[f"moe:{arch}"] = ops.launch_counts()
@@ -2169,9 +2576,36 @@ def main() -> int:
             phase("moe: REDUCED train steps"):
         moe_train(dev)
 
+    # mamba2-370m runs no kernel (attention-free); hymba-1.5b's prefill
+    # runs flash_attention in each layer, windowed but on its global
+    # layers. The first call of each mask is kept for the kernel rows
+    for tag, arch in LONG_PATHS:
+        kernels = ("flash_attention",) if tag == "hybrid" else ()
+        long_caps = [Capture(ops, "flash_attention",
+                             lambda a, kw, wide=wide: (kw.get("window", 0)
+                                                       > 0) == wide)
+                     for wide in (True, False)]
+        with path(tag, kernels), long_caps[0], long_caps[1]:
+            long_run = long_serve(dev, tag, arch)
+        launched = counts[tag]["flash_attention"]
+        if tag == "hybrid":
+            caps["flash_attention:hybrid windowed"] = long_caps[0]
+            caps["flash_attention:hybrid global"] = long_caps[1]
+            if launched < 3 * long_run["cfg"].n_layers:
+                raise AssertionError("hybrid: fewer flash_attention "
+                                     "launches than layers in the three "
+                                     "prefills")
+        with phase(f"{tag}: checks (prefills bit for bit, first decode step "
+                   f"vs forward, plain attention / SSD recurrence)"):
+            long_checks = check_long(long_run)
+        print(card)
+        report_long(long_run, long_checks, counts[tag])
+        del long_run
+        torch.cuda.empty_cache()
+
     # the first attention call with gradients: layer 0 of step 0
     caps["flash_attention_bwd"] = Capture(ops, "flash_attention",
-                                          lambda a: a[0].requires_grad)
+                                          lambda a, kw: a[0].requires_grad)
     with path("train", ("flash_attention", "flash_attention_bwd")), \
             caps["flash_attention_bwd"]:
         train_run = train(dev)
@@ -2190,18 +2624,18 @@ def main() -> int:
 
     caps.update({
         "l2_topk_masked": Capture(ops, "l2_topk_masked",
-                                  lambda a: a[0].shape[0] == MAX_BATCH),
+                                  lambda a, kw: a[0].shape[0] == MAX_BATCH),
         "pq_adc_masked": Capture(ops, "pq_adc_masked",
-                                 lambda a: a[0].shape[0] == MAX_BATCH),
+                                 lambda a, kw: a[0].shape[0] == MAX_BATCH),
         # the first ground-truth chunk of make_dataset
-        "l2_topk": Capture(ops, "l2_topk", lambda a: a[1].shape[0] == N),
+        "l2_topk": Capture(ops, "l2_topk", lambda a, kw: a[1].shape[0] == N),
         # the compare path's first full DiskANN wave: the second call of
         # the L16 sweep (the first scores the entry points, the next the
         # entry's neighbours), where every query scores the neighbours of
         # a full beam of frontier nodes
         "pq_adc_rows": Capture(ops, "pq_adc_rows", nth_call(2)),
         # the first closure chunk of SPANN's build (k = N_CLOSURE = 8)
-        "l2_topk_closure": Capture(ops, "l2_topk", lambda a: a[2] == 8)})
+        "l2_topk_closure": Capture(ops, "l2_topk", lambda a, kw: a[2] == 8)})
     with path("main", serve_kernels), caps["l2_topk_masked"], \
             caps["pq_adc_masked"], caps["l2_topk"]:
         index_and_serve("main", N, N_QUERIES, SCALE_FLOOR, dev)
@@ -2217,7 +2651,7 @@ def main() -> int:
                      "l2_closure": counts["compare"],
                      "flash_attention": counts["rag"],
                      "flash_attention_bwd": counts["train"],
-                     **moe_launches}
+                     "hybrid": counts["hybrid"], **moe_launches}
         rows = time_kernels(caps, by_kernel)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}

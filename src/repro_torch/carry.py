@@ -84,9 +84,12 @@ def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
     """The port's model holding the reference's weights. ``params`` is the
     reference's params pytree as numpy arrays, with the per-layer leaves
     stacked ``[L, ...]`` under ``blocks`` (and ``dense_blocks``, the moe
-    family's dense prefix); each layer's slice goes to its own module,
-    cast to ``cfg.dtype``. Raises unless every parameter of
-    the model is given exactly once, with its shape."""
+    family's dense prefix; an SSD's leaves under ``blocks`` ``ssm``, the
+    hybrid family's ``meta_tokens`` at the top); each layer's slice goes
+    to its own module, cast to the parameter's dtype (``cfg.dtype``, but
+    float32 for the SSD's ``A_log``, ``D`` and ``dt_bias``, as in the
+    reference). Raises unless every parameter of the model is given
+    exactly once, with its shape."""
     model = LM(cfg, device)
     target = dict(model.named_parameters())
     given = _per_layer(params)

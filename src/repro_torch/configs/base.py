@@ -84,21 +84,47 @@ class ModelConfig:
         # the reference pads to 128 lanes; kept so weights carry as a copy
         return _round_up(self.vocab_size, 128)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k cell."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def param_count(self) -> int:
-        """Analytic parameter count of a dense- or moe-family model (the
-        reference's, for the families the port runs)."""
+        """Analytic parameter count of a model of a ported family (the
+        reference's)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_padded
         hd = self.resolved_head_dim
         attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
             + (self.n_heads * hd) * d
         dense_ffn = 3 * d * f  # SwiGLU
         per_layer = 2 * d  # norms
+        # in_proj (z, x, B, C, dt) + conv + out_proj + A, D
+        di, ns, nh = self.d_inner, self.ssm_state, self.ssm_heads
+        ssm = d * (2 * di + 2 * ns + nh) + (di + 2 * ns) * self.ssm_conv \
+            + di * d + 2 * nh
         if self.family == "moe":
             n_moe = self.n_layers - self.n_dense_layers
             moe_layer = attn + (self.n_experts + self.n_shared_experts) \
                 * dense_ffn + d * self.n_experts
             total = n_moe * (moe_layer + per_layer) \
                 + self.n_dense_layers * (attn + dense_ffn + per_layer)
+        elif self.family == "ssm":
+            total = self.n_layers * (ssm + per_layer)
+        elif self.family == "hybrid":
+            total = self.n_layers * (attn + ssm + dense_ffn + per_layer) \
+                + self.meta_tokens * d
         else:
             total = self.n_layers * (attn + dense_ffn + per_layer)
         return int(total + v * d * (1 if self.tie_embeddings else 2))
@@ -129,7 +155,7 @@ FAMILIES = {
     "hymba_1_5b": "hybrid",
 }
 ARCH_IDS = tuple(FAMILIES)
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 # canonical ids as given in the assignment (hyphenated) -> module names
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

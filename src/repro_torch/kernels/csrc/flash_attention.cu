@@ -12,6 +12,23 @@
 // unchanged) and passes the scale 1/sqrt(D) of the true D, rounded once to
 // f32, so a padded launch computes the unpadded attention.
 //
+// Causal attention also takes the hybrid family's sliding window and meta
+// tokens: the mask of the reference's jnp attention
+// (src/repro/models/attention.py:50 _mask_block; the Pallas kernel has
+// none). With window > 0, key j is visible to the query at position p when
+// j <= p and either j > p - window or j < meta. A block loads only the key
+// tiles some row of it can see (KeyTiles): the tiles holding meta keys,
+// then those from the first row's window start to the last row's diagonal,
+// so the work is proportional to the window, not to Sk. Tiles between
+// them are masked for every row of the block. A row may still meet a tile
+// whose keys are all masked for it before its first visible key (a window
+// edge inside a tile, or no meta keys): with the finite -1e30 its running
+// max stays -1e30, its p = exp2(0) = 1, and the first visible key's
+// correction factor exp2(-1e30 - m) = 0 clears l and acc, as the
+// reference's chunked scan does. Every row sees its own key (j = p), so no
+// row ends without one. window >= Sk masks nothing more than causal and
+// loads the same tiles in the same order: the causal result bit for bit.
+//
 // Bound on the H100: at the prefill shape (B=8, H=32, KVH=4, Sq=Sk=500,
 // D=64, bf16, causal) the bytes are 37 MB (11 us at 3.35 TB/s) and the
 // causal work 8.2 GFLOP (8 us on the bf16 tensor cores, 122 us on the f32
@@ -48,6 +65,29 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+// The key tiles a block of query rows at positions [p_first, p_last] loads,
+// in order: the n_meta tiles holding meta keys (window > 0 only), then
+// tiles t_lo .. t_end - 1, from the first row's window start (or 0) to the
+// tile holding the block's last visible key, k_end - 1.
+struct KeyTiles {
+  int n_meta, t_lo, count;
+  __device__ KeyTiles(int k_end, int tile, int p_first, int window,
+                      int meta) {
+    const int t_end = (k_end + tile - 1) / tile;
+    n_meta = 0;
+    t_lo = 0;
+    if (window > 0) {
+      n_meta = min((meta + tile - 1) / tile, t_end);
+      t_lo = max(n_meta, max(0, p_first - window + 1) / tile);
+    }
+    count = n_meta + max(0, t_end - t_lo);
+  }
+  // first key of the i-th tile loaded
+  __device__ int k0(int i, int tile) const {
+    return (i < n_meta ? i : t_lo + i - n_meta) * tile;
+  }
+};
 
 // ---------------------------------------------------------------- bf16 ---
 
@@ -123,7 +163,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
-               int Sk, int H, int KVH, int causal, float scale_log2) {
+               int Sk, int H, int KVH, int causal, int window, int meta,
+               float scale_log2) {
   static_assert(D % 16 == 0, "the bf16 kernel steps D by 16 columns");
   constexpr int LD = D + 8;       // shared row stride, bf16
   constexpr int CH = D / 8;       // 16-byte chunks per row
@@ -152,7 +193,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 
   // causal: keys past the last row's diagonal are masked for every row
   const int k_end = causal ? min(Sk, q0 + rows + off) : Sk;
-  const int n_tiles = (k_end + kBN - 1) / kBN;
+  const KeyTiles tiles(k_end, kBN, q0 + off, window, meta);
+  const int n_tiles = tiles.count;
 
   for (int i = tid; i < kBM * CH; i += kThreadsBF) {
     const int r = i / CH, c = i % CH;
@@ -171,16 +213,17 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       cp_async16(smem_u32(vs + r * LD + c * 8), vb + src, in ? 16 : 0);
     }
   };
-  load_kv(0, 0);
+  load_kv(0, tiles.k0(0, kBN));
   cp_async_commit();
   if (n_tiles > 1) {
-    load_kv(1, kBN);
+    load_kv(1, tiles.k0(1, kBN));
     cp_async_commit();
   }
 
   const int row0 = warp * 16;  // this warp's first row in the tile
+  const int pw = q0 + row0 + off;  // position of the warp's first row
   // absolute key position of the diagonal of rows row0 + g and + 8
-  const int diag0 = q0 + row0 + g + off, diag1 = diag0 + 8;
+  const int diag0 = pw + g, diag1 = diag0 + 8;
   uint32_t qf[KD][4];
   float acc[ND][4];
 #pragma unroll
@@ -190,7 +233,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   for (int t = 0; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) cp_async_wait<1>(); else cp_async_wait<0>();
     __syncthreads();
-    const int stage = t & 1, k0 = t * kBN;
+    const int stage = t & 1, k0 = tiles.k0(t, kBN);
     if (t == 0) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
@@ -198,9 +241,12 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
         ldsm_x4(smem_u32(q_s + r * LD + kk * 16 + 8 * (lane >> 4)), qf[kk]);
       }
     }
-    // a warp whose rows all sit left of this tile skips it: every entry
+    // a warp whose rows all sit left of this tile, or whose windows all
+    // start past it (and it holds no meta key), skips it: every entry
     // would be masked, leaving (m, l, acc) as they are
-    const bool active = row0 < rows && !(causal && k0 > diag0 - g + 15);
+    const bool active =
+        row0 < rows && !(causal && k0 > pw + 15) &&
+        !(window > 0 && k0 >= meta && k0 + kBN - 1 <= pw - window);
     if (active) {
       const __nv_bfloat16* ks = k_s + stage * kBN * LD;
       const __nv_bfloat16* vs = v_s + stage * kBN * LD;
@@ -219,7 +265,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
         }
       }
       const bool need_mask =
-          k0 + kBN > Sk || (causal && k0 + kBN - 1 > q0 + row0 + off);
+          k0 + kBN > Sk || (causal && k0 + kBN - 1 > pw) ||
+          (window > 0 && max(k0, meta) <= pw + 15 - window);
       float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
@@ -229,7 +276,9 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
           if (need_mask) {
             const int key = k0 + j * 8 + 2 * tg + (e & 1);
             const int diag = e < 2 ? diag0 : diag1;
-            if (key >= Sk || (causal && key > diag)) x = kNegInf;
+            if (key >= Sk || (causal && key > diag) ||
+                (window > 0 && key >= meta && key <= diag - window))
+              x = kNegInf;
           }
           s[j][e] = x;
         }
@@ -277,7 +326,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();  // every warp is done with this stage
     if (t + 2 < n_tiles) {
-      load_kv(stage, (t + 2) * kBN);
+      load_kv(stage, tiles.k0(t + 2, kBN));
       cp_async_commit();
     }
   }
@@ -325,7 +374,7 @@ __global__ void __launch_bounds__(kRows)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
-              int causal, float scale) {
+              int causal, int window, int meta, float scale) {
   constexpr int QS = D + 4;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // [kRows][QS]
@@ -351,6 +400,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   // causal: keys past the last row's diagonal are masked for every row
   const int k_end = causal ? min(Sk, q0 + rows + off) : Sk;
+  const KeyTiles tiles(k_end, kKeys, q0 + off, window, meta);
   const int q_pos = q0 + t + off;
   const float4* q4 = reinterpret_cast<const float4*>(q_s + t * QS);
 
@@ -359,7 +409,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
 
-  for (int k0 = 0; k0 < k_end; k0 += kKeys) {
+  for (int i = 0; i < tiles.count; ++i) {
+    const int k0 = tiles.k0(i, kKeys);
     const int n = min(kKeys, Sk - k0);  // keys of this tile (same for all)
     __syncthreads();  // the previous tile is consumed; q_s is written
     for (int i = t; i < kKeys * D; i += kRows) {
@@ -389,7 +440,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
       if (j < n) {
-        if (causal && k0 + j > q_pos) s[j] = kNegInf;
+        const int key = k0 + j;
+        if ((causal && key > q_pos) ||
+            (window > 0 && key >= meta && key <= q_pos - window))
+          s[j] = kNegInf;
         m_new = fmaxf(m_new, s[j]);
       }
     }
@@ -439,7 +493,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int Sq, int Sk, int H, int KVH, int causal,
-                float scale, cudaStream_t s) {
+                int window, int meta, float scale, cudaStream_t s) {
   constexpr size_t smem = smem_bytes_bf16<D>();
   const cudaError_t err = allow_smem(flash_fwd_bf16<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -447,14 +501,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   flash_fwd_bf16<D><<<grid, kThreadsBF, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      Sq, Sk, H, KVH, causal, scale * kLog2e);
+      Sq, Sk, H, KVH, causal, window, meta, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Sq, int Sk, int H, int KVH, int causal,
-               float scale, cudaStream_t s) {
+               int window, int meta, float scale, cudaStream_t s) {
   constexpr size_t smem = smem_bytes_f32<D>();
   const cudaError_t err = allow_smem(flash_fwd_f32<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -462,7 +516,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_fwd_f32<D><<<grid, kRows, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H,
-      KVH, causal, scale);
+      KVH, causal, window, meta, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -470,7 +524,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // q, o [B, Sq, H, D]; k, v [B, Sk, KVH, D]; contiguous, one dtype (bf16
 // pointers 16-byte aligned). B, Sq >= 1; Sk >= 1; H % KVH == 0;
-// D in {16, 32, 64, 112, 128}; causal needs Sq <= Sk; the scores are
+// D in {16, 32, 64, 112, 128}; causal needs Sq <= Sk; window >= 0 and
+// meta >= 0, a window only with causal (window 0: no window); the scores are
 // multiplied by scale (1 / sqrt of the caller's true head width). lse, f32
 // [B, H, Sq], receives the natural log-sum-exp of each row's scaled scores,
 // m + log(max(l, 1e-30)), for the backward; null (serving) writes none.
@@ -478,7 +533,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 #define REPRO_FLASH_CASE(launch, W) \
   case W:                           \
     return launch<W>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, \
-                     KVH, causal, scale, s);
+                     KVH, causal, window, meta, scale, s);
 #define REPRO_FLASH_DISPATCH(launch)                   \
   switch (D) {                                         \
     REPRO_FLASH_CASE(launch, 16)                       \
@@ -492,7 +547,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int Sq, int Sk,
                                    int H, int KVH, int D, int causal,
-                                   float scale, void* stream) {
+                                   int window, int meta, float scale,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_FLASH_DISPATCH(launch_f32)
 }
@@ -500,7 +556,8 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, void* lse, int B,
                                     int Sq, int Sk, int H, int KVH, int D,
-                                    int causal, float scale, void* stream) {
+                                    int causal, int window, int meta,
+                                    float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_FLASH_DISPATCH(launch_bf16)
 }

@@ -9,6 +9,16 @@ at -1e30, float32 running (max, sum, accumulator) and
 ``acc / max(sum, 1e-30)`` rounded once. Sq and Sk take any length (the
 kernel masks the ragged tail itself).
 
+Causal attention also takes the hybrid family's sliding window and meta
+tokens, the mask of the reference's jnp attention
+(``repro/models/attention.py:50 _mask_block``; its Pallas kernel has
+none): with ``window > 0``, key j is visible to the query at position p
+when ``j <= p`` and either ``j > p - window`` or ``j < meta_tokens``.
+``window = 0`` is plain causal attention (a global layer's), and so is
+any window of at least Sk, bit for bit. The kernel loads only the key
+tiles that some row of a query block can see: the meta tokens' and those
+from the block's first window on. A window needs ``causal``.
+
 ``flash_attention`` launches ``csrc/flash_attention.cu`` on CUDA tensors,
 one of two variants chosen by dtype, both counted as ``flash_attention``:
 bf16 runs on the tensor cores (``mma.sync``; the scale applied to the f32
@@ -94,20 +104,45 @@ def _ungrouped(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, d)
 
 
-def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
-    """[Sq, Sk], True where the key lies past the query row's diagonal."""
+def _hidden(sq: int, sk: int, device, causal: bool, window: int = 0,
+            meta_tokens: int = 0) -> Optional[torch.Tensor]:
+    """[Sq, Sk], True where the mask hides the key from the query row (row
+    r at position p = r + Sk - Sq): past the diagonal, and with a window
+    at or before p - window unless among the first ``meta_tokens``; None
+    when nothing is hidden (full attention)."""
+    if not causal:
+        return None
     q_pos = torch.arange(sq, device=device)[:, None] + (sk - sq)
-    return torch.arange(sk, device=device)[None, :] > q_pos
+    k_pos = torch.arange(sk, device=device)[None, :]
+    hidden = k_pos > q_pos
+    if window > 0:
+        hidden |= (k_pos <= q_pos - window) & (k_pos >= meta_tokens)
+    return hidden
+
+
+def _check_window(name: str, causal: bool, window: int,
+                 meta_tokens: int) -> None:
+    """Raise unless (window, meta_tokens) is a mask the kernel takes: two
+    ints >= 0, and a window only with causal attention."""
+    if window < 0 or meta_tokens < 0:
+        raise ValueError(f"{name}: window={window}, meta_tokens="
+                         f"{meta_tokens} must be >= 0")
+    if window > 0 and not causal:
+        raise ValueError(f"{name}: a sliding window needs causal "
+                         f"attention")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True,
                           scale: Optional[float] = None,
-                          return_lse: bool = False):
+                          return_lse: bool = False, window: int = 0,
+                          meta_tokens: int = 0):
     """q [B, Sq, H, D]; k, v [B, Sk, KVH, D] -> [B, Sq, H, D] (q's dtype),
     through the whole [Sq, Sk] score matrix of each head. ``scale``
-    multiplies q (default 1/sqrt(D)). With ``return_lse``, also the
-    log-sum-exp of each row's scaled scores, f32 [B, H, Sq]."""
+    multiplies q (default 1/sqrt(D)). ``window`` and ``meta_tokens`` as
+    ``flash_attention``'s. With ``return_lse``, also the log-sum-exp of
+    each row's scaled scores, f32 [B, H, Sq]."""
+    _check_window("flash_attention", causal, window, meta_tokens)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if scale is None:
@@ -117,8 +152,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kg = k.float().permute(0, 2, 1, 3)[:, :, None]
     vg = v.float().permute(0, 2, 1, 3)[:, :, None]
     s = qg @ kg.transpose(-1, -2)
-    if causal:
-        s = s.masked_fill(_causal_mask(sq, sk, q.device), NEG_INF)
+    hidden = _hidden(sq, sk, q.device, causal, window, meta_tokens)
+    if hidden is not None:
+        s = s.masked_fill(hidden, NEG_INF)
     out = _ungrouped(torch.softmax(s, dim=-1) @ vg).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
@@ -147,7 +183,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     s = scale * (qg @ kg.transpose(-1, -2))
     p = torch.exp(s - lse.float().reshape(b, kvh, h // kvh, sq)[..., None])
     if causal:
-        p = p.masked_fill(_causal_mask(sq, sk, q.device), 0.0)
+        p = p.masked_fill(_hidden(sq, sk, q.device, causal), 0.0)
     delta = (dog * og).sum(-1)
     dv = (p.transpose(-1, -2) @ dog).sum(2)
     ds = p * (dog @ vg.transpose(-1, -2) - delta[..., None]) * scale
@@ -181,16 +217,20 @@ def _check_args(name: str, q, k, v, causal: bool, extra=(),
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, return_lse: bool = False):
+                    causal: bool = True, return_lse: bool = False,
+                    window: int = 0, meta_tokens: int = 0):
     """Launch the CUDA kernel. q [B, Sq, H, D]; k, v [B, Sk, KVH, D];
     contiguous, one dtype (float32 or bfloat16), 16-byte aligned, H % KVH
     == 0, 1 <= D <= 128 (padded up to the next of ``HEAD_DIMS``), Sk >=
     1, and Sq <= Sk when causal (a longer query would hold rows with no
-    key to attend to). Sq == 0 or B == 0
+    key to attend to). ``window > 0`` (causal only) hides the keys at or
+    before p - window from the query at position p, except the first
+    ``meta_tokens``. Sq == 0 or B == 0
     returns an empty tensor without a launch. Raises on anything else, and
     on a non-CUDA tensor. With ``return_lse`` the kernel also writes the
     rows' log-sum-exp, returned as ``(out, lse)``."""
     width = _check_args("flash_attention", q, k, v, causal)
+    _check_window("flash_attention", causal, window, meta_tokens)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
@@ -207,10 +247,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn_name = ("flash_attention_bf16" if q.dtype == torch.bfloat16
                else "flash_attention_f32")
     # the true D's scale, rounded once to f32 by ctypes
-    call(bind(build.load("flash_attention"), fn_name, 5, 7, 1), fn_name,
+    call(bind(build.load("flash_attention"), fn_name, 5, 9, 1), fn_name,
          q.device, [qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                     out.data_ptr(), 0 if lse is None else lse.data_ptr()],
-         [b, sq, sk, h, kvh, width, int(causal), 1.0 / math.sqrt(d)])
+         [b, sq, sk, h, kvh, width, int(causal), int(window),
+          int(meta_tokens), 1.0 / math.sqrt(d)])
     launches["flash_attention"] += 1
     out = out if width == d else out[..., :d].contiguous()
     return (out, lse) if return_lse else out
@@ -227,7 +268,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as one ``flash_attention_bwd``: delta = rowsum(dO * O) in f32 from
     ``out`` as given (rounded to bf16 by a bf16 forward), then dK/dV,
     then dQ. D runs at the next of ``BWD_HEAD_DIMS``, zero-padded. Sq == 0
-    or B == 0 gives zeros without a launch."""
+    or B == 0 gives zeros without a launch. The backward of a sliding
+    window is not written yet: ``FlashAttention`` refuses it."""
     width = _check_args("flash_attention_bwd", q, k, v, causal,
                         extra=(out, dout), widths=BWD_HEAD_DIMS)
     b, sq, h, d = q.shape
@@ -268,21 +310,29 @@ class FlashAttention(torch.autograd.Function):
     """Attention whose gradient is the flash backward: the forward keeps
     (q, k, v, out, lse), the backward recomputes the scores from them. On
     CUDA tensors both directions are the kernels (a refused launch
-    raises); on CPU tensors both are the plain versions."""
+    raises); on CPU tensors both are the plain versions. The backward of
+    a sliding window (``window > 0``) raises ``NotImplementedError``: the
+    backward kernels do not take its mask yet."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, window: int = 0,
+                meta_tokens: int = 0):
         fwd = flash_attention_plain if on_cpu(q) else flash_attention
-        out, lse = fwd(q, k, v, causal=causal, return_lse=True)
+        out, lse = fwd(q, k, v, causal=causal, return_lse=True,
+                       window=window, meta_tokens=meta_tokens)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
+        if ctx.window > 0:
+            raise NotImplementedError(
+                "flash_attention_bwd: the sliding window's backward is not "
+                "ported yet")
         q, k, v, out, lse = ctx.saved_tensors
         bwd = flash_attention_bwd_plain if on_cpu(q) \
             else flash_attention_bwd
         dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(),
                          causal=ctx.causal)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None, None

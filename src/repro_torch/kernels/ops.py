@@ -58,16 +58,19 @@ def pq_adc_masked(luts, codes, ids, k: int = 10):
     return _pq.pq_adc_masked(luts, codes, ids, k)
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    meta_tokens: int = 0):
     """q [B, Sq, H, D]; k, v [B, Sk, KVH, D] (H % KVH == 0) ->
-    [B, Sq, H, D] in q's dtype; causal masks ``k_pos > q_pos + Sk - Sq``.
-    When autograd records and an input requires grad, through
-    ``FlashAttention``, whose backward is ``flash_attention_bwd``."""
+    [B, Sq, H, D] in q's dtype; causal masks ``k_pos > q_pos + Sk - Sq``,
+    and ``window > 0`` also ``k_pos <= q_pos - window`` unless ``k_pos <
+    meta_tokens``. When autograd records and an input requires grad,
+    through ``FlashAttention``, whose backward is ``flash_attention_bwd``
+    (none yet for a window)."""
+    causal, window, meta_tokens = bool(causal), int(window), int(meta_tokens)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _fa.FlashAttention.apply(q, k, v, bool(causal))
-    if on_cpu(q):
-        return _fa.flash_attention_plain(q, k, v, causal)
-    return _fa.flash_attention(q, k, v, causal)
+        return _fa.FlashAttention.apply(q, k, v, causal, window, meta_tokens)
+    fn = _fa.flash_attention_plain if on_cpu(q) else _fa.flash_attention
+    return fn(q, k, v, causal, window=window, meta_tokens=meta_tokens)
 
 
 def launch_counts() -> Dict[str, int]:

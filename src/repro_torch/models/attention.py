@@ -11,9 +11,13 @@ log-sum-exp). Decode is one
 query token against the KV cache and stays plain PyTorch: it has no
 Pallas counterpart.
 
-The dense and moe families need causal or full attention without a
-sliding window or meta tokens. ``window > 0`` and ``meta_tokens > 0``
-(the hybrid family) raise ``NotImplementedError``.
+The hybrid family's mask is the reference's ``_mask_block``: with
+``window > 0`` a key is visible when it is causal and inside the window,
+or one of the first ``meta_tokens`` positions (cache slots), or the
+layer is global (``disable_window``, a Python bool here where the
+reference traces a flag). A global layer sends ``window=0`` to the
+kernel. A sliding window needs causal attention (no model asks for
+another); the backward of a window is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -26,40 +30,40 @@ from repro_torch.kernels.flash_attention import (
 )
 
 
-def _dense_only(window: int, meta_tokens: int) -> None:
-    if window or meta_tokens:
-        raise NotImplementedError(
-            f"sliding-window attention (window={window}, "
-            f"meta_tokens={meta_tokens}) belongs to the hybrid family, "
-            "which is not ported yet")
-
-
-def attention(q, k, v, *, causal=True, window=0, meta_tokens=0):
+def attention(q, k, v, *, causal=True, window=0, meta_tokens=0,
+              disable_window=False):
     """q [B, Sq, H, D]; k, v [B, Sk, KVH, D] -> [B, Sq, H, D]. Positions
     follow from the shapes: q is the causal suffix of k."""
-    _dense_only(window, meta_tokens)
-    return ops.flash_attention(q, k, v, causal=bool(causal))
+    return ops.flash_attention(q, k, v, causal=bool(causal),
+                               window=0 if disable_window else window,
+                               meta_tokens=meta_tokens)
 
 
-def attention_reference(q, k, v, *, causal=True, window=0, meta_tokens=0):
+def attention_reference(q, k, v, *, causal=True, window=0, meta_tokens=0,
+                        disable_window=False):
     """Materialised-scores oracle (the kernel's plain version), on any
     device."""
-    _dense_only(window, meta_tokens)
-    return flash_attention_plain(q, k, v, causal=bool(causal))
+    return flash_attention_plain(q, k, v, causal=bool(causal),
+                                 window=0 if disable_window else window,
+                                 meta_tokens=meta_tokens)
 
 
 def decode_attention(q, k_cache, v_cache, *, k_pos, cur_pos, window=0,
-                     meta_tokens=0):
+                     meta_tokens=0, disable_window=False):
     """One-token decode: q [B, 1, H, D]; caches [B, Smax, KVH, D].
 
     ``k_pos`` [Smax] holds the absolute position stored in each cache
-    slot; slots with position > ``cur_pos`` are masked out."""
-    _dense_only(window, meta_tokens)
+    slot; slots with position > ``cur_pos`` are masked out, and with
+    ``window > 0`` (unless ``disable_window``) so are those at or before
+    ``cur_pos - window`` that are not among the first ``meta_tokens``."""
     b, _, h, d = q.shape
     n_kv = k_cache.shape[2]
     qg = (q.float() * (1.0 / d ** 0.5)).reshape(b, n_kv, h // n_kv, d)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
-    s = s.masked_fill((k_pos > cur_pos)[None, None, None, :], NEG_INF)
+    hidden = k_pos > cur_pos
+    if window > 0 and not disable_window:
+        hidden |= (k_pos <= cur_pos - window) & (k_pos >= meta_tokens)
+    s = s.masked_fill(hidden[None, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)

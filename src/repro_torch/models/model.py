@@ -1,6 +1,6 @@
-"""Language models of the dense and moe families: parameters,
-full-sequence forward (prefill), KV cache and single-token decode. Port
-of ``repro/models/model.py``.
+"""Language models of the dense, moe, ssm and hybrid families:
+parameters, full-sequence forward (prefill), decode caches and
+single-token decode. Port of ``repro/models/model.py``.
 
 A pre-norm llama-style stack: per layer an RMS norm, GQA attention with
 rotary embeddings (``flash_attention`` kernel in the full-sequence
@@ -10,7 +10,16 @@ family's feed-forward is a SwiGLU MLP (``DenseBlock``); the moe family's
 layers take a top-k mixture of experts in its place (``MoEBlock``,
 ``models/moe.py``), after ``n_dense_layers`` dense layers
 (``dense_blocks``; Kimi-K2 has one), and ``forward(...,
-return_aux=True)`` sums their load-balance losses.
+return_aux=True)`` sums their load-balance losses. The ssm family
+(Mamba-2) is attention-free: each layer is an RMS norm and a Mamba-2 SSD
+(``SSMBlock``, ``models/ssm.py``), with a recurrent state ``h`` and a
+conv window in place of a KV cache. The hybrid family (Hymba) runs
+attention and the SSD side by side on the same normed input and adds the
+mean of their separately normed outputs (``HybridBlock``); its
+attention has a sliding window except on ``global_layers``, and
+``meta_tokens`` learned rows are prepended to every sequence, count in
+the rotary positions, take the first slots of the KV cache, and are cut
+off the logits.
 
 The weights keep the reference's layouts (``wq [d, H, hd]``, ``wk``/``wv
 [d, KVH, hd]``, ``wo [H, hd, d]``, ``w_gate``/``w_up [d, f]``, ``w_down
@@ -24,11 +33,11 @@ does). Then the full-sequence forward recomputes each block in the
 backward when ``cfg.remat`` is set, as the reference's
 ``jax.checkpoint`` over its layer scan does, so activation memory holds
 one block's input per layer. The reference's sharding hints drop out on
-one card. Other families raise ``NotImplementedError``.
+one card. The audio and vlm families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig, check_family
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import (
     apply_rope,
@@ -122,22 +132,24 @@ class DenseBlock(nn.Module):
         return self.mlp(h), None
 
     def forward(self, x, cos, sin, with_aux: bool = False):
-        """Full sequence, causal. Returns (x, (k, v) for the cache, the
-        aux loss when ``with_aux`` and the block has one, else None)."""
+        """Full sequence, causal. Returns (x, this layer's cache entries
+        {"k", "v"}, the aux loss when ``with_aux`` and the block has one,
+        else None)."""
         q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
                                     cos, sin)
         x = x + self.attn.out(attention(q, k, v, causal=True))
         y, aux = self.ffn(rms_norm(x, self.mlp_norm, self.eps), with_aux)
-        return x + y, (k, v), aux
+        return x + y, {"k": k, "v": v}, aux
 
-    def decode(self, x, cos, sin, k_cache, v_cache, pos: int, slot_pos):
-        """One token at position ``pos``: writes its k/v into slot ``pos``
-        of this layer's caches [B, Smax, KVH, hd] in place."""
+    def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
+        """One token in cache slot ``pos``: writes its k/v into slot
+        ``pos`` of this layer's caches ``cache["k"]``, ``cache["v"]`` [B,
+        Smax, KVH, hd] in place."""
         q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
                                     cos, sin)
-        k_cache[:, pos] = k[:, 0]
-        v_cache[:, pos] = v[:, 0]
-        a = decode_attention(q, k_cache, v_cache, k_pos=slot_pos,
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+        a = decode_attention(q, cache["k"], cache["v"], k_pos=slot_pos,
                              cur_pos=pos)
         x = x + self.attn.out(a)
         return x + self.ffn(rms_norm(x, self.mlp_norm, self.eps))[0]
@@ -154,10 +166,109 @@ class MoEBlock(DenseBlock):
         return self.moe(h, with_aux)
 
 
+def _update_state(cache: Cache, new: Cache) -> None:
+    """Write an SSD step's new ``h`` and ``conv`` into the layer's cache
+    views in place."""
+    cache["h"].copy_(new["h"])
+    cache["conv"].copy_(new["conv"])
+
+
+class SSMBlock(nn.Module):
+    """The ssm family's layer: x + SSD(rms_norm(x))."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ssm_in_norm = _param((cfg.d_model,), dtype, device)
+        self.ssm = ssm_lib.SSM(cfg, dtype, device)
+
+    def forward(self, x, cos, sin, with_aux: bool = False):
+        """Full sequence (``cos``, ``sin`` unused). Returns (x, this layer's
+        decode state {"h", "conv"}, None)."""
+        y, state = self.ssm(rms_norm(x, self.ssm_in_norm, self.eps),
+                            return_state=True)
+        return x + y, state, None
+
+    def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
+        """One token: updates this layer's ``cache["h"]`` and
+        ``cache["conv"]`` in place."""
+        y, state = self.ssm.decode(rms_norm(x, self.ssm_in_norm, self.eps),
+                                   cache)
+        _update_state(cache, state)
+        return x + y
+
+
+class HybridBlock(nn.Module):
+    """The hybrid family's layer: attention (sliding window and meta
+    tokens, or global) and the SSD on the same normed input, each output
+    RMS-normed by its own scale, their mean added to x; then the SwiGLU
+    MLP as in the dense block."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device,
+                 is_global: bool = False):
+        super().__init__()
+        self.cfg, self.eps, self.is_global = cfg, cfg.norm_eps, is_global
+        d = cfg.d_model
+        self.attn_norm = _param((d,), dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.ssm = ssm_lib.SSM(cfg, dtype, device)
+        self.attn_branch_norm = _param((d,), dtype, device)
+        self.ssm_branch_norm = _param((d,), dtype, device)
+        self.mlp_norm = _param((d,), dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+    def _fuse(self, x, attn_out, ssm_out):
+        fused = 0.5 * (rms_norm(attn_out, self.attn_branch_norm, self.eps)
+                       + rms_norm(ssm_out, self.ssm_branch_norm, self.eps))
+        x = x + fused
+        return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps))
+
+    def forward(self, x, cos, sin, with_aux: bool = False):
+        """Full sequence, meta tokens first. Returns (x, this layer's
+        cache entries {"k", "v", "h", "conv"}, None)."""
+        cfg = self.cfg
+        h = rms_norm(x, self.attn_norm, self.eps)
+        q, k, v = self.attn.project(h, cos, sin)
+        a = attention(q, k, v, causal=True, window=cfg.attn_window,
+                      meta_tokens=cfg.meta_tokens,
+                      disable_window=self.is_global)
+        y, state = self.ssm(h, return_state=True)
+        return self._fuse(x, self.attn.out(a), y), \
+            {"k": k, "v": v, **state}, None
+
+    def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
+        """One token in cache slot ``pos`` (its position, meta tokens
+        counted): writes its k/v into slot ``pos`` and updates ``h`` and
+        ``conv``, all in place."""
+        cfg = self.cfg
+        h = rms_norm(x, self.attn_norm, self.eps)
+        q, k, v = self.attn.project(h, cos, sin)
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+        a = decode_attention(q, cache["k"], cache["v"], k_pos=slot_pos,
+                             cur_pos=pos, window=cfg.attn_window,
+                             meta_tokens=cfg.meta_tokens,
+                             disable_window=self.is_global)
+        y, state = self.ssm.decode(h, cache)
+        _update_state(cache, state)
+        return self._fuse(x, self.attn.out(a), y)
+
+
+def global_flags(cfg: ModelConfig, n: int) -> List[bool]:
+    """Which of the ``n`` blocks attend globally (no window): the hybrid
+    family's ``global_layers``; none elsewhere."""
+    flags = [False] * n
+    if cfg.family == "hybrid":
+        for i in cfg.global_layers:
+            flags[i] = True
+    return flags
+
+
 class LM(nn.Module):
     """Embedding, ``n_dense_layers`` dense blocks (``dense_blocks``; none
     outside the moe family), the family's ``n_layers - n_dense_layers``
-    blocks (``blocks``), final norm, LM head (the transposed embedding
+    blocks (``blocks``), the hybrid family's ``meta_tokens`` rows
+    ``[meta_tokens, d]``, final norm, LM head (the transposed embedding
     when ``tie_embeddings``)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
@@ -167,12 +278,21 @@ class LM(nn.Module):
         dtype = _dtype(cfg)
         self.cfg = cfg
         self.tok_embed = _param((cfg.vocab_padded, cfg.d_model), dtype, dev)
-        block = MoEBlock if cfg.family == "moe" else DenseBlock
+        n_main = cfg.n_layers - cfg.n_dense_layers
         self.dense_blocks = nn.ModuleList(
             DenseBlock(cfg, dtype, dev) for _ in range(cfg.n_dense_layers))
-        self.blocks = nn.ModuleList(
-            block(cfg, dtype, dev)
-            for _ in range(cfg.n_layers - cfg.n_dense_layers))
+        if cfg.family == "hybrid":
+            self.blocks = nn.ModuleList(
+                HybridBlock(cfg, dtype, dev, is_global=flag)
+                for flag in global_flags(cfg, n_main))
+        else:
+            block = {"moe": MoEBlock, "ssm": SSMBlock}.get(cfg.family,
+                                                           DenseBlock)
+            self.blocks = nn.ModuleList(block(cfg, dtype, dev)
+                                        for _ in range(n_main))
+        if cfg.meta_tokens:
+            self.meta_tokens = _param((cfg.meta_tokens, cfg.d_model), dtype,
+                                      dev)
         self.final_norm = _param((cfg.d_model,), dtype, dev)
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab_padded), dtype, dev)
@@ -184,6 +304,15 @@ class LM(nn.Module):
     def layers(self):
         """Every block in depth order: the dense prefix, then ``blocks``."""
         return [*self.dense_blocks, *self.blocks]
+
+    def embed(self, tokens):
+        """tokens [B, S] -> [B, meta_tokens + S, d]: the meta tokens' rows
+        (if any) ahead of each sequence's embeddings."""
+        x = self.tok_embed[tokens]
+        if self.cfg.meta_tokens:
+            meta = self.meta_tokens[None].expand(x.shape[0], -1, -1)
+            x = torch.cat([meta, x], dim=1)
+        return x
 
     def logits(self, x):
         cfg = self.cfg
@@ -204,14 +333,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> LM:
     """A model with the reference's initialisation (zero norms and
     biases, fan-in normal projections and experts, 0.02-normal
-    embeddings), drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (the CUDA card unless ``device="cpu"``)."""
+    embeddings and meta tokens, the SSD's as ``ssm.init_ssm``), drawn
+    from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
+    CUDA card unless ``device="cpu"``)."""
     model = LM(cfg, device)
     gen = torch.Generator(model.device).manual_seed(seed)
     dtype = _dtype(cfg)
     with torch.no_grad():
         model.tok_embed.copy_(embed_init(gen, model.tok_embed.shape, dtype))
+        if cfg.meta_tokens:
+            model.meta_tokens.copy_(embed_init(gen, model.meta_tokens.shape,
+                                               dtype))
         for blk in model.layers():
+            if hasattr(blk, "ssm"):
+                ssm_lib.init_ssm(blk.ssm, gen)
+            if isinstance(blk, SSMBlock):
+                continue
             a = blk.attn
             for w in (a.wq, a.wk, a.wv):
                 w.copy_(dense_init(gen, w.shape, 0, dtype))
@@ -228,42 +365,49 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 def _rope(model: LM, positions: torch.Tensor):
+    """cos, sin at ``positions`` (None, None for an attention-free
+    model)."""
     cfg = model.cfg
+    if cfg.is_attention_free:
+        return None, None
     return rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
 def forward(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             collect_cache: bool = False, return_aux: bool = False):
-    """Teacher-forced full-sequence forward -> logits [B, S, Vpad] f32.
+    """Teacher-forced full-sequence forward -> logits [B, S, Vpad] f32
+    (the meta tokens' rows, which the hybrid family prepends, are cut
+    off).
 
-    With ``collect_cache``, also returns ``{"k", "v"}`` stacked per layer,
-    ``[L, B, S, KVH, hd]``, the dense prefix first (after the rotary
-    embedding, as cached). With ``return_aux``, also the load-balance aux
-    loss summed over the MoE layers, an f32 scalar (zero for the dense
-    family)."""
+    With ``collect_cache``, also returns each layer's cache entries
+    stacked per layer, the dense prefix first: ``{"k", "v"}`` ``[L, B,
+    S', KVH, hd]`` (after the rotary embedding, as cached; S' = S plus
+    the meta tokens) where the layers attend, ``{"h", "conv"}`` (``[L,
+    B, H, P, N]`` f32 and ``[L, B, K - 1, di + 2 N]``) where they run the
+    SSD. With ``return_aux``, also the load-balance aux loss summed over
+    the MoE layers, an f32 scalar (zero for the other families)."""
     check_family(cfg)
-    tokens = batch["tokens"]
-    x = model.tok_embed[tokens]
+    x = model.embed(batch["tokens"])
     cos, sin = _rope(model, torch.arange(x.shape[1], device=x.device))
     remat = cfg.remat and not collect_cache and torch.is_grad_enabled() \
         and x.requires_grad
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
+    caches = []
     for blk in model.layers():
         if remat:   # (x, aux): no cache is collected under remat
             x, a = checkpoint(
                 lambda x_, b=blk: b(x_, cos, sin, return_aux)[::2], x,
                 use_reentrant=False)
         else:
-            x, (k, v), a = blk(x, cos, sin, return_aux)
+            x, c, a = blk(x, cos, sin, return_aux)
             if collect_cache:
-                ks.append(k)
-                vs.append(v)
+                caches.append(c)
         if a is not None:
             aux = aux + a
-    out = (model.logits(x),)
+    out = (model.logits(x[:, cfg.meta_tokens:]),)
     if collect_cache:
-        out += ({"k": torch.stack(ks), "v": torch.stack(vs)},)
+        out += ({key: torch.stack([c[key] for c in caches])
+                 for key in caches[0]},)
     if return_aux:
         out += (aux,)
     return out if len(out) > 1 else out[0]
@@ -272,39 +416,59 @@ def forward(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = None) -> Cache:
-    """Decode cache: k, v ``[L, B, max_len, KVH, hd]`` zeros, every layer
-    (the dense prefix first); slot i holds position i."""
+    """Decode cache of zeros, every layer (the dense prefix first): k, v
+    ``[L, B, max_len + meta_tokens, KVH, hd]`` where the layers attend
+    (slot i holds position i, the meta tokens first); the SSD's ``h``
+    ``[L, B, H, P, N]`` f32 and ``conv`` ``[L, B, K - 1, di + 2 N]``
+    where they run it."""
     check_family(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    dtype = dtype or _dtype(cfg)
     dev = resolve_device(device)
-    k = torch.zeros(shape, dtype=dtype or _dtype(cfg), device=dev)
-    return {"k": k, "v": torch.zeros_like(k)}
+    cache: Cache = {}
+    if not cfg.is_attention_free:
+        shape = (cfg.n_layers, batch, max_len + cfg.meta_tokens,
+                 cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros_like(cache["k"])
+    if cfg.family in ("ssm", "hybrid"):
+        shapes = ssm_lib.ssm_cache_shapes(cfg, batch)
+        cache["h"] = torch.zeros((cfg.n_layers,) + shapes["h"],
+                                 dtype=torch.float32, device=dev)
+        cache["conv"] = torch.zeros((cfg.n_layers,) + shapes["conv"],
+                                    dtype=dtype, device=dev)
+    return cache
 
 
 def prefill(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """Process a full prompt -> (logits [B, S, Vpad], decode cache with
-    slots [0, S) filled)."""
+    slots [0, meta_tokens + S) filled and the SSD states after the
+    prompt)."""
     b, s = batch["tokens"].shape
-    logits, kv = forward(model, batch, cfg, collect_cache=True)
+    logits, states = forward(model, batch, cfg, collect_cache=True)
     cache = init_cache(cfg, b, max_len or s, device=model.device)
-    for key in ("k", "v"):
-        cache[key][:, :, :s] = kv[key]
+    for key, val in states.items():
+        if key in ("k", "v"):
+            cache[key][:, :, :s + cfg.meta_tokens] = val
+        else:
+            cache[key].copy_(val)
     return logits, cache
 
 
 def decode_step(model: LM, tokens: torch.Tensor, cache: Cache, cur_pos: int,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
-    """tokens [B, 1]; ``cur_pos`` the position of this token. Returns
+    """tokens [B, 1]; ``cur_pos`` the position of this token (its cache
+    slot and rotary position are ``cur_pos + meta_tokens``). Returns
     (logits [B, 1, Vpad], cache): the cache is the one passed in, its
-    slot ``cur_pos`` written in place (the reference returns a new one)."""
+    slot written and its SSD states updated in place (the reference
+    returns a new one)."""
     check_family(cfg)
-    cur_pos = int(cur_pos)
+    pos = int(cur_pos) + cfg.meta_tokens
     x = model.tok_embed[tokens]
-    cos, sin = _rope(model, torch.tensor([cur_pos], device=x.device))
-    slot_pos = torch.arange(cache["k"].shape[2], device=x.device)
+    cos, sin = _rope(model, torch.tensor([pos], device=x.device))
+    slot_pos = torch.arange(cache["k"].shape[2], device=x.device) \
+        if "k" in cache else None
     for i, blk in enumerate(model.layers()):
-        x = blk.decode(x, cos, sin, cache["k"][i], cache["v"][i], cur_pos,
-                       slot_pos)
+        x = blk.decode(x, cos, sin, {key: c[i] for key, c in cache.items()},
+                       pos, slot_pos)
     return model.logits(x), cache

@@ -32,6 +32,14 @@ LM_MODULES = {"repro_torch.configs.base", "repro_torch.configs.tinyllama_1_1b",
               "repro_torch.kernels.flash_attention",
               "repro_torch.serving.engine", "repro_torch.data.lm",
               "repro_torch.carry"}
+# the ssm and hybrid families' serving modules
+SSM_HYBRID_MODULES = {"repro_torch.configs.mamba2_370m",
+                      "repro_torch.configs.hymba_1_5b",
+                      "repro_torch.models.ssm", "repro_torch.models.model",
+                      "repro_torch.models.attention",
+                      "repro_torch.kernels.flash_attention",
+                      "repro_torch.kernels.ops", "repro_torch.carry",
+                      "repro_torch.serving.engine"}
 # the training path's modules
 TRAIN_MODULES = {"repro_torch.training", "repro_torch.training.optimizer",
                  "repro_torch.training.train_step",
@@ -49,6 +57,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert len(loaded) >= 40   # every module was imported
     assert LM_MODULES <= loaded, LM_MODULES - loaded
     assert TRAIN_MODULES <= loaded, TRAIN_MODULES - loaded
+    assert SSM_HYBRID_MODULES <= loaded, SSM_HYBRID_MODULES - loaded
 
 
 FORBIDDEN = re.compile(

@@ -41,8 +41,9 @@ torch.set_num_threads(2)   # xdist runs several workers on the same cores
 DENSE = ("tinyllama-1.1b", "stablelm-1.6b", "command-r-plus-104b",
          "qwen1.5-4b")
 MOE = ("dbrx-132b", "kimi-k2-1t-a32b")   # tests/test_torch_moe.py
-OTHER = {"internvl2-76b": "vlm", "whisper-small": "audio",
-         "mamba2-370m": "ssm", "hymba-1.5b": "hybrid"}
+OTHER = {"internvl2-76b": "vlm", "whisper-small": "audio"}
+# mamba2-370m (ssm) and hymba-1.5b (hybrid): tests/test_torch_ssm.py and
+# tests/test_torch_hybrid.py
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_ATOL = 0.1
 
@@ -207,18 +208,6 @@ def test_decode_attention_matches_reference():
             *(jnp.asarray(a) for a in (q, kc, vc)), k_pos=jnp.arange(40),
             cur_pos=jnp.int32(cur))
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-
-
-def test_window_and_meta_tokens_raise():
-    x = torch.zeros((1, 4, 2, 16))
-    for kw in (dict(window=8), dict(meta_tokens=2)):
-        with pytest.raises(NotImplementedError, match="hybrid"):
-            tattn.attention(x, x, x, **kw)
-        with pytest.raises(NotImplementedError, match="hybrid"):
-            tattn.attention_reference(x, x, x, **kw)
-        with pytest.raises(NotImplementedError, match="hybrid"):
-            tattn.decode_attention(x[:, :1], x, x, k_pos=torch.arange(4),
-                                   cur_pos=3, **kw)
 
 
 # -------------------------------------------------------------------- model
