@@ -9,10 +9,10 @@ instructions of the bf16 ``flash_attention`` kernels with ``cuobjdump``
 (HMMA in the forward, HGMMA in the backward's two product kernels), holds
 each kernel against its plain PyTorch
 version on the card (edge cases, the sliding window and meta tokens
-included, and exact-tie inputs), prefills each dense, moe and hybrid
-REDUCED config through the attention kernel against the plain
-attention, then drives nine paths, each with its kernel launches
-counted from zero and checked:
+included, in the forward and in the backward, and exact-tie inputs),
+prefills each dense, moe and hybrid REDUCED config through the attention
+kernel against the plain attention, then drives ten paths, each with its
+kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
   -> ``build_pag`` -> ``write_partitions`` (PQ payloads, "dfs" storage
@@ -69,7 +69,20 @@ counted from zero and checked:
   the forward through the plain attention, and layer 0's attention
   gradients with autograd through the plain attention. Prints step wall
   time, tokens/s, peak memory and a profile of the last step.
-* compare: the paper's comparison (Table IV, Figs 8-10) at 100,000 x 128
+* long_train: the ssm and hybrid families trained as train trains
+  TinyLlama, at their published widths, uncut (mamba2-370m, freed, then
+  hymba-1.5b; bf16, B=8 x S=2048, hymba's 128 meta tokens first, remat,
+  6 AdamW steps on one batch at each arch's swept learning rate, the
+  last profiled). Mamba2's SSD backward is autograd's and launches no
+  kernel; hymba's attention runs ``flash_attention`` forward twice a
+  layer (remat) and ``flash_attention_bwd`` once, with the window and
+  meta tokens on its 29 windowed layers. The loss must fall at every
+  step; hymba's step 0 must agree with the plain attention's, and its
+  first windowed layer's (layer 1) attention gradients with autograd
+  through the plain attention; exactly 32 x 6 backward launches on
+  hymba and no attention launch on mamba2. Prints step wall time,
+  tokens/s, peak memory, idle share, top kernels and launches a step.
+* compare: the paper's comparison (Table IV, Figs 8-10) at 50,000 x 128
   with 1000 queries: PAG, DiskANN (one ``pq_adc_rows`` launch per wave of
   its lock-step traversal, the waves of each sweep printed), SPANN (closure
   assignment through ``l2_topk``) and HNSW built and searched, the CIC
@@ -78,18 +91,26 @@ counted from zero and checked:
   wall seconds), then the PAG/DiskANN QPS ratio at recall >= 0.85 and
   at the highest recall both reach.
 
+The backward's windowed edge cases (FLASH_BWD_WINDOW_EDGES, bf16 and
+f32, against the plain backward) take windows of 1, 17, 64, 100, 128,
+1024 and >= Sk, 0, 8 and 128 meta tokens, groups 1, 2, 5 and 8, Sq < Sk
+and Sq = Sk with ragged lengths, and hymba's own layer; a window of at
+least Sk must give the causal backward bit for bit.
+
 Last, each kernel is timed on the inputs its path gave it (``l2_topk``
 twice: SPANN's closure chunk and the 1M ground-truth chunk;
 ``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` five
 times: rag's first prefill layer, the moe path's two, and hymba's first
-windowed and first global layer): CUDA events
-around back-to-back wrapper calls (``ms``) and the kernel's own device
-time from ``torch.profiler`` (``device_ms``), beside its plain version,
+windowed and first global layer; ``flash_attention_bwd`` twice: the
+train path's layer 0 and long_train's hymba layer 1, windowed): CUDA
+events around back-to-back wrapper calls (``ms``) and the kernel's own
+device time from ``torch.profiler`` (``device_ms``), beside its plain
+version,
 one PyTorch library call computing the same function
 (``scaled_dot_product_attention`` for ``flash_attention``, with the
-boolean mask as ``attn_mask`` for a window; its backward
-for ``flash_attention_bwd``; timed only, never called by the port) and
-its bound.
+boolean mask as ``attn_mask`` for a window; its backward, with the mask
+likewise, for ``flash_attention_bwd``; timed only, never called by the
+port) and its bound.
 
 Prints each phase's wall time, the card's name and power limit, one JSON
 line of kernel numbers, and as its last line
@@ -129,33 +150,35 @@ PQ_RECALL_GAP = 0.02        # PQ plane within this of the float plane
 QUALITY_N, QUALITY_QUERIES, QUALITY_FLOOR = 30_000, 512, 0.80
 SCALE_FLOOR = 0.35
 
-# The paper's comparison (Table IV, Figs 8-10) at SIFT width, a tenth of
-# SIFT1M's depth: benchmarks/common.py:128-165 builds and
+# The paper's comparison (Table IV, Figs 8-10) at SIFT width, a twentieth
+# of SIFT1M's depth: benchmarks/common.py:128-165 builds and
 # benchmarks/qps_recall.py _curves with its smoke sweeps (the first two
 # settings; DiskANN's whole sweep, so that it reaches the recall of the
-# PAG/DiskANN ratio). 100k because SPANN's kmeans holds a
-# [n, n/16] float32 distance matrix (250 GB at 1M).
-CMP_N, CMP_QUERIES = 100_000, 1000
+# PAG/DiskANN ratio). Cut from 1M because SPANN's kmeans holds a
+# [n, n/16] float32 distance matrix (250 GB at 1M), and from 100k to 50k
+# to keep the whole smoke inside its time limit on a slow host (the
+# builds took 300-390 s at 100k, 170 s at 50k)
+CMP_N, CMP_QUERIES = 50_000, 1000
 CMP_PAG_ARGS = dict(p=0.2, lam=3.0, redundancy=4)
 CMP_PAG_SWEEP = [(32, 16), (64, 32)]
 CMP_DK_SWEEP = [16, 32, 64]
 CMP_SP_SWEEP = [(32, 8), (32, 16)]
 CMP_HN_SWEEP = [16, 32]
-CIC_N, CIC_L = 50_000, 32
+CIC_N, CIC_L = 25_000, 32
 RATIO_RECALL = 0.85
 # recall@10 floors, 0.03 below the value measured on the H100 (beside
 # each; deterministic seeds). 128-dimensional Gaussian clusters are hard
 # for R=16 graphs: no method reaches the ratio's 0.85 here (PERF.md).
-CMP_FLOORS = {("PAG", "L32/p16"): 0.2372,          # 0.2672
-              ("PAG", "L64/p32"): 0.3657,          # 0.3957
-              ("DiskANN", "L16"): 0.1694,          # 0.1994
-              ("DiskANN", "L32"): 0.2711,          # 0.3011
-              ("DiskANN", "L64"): 0.4251,          # 0.4551
-              ("SPANN", "L32/p8"): 0.4726,         # 0.5026
-              ("SPANN", "L32/p16"): 0.5281,        # 0.5581
-              ("HNSW", "L16"): 0.4645,             # 0.4945
-              ("HNSW", "L32"): 0.5686,             # 0.5986
-              ("CIC", f"c4/n{CIC_N}/L{CIC_L}"): 0.1747}   # 0.2047
+CMP_FLOORS = {("PAG", "L32/p16"): 0.3082,          # 0.3382
+              ("PAG", "L64/p32"): 0.4620,          # 0.4920
+              ("DiskANN", "L16"): 0.2554,          # 0.2854
+              ("DiskANN", "L32"): 0.3812,          # 0.4112
+              ("DiskANN", "L64"): 0.5251,          # 0.5551
+              ("SPANN", "L32/p8"): 0.5002,         # 0.5302
+              ("SPANN", "L32/p16"): 0.5516,        # 0.5816
+              ("HNSW", "L16"): 0.6075,             # 0.6375
+              ("HNSW", "L32"): 0.7129,             # 0.7429
+              ("CIC", f"c4/n{CIC_N}/L{CIC_L}"): 0.1391}   # 0.1691
 
 # RAG serving at TinyLlama-1.1B's published width (examples/rag_serve.py
 # runs it REDUCED): 8 requests, each its k=10 retrieved ids then synthetic
@@ -245,6 +268,20 @@ FLASH_BWD_F32_TOL = 2e-5
 FLASH_LSE_BF16_TOL = 2 ** -7
 FLASH_LSE_F32_TOL = 1e-5
 
+# Training of the ssm and hybrid families at their published widths, uncut,
+# seeded bf16 weights, as the train path trains TinyLlama: launch/train.py's
+# setup and step, B=8 x S=2048 (hymba: 2176 slots, its 128 meta tokens
+# first), remat, TRAIN_STEPS AdamW steps on one repeated batch, the last
+# under torch.profiler; mamba2-370m, freed, then hymba-1.5b. The learning
+# rates are scripts/train_lr_sweep.py's: the largest of 1e-5, 3e-5, 1e-4,
+# 3e-4 and 1e-3 at which the loss fell at every step (H100 80GB HBM3 at
+# 700 W: mamba2 fell at all five, 11.03 to 7.05 at 1e-3; hymba at 1e-5
+# and 3e-5, 10.83 to 8.64, and bounced from 1e-4 on). Both fit one card
+# without microbatches (peaks 20.6 and 27.3 GiB)
+LONG_TRAIN_ARCHS = ("mamba2-370m", "hymba-1.5b")
+LONG_TRAIN_LR = {"mamba2-370m": 1e-3, "hymba-1.5b": 3e-5}
+LONG_TRAIN_MICROBATCHES = {"mamba2-370m": 1, "hymba-1.5b": 1}
+
 # The ssm and hybrid families at their published widths, uncut, seeded
 # bf16 weights, served as rag serves TinyLlama but at their training
 # context: 8 x 2048-token batch_at prompts, 32 greedy tokens. Mamba2-370m
@@ -295,6 +332,28 @@ FLASH_WINDOW_EDGES = [
         (1, 5, 5, 2176, 2176, 16, 64, 8),
         (2, 5, 1, 300, 2176, 64, 17, 128),
         (1, 5, 1, 2176, 2176, 112, 1, 0)]]
+
+# windowed flash_attention_bwd edge cases: (B, H, KVH, Sq, Sk, D, window,
+# meta_tokens), each in bf16 and f32. Windows of 1, 17, 64, 100, 128 and
+# 1024 keys and one of at least Sk, no, 8 and 128 meta tokens (8: a key
+# block mixing meta and windowed keys), groups 1, 2, 5 (hymba's 25 / 5)
+# and 8, Sq < Sk and Sq = Sk, ragged lengths off the 64- and 128-row
+# tiles (522: a ragged last query block walking fewer key tiles than the
+# whole ones, launched after them), D 16, 32, 64, 112 and 128 (32-row
+# query steps), and hymba's layer at B = 1
+FLASH_BWD_WINDOW_EDGES = [
+    (1, 5, 1, 63, 63, 64, 17, 0),
+    (2, 4, 4, 63, 200, 16, 1, 8),
+    (1, 10, 2, 100, 300, 112, 64, 128),
+    (1, 8, 1, 200, 200, 64, 128, 8),
+    (1, 4, 2, 300, 300, 32, 17, 128),
+    (1, 5, 1, 1, 2176, 64, 17, 0),
+    (1, 5, 5, 333, 333, 16, 64, 8),
+    (2, 5, 1, 300, 2176, 64, 1024, 128),
+    (1, 16, 2, 522, 522, 128, 100, 0),
+    (1, 2, 2, 130, 130, 64, 1, 0),
+    (1, 10, 2, 260, 260, 48, 1024, 8),
+    (1, 25, 5, 2176, 2176, 64, 1024, 128)]
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -771,14 +830,51 @@ def check_flash_bwd_edges(dev) -> None:
                 lambda: fa.flash_attention_bwd(q, k, v, out, lse,
                                                dout.transpose(1, 2)),
                 lambda: fa.flash_attention_bwd(q.cpu(), k, v, out, lse,
-                                               dout)):
+                                               dout),
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                               False, window=8),
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                               window=-1)):
         try:
             bad()
         except (ValueError, TypeError):
             continue
         raise AssertionError("flash_attention_bwd took arguments it must "
                              "refuse")
+    check_flash_bwd_window_edges(dev)
     torch.cuda.synchronize()
+
+
+def check_flash_bwd_window_edges(dev) -> None:
+    """The window and meta tokens in flash_attention_bwd: against its plain
+    version over FLASH_BWD_WINDOW_EDGES, bf16 and f32, fed the windowed
+    kernel forward's (out, lse); and a window of at least Sk (meta tokens
+    or none) equal to the causal launch bit for bit, on the causal
+    forward's (out, lse)."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(5)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h, kvh, sq, sk, d, window, meta in FLASH_BWD_WINDOW_EDGES:
+            q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+                shape, np.float32)).to(dev, dtype) for shape in
+                ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d),
+                 (b, sq, h, d)))
+            kw = dict(window=window, meta_tokens=meta)
+            name = (f"flash_attention_bwd B{b} H{h}/{kvh} {sq}x{sk} D{d} "
+                    f"window={window} meta={meta} {dtype}")
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            flash_bwd_check(
+                fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw),
+                fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw),
+                name)
+            out, lse = fa.flash_attention(q, k, v, return_lse=True)
+            causal = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+            for wide, m in ((sk, 0), (sk, meta), (sk + 7, 3)):
+                got = fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                             window=wide, meta_tokens=m)
+                if not all(torch.equal(g, c) for g, c in zip(got, causal)):
+                    raise AssertionError(f"{name}: window {wide} >= Sk "
+                                         f"differs from causal")
 
 
 def sass_counts(lib: Path, opcode: str) -> dict:
@@ -1835,36 +1931,40 @@ def report_long(r: dict, checks: dict, launches: dict) -> None:
     print(f"{tag} report: {json.dumps(rep)}", flush=True)
 
 
-def train(dev) -> dict:
-    """Training at TinyLlama-1.1B's width through ``launch/train.py``'s
-    own setup and step: the seeded model and AdamW state on the card, the
-    loss of the first batch through the plain attention (before any
-    step), then TRAIN_STEPS steps on that one batch, the last under
-    ``torch.profiler``. Returns the losses, walls, peak memory and
-    profile."""
+def train_steps(dev, tag: str, arch: str, lr: float,
+                microbatches: int) -> dict:
+    """``arch`` trained at its published width through ``launch/train.py``'s
+    own setup and step (B=TRAIN_BATCH x S=TRAIN_SEQ, bf16, remat): the
+    seeded model and AdamW state on the card, the loss of the first batch
+    through the plain attention (before any step; none for an
+    attention-free arch), then TRAIN_STEPS steps on that one batch, the
+    last under ``torch.profiler``. Returns the losses, walls, peak memory
+    and profile; frees the model."""
     from repro_torch.data.lm import batch_at
     from repro_torch.launch import train as trainer
     from repro_torch.training.train_step import TrainConfig, loss_fn
     args = trainer.parser().parse_args([
-        "--arch", TRAIN_ARCH, "--full", "--batch", str(TRAIN_BATCH),
+        "--arch", arch, "--full", "--batch", str(TRAIN_BATCH),
         "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
-        "--microbatches", str(TRAIN_MICROBATCHES), "--lr", str(TRAIN_LR),
+        "--microbatches", str(microbatches), "--lr", str(lr),
         "--device", str(dev)])
-    with phase(f"train: init {TRAIN_ARCH} and AdamW state (seeded, on the "
+    with phase(f"{tag}: init {arch} and AdamW state (seeded, on the "
                f"card)"):
         cfg, dcfg, model, opt, step_fn = trainer.setup(args)
         batch = batch_at(dcfg, cfg, 0, device=dev)
         torch.cuda.synchronize()
-    with phase("train: step 0's loss through the plain attention"), \
-            torch.no_grad(), plain_attention():
-        plain_loss = float(loss_fn(model, batch, cfg, TrainConfig())[1]
-                           ["loss"])
+    plain_loss = None
+    if not cfg.is_attention_free:
+        with phase(f"{tag}: step 0's loss through the plain attention"), \
+                torch.no_grad(), plain_attention():
+            plain_loss = float(loss_fn(model, batch, cfg, TrainConfig())[1]
+                               ["loss"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     from torch.profiler import ProfilerActivity, profile
     losses, gnorms, walls, prof = [], [], [], None
     for s in range(TRAIN_STEPS):
-        with phase(f"train: step {s}"):
+        with phase(f"{tag}: step {s}"):
             ctx = profile(activities=[ProfilerActivity.CPU,
                                       ProfilerActivity.CUDA]) \
                 if s == TRAIN_STEPS - 1 else contextlib.nullcontext()
@@ -1876,7 +1976,7 @@ def train(dev) -> dict:
             prof = prof_s or prof
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
-        print(f"train step {s} loss={losses[-1]:.4f} gnorm={gnorms[-1]:.3f}"
+        print(f"{tag} step {s} loss={losses[-1]:.4f} gnorm={gnorms[-1]:.3f}"
               f" lr={float(m['lr']):.3g} wall={walls[-1]:.4f} s",
               flush=True)
     peak = torch.cuda.max_memory_allocated()
@@ -1895,56 +1995,83 @@ def train(dev) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     del model, opt, m, batch
     torch.cuda.empty_cache()
-    return {"cfg": cfg, "losses": losses, "gnorms": gnorms, "walls": walls,
+    return {"tag": tag, "arch": arch, "lr": lr, "microbatches": microbatches,
+            "cfg": cfg, "losses": losses, "gnorms": gnorms, "walls": walls,
             "plain_loss": plain_loss, "peak_bytes": peak,
             "n_params": n_params, "profile": profile_rep}
 
 
-def check_train(r: dict, layer_args) -> dict:
-    """The train path's checks: finite losses that fall (step 5 below step
-    0, on the repeated batch), step 0's loss within TRAIN_LOSS_ATOL of the
-    forward through the plain attention, and the first layer's attention
-    gradients (its captured q, k, v and a seeded dO, bf16) through the
-    kernels within FLASH_BWD_BF16_TOL of autograd through the
-    materialised-scores attention."""
+def train(dev) -> dict:
+    """The train path: TinyLlama-1.1B through ``train_steps``."""
+    return train_steps(dev, "train", TRAIN_ARCH, TRAIN_LR,
+                       TRAIN_MICROBATCHES)
+
+
+def long_train(dev, arch: str) -> dict:
+    """The long_train path's run of ``arch`` through ``train_steps``, at
+    LONG_TRAIN_LR and LONG_TRAIN_MICROBATCHES."""
+    return train_steps(dev, f"long_train {arch}", arch, LONG_TRAIN_LR[arch],
+                       LONG_TRAIN_MICROBATCHES[arch])
+
+
+def check_train(r: dict, layer_cap, every_step: bool = False) -> dict:
+    """A train run's checks: finite losses that fall on the repeated batch
+    (the last below step 0's; with ``every_step``, each below the one
+    before); with attention, step 0's loss within TRAIN_LOSS_ATOL of the
+    forward through the plain attention, and the captured layer's
+    attention gradients (its q, k, v and mask as ``layer_cap`` kept them,
+    and a seeded dO) through the kernels within FLASH_BWD_BF16_TOL of
+    autograd through the materialised-scores attention."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    losses = r["losses"]
-    out = {"loss_step0": losses[0], "loss_last": losses[-1],
-           "plain_loss_step0": r["plain_loss"],
-           "loss_vs_plain_abs": abs(losses[0] - r["plain_loss"])}
-    q, k, v = (t.detach() for t in layer_args)
-    gen = torch.Generator(q.device).manual_seed(0)
-    dout = torch.randn(q.shape, generator=gen, device=q.device) \
-        .to(q.dtype)
-    got = [t.clone().requires_grad_() for t in (q, k, v)]
-    ops.flash_attention(*got, causal=True).backward(dout)
-    want = [t.clone().requires_grad_() for t in (q, k, v)]
-    fa.flash_attention_plain(*want, causal=True).backward(dout)
-    out["layer0_grad_max_abs"] = flash_bwd_check(
-        [t.grad for t in got], [t.grad for t in want],
-        "train: layer 0 attention gradients vs plain autograd")
-    out["layer0_grad_scale"] = max(float(t.grad.float().abs().max())
-                                   for t in want)
-    print(f"train checks: {json.dumps(out)}", flush=True)
-    if not all(np.isfinite(losses + r["gnorms"])) \
-            or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: losses {losses} do not fall")
-    if out["loss_vs_plain_abs"] > TRAIN_LOSS_ATOL:
-        raise AssertionError(f"train: step 0 loss {losses[0]} against "
+    losses, tag = r["losses"], r["tag"]
+    out = {"loss_step0": losses[0], "loss_last": losses[-1]}
+    if r["plain_loss"] is not None:
+        (q, k, v), kw = layer_cap.args
+        mask = dict(window=kw.get("window", 0),
+                    meta_tokens=kw.get("meta_tokens", 0))
+        q, k, v = (t.detach() for t in (q, k, v))
+        gen = torch.Generator(q.device).manual_seed(0)
+        dout = torch.randn(q.shape, generator=gen, device=q.device) \
+            .to(q.dtype)
+        got = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.flash_attention(*got, causal=True, **mask).backward(dout)
+        want = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.flash_attention_plain(*want, causal=True, **mask).backward(dout)
+        out.update(
+            plain_loss_step0=r["plain_loss"],
+            loss_vs_plain_abs=abs(losses[0] - r["plain_loss"]),
+            layer_grad_mask=mask,
+            layer_grad_max_abs=flash_bwd_check(
+                [t.grad for t in got], [t.grad for t in want],
+                f"{tag}: layer attention gradients vs plain autograd"),
+            layer_grad_scale=max(float(t.grad.float().abs().max())
+                                 for t in want))
+        del got, want
+        torch.cuda.empty_cache()
+    print(f"{tag} checks: {json.dumps(out)}", flush=True)
+    falls = all(b < a for a, b in zip(losses, losses[1:])) if every_step \
+        else losses[-1] < losses[0]
+    if not all(np.isfinite(losses + r["gnorms"])) or not falls:
+        raise AssertionError(f"{tag}: losses {losses} do not fall"
+                             + (" at every step" if every_step else ""))
+    if r["plain_loss"] is not None \
+            and out["loss_vs_plain_abs"] > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"{tag}: step 0 loss {losses[0]} against "
                              f"{r['plain_loss']} through plain attention")
     return out
 
 
 def report_train(r: dict, checks: dict, counts: dict) -> None:
-    """The train path's numbers, each on its own line, then one JSON
-    line. Warm: steps 1 .. TRAIN_STEPS - 2 (step 0 pays first use, the
-    last runs under the profiler)."""
-    warm = r["walls"][1:-1]
+    """A train run's numbers, each on its own line, then one JSON line.
+    Warm: steps 1 .. TRAIN_STEPS - 2 (step 0 pays first use, the last
+    runs under the profiler)."""
+    tag, warm = r["tag"], r["walls"][1:-1]
     step_s = sum(warm) / len(warm)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    rep = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "steps": TRAIN_STEPS, "microbatches": TRAIN_MICROBATCHES,
+    rep = {"arch": r["arch"], "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "slots": TRAIN_SEQ + r["cfg"].meta_tokens, "steps": TRAIN_STEPS,
+           "microbatches": r["microbatches"], "lr": r["lr"],
            "params": r["n_params"], "losses": r["losses"],
            "grad_norms": r["gnorms"], "step_walls_s": r["walls"],
            "warm_step_s": step_s, "tokens_per_s": tokens / step_s,
@@ -1953,13 +2080,15 @@ def report_train(r: dict, checks: dict, counts: dict) -> None:
                                  for k in ("flash_attention",
                                            "flash_attention_bwd")},
            "profile": r["profile"], **checks}
-    print(f"train step seconds (warm mean of steps 1-{TRAIN_STEPS - 2}): "
+    print(f"{tag} step seconds (warm mean of steps 1-{TRAIN_STEPS - 2}): "
           f"{step_s:.4f}")
-    print(f"train tokens per second (warm, {tokens} tokens a step): "
+    print(f"{tag} tokens per second (warm, {tokens} tokens a step): "
           f"{tokens / step_s:.1f}")
-    print(f"train peak memory (torch.cuda.max_memory_allocated): "
+    print(f"{tag} peak memory (torch.cuda.max_memory_allocated): "
           f"{r['peak_bytes'] / 2 ** 30:.2f} GiB")
-    print(f"train report: {json.dumps(rep)}", flush=True)
+    print(f"{tag} idle share (profiled step): "
+          f"{r['profile']['device_idle_share']}")
+    print(f"{tag} report: {json.dumps(rep)}", flush=True)
 
 
 def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
@@ -2195,33 +2324,40 @@ def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
             "library_ms": library_ms, "shape": shape}
 
 
-def check_flash_bwd_deterministic(*args) -> None:
-    """Two backward calls on the same inputs give bit-identical dq, dk and
-    dv: the kernels sum each element in one order, with no atomics."""
+def check_flash_bwd_deterministic(*args, **mask) -> None:
+    """Two backward calls on the same inputs (and mask: ``window``,
+    ``meta_tokens``) give bit-identical dq, dk and dv: the kernels sum
+    each element in one order, with no atomics."""
     from repro_torch.kernels import flash_attention as fa
-    first = fa.flash_attention_bwd(*args, causal=True)
-    second = fa.flash_attention_bwd(*args, causal=True)
+    first = fa.flash_attention_bwd(*args, causal=True, **mask)
+    second = fa.flash_attention_bwd(*args, causal=True, **mask)
     for part, x, y in zip(("dq", "dk", "dv"), first, second):
         if not torch.equal(x.view(torch.int16), y.view(torch.int16)):
             raise AssertionError(f"flash_attention_bwd: two calls give "
-                                 f"different {part}")
-    print("flash_attention_bwd: two calls bit-identical", flush=True)
+                                 f"different {part} ({mask})")
+    print(f"flash_attention_bwd: two calls bit-identical {mask}", flush=True)
 
 
-def flash_bwd_row(layer_args, launches: int) -> dict:
+def flash_bwd_row(layer_args, launches: int, what: str = "train layer 0",
+                  window: int = 0, meta_tokens: int = 0) -> dict:
     """The kernel row of ``flash_attention_bwd`` on one training layer's
-    (q, k, v) (the train path's first, step 0), with the kernel forward's
+    (q, k, v) (a train path's, step 0) under its mask (causal, and with
+    ``window > 0`` the window and meta tokens), with the kernel forward's
     (out, lse) and a seeded dO; the library time is the backward of
-    ``scaled_dot_product_attention`` (causal, GQA) on the same inputs."""
+    ``scaled_dot_product_attention`` (GQA; causal, or with a window the
+    boolean mask as ``attn_mask``) on the same inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    mask = dict(window=window, meta_tokens=meta_tokens)
     q, k, v = (t.detach() for t in layer_args)
     (b, sq, h, d), (sk, kvh) = q.shape, k.shape[1:3]
-    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True,
+                                  **mask)
     gen = torch.Generator(q.device).manual_seed(1)
     dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
-    check_flash_bwd_deterministic(q, k, v, out, lse, dout)
-    pairs = b * h * sum(min(sk, r + sk - sq + 1) for r in range(sq))
+    check_flash_bwd_deterministic(q, k, v, out, lse, dout, **mask)
+    seen = ~fa._hidden(sq, sk, q.device, True, window, meta_tokens)
+    pairs = b * h * int(seen.sum())
     # S = q.k and dP = dO.v recomputed, then dV, dQ and dK: five products
     # of 2 D FLOPs per unmasked pair
     n_ops = 10 * d * pairs
@@ -2230,27 +2366,28 @@ def flash_bwd_row(layer_args, launches: int) -> dict:
         + 2 * b * h * sq * 4
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
+    library = dict(attn_mask=seen) if window else dict(is_causal=True)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **library)
     dout_t = dout.transpose(1, 2)
     row = kernel_report(
         "flash_attention_bwd",
-        lambda *a: fa.flash_attention_bwd(*a, causal=True),
-        lambda *a: fa.flash_attention_bwd_plain(*a, causal=True),
+        lambda *a: fa.flash_attention_bwd(*a, causal=True, **mask),
+        lambda *a: fa.flash_attention_bwd_plain(*a, causal=True, **mask),
         lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
                                     retain_graph=True),
         (q, k, v, out, lse, dout), launches,
         nbytes=nbytes, n_ops=n_ops, ops_per_s=BF16_OPS_PER_S,
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:136",
-        check=lambda got, want: flash_bwd_check(got, want,
-                                                "train layer 0"),
+        check=lambda got, want: flash_bwd_check(got, want, what),
         shape={"B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh, "D": d,
-               "causal": True, "dtype": str(q.dtype)},
+               "causal": True, **mask, "dtype": str(q.dtype)},
         device_names=("bwd_delta", "bwd_dkdv", "bwd_dq"))
     row["note"] = ("counterpart of the reference's jnp custom_vjp backward, "
                    "not of a pallas_call; library: the backward of "
-                   "scaled_dot_product_attention")
+                   "scaled_dot_product_attention"
+                   + (" with the boolean mask" if window else ""))
     return row
 
 
@@ -2447,6 +2584,16 @@ def time_kernels(caps, counts) -> list:
                             "global layers a prefill; the window and meta "
                             "tokens are the mask of the reference's jnp "
                             "attention, src/repro/models/attention.py:50")
+    # the long_train path's first windowed layer (layer 1, step 0):
+    # hymba-1.5b's attention backward under the window and meta tokens
+    (args, kw) = caps["flash_attention_bwd:hybrid windowed"].args
+    rows.append(flash_bwd_row(
+        args, counts["long_train:hymba-1.5b"]["flash_attention_bwd"],
+        "hymba-1.5b windowed train layer", window=kw["window"],
+        meta_tokens=kw["meta_tokens"]))
+    rows[-1]["path"] = "long_train"
+    rows[-1]["note"] += ("; launches: the long_train path's on hymba-1.5b, "
+                         "one a layer and step (29 windowed, 3 global)")
     return rows
 
 
@@ -2615,12 +2762,41 @@ def main() -> int:
                              "and step")
     with phase("train: checks (losses, step 0 vs plain attention, layer 0 "
                "gradients vs plain autograd)"):
-        train_checks = check_train(train_run,
-                                   caps["flash_attention_bwd"].args[0])
+        train_checks = check_train(train_run, caps["flash_attention_bwd"])
     print(card)
     report_train(train_run, train_checks, counts["train"])
     del train_run
     torch.cuda.empty_cache()
+
+    # mamba2-370m trains with no attention launch; hymba-1.5b with one
+    # flash_attention_bwd a layer and step. The first windowed attention
+    # call with gradients (layer 1, step 0) is kept for its checks and row
+    for arch in LONG_TRAIN_ARCHS:
+        hybrid = arch == "hymba-1.5b"
+        cap = Capture(ops, "flash_attention",
+                      lambda a, kw: a[0].requires_grad
+                      and kw.get("window", 0) > 0)
+        with path("long_train", ("flash_attention", "flash_attention_bwd")
+                  if hybrid else (), f" ({arch})"), cap:
+            long_run = long_train(dev, arch)
+        got = ops.launch_counts()
+        n_layers = long_run["cfg"].n_layers
+        want = TRAIN_STEPS * n_layers if hybrid else 0
+        if got["flash_attention_bwd"] != want \
+                or (not hybrid and got["flash_attention"] != 0):
+            raise AssertionError(f"long_train {arch}: launches {got}, want "
+                                 f"{want} flash_attention_bwd")
+        with phase(f"long_train: {arch} checks (losses fall at every step, "
+                   f"step 0 vs plain attention, layer 1 gradients vs plain "
+                   f"autograd)"):
+            long_checks = check_train(long_run, cap, every_step=True)
+        print(card)
+        report_train(long_run, long_checks, got)
+        if hybrid:
+            caps["flash_attention_bwd:hybrid windowed"] = cap
+            counts["long_train:hymba-1.5b"] = got
+        del long_run
+        torch.cuda.empty_cache()
 
     caps.update({
         "l2_topk_masked": Capture(ops, "l2_topk_masked",
@@ -2651,7 +2827,9 @@ def main() -> int:
                      "l2_closure": counts["compare"],
                      "flash_attention": counts["rag"],
                      "flash_attention_bwd": counts["train"],
-                     "hybrid": counts["hybrid"], **moe_launches}
+                     "hybrid": counts["hybrid"],
+                     "long_train:hymba-1.5b":
+                     counts["long_train:hymba-1.5b"], **moe_launches}
         rows = time_kernels(caps, by_kernel)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}

@@ -5,7 +5,8 @@ comparison's shapes, and holds two search loops against each other.
     python3 scripts/diskann_sweep.py [--n N] [--queries Q] [--reps R]
 
 Builds the comparison's DiskANN index as ``chip_smoke.comparison`` does
-(``make_dataset("clustered", seed=0)``, 100,000 x 128 with 1000 queries,
+(``make_dataset("clustered", seed=0)``, ``chip_smoke.CMP_N`` x 128 (50,000;
+``--n 100000`` for the size before the cell was cut) with 1000 queries,
 ``build_diskann(R=16, L=48, M=8)`` on a "dfs" store), then runs its sweep
 (L = 16, 32, 64, beam_io 4), each repetition on a fresh store of the same
 latency seed, in turns (per hop, waves, waves, per hop for ``--reps 2``):

@@ -29,7 +29,11 @@ wrapper calls, ``device_ms`` the kernel's own time from ``torch.profiler``.
   smoke run's train path (B=8, Sq=Sk=2048, H=32, KVH=4, D=64, bf16,
   causal), seeded q, k, v and dO, each beside its plain version and its
   library call (``scaled_dot_product_attention`` forward, and its
-  backward), with the bound (``chip_smoke.flash_bwd_row``'s count).
+  backward), with the bound (``chip_smoke.flash_bwd_row``'s count); then
+  the backward at one training layer of hymba-1.5b (B=8, Sq=Sk=2176 with
+  its 128 meta tokens, H=25, KVH=5, D=64, bf16): a windowed layer
+  (window 1024, the library call SDPA's backward with the boolean mask)
+  and a global, causal one.
 
 * ``--only adc``: one DiskANN wave of the 100k comparison, seeded: Q=1000
   queries with ~50 node ids each (a uniform length in [25, 75]; every
@@ -71,6 +75,8 @@ ROOT = Path(__file__).resolve().parents[1]
 L2_SHAPES = [(512, 1_000_000, 128, 10), (8192, 6250, 128, 8)]
 FLASH_SHAPE = (8, 500, 500, 32, 4, 64)   # B, Sq, Sk, H, KVH, D
 TRAIN_SHAPE = (8, 2048, 2048, 32, 4, 64)
+HYMBA_TRAIN_SHAPE = (8, 2176, 2176, 25, 5, 64)
+HYMBA_WINDOW, HYMBA_META = 1024, 128
 # the main path's first full serving batch (PERF.md): Q, C, d or M, k
 L2_MASKED_SHAPE = (256, 14_973, 128, 10)
 ADC_MASKED_SHAPE = (256, 14_941, 8, 64)
@@ -346,6 +352,17 @@ def bench_train(cs, dev, report) -> None:
     print(f"train backward: "
           f"{json.dumps(report['flash_attention_bwd_bf16_train'])}",
           flush=True)
+    b, sq, sk, h, kvh, d = HYMBA_TRAIN_SHAPE
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               .to(torch.bfloat16) for shape in
+               ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+    for kind, window in (("windowed", HYMBA_WINDOW), ("global", 0)):
+        key = f"flash_attention_bwd_bf16_hymba_{kind}"
+        report[key] = cs.flash_bwd_row(
+            (q, k, v), None, f"hymba {kind} layer", window=window,
+            meta_tokens=HYMBA_META if window else 0)
+        print(f"hymba {kind} backward: {json.dumps(report[key])}",
+              flush=True)
 
 
 def main() -> int:

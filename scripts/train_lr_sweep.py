@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""The smoke run's train path at several learning rates, on one NVIDIA GPU.
+"""The smoke run's train paths at several learning rates, on one NVIDIA GPU.
 
-    python3 scripts/train_lr_sweep.py [--lr 3e-5 1e-4 3e-4]
+    python3 scripts/train_lr_sweep.py [--arch tinyllama-1.1b] [--lr 3e-5 1e-4]
 
-For each learning rate, ``chip_smoke.train`` (TinyLlama-1.1B at full
+For each learning rate, the smoke run's training of ``--arch`` at full
 width with seeded weights, B=8 x S=2048, ``chip_smoke.TRAIN_STEPS`` AdamW
-steps of ``launch/train.py``'s step on one repeated batch) and its
-checks (``chip_smoke.check_train``): the loss at each step, the gradient
+steps of ``launch/train.py``'s step on one repeated batch: TinyLlama-1.1B
+through ``chip_smoke.train``, mamba2-370m and hymba-1.5b through
+``chip_smoke.long_train``, each with ``chip_smoke.check_train`` (the loss
+must fall at every step). Prints the loss at each step, the gradient
 norms, step 0's loss through the plain attention, the peak memory, and
-whether the checks pass (the loss must fall over the run). This is how
-``chip_smoke.TRAIN_LR`` was chosen. Imports nothing of JAX.
+whether the checks pass. This is how ``chip_smoke.TRAIN_LR`` and
+``chip_smoke.LONG_TRAIN_LR`` were chosen: the largest learning rate
+whose checks pass. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--lr", type=float, nargs="+", default=[3e-5, 1e-4, 3e-4])
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -37,19 +41,30 @@ def main() -> int:
     from repro_torch.kernels import ops
     dev = torch.device("cuda", 0)
     failed = 0
+    long = args.arch in cs.LONG_TRAIN_ARCHS
+    if not long and args.arch != cs.TRAIN_ARCH:
+        ap.error(f"--arch: one of {(cs.TRAIN_ARCH,) + cs.LONG_TRAIN_ARCHS}")
     for lr in args.lr:
-        cs.TRAIN_LR = lr
-        cap = cs.Capture(ops, "flash_attention",
-                         lambda a: a[0].requires_grad)
+        if long:
+            cs.LONG_TRAIN_LR[args.arch] = lr
+            cap = cs.Capture(ops, "flash_attention",
+                             lambda a, kw: a[0].requires_grad
+                             and kw.get("window", 0) > 0)
+        else:
+            cs.TRAIN_LR = lr
+            cap = cs.Capture(ops, "flash_attention",
+                             lambda a, kw: a[0].requires_grad)
         ops.reset_launch_counts()
         with cap:
-            r = cs.train(dev)
+            r = cs.long_train(dev, args.arch) if long else cs.train(dev)
         counts = ops.launch_counts()
-        print(f"lr {lr}: losses {json.dumps(r['losses'])} grad norms "
-              f"{json.dumps(r['gnorms'])} plain step 0 {r['plain_loss']} "
-              f"peak {r['peak_bytes'] / 2 ** 30:.2f} GiB", flush=True)
+        print(f"{args.arch} lr {lr}: losses {json.dumps(r['losses'])} grad "
+              f"norms {json.dumps(r['gnorms'])} plain step 0 "
+              f"{r['plain_loss']} peak {r['peak_bytes'] / 2 ** 30:.2f} GiB",
+              flush=True)
         try:
-            cs.report_train(r, cs.check_train(r, cap.args[0]), counts)
+            cs.report_train(r, cs.check_train(r, cap, every_step=True),
+                            counts)
         except AssertionError as e:
             failed += 1
             print(f"lr {lr}: check failed: {e}", flush=True)

@@ -25,6 +25,7 @@ from repro_torch.core.pag import PAG
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import LM
 from repro_torch.storage.simulator import ObjectStore, StorageConfig
+from repro_torch.training.optimizer import STACKS
 
 
 def pag_from_arrays(arrays: Dict[str, np.ndarray]) -> PAG:
@@ -59,9 +60,6 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
         else:
             out[prefix + key] = val
     return out
-
-
-STACKS = ("blocks", "dense_blocks")   # the reference's [L, ...] stacks
 
 
 def _per_layer(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -126,7 +124,8 @@ def opt_state_from_arrays(cfg: ModelConfig, state: Dict[str, Any],
     numpy arrays, per-layer moments stacked ``[L, ...]`` under
     ``blocks`` and ``dense_blocks`` and factored second moments as
     ``{"row", "col"}`` leaves. Each layer's slice goes to its
-    parameter's name, in the stored dtype (``state_dtype``), on
+    parameter's name (a stacked ``[L, d]`` leaf's column, shared by the
+    layers, to each of them), in the stored dtype (``state_dtype``), on
     ``device`` (the CUDA card unless ``"cpu"``).
     Raises unless ``m`` names every parameter of ``cfg``'s model."""
     dev = resolve_device(device)
@@ -135,7 +134,13 @@ def opt_state_from_arrays(cfg: ModelConfig, state: Dict[str, Any],
     if set(m) != names:
         raise ValueError(f"moments missing: {sorted(names - set(m))}, "
                          f"unknown: {sorted(set(m) - names)}")
-    plain, row, col = (_per_layer(t) for t in _split_factored(state["v"]))
+    plain, row, col = (_flatten(t) for t in _split_factored(state["v"]))
+    for name, r in row.items():
+        if name.partition(".")[0] in STACKS and np.ndim(r) == 1:
+            # a stacked [L, d] leaf: one column for all L layers
+            col[name] = np.broadcast_to(np.asarray(col[name]),
+                                        (len(r),) + np.shape(col[name]))
+    plain, row, col = (_per_layer(t) for t in (plain, row, col))
     v = {n: t.to(dev) for n, t in plain.items()}
     v.update({n: {"row": row[n].to(dev), "col": col[n].to(dev)}
               for n in row})

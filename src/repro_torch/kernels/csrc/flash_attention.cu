@@ -17,7 +17,8 @@
 // (src/repro/models/attention.py:50 _mask_block; the Pallas kernel has
 // none). With window > 0, key j is visible to the query at position p when
 // j <= p and either j > p - window or j < meta. A block loads only the key
-// tiles some row of it can see (KeyTiles): the tiles holding meta keys,
+// tiles some row of it can see (KeyTiles, in attention_mask.cuh with the
+// mask itself, shared with the backward): the tiles holding meta keys,
 // then those from the first row's window start to the last row's diagonal,
 // so the work is proportional to the window, not to Sk. Tiles between
 // them are masked for every row of the block. A row may still meet a tile
@@ -62,32 +63,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_mask.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
-
-// The key tiles a block of query rows at positions [p_first, p_last] loads,
-// in order: the n_meta tiles holding meta keys (window > 0 only), then
-// tiles t_lo .. t_end - 1, from the first row's window start (or 0) to the
-// tile holding the block's last visible key, k_end - 1.
-struct KeyTiles {
-  int n_meta, t_lo, count;
-  __device__ KeyTiles(int k_end, int tile, int p_first, int window,
-                      int meta) {
-    const int t_end = (k_end + tile - 1) / tile;
-    n_meta = 0;
-    t_lo = 0;
-    if (window > 0) {
-      n_meta = min((meta + tile - 1) / tile, t_end);
-      t_lo = max(n_meta, max(0, p_first - window + 1) / tile);
-    }
-    count = n_meta + max(0, t_end - t_lo);
-  }
-  // first key of the i-th tile loaded
-  __device__ int k0(int i, int tile) const {
-    return (i < n_meta ? i : t_lo + i - n_meta) * tile;
-  }
-};
 
 // ---------------------------------------------------------------- bf16 ---
 
@@ -244,9 +224,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     // a warp whose rows all sit left of this tile, or whose windows all
     // start past it (and it holds no meta key), skips it: every entry
     // would be masked, leaving (m, l, acc) as they are
-    const bool active =
-        row0 < rows && !(causal && k0 > pw + 15) &&
-        !(window > 0 && k0 >= meta && k0 + kBN - 1 <= pw - window);
+    const bool active = row0 < rows && !(causal && k0 > pw + 15) &&
+                        !window_hides_tile(k0, kBN, pw, window, meta);
     if (active) {
       const __nv_bfloat16* ks = k_s + stage * kBN * LD;
       const __nv_bfloat16* vs = v_s + stage * kBN * LD;
@@ -264,9 +243,9 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
           mma_bf16(s[2 * nb + 1], qf[kk], bf[2], bf[3]);
         }
       }
-      const bool need_mask =
-          k0 + kBN > Sk || (causal && k0 + kBN - 1 > pw) ||
-          (window > 0 && max(k0, meta) <= pw + 15 - window);
+      const bool need_mask = k0 + kBN > Sk ||
+                             (causal && k0 + kBN - 1 > pw) ||
+                             window_cuts_tile(k0, pw + 15, window, meta);
       float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
@@ -276,8 +255,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
           if (need_mask) {
             const int key = k0 + j * 8 + 2 * tg + (e & 1);
             const int diag = e < 2 ? diag0 : diag1;
-            if (key >= Sk || (causal && key > diag) ||
-                (window > 0 && key >= meta && key <= diag - window))
+            if (key >= Sk || !mask_visible(key, diag, causal, window, meta))
               x = kNegInf;
           }
           s[j][e] = x;
@@ -441,9 +419,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kKeys; ++j) {
       if (j < n) {
         const int key = k0 + j;
-        if ((causal && key > q_pos) ||
-            (window > 0 && key >= meta && key <= q_pos - window))
-          s[j] = kNegInf;
+        if (!mask_visible(key, q_pos, causal, window, meta)) s[j] = kNegInf;
         m_new = fmaxf(m_new, s[j]);
       }
     }

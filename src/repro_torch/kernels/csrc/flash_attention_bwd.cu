@@ -1,10 +1,13 @@
 // The backward of attention with an online softmax, causal or full,
-// grouped-query heads: dQ, dK, dV from (q, k, v, O, dO, lse).
+// grouped-query heads, and the hybrid family's sliding window and meta
+// tokens: dQ, dK, dV from (q, k, v, O, dO, lse).
 //
 // Counterpart of the reference's custom_vjp backward
 // src/repro/models/attention.py:136 (bwd, a jnp scan over key chunks; not
 // a pallas_call): per (query, key) pair P = exp(scale q.k - lse), zero
-// where the causal mask k_pos > q_pos + (Sk - Sq) hides the key; delta =
+// where the mask hides the key (the causal mask k_pos > q_pos + (Sk - Sq),
+// and with window > 0 also k_pos <= q_pos - window unless k_pos < meta:
+// _mask_block at :50, here attention_mask.cuh, the forward's); delta =
 // rowsum(dO * O); dV = P^T dO; dP = dO V^T; dS = P (dP - delta) scale;
 // dQ = dS K; dK = dS^T Q; dK and dV summed over the G = H / KVH query
 // heads of each KV head. lse [B, H, Sq] is the forward's log-sum-exp
@@ -68,6 +71,19 @@
 // where a fused single pass needs 5, and dQ would need an ordered sum
 // across key blocks (ROADMAP).
 //
+// The window and meta tokens (hymba: window 1024, 128 meta tokens, 2176
+// rows) cut both walks to the pairs the mask lets through, as the forward's
+// KeyTiles does: a dK/dV block walks the query rows from its diagonal to
+// the last row its last key's window reaches (every later row if it holds a
+// meta key); a dQ block walks the forward's KeyTiles, the meta tiles, then
+// from its first row's window start to its diagonal. A warpgroup skips a
+// tile the window hides from all its rows, and masks elements only in a
+// tile the window or the diagonal cuts. Launch order stays longest first
+// (dkdv_longest_first, dq_longest_first, attention_mask.cuh): with Sq = Sk
+// the key blocks still go in order (a meta block walks every later row,
+// the windowed ones at most window + 127 rows, fewer near the end), and
+// the query blocks last first but for a ragged last one.
+//
 // Tiles: TMA reads q, dO, k and v through 3-D tensor maps (heads * D
 // columns, S rows, B batches), so rows past S are zero-filled and never
 // the next batch's; boxes are W = min(D, 64) columns wide with the swizzle
@@ -88,11 +104,15 @@
 //    (dQ), accumulators in registers, the streamed tiles in shared memory
 //    read as broadcasts; delta from launch 0 (ld = Sq).
 // Masking sets P to 0 by selection (keys past Sk, query rows past Sq, the
-// causal mask), never through exp(-1e30 - lse), so no NaN or inf appears.
+// causal mask, the window), never through exp(-1e30 - lse), so no NaN or inf
+// appears, even in a row whose only visible keys lie in the meta tile and
+// far to its right.
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "attention_mask.cuh"
 
 namespace {
 
@@ -330,13 +350,16 @@ __host__ __device__ constexpr uint32_t mn_step(int c, int kk) {
 
 // -------------------------------------------------------- bf16 dK / dV ---
 
-// One block per (b, KV head, 128 keys), blocks ordered key tile first: the
-// blocks of key tile 0, the longest under the causal mask, go out first.
+// One block per (b, KV head, 128 keys), blocks ordered key tile first, the
+// longest first (dkdv_longest_first: under the causal mask, and under a
+// window with Sq = Sk, key tile 0, which holds the meta keys, then the
+// others in order).
 // Warpgroups 0 and 1 own 64 keys each and keep their dK and dV rows in f32
 // registers; warpgroup 2's first thread loads the block's K and V once,
 // then streams (q, dO, lse2, delta) tiles of NQ query rows through a ring
 // of kStages stages: every query tile of every head of the KV head, head
-// by head, from the block's causal diagonal on. A step: S^T = K q^T and
+// by head, from the block's causal diagonal to the last row its keys'
+// windows reach (window_rows_end). A step: S^T = K q^T and
 // dP^T = V dO^T (both operands from shared memory), P^T and dS^T in
 // registers, then dV += P^T dO and dK += dS^T q with P^T and dS^T as the
 // register A operand (the accumulator's layout is the A fragment's). The
@@ -352,7 +375,8 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                const float* __restrict__ lse2,
                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                __nv_bfloat16* __restrict__ dv, int B, int Sq, int Sk, int H,
-               int KVH, int causal, int ld, float scale) {
+               int KVH, int causal, int window, int meta, int ld,
+               float scale) {
   using C = Cfg<D>;
   constexpr int W = C::W, NB = C::NB, NQ = C::NQ;
   constexpr uint32_t kResBytes = kRes * D * 2, kQBytes = NQ * D * 2;
@@ -371,12 +395,16 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   const int groups = B * KVH;
   const int b = blockIdx.x % groups / KVH, kvh = blockIdx.x % KVH;
-  const int k0 = blockIdx.x / groups * kRes;
+  const int k0 = dkdv_longest_first(blockIdx.x / groups, Sq, Sk, kRes, NQ,
+                                    causal, window, meta) * kRes;
   const int G = H / KVH, off = Sk - Sq;  // query row r sits at key r + off
-  // causal: query tiles wholly above the block's first key add nothing
+  // causal: query tiles wholly above the block's first key add nothing;
+  // window: nor do those past the last row its last key's window reaches
   const int q_first = causal ? max(0, k0 - off) / NQ * NQ : 0;
-  const int q_end = (Sq + NQ - 1) / NQ * NQ;
-  const int n_steps = G * ((q_end - q_first) / NQ);  // (head, tile), head-major
+  const int q_end = (window_rows_end(k0, min(k0 + kRes, Sk) - 1, Sq, off,
+                                     window, meta) + NQ - 1) / NQ * NQ;
+  // (head, tile), head-major; none when no row sees a key of the block
+  const int n_steps = G * max(0, (q_end - q_first) / NQ);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -445,18 +473,23 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   int s = 0, q0 = q_first;
   uint32_t phase = 0;
   mbar_wait(res, 0);
-  if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+  if (wg == 1 && n_steps > 0) turn_pass(wg);  // warpgroup 0 issues first
   for (int i = 0; i < n_steps; ++i) {
     mbar_wait(full + 8 * s, phase);
     turn_wait(wg);
-    // no key of this warpgroup reaches a row of the tile
+    // no key of this warpgroup reaches a row of the tile: all right of the
+    // last row's diagonal, or all hidden by the window from the first row
     const bool active =
-        kw0 < Sk && !(causal && kw0 > min(Sq, q0 + NQ) - 1 + off);
+        kw0 < Sk && !(causal && kw0 > min(Sq, q0 + NQ) - 1 + off) &&
+        !window_hides_tile(kw0, 64, q0 + off, window, meta);
     if (!active && (wg == 0 || i + 1 < n_steps)) turn_pass(wg);
     if (active) {
-      // some pair is masked: keys past Sk, rows past Sq, the diagonal
+      // some pair is masked: keys past Sk, rows past Sq, the diagonal, the
+      // window
       const bool masked = kw0 + 64 > Sk || q0 + NQ > Sq ||
-                          (causal && kw0 + 63 > q0 + off);
+                          (causal && kw0 + 63 > q0 + off) ||
+                          window_cuts_tile(kw0, q0 + NQ - 1 + off, window,
+                                           meta);
       const uint32_t qs = ring + s * kStageBytes, dos = qs + kQBytes;
       const uint32_t q_desc = desc_k<D>(qs), do_desc = desc_k<D>(dos);
       const float* ls = stats_f + s * 2 * NQ;
@@ -489,8 +522,9 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
         for (int e = 0; e < NQ / 2; ++e) {
           const int key = key0 + 8 * ((e >> 1) & 1);
           const int r = q0 + 8 * (e >> 2) + 2 * tg + (e & 1);
-          st[e] = r < Sq && key < Sk && !(causal && key > r + off) ? st[e]
-                                                                   : 0.f;
+          st[e] = r < Sq && key < Sk &&
+                          mask_visible(key, r + off, causal, window, meta)
+                      ? st[e] : 0.f;
         }
       }
 #pragma unroll
@@ -566,10 +600,13 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
 // ------------------------------------------------------------ bf16 dQ ---
 
 // One block per (b, head, 128 query rows), blocks ordered query block
-// first, the last (longest under the causal mask) first. Warpgroups 0
-// and 1 own 64 rows each, their dQ rows in f32 registers; warpgroup 2's
-// first thread loads the block's q and dO once, then streams (K, V) tiles
-// of NK keys up to the causal diagonal through the ring. A step: S = q K^T
+// first, the longest first (dq_longest_first: under the causal mask the
+// last).
+// Warpgroups 0 and 1 own 64 rows each, their dQ rows in f32 registers;
+// warpgroup 2's first thread loads the block's q and dO once, then streams
+// (K, V) tiles of NK keys through the ring in the forward's KeyTiles order:
+// the meta tiles, then from the first row's window start (or 0) up to the
+// causal diagonal. A step: S = q K^T
 // and dP = dO V^T from shared memory, dS in registers, dQ += dS K with dS
 // as the register A operand and K read transposed.
 template <int D>
@@ -580,7 +617,8 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_v,
              const float* __restrict__ lse2, const float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dq, int B, int Sq, int Sk, int H,
-             int KVH, int causal, int ld, float scale) {
+             int KVH, int causal, int window, int meta, int ld,
+             float scale) {
   using C = Cfg<D>;
   constexpr int W = C::W, NB = C::NB, NK = C::NK;
   constexpr uint32_t kResBytes = kRes * D * 2, kKBytes = NK * D * 2;
@@ -595,11 +633,12 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   const int groups = B * H;
   const int b = blockIdx.x % groups / H, h = blockIdx.x % H;
-  const int n_qb = (Sq + kRes - 1) / kRes;
-  const int qb = causal ? n_qb - 1 - blockIdx.x / groups : blockIdx.x / groups;
+  const int qb = dq_longest_first(blockIdx.x / groups, Sq, Sk, kRes, NK,
+                                  causal, window, meta);
   const int q0 = qb * kRes, kvh = h / (H / KVH), off = Sk - Sq;
   const int k_end = causal ? min(Sk, min(Sq, q0 + kRes) + off) : Sk;
-  const int n_steps = (k_end + NK - 1) / NK;
+  const KeyTiles tiles(k_end, NK, q0 + off, window, meta);
+  const int n_steps = tiles.count;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -628,8 +667,10 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t bar = full + 8 * s;
       mbar_expect_tx(bar, kStageBytes);
       for (int c = 0; c < NB; ++c) {
-        tma_load(ks + c * NK * W * 2, &tm_k, kvh * D + c * W, t * NK, b, bar);
-        tma_load(vs + c * NK * W * 2, &tm_v, kvh * D + c * W, t * NK, b, bar);
+        tma_load(ks + c * NK * W * 2, &tm_k, kvh * D + c * W, tiles.k0(t, NK),
+                 b, bar);
+        tma_load(vs + c * NK * W * 2, &tm_v, kvh * D + c * W, tiles.k0(t, NK),
+                 b, bar);
       }
       if (++s == kStages) {
         s = 0;
@@ -665,17 +706,22 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   int s = 0;
   uint32_t phase = 0;
   mbar_wait(res, 0);
-  if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
-  for (int kt0 = 0; kt0 < n_steps * NK; kt0 += NK) {
+  if (wg == 1 && n_steps > 0) turn_pass(wg);  // warpgroup 0 issues first
+  for (int t = 0; t < n_steps; ++t) {
     mbar_wait(full + 8 * s, phase);
     turn_wait(wg);
-    const bool last = kt0 + NK >= n_steps * NK;
-    const bool active =
-        rows > 0 && !(causal && kt0 > qw0 + rows - 1 + off);
+    const int kt0 = tiles.k0(t, NK);
+    const bool last = t + 1 == n_steps;
+    // a tile right of the last row's diagonal, or hidden by the window
+    // from the first row on, adds nothing to this warpgroup's rows
+    const bool active = rows > 0 &&
+                        !(causal && kt0 > qw0 + rows - 1 + off) &&
+                        !window_hides_tile(kt0, NK, qw0 + off, window, meta);
     if (!active && (wg == 0 || !last)) turn_pass(wg);
     if (active) {
       const bool masked = rows < 64 || kt0 + NK > Sk ||
-                          (causal && kt0 + NK - 1 > qw0 + off);
+                          (causal && kt0 + NK - 1 > qw0 + off) ||
+                          window_cuts_tile(kt0, qw0 + 63 + off, window, meta);
       const uint32_t ks = ring + s * kStageBytes, vs = ks + kKBytes;
       const uint32_t k_desc = desc_k<D>(ks), v_desc = desc_k<D>(vs);
       float sc[NK / 2], dp[NK / 2];
@@ -705,7 +751,9 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         for (int e = 0; e < NK / 2; ++e) {
           const int r = r0 + 8 * ((e >> 1) & 1);
           const int key = kt0 + 8 * (e >> 2) + 2 * tg + (e & 1);
-          sc[e] = r < rows && key < Sk && !(causal && key > qw0 + r + off)
+          sc[e] = r < rows && key < Sk &&
+                          mask_visible(key, qw0 + r + off, causal, window,
+                                       meta)
                       ? sc[e] : 0.f;
         }
       }
@@ -792,14 +840,15 @@ __device__ __forceinline__ float dot_f32(const float* a, const float* b) {
 }
 
 // one thread per key: its k and v rows in shared memory, its dK and dV
-// rows in registers; query rows of each head stream through shared memory
+// rows in registers; query rows of each head stream through shared memory,
+// from the block's diagonal to the last row its keys' windows reach
 template <int D>
 __global__ void __launch_bounds__(kRows)
 bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
-             int H, int KVH, int causal, float scale) {
+             int H, int KVH, int causal, int window, int meta, float scale) {
   constexpr int RS = D + 4;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);  // [kRows][RS]
@@ -827,6 +876,8 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int d = 0; d < D; ++d) ak[d] = av[d] = 0.f;
   const int qs0 = causal ? max(0, k0 - off) / kCols * kCols : 0;
+  const int qs_end = window_rows_end(k0, min(k0 + kRows, Sk) - 1, Sq, off,
+                                     window, meta);
   const float* kr = k_s + t * RS;
   const float* vr = v_s + t * RS;
 
@@ -835,7 +886,7 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
     const float* ob = dout + (static_cast<size_t>(b) * Sq * H + h) * D;
     const size_t lrow = (static_cast<size_t>(b) * H + h) * Sq;
-    for (int c0 = qs0; c0 < Sq; c0 += kCols) {
+    for (int c0 = qs0; c0 < qs_end; c0 += kCols) {
       const int n = min(kCols, Sq - c0);
       __syncthreads();  // the previous tile is consumed
       for (int i = t; i < kCols * D; i += kRows) {
@@ -851,7 +902,7 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       if (key >= Sk) continue;  // a ragged tile's spare threads only load
       for (int j = 0; j < n; ++j) {
-        if (causal && key > c0 + j + off) continue;
+        if (!mask_visible(key, c0 + j + off, causal, window, meta)) continue;
         const float* qj = q_s + j * D;
         const float* oj = do_s + j * D;
         const float p = expf(scale * dot_f32<D>(qj, kr) - l_s[j]);
@@ -876,14 +927,14 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // one thread per query row: its q and dO rows in shared memory, its dQ row
-// in registers; (k, v) tiles stream through shared memory
+// in registers; (k, v) tiles stream through shared memory in KeyTiles order
 template <int D>
 __global__ void __launch_bounds__(kRows)
 bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            float* __restrict__ dq, int Sq, int Sk, int H, int KVH,
-           int causal, float scale) {
+           int causal, int window, int meta, float scale) {
   constexpr int RS = D + 4;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // [kRows][RS]
@@ -912,13 +963,15 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float dl = t < rows ? delta[lrow + t] : 0.f;
   const int q_pos = q0 + t + off;
   const int k_end = causal ? min(Sk, q0 + rows + off) : Sk;
+  const KeyTiles tiles(k_end, kCols, q0 + off, window, meta);
   const float* qr = q_s + t * RS;
   const float* orow = do_s + t * RS;
   float acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
 
-  for (int c0 = 0; c0 < k_end; c0 += kCols) {
+  for (int tile = 0; tile < tiles.count; ++tile) {
+    const int c0 = tiles.k0(tile, kCols);
     const int n = min(kCols, Sk - c0);
     __syncthreads();
     for (int i = t; i < kCols * D; i += kRows) {
@@ -931,6 +984,7 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (t >= rows) continue;
     for (int j = 0; j < n; ++j) {
       if (causal && c0 + j > q_pos) break;
+      if (window_hidden(c0 + j, q_pos, window, meta)) continue;
       const float* kj = k_s + j * D;
       const float p = expf(scale * dot_f32<D>(qr, kj) - l);
       const float ds = p * (dot_f32<D>(orow, v_s + j * D) - dl) * scale;
@@ -1015,7 +1069,7 @@ struct Args {
   const float* lse;
   float *delta, *lse2;
   void *dq, *dk, *dv;
-  int B, Sq, Sk, H, KVH, causal, ld;
+  int B, Sq, Sk, H, KVH, causal, window, meta, ld;
   float scale;
 };
 
@@ -1098,8 +1152,8 @@ int launch_bf16(const Args& a, cudaStream_t s) {
   const int n_kt = (a.Sk + kRes - 1) / kRes;
   bwd_dkdv_wgmma<D><<<n_kt * a.B * a.KVH, kBlock, smem_kv, s>>>(
       mq, mdo, mk, mv, a.lse2, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.B, a.Sq, a.Sk, a.H, a.KVH, a.causal, a.ld,
-      a.scale);
+      static_cast<T*>(a.dv), a.B, a.Sq, a.Sk, a.H, a.KVH, a.causal, a.window,
+      a.meta, a.ld, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!tensor_map<D>(&mq, a.q, a.B, a.Sq, a.H, kRes) ||
@@ -1110,7 +1164,7 @@ int launch_bf16(const Args& a, cudaStream_t s) {
   const int n_qb = (a.Sq + kRes - 1) / kRes;
   bwd_dq_wgmma<D><<<n_qb * a.B * a.H, kBlock, smem_q, s>>>(
       mq, mdo, mk, mv, a.lse2, a.delta, static_cast<T*>(a.dq), a.B, a.Sq,
-      a.Sk, a.H, a.KVH, a.causal, a.ld, a.scale);
+      a.Sk, a.H, a.KVH, a.causal, a.window, a.meta, a.ld, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1126,7 +1180,7 @@ int launch_f32(const Args& a, cudaStream_t s) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.Sq, a.Sk, a.H, a.KVH, a.causal, a.scale);
+      a.Sq, a.Sk, a.H, a.KVH, a.causal, a.window, a.meta, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_q((a.Sq + kRows - 1) / kRows, a.H, a.B);
@@ -1134,7 +1188,7 @@ int launch_f32(const Args& a, cudaStream_t s) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dq), a.Sq, a.Sk, a.H, a.KVH,
-      a.causal, a.scale);
+      a.causal, a.window, a.meta, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1144,9 +1198,11 @@ int launch_f32(const Args& a, cudaStream_t s) {
 // contiguous, 16-byte aligned; lse f32 [B, H, Sq]; delta f32 [B, H, ld]
 // and (bf16) lse2 f32 [B, H, ld], scratch that launch 0 fills, ld >= Sq
 // (bf16: a multiple of 128; f32: Sq). B, Sq, Sk >= 1; H % KVH == 0; D in
-// {16, 32, 64, 128}; causal needs Sq <= Sk; scale is 1 / sqrt of the
-// caller's true head width. Three launches (delta, dK/dV, dQ) on one
-// stream; returns the first error (a cudaError_t; 0 = all queued).
+// {16, 32, 64, 128}; causal needs Sq <= Sk; window >= 0 and meta >= 0, a
+// window only with causal (window 0: no window), the forward's; scale is
+// 1 / sqrt of the caller's true head width. Three launches (delta, dK/dV,
+// dQ) on one stream; returns the first error (a cudaError_t; 0 = all
+// queued).
 #define REPRO_BWD_CASE(launch, W) \
   case W:                         \
     return launch<W>(a, s);
@@ -1155,10 +1211,12 @@ int launch_f32(const Args& a, cudaStream_t s) {
                       const void* out, const void* dout, const void* lse,    \
                       void* delta, void* lse2, void* dq, void* dk, void* dv, \
                       int B, int Sq, int Sk, int H, int KVH, int D,          \
-                      int causal, int ld, float scale, void* stream) {       \
+                      int causal, int window, int meta, int ld, float scale, \
+                      void* stream) {                                        \
     const Args a{q, k, v, out, dout, static_cast<const float*>(lse),         \
                  static_cast<float*>(delta), static_cast<float*>(lse2), dq,  \
-                 dk, dv, B, Sq, Sk, H, KVH, causal, ld, scale};              \
+                 dk, dv, B, Sq, Sk, H, KVH, causal, window, meta, ld,        \
+                 scale};                                                     \
     const cudaStream_t s = static_cast<cudaStream_t>(stream);                \
     switch (D) {                                                             \
       REPRO_BWD_CASE(launch, 16)                                             \

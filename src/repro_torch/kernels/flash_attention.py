@@ -43,6 +43,8 @@ lse, dO), recomputing the scores tile by tile, never storing them. Three
 launches: delta = rowsum(dO * O) (launch 0), then dK/dV and dQ, each on
 ``wgmma`` with a TMA ring (bf16; the f32 variant runs on the CUDA cores),
 at the head widths ``BWD_HEAD_DIMS`` (any other D zero-padded to the next).
+Both take the forward's window and meta tokens (the mask and the key
+tiles a block walks are the forward's, ``csrc/attention_mask.cuh``).
 Its plain version ``flash_attention_bwd_plain`` follows the reference's
 formula on the materialised scores in f32. ``FlashAttention`` is the
 ``torch.autograd.Function`` over the two: the kernels on CUDA tensors, the
@@ -165,14 +167,17 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               lse: torch.Tensor, dout: torch.Tensor,
                               causal: bool = True,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None, window: int = 0,
+                              meta_tokens: int = 0):
     """(dq, dk, dv) of attention, the reference's backward
     (``repro/models/attention.py:136``) on the materialised scores in f32:
-    P = exp(scale q.k - lse) (0 where the causal mask hides the key),
+    P = exp(scale q.k - lse) (0 where the forward's mask hides the key: the
+    causal mask and, with ``window > 0``, the window and meta tokens),
     delta = rowsum(dO * O), dV = P^T dO, dS = P (dO V^T - delta) scale,
     dQ = dS K, dK = dS^T Q, dK and dV summed over each KV head's query
     heads. Shapes as ``flash_attention``'s; lse f32 [B, H, Sq]; each
     gradient in its input's dtype."""
+    _check_window("flash_attention_bwd", causal, window, meta_tokens)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if scale is None:
@@ -182,8 +187,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     vg = v.float().permute(0, 2, 1, 3)[:, :, None]
     s = scale * (qg @ kg.transpose(-1, -2))
     p = torch.exp(s - lse.float().reshape(b, kvh, h // kvh, sq)[..., None])
-    if causal:
-        p = p.masked_fill(_hidden(sq, sk, q.device, causal), 0.0)
+    hidden = _hidden(sq, sk, q.device, causal, window, meta_tokens)
+    if hidden is not None:
+        p = p.masked_fill(hidden, 0.0)
     delta = (dog * og).sum(-1)
     dv = (p.transpose(-1, -2) @ dog).sum(2)
     ds = p * (dog @ vg.transpose(-1, -2) - delta[..., None]) * scale
@@ -259,7 +265,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, causal: bool = True):
+                        dout: torch.Tensor, causal: bool = True,
+                        window: int = 0, meta_tokens: int = 0):
     """Launch the backward kernels: (dq, dk, dv) in the inputs' dtype from
     the forward's inputs, output ``out`` and ``lse`` (f32 [B, H, Sq]) and
     the output's gradient ``dout`` [B, Sq, H, D]. Takes what
@@ -267,11 +274,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype) and raises on anything else. Three launches, counted together
     as one ``flash_attention_bwd``: delta = rowsum(dO * O) in f32 from
     ``out`` as given (rounded to bf16 by a bf16 forward), then dK/dV,
-    then dQ. D runs at the next of ``BWD_HEAD_DIMS``, zero-padded. Sq == 0
-    or B == 0 gives zeros without a launch. The backward of a sliding
-    window is not written yet: ``FlashAttention`` refuses it."""
+    then dQ. D runs at the next of ``BWD_HEAD_DIMS``, zero-padded.
+    ``window`` and ``meta_tokens`` are the forward's mask. Sq == 0 or B ==
+    0 gives zeros without a launch."""
     width = _check_args("flash_attention_bwd", q, k, v, causal,
                         extra=(out, dout), widths=BWD_HEAD_DIMS)
+    _check_window("flash_attention_bwd", causal, window, meta_tokens)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
@@ -294,12 +302,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from repro_torch.kernels import build
     fn_name = ("flash_attention_bwd_bf16" if bf16
                else "flash_attention_bwd_f32")
-    call(bind(build.load("flash_attention_bwd"), fn_name, 11, 8, 1), fn_name,
-         q.device, [t.data_ptr() for t in (qp, kp, vp, outp, dop, lse,
-                                           delta)]
+    call(bind(build.load("flash_attention_bwd"), fn_name, 11, 10, 1),
+         fn_name, q.device,
+         [t.data_ptr() for t in (qp, kp, vp, outp, dop, lse, delta)]
          + [0 if lse2 is None else lse2.data_ptr()]
          + [t.data_ptr() for t in (dq, dk, dv)],
-         [b, sq, sk, h, kvh, width, int(causal), ld, 1.0 / math.sqrt(d)])
+         [b, sq, sk, h, kvh, width, int(causal), int(window),
+          int(meta_tokens), ld, 1.0 / math.sqrt(d)])
     launches["flash_attention_bwd"] += 1
     if width != d:
         dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
@@ -310,9 +319,8 @@ class FlashAttention(torch.autograd.Function):
     """Attention whose gradient is the flash backward: the forward keeps
     (q, k, v, out, lse), the backward recomputes the scores from them. On
     CUDA tensors both directions are the kernels (a refused launch
-    raises); on CPU tensors both are the plain versions. The backward of
-    a sliding window (``window > 0``) raises ``NotImplementedError``: the
-    backward kernels do not take its mask yet."""
+    raises); on CPU tensors both are the plain versions. The sliding
+    window and meta tokens go to both directions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int = 0,
@@ -321,18 +329,14 @@ class FlashAttention(torch.autograd.Function):
         out, lse = fwd(q, k, v, causal=causal, return_lse=True,
                        window=window, meta_tokens=meta_tokens)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.mask = dict(causal=causal, window=window,
+                        meta_tokens=meta_tokens)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        if ctx.window > 0:
-            raise NotImplementedError(
-                "flash_attention_bwd: the sliding window's backward is not "
-                "ported yet")
         q, k, v, out, lse = ctx.saved_tensors
         bwd = flash_attention_bwd_plain if on_cpu(q) \
             else flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(),
-                         causal=ctx.causal)
+        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), **ctx.mask)
         return dq, dk, dv, None, None, None

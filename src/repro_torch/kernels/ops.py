@@ -65,7 +65,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     and ``window > 0`` also ``k_pos <= q_pos - window`` unless ``k_pos <
     meta_tokens``. When autograd records and an input requires grad,
     through ``FlashAttention``, whose backward is ``flash_attention_bwd``
-    (none yet for a window)."""
+    (with the same mask)."""
     causal, window, meta_tokens = bool(causal), int(window), int(meta_tokens)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _fa.FlashAttention.apply(q, k, v, causal, window, meta_tokens)

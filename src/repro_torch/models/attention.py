@@ -17,7 +17,7 @@ or one of the first ``meta_tokens`` positions (cache slots), or the
 layer is global (``disable_window``, a Python bool here where the
 reference traces a flag). A global layer sends ``window=0`` to the
 kernel. A sliding window needs causal attention (no model asks for
-another); the backward of a window is not ported yet and raises.
+another); its backward is the kernel's, with the same mask.
 """
 from __future__ import annotations
 

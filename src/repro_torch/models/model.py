@@ -131,15 +131,16 @@ class DenseBlock(nn.Module):
         """(the feed-forward of h, its aux loss or None)."""
         return self.mlp(h), None
 
-    def forward(self, x, cos, sin, with_aux: bool = False):
+    def forward(self, x, cos, sin, with_aux: bool = False,
+                collect: bool = False):
         """Full sequence, causal. Returns (x, this layer's cache entries
-        {"k", "v"}, the aux loss when ``with_aux`` and the block has one,
-        else None)."""
+        {"k", "v"} when ``collect``, else None, the aux loss when
+        ``with_aux`` and the block has one, else None)."""
         q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
                                     cos, sin)
         x = x + self.attn.out(attention(q, k, v, causal=True))
         y, aux = self.ffn(rms_norm(x, self.mlp_norm, self.eps), with_aux)
-        return x + y, {"k": k, "v": v}, aux
+        return x + y, ({"k": k, "v": v} if collect else None), aux
 
     def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
         """One token in cache slot ``pos``: writes its k/v into slot
@@ -182,11 +183,14 @@ class SSMBlock(nn.Module):
         self.ssm_in_norm = _param((cfg.d_model,), dtype, device)
         self.ssm = ssm_lib.SSM(cfg, dtype, device)
 
-    def forward(self, x, cos, sin, with_aux: bool = False):
+    def forward(self, x, cos, sin, with_aux: bool = False,
+                collect: bool = False):
         """Full sequence (``cos``, ``sin`` unused). Returns (x, this layer's
-        decode state {"h", "conv"}, None)."""
-        y, state = self.ssm(rms_norm(x, self.ssm_in_norm, self.eps),
-                            return_state=True)
+        decode state {"h", "conv"} when ``collect``, else None, None)."""
+        h = rms_norm(x, self.ssm_in_norm, self.eps)
+        if not collect:
+            return x + self.ssm(h), None, None
+        y, state = self.ssm(h, return_state=True)
         return x + y, state, None
 
     def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
@@ -223,15 +227,19 @@ class HybridBlock(nn.Module):
         x = x + fused
         return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps))
 
-    def forward(self, x, cos, sin, with_aux: bool = False):
+    def forward(self, x, cos, sin, with_aux: bool = False,
+                collect: bool = False):
         """Full sequence, meta tokens first. Returns (x, this layer's
-        cache entries {"k", "v", "h", "conv"}, None)."""
+        cache entries {"k", "v", "h", "conv"} when ``collect``, else None,
+        None)."""
         cfg = self.cfg
         h = rms_norm(x, self.attn_norm, self.eps)
         q, k, v = self.attn.project(h, cos, sin)
         a = attention(q, k, v, causal=True, window=cfg.attn_window,
                       meta_tokens=cfg.meta_tokens,
                       disable_window=self.is_global)
+        if not collect:
+            return self._fuse(x, self.attn.out(a), self.ssm(h)), None, None
         y, state = self.ssm(h, return_state=True)
         return self._fuse(x, self.attn.out(a), y), \
             {"k": k, "v": v, **state}, None
@@ -399,7 +407,7 @@ def forward(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                 lambda x_, b=blk: b(x_, cos, sin, return_aux)[::2], x,
                 use_reentrant=False)
         else:
-            x, c, a = blk(x, cos, sin, return_aux)
+            x, c, a = blk(x, cos, sin, return_aux, collect_cache)
             if collect_cache:
                 caches.append(c)
         if a is not None:

@@ -15,24 +15,30 @@ TinyLlama-1.1B's width holds no second copy of them).
 
 The reference stacks a layer's parameters on a leading ``[L, ...]`` axis
 where the port keeps one tensor per layer (``blocks.<i>.<name>``,
-``dense_blocks.<i>.<name>``). The trailing two dims, which the factored
-moment reads, are the same either way, but the rule "weight decay only on leaves with ndim >= 2" sees the
-stacked leaf: a layer's norm scale is ``[L, d]`` there and decays. So
-the port counts a layer's parameter with its layer axis
-(``reference_ndim``), and decays what the reference decays. A per-layer
-vector is never factored; the reference would factor its stacked
-``[L, d]`` only at a depth of ``min_dim_size_to_factor`` (128) layers or
-more, which no config has.
+``dense_blocks.<i>.<name>``). The rule "weight decay only on leaves with
+ndim >= 2" sees the stacked leaf: a layer's norm scale, or an SSD's
+``A_log``, ``D`` and ``dt_bias`` ``[H]``, is ``[L, ...]`` there and
+decays. So the port counts a layer's parameter with its layer axis
+(``reference_ndim``), and decays what the reference decays. The factored
+moment reads the trailing two dims, which are the same either way for a
+per-layer matrix; a per-layer vector ``[d]`` is the reference's stacked
+``[L, d]``, factored when both L and d reach ``min_dim_size_to_factor``
+(at 16, the norm scales of every ported config at full depth): then its statistics span the
+layers, a row entry per layer and one column ``[d]`` shared by all of
+them, and the port updates the layers of such a vector together
+(``stacked_vectors``), each layer's state holding its row entry (a 0-d
+tensor) and a copy of the shared column.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Dict, List, Mapping, Tuple, Union
 
 import torch
 
 Tensors = Mapping[str, torch.Tensor]
+STACKS = ("blocks", "dense_blocks")   # the reference's [L, ...] stacks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +76,7 @@ def reference_ndim(name: str, p: torch.Tensor) -> int:
     """The ndim of the reference's leaf holding ``p``: a layer's parameter
     (``blocks.<i>.…``, or ``dense_blocks.<i>.…`` in the moe family's dense
     prefix) carries the stacked layer axis there."""
-    stacked = name.startswith(("blocks.", "dense_blocks."))
+    stacked = name.partition(".")[0] in STACKS
     return p.dim() + (1 if stacked else 0)
 
 
@@ -79,11 +85,35 @@ def _factorable(shape, cfg: OptimizerConfig) -> bool:
             and shape[-2] >= cfg.min_dim_size_to_factor)
 
 
+def stacked_vectors(params: Tensors,
+                    cfg: OptimizerConfig) -> Dict[str, List[str]]:
+    """The per-layer vectors whose stacked ``[L, d]`` leaf the reference
+    factors: ``{"<stack>.<name>": [the layers' names in layer order]}``
+    (none unless ``cfg.factored``)."""
+    if not cfg.factored:
+        return {}
+    groups: Dict[str, list] = {}
+    for name, p in params.items():
+        stack, _, rest = name.partition(".")
+        if stack in STACKS and p.dim() == 1:
+            layer, _, leaf = rest.partition(".")
+            groups.setdefault(f"{stack}.{leaf}", []).append((int(layer), name))
+    return {key: [n for _, n in sorted(members)]
+            for key, members in groups.items()
+            if _factorable((len(members), params[members[0][1]].shape[0]),
+                           cfg)}
+
+
 def init_state(params: Tensors, cfg: OptimizerConfig) -> Dict[str, Any]:
     """Zero moments in ``cfg.state_dtype`` on each parameter's device."""
     dt = getattr(torch, cfg.state_dtype)
+    across = {n for names in stacked_vectors(params, cfg).values()
+              for n in names}
 
-    def init_v(p):
+    def init_v(name, p):
+        if name in across:   # a row entry and the shared column
+            return {"row": p.new_zeros((), dtype=dt),
+                    "col": p.new_zeros(p.shape, dtype=dt)}
         if cfg.factored and _factorable(p.shape, cfg):
             return {"row": p.new_zeros(p.shape[:-1], dtype=dt),
                     "col": p.new_zeros(p.shape[:-2] + p.shape[-1:],
@@ -94,7 +124,7 @@ def init_state(params: Tensors, cfg: OptimizerConfig) -> Dict[str, Any]:
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "m": {n: p.new_zeros(p.shape, dtype=dt)
                   for n, p in params.items()},
-            "v": {n: init_v(p) for n, p in params.items()}}
+            "v": {n: init_v(n, p) for n, p in params.items()}}
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -123,11 +153,30 @@ def apply_updates(params: Tensors, grads: Tensors, state: Dict[str, Any],
     b2c = 1 - _f32(cfg.b2).to(step.device) ** stepf
     dt = getattr(torch, cfg.state_dtype)
 
+    # per-layer vectors factored as the reference's stacked [L, d]: the row
+    # statistic of each layer, the column's over the layers
+    v_across = {}
+    for names in stacked_vectors(params, cfg).values():
+        vs = [state["v"][n] for n in names]
+        g2 = torch.stack([(grads[n].float() * scale).square()
+                          for n in names]) + 1e-30
+        row = cfg.b2 * torch.stack([v["row"].float() for v in vs]) \
+            + (1 - cfg.b2) * g2.mean(-1)
+        col = cfg.b2 * vs[0]["col"].float() + (1 - cfg.b2) * g2.mean(-2)
+        denom = torch.clamp(row.mean(-1, keepdim=True), min=1e-30)
+        v_hat = (row / denom)[..., None] * col[..., None, :]
+        for i, (n, v) in enumerate(zip(names, vs)):
+            v["row"].copy_(row[i])
+            v["col"].copy_(col)
+            v_across[n] = v_hat[i]
+
     for name, p in params.items():
         g = grads[name].float() * scale
         m_new = cfg.b1 * state["m"][name].float() + (1 - cfg.b1) * g
         v = state["v"][name]
-        if isinstance(v, dict):  # factored
+        if name in v_across:
+            v_hat = v_across[name]
+        elif isinstance(v, dict):  # factored
             g2 = g.square() + 1e-30
             row = cfg.b2 * v["row"].float() + (1 - cfg.b2) * g2.mean(-1)
             col = cfg.b2 * v["col"].float() + (1 - cfg.b2) * g2.mean(-2)

@@ -12,12 +12,31 @@ reference's ``chunk`` (its ragged last chunk attends to zero keys). In
 float32 the two agree to 1e-4 relative and 1e-5 absolute (f32 sums in
 other orders, one softmax against the chunked online one).
 
+The hybrid family's sliding window and meta tokens, both ways: through
+the port's model-level ``attention`` (``disable_window`` sends a global
+layer's window 0) against ``jax.vjp`` of the reference's ``attention``
+with the same ``window``, ``meta_tokens`` and ``disable_window``, at
+windows 1, 17, 64 and >= Sk, meta 0 and 8, G = 1 and 5, Sq = Sk and Sq <
+Sk; float32 at the causal cases' 1e-4 relative and 1e-5 absolute (at
+1e-6 absolute a window of 1 fails by 1.2e-6: a row that sees only its
+own key has P = 1 and dP - delta = 0 in exact arithmetic, so its dq is
+f32 rounding of a cancelled sum in both packages), bfloat16 within 2^-6
+of each gradient's largest magnitude.
+
 Then the bf16 kernel's own rounding, emulated in plain torch at the
 points ``csrc/flash_attention_bwd.cu`` rounds (P and dS to bf16 before
 their products, exp2 of a scale * log2(e) product, lse * log2(e) in f32,
 outputs rounded once), is held to the f32 plain backward on the same
 inputs within ``BWD_BF16_TOL`` of each gradient's largest magnitude: the
-bound ``chip_smoke.py`` holds the kernel to on the card.
+bound ``chip_smoke.py`` holds the kernel to on the card. The emulation
+walks the kernels' tiles as they do, the window's included: the rows a
+dK/dV block walks, the key tiles a dQ block walks and in which order,
+the tiles a warpgroup skips and those it masks element by element. The
+tile ranges themselves (``csrc/attention_mask.cuh``, mirrored here) are
+pinned on their own: every pair the mask lets through lies in a walked,
+unskipped tile, every unmasked tile holds only such pairs, the launch
+order is longest first, and a window of at least Sk walks the causal
+tiles in the causal order.
 """
 import numpy as np
 import pytest
@@ -30,6 +49,7 @@ from repro.models import attention as ref_attn  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
 
 torch.set_num_threads(2)   # xdist runs several workers on the same cores
 
@@ -108,6 +128,80 @@ def test_lse_matches_reference_forward_residual(b, h, kvh, sq, sk, d,
                                np.asarray(want).reshape(b, h, sq), **F32_TOL)
 
 
+# ------------------------------------------- the window and meta tokens
+
+# (B, H, KVH, Sq, Sk, D, window, meta_tokens, disable_window): windows 1,
+# 17, 64 and >= Sk, meta 0 and 8, G = 1 and 5 (hymba's 25 / 5), Sq = Sk
+# and Sq < Sk, a global layer (disable_window) and no window with meta
+# tokens (the gradient flows as plain causal attention's)
+WINDOW_SHAPES = [(1, 5, 1, 40, 40, 16, 1, 0, False),
+                 (2, 5, 5, 40, 40, 16, 1, 8, False),
+                 (1, 10, 2, 70, 70, 16, 17, 0, False),
+                 (1, 5, 1, 33, 90, 16, 17, 8, False),
+                 (1, 4, 4, 100, 100, 16, 64, 0, False),
+                 (1, 5, 1, 70, 100, 32, 64, 8, False),
+                 (1, 5, 1, 48, 48, 16, 48, 0, False),
+                 (2, 10, 2, 30, 50, 16, 77, 8, False),
+                 (1, 5, 1, 64, 64, 16, 17, 8, True),
+                 (1, 10, 2, 40, 60, 16, 1, 0, True),
+                 (1, 2, 2, 8, 8, 16, 0, 1, False)]
+
+
+def _window_grads(q, k, v, dout, window, meta, dw, dtype=torch.float32):
+    """(out, dq, dk, dv) through the port's model-level attention."""
+    q, k, v = (torch.from_numpy(x).to(dtype).requires_grad_()
+               for x in (q, k, v))
+    out = tattn.attention(q, k, v, window=window, meta_tokens=meta,
+                          disable_window=dw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(torch.from_numpy(dout).to(dtype))
+    return [t.detach() for t in (out, q.grad, k.grad, v.grad)]
+
+
+def _window_ref(q, k, v, dout, window, meta, dw):
+    out, vjp = jax.vjp(lambda q_, k_, v_: ref_attn.attention(
+        q_, k_, v_, window=window, meta_tokens=meta, chunk=16,
+        disable_window=jnp.asarray(dw)), *(jnp.asarray(x) for x in (q, k, v)))
+    return [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,window,meta,dw", WINDOW_SHAPES)
+def test_windowed_backward_matches_reference_vjp(b, h, kvh, sq, sk, d,
+                                                 window, meta, dw):
+    q, k, v, dout = _inputs(b, h, kvh, sq, sk, d, seed=window + sq)
+    got = _window_grads(q, k, v, dout, window, meta, dw)
+    want = _window_ref(q, k, v, dout, window, meta, dw)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **F32_TOL)
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,window,meta,dw",
+                         WINDOW_SHAPES[1:9:2])
+def test_windowed_backward_in_bf16_within_2_to_the_minus_6(
+        b, h, kvh, sq, sk, d, window, meta, dw):
+    """bf16 inputs through the port (plain versions, bf16 gradients)
+    against the reference's f32 vjp on the same bf16-rounded inputs."""
+    arrays = [np.asarray(torch.from_numpy(a).bfloat16().float())
+              for a in _inputs(b, h, kvh, sq, sk, d, seed=window + 1)]
+    got = _window_grads(*arrays, window, meta, dw, dtype=torch.bfloat16)
+    want = _window_ref(*arrays, window, meta, dw)
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert g.dtype == torch.bfloat16, name
+        err = float(np.abs(g.float().numpy() - w).max())
+        assert err <= BWD_BF16_TOL * float(np.abs(w).max()), (name, err)
+
+
+def test_windowed_bwd_plain_refuses_a_window_without_causal():
+    q, k, v, dout = (torch.from_numpy(a) for a in
+                     _inputs(1, 2, 2, 8, 8, 16))
+    out, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    for kw in (dict(causal=False, window=4), dict(window=-1),
+               dict(window=4, meta_tokens=-1)):
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+
+
 # ----------------------------------------------- the bf16 kernel's rounding
 
 
@@ -121,21 +215,105 @@ def _ungrouped(x):
     return x.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, d)
 
 
-def _causal_keep(sq, sk):
-    return torch.arange(sk)[None, :] <= torch.arange(sq)[:, None] + (sk - sq)
+# csrc/attention_mask.cuh, mirrored
 
 
-def _fwd_tiled_bf16(q, k, v, causal, tile=64):
+def _visible(j, p, causal, window, meta):
+    """Key(s) j visible to the query at position(s) p (numpy or ints)."""
+    hidden_by_window = (window > 0) & (j >= meta) & (j <= p - window)
+    return ~((causal & (j > p)) | hidden_by_window)
+
+
+def _window_hides_tile(k0, n, p, window, meta):
+    return window > 0 and k0 >= meta and k0 + n - 1 <= p - window
+
+
+def _window_cuts_tile(k0, p_last, window, meta):
+    return window > 0 and max(k0, meta) <= p_last - window
+
+
+def _key_tiles(k_end, tile, p_first, window, meta):
+    """The first keys of the tiles a block walks, in order (KeyTiles)."""
+    t_end = -(-k_end // tile)
+    n_meta, t_lo = 0, 0
+    if window > 0:
+        n_meta = min(-(-meta // tile), t_end)
+        t_lo = max(n_meta, max(0, p_first - window + 1) // tile)
+    return [t * tile for t in list(range(n_meta)) + list(range(t_lo, t_end))]
+
+
+def _window_rows_end(k_first, k_last, sq, off, window, meta):
+    if window <= 0 or k_first < meta:
+        return sq
+    return max(0, min(sq, k_last + window - off))
+
+
+def _dq_tiles(qb, rows, sq, sk, tile, causal, window, meta):
+    off = sk - sq
+    q0 = qb * rows
+    k_end = min(sk, min(sq, q0 + rows) + off) if causal else sk
+    return _key_tiles(k_end, tile, q0 + off, window, meta)
+
+
+def _dq_longest_first(i, sq, sk, rows, tile, causal, window, meta):
+    n = -(-sq // rows)
+    if not causal:
+        return i
+    if window <= 0 or sq % rows == 0:
+        return n - 1 - i
+
+    def count(qb):
+        return len(_dq_tiles(qb, rows, sq, sk, tile, causal, window, meta))
+    last = count(n - 1)
+    ahead = 0
+    while ahead < n - 1 and count(n - 2 - ahead) > last:
+        ahead += 1
+    return n - 2 - i if i < ahead else n - 1 if i == ahead else n - 1 - i
+
+
+def _dkdv_longest_first(i, sq, sk, keys, nq, causal, window, meta):
+    n = -(-sk // keys)
+    m = min(n, -(-meta // keys))
+
+    def count(kb):
+        return len(_dkdv_rows(kb * keys, keys, nq, sq, sk, causal, window,
+                              meta))
+    if window <= 0 or i < m:
+        return i
+    counts = [count(kb) for kb in range(m, n)]
+    peak = m + counts.index(max(counts))
+    r, l = peak, peak - 1
+    for j in range(m, n):
+        right = r < n and (l < m or count(r) >= count(l))
+        kb, r, l = (r, r + 1, l) if right else (l, r, l - 1)
+        if j == i:
+            return kb
+
+
+def _dkdv_rows(k0, n_keys, nq, sq, sk, causal, window, meta):
+    """The query tiles (first rows) a dK/dV block of keys k0 .. k0 +
+    n_keys - 1 walks: from its diagonal to the last row its keys' windows
+    reach, in NQ-row tiles."""
+    off = sk - sq
+    first = max(0, k0 - off) // nq * nq if causal else 0
+    end = -(-_window_rows_end(k0, min(k0 + n_keys, sk) - 1, sq, off, window,
+                              meta) // nq) * nq
+    return list(range(first, end, nq))
+
+
+def _fwd_tiled_bf16(q, k, v, causal, tile=64, window=0, meta=0):
     """(out, lse) as ``flash_fwd_bf16`` computes them: 64-key tiles, scores
     times scale * log2(e), P rounded to bf16 for P.V and for l, lse =
-    m ln 2 + log(max(l, 1e-30))."""
+    m ln 2 + log(max(l, 1e-30)). A tile masked for a row before its first
+    visible key gives p = 1 that the next visible tile's correction
+    clears, after it p = 0, as in the kernel."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     qf = _grouped(q, kvh)
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
     sl2 = float(np.float32(np.float32(1 / np.sqrt(d)) * LOG2E))
-    keep = _causal_keep(sq, sk)
+    keep = ~fa._hidden(sq, sk, "cpu", True, window, meta)
     m = torch.full(qf.shape[:-1], -1e30)
     l = torch.zeros(qf.shape[:-1])
     acc = torch.zeros(qf.shape)
@@ -183,16 +361,20 @@ def _rows(x, r0, n):
         if got.shape[0] < n else got
 
 
-def _bwd_bf16(q, k, v, out, lse, dout, causal, true_d=None):
+def _bwd_bf16(q, k, v, out, lse, dout, causal, true_d=None, window=0,
+              meta=0):
     """(dq, dk, dv) as ``csrc/flash_attention_bwd.cu``'s bf16 kernels
     compute them, tile by tile and in their order: delta from launch 0;
     dK/dV blocks of 128 keys, two warpgroups of 64, walking every query
     head of their KV head and, for each, the NQ-row query tiles (NQ = 32
-    at the padded width 128, else 64) from the block's causal diagonal
-    on, skipping a tile where no key of the warpgroup reaches a row and
-    masking (P = 0 by selection) only where the kernel's ``masked`` flag
-    says so; dQ blocks of 128 rows, two warpgroups of 64, over 64-key
-    tiles up to the diagonal. Per tile: S = exp2(s * f32(scale log2 e) -
+    at the padded width 128, else 64) from the block's causal diagonal to
+    the last row its keys' windows reach (``_dkdv_rows``), skipping a
+    tile where no key of the warpgroup reaches a row (past the diagonal,
+    or hidden by the window) and masking (P = 0 by selection) only where
+    the kernel's ``masked`` flag says so; dQ blocks of 128 rows, two
+    warpgroups of 64, over the 64-key tiles of ``_dq_tiles`` (the meta
+    tiles, then the first row's window start to the diagonal), skipping
+    and masking likewise. Per tile: S = exp2(s * f32(scale log2 e) -
     f32(lse log2 e)), P rounded to bf16 for dV, dS from the f32 P rounded
     to bf16 for dQ and dK, f32 sums, outputs rounded once."""
     b, sq, h, d = q.shape
@@ -210,8 +392,11 @@ def _bwd_bf16(q, k, v, out, lse, dout, causal, true_d=None):
         torch.zeros(v.shape)
     for bi in range(b):
         for kvi in range(kvh):
-            for k0 in range(0, sk, 128):
-                qt0 = max(0, k0 - off) // nq if causal else 0
+            for i in range(-(-sk // 128)):
+                k0 = 128 * _dkdv_longest_first(i, sq, sk, 128, nq, causal,
+                                               window, meta)
+                q_tiles = _dkdv_rows(k0, 128, nq, sq, sk, causal, window,
+                                     meta)
                 for kw0 in (k0, k0 + 64):
                     if kw0 >= sk:
                         continue
@@ -219,11 +404,15 @@ def _bwd_bf16(q, k, v, out, lse, dout, causal, true_d=None):
                     kt, vt = (_rows(x[bi, :, kvi], kw0, 64) for x in (kf, vf))
                     acc_k, acc_v = torch.zeros(64, d), torch.zeros(64, d)
                     for hh in range(kvi * g, kvi * g + g):
-                        for q0 in range(qt0 * nq, sq, nq):
-                            if causal and kw0 > min(sq, q0 + nq) - 1 + off:
+                        for q0 in q_tiles:
+                            if causal and kw0 > min(sq, q0 + nq) - 1 + off \
+                                    or _window_hides_tile(kw0, 64, q0 + off,
+                                                          window, meta):
                                 continue
                             masked = kw0 + 64 > sk or q0 + nq > sq or (
-                                causal and kw0 + 63 > q0 + off)
+                                causal and kw0 + 63 > q0 + off) or \
+                                _window_cuts_tile(kw0, q0 + nq - 1 + off,
+                                                  window, meta)
                             qt, dot = (_rows(x[bi, :, hh], q0, nq)
                                        for x in (qf, dof))
                             lt, dlt = (_rows(x[bi, hh, :, None], q0, nq)[:, 0]
@@ -231,9 +420,8 @@ def _bwd_bf16(q, k, v, out, lse, dout, causal, true_d=None):
                             p = torch.exp2((kt @ qt.T) * sl2 - lt)
                             if masked:
                                 rows = torch.arange(q0, q0 + nq)[None, :]
-                                keep = (rows < sq) & (keys < sk)
-                                if causal:
-                                    keep &= keys <= rows + off
+                                keep = (rows < sq) & (keys < sk) & _visible(
+                                    keys, rows + off, causal, window, meta)
                                 p = torch.where(keep, p, 0.0)
                             acc_v += p.bfloat16().float() @ dot
                             ds = p * ((vt @ dot.T) - dlt) * scale
@@ -241,11 +429,16 @@ def _bwd_bf16(q, k, v, out, lse, dout, causal, true_d=None):
                     n = min(64, sk - kw0)
                     dk[bi, kw0:kw0 + n, kvi] = acc_k[:n]
                     dv[bi, kw0:kw0 + n, kvi] = acc_v[:n]
+    n_qb = -(-sq // 128)
     for bi in range(b):
         for hh in range(h):
             kvi = hh // g
-            for q0 in range(0, sq, 128):
-                k_end = min(sk, min(sq, q0 + 128) + off) if causal else sk
+            for i in range(n_qb):
+                qb = _dq_longest_first(i, sq, sk, 128, nk, causal, window,
+                                       meta)
+                q0 = qb * 128
+                k_tiles = _dq_tiles(qb, 128, sq, sk, nk, causal, window,
+                                    meta)
                 for qw0 in (q0, q0 + 64):
                     rows = min(64, sq - qw0)
                     if rows <= 0:
@@ -255,19 +448,22 @@ def _bwd_bf16(q, k, v, out, lse, dout, causal, true_d=None):
                     lt, dlt = (_rows(x[bi, hh, :, None], qw0, 64)
                                for x in (l2, delta))
                     acc = torch.zeros(64, d)
-                    for kt0 in range(0, k_end, nk):
-                        if causal and kt0 > qw0 + rows - 1 + off:
+                    for kt0 in k_tiles:
+                        if causal and kt0 > qw0 + rows - 1 + off or \
+                                _window_hides_tile(kt0, nk, qw0 + off, window,
+                                                   meta):
                             continue
                         masked = rows < 64 or kt0 + nk > sk or (
-                            causal and kt0 + nk - 1 > qw0 + off)
+                            causal and kt0 + nk - 1 > qw0 + off) or \
+                            _window_cuts_tile(kt0, qw0 + 63 + off, window,
+                                              meta)
                         kt, vt = (_rows(x[bi, :, kvi], kt0, nk)
                                   for x in (kf, vf))
                         p = torch.exp2((qt @ kt.T) * sl2 - lt)
                         if masked:
                             keys = torch.arange(kt0, kt0 + nk)[None, :]
-                            keep = (r < sq) & (keys < sk)
-                            if causal:
-                                keep &= keys <= r + off
+                            keep = (r < sq) & (keys < sk) & _visible(
+                                keys, r + off, causal, window, meta)
                             p = torch.where(keep, p, 0.0)
                         ds = p * ((dot @ vt.T) - dlt) * scale
                         acc += ds.bfloat16().float() @ kt
@@ -329,6 +525,173 @@ def test_bf16_pipeline_holds_the_tolerance_against_plain_autograd(
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
     fa.flash_attention_plain(qr, kr, vr, causal).backward(dout)
     _assert_within(got, (qr.grad, kr.grad, vr.grad), BWD_BF16_TOL)
+
+
+# (B, H, KVH, Sq, Sk, D, window, meta): a window inside a 64-key tile,
+# across a tile edge and of whole tiles, meta 0, 8 (a block mixing meta
+# and windowed keys) and 128, G = 5, Sq < Sk, a ragged last query block
+# behind whole ones that walk more tiles, NQ = 32 (D 128)
+WINDOW_EMUL_SHAPES = [(1, 5, 1, 300, 300, 64, 64, 8),
+                      (1, 5, 1, 200, 330, 16, 17, 0),
+                      (1, 10, 2, 333, 333, 64, 128, 128),
+                      (1, 4, 4, 260, 260, 128, 1, 8),
+                      (1, 5, 1, 522, 522, 16, 100, 0)]
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,window,meta", WINDOW_EMUL_SHAPES)
+def test_bf16_windowed_kernel_holds_the_chip_tolerance(b, h, kvh, sq, sk, d,
+                                                       window, meta):
+    """The emulated bf16 backward under the window and meta tokens (the
+    kernels' row ranges, key-tile order, skips and masks), fed the
+    emulated forward's (out, lse), within BWD_BF16_TOL of the plain
+    backward, with no NaN or inf."""
+    q, k, v, dout = _bf16(*_inputs(b, h, kvh, sq, sk, d, seed=window + sq))
+    out, lse = _fwd_tiled_bf16(q, k, v, True, window=window, meta=meta)
+    _, plain_lse = fa.flash_attention_plain(q, k, v, window=window,
+                                            meta_tokens=meta,
+                                            return_lse=True)
+    assert float((lse - plain_lse).abs().max()) <= 2 ** -7
+    got = _bwd_bf16(q, k, v, out, lse, dout, True, window=window, meta=meta)
+    want = tref.flash_attention_bwd_plain(q, k, v, out, lse, dout, True,
+                                          window=window, meta_tokens=meta)
+    _assert_within(got, want, BWD_BF16_TOL)
+
+
+@pytest.mark.parametrize("meta", [0, 8])
+def test_bf16_emulation_with_a_window_of_at_least_sk_is_causal_exactly(meta):
+    q, k, v, dout = _bf16(*_inputs(1, 5, 1, 150, 200, 16, seed=meta))
+    out, lse = _fwd_tiled_bf16(q, k, v, True)
+    want = _bwd_bf16(q, k, v, out, lse, dout, True)
+    for window in (200, 333):
+        got = _bwd_bf16(q, k, v, out, lse, dout, True, window=window,
+                        meta=meta)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# (Sq, Sk, causal, window, meta, NQ): hymba's layer (2176 slots, window
+# 1024, 128 meta tokens), ragged blocks, Sq < Sk, meta 8 (not a multiple
+# of a tile), windows 1 and 17, plain causal, full attention, a window of
+# at least Sk, and NQ = 32 (D 128)
+RANGE_CASES = [(2176, 2176, True, 1024, 128, 64),
+               (333, 333, True, 128, 128, 64),
+               (522, 522, True, 100, 0, 64),
+               (100, 2176, True, 17, 0, 64),
+               (1, 300, True, 64, 128, 64),
+               (200, 200, True, 17, 8, 32),
+               (130, 130, True, 1, 0, 64),
+               (200, 260, True, 0, 0, 64),
+               (81, 200, False, 0, 0, 64),
+               (300, 300, True, 300, 8, 64)]
+
+
+def _visible_pairs(sq, sk, causal, window, meta):
+    """[Sq, Sk] bool: the pairs the mask lets through."""
+    return _visible(np.arange(sk)[None, :], np.arange(sq)[:, None] + sk - sq,
+                    causal, window, meta)
+
+
+@pytest.mark.parametrize("sq,sk,causal,window,meta,nq", RANGE_CASES)
+def test_wgmma_tile_ranges_cover_the_mask_longest_first(sq, sk, causal,
+                                                        window, meta, nq):
+    """The bf16 kernels' walks: every visible pair lies in a tile some
+    warpgroup computes, and a tile computed without the element mask holds
+    only visible, in-range pairs; dK/dV blocks (``dkdv_longest_first``)
+    and dQ blocks (``dq_longest_first``), each a permutation, go out
+    longest first; in key-block order wherever Sq = Sk."""
+    off = sk - sq
+    vis = _visible_pairs(sq, sk, causal, window, meta)
+    pad = np.zeros((sq + 128, sk + 128), bool)
+    pad[:sq, :sk] = vis
+    covered = np.zeros_like(pad)
+    n_kb = -(-sk // 128)
+    kbs = [_dkdv_longest_first(i, sq, sk, 128, nq, causal, window, meta)
+           for i in range(n_kb)]
+    assert sorted(kbs) == list(range(n_kb))
+    assert sq != sk or kbs == list(range(n_kb))
+    lengths = []
+    for k0 in (128 * kb for kb in kbs):
+        tiles = _dkdv_rows(k0, 128, nq, sq, sk, causal, window, meta)
+        lengths.append(len(tiles))
+        for kw0 in (k0, k0 + 64):
+            for q0 in tiles if kw0 < sk else ():
+                if causal and kw0 > min(sq, q0 + nq) - 1 + off or \
+                        _window_hides_tile(kw0, 64, q0 + off, window, meta):
+                    continue
+                covered[q0:q0 + nq, kw0:kw0 + 64] = True
+                masked = kw0 + 64 > sk or q0 + nq > sq or (
+                    causal and kw0 + 63 > q0 + off) or \
+                    _window_cuts_tile(kw0, q0 + nq - 1 + off, window, meta)
+                assert masked or pad[q0:q0 + nq, kw0:kw0 + 64].all()
+    assert not (pad & ~covered).any()
+    assert lengths == sorted(lengths, reverse=True)
+
+    n_qb = -(-sq // 128)
+    order = [_dq_longest_first(i, sq, sk, 128, 64, causal, window, meta)
+             for i in range(n_qb)]
+    assert sorted(order) == list(range(n_qb))
+    counts = [len(_dq_tiles(qb, 128, sq, sk, 64, causal, window, meta))
+              for qb in order]
+    assert counts == sorted(counts, reverse=True)
+    covered[:] = False
+    for qb in order:
+        for qw0 in (qb * 128, qb * 128 + 64):
+            rows = min(64, sq - qw0)
+            tiles = _dq_tiles(qb, 128, sq, sk, 64, causal, window, meta)
+            assert len(set(tiles)) == len(tiles)
+            for kt0 in tiles if rows > 0 else ():
+                if causal and kt0 > qw0 + rows - 1 + off or \
+                        _window_hides_tile(kt0, 64, qw0 + off, window, meta):
+                    continue
+                covered[qw0:qw0 + rows, kt0:kt0 + 64] = True
+                masked = rows < 64 or kt0 + 64 > sk or (
+                    causal and kt0 + 63 > qw0 + off) or \
+                    _window_cuts_tile(kt0, qw0 + 63 + off, window, meta)
+                assert masked or pad[qw0:qw0 + 64, kt0:kt0 + 64].all()
+    assert not (pad & ~covered).any()
+    if (sq, window) == (522, 100):   # the ragged block goes after three
+        assert order == [3, 2, 1, 4, 0]
+
+
+@pytest.mark.parametrize("sq,sk,causal,window,meta,nq", RANGE_CASES)
+def test_f32_kernel_ranges_cover_the_mask(sq, sk, causal, window, meta, nq):
+    """The f32 kernels' walks: a dK/dV block of 64 keys walks 32-row tiles
+    from its diagonal to ``window_rows_end``; a dQ block of 64 rows walks
+    32-key ``KeyTiles``. Every visible pair lies in them."""
+    off = sk - sq
+    vis = _visible_pairs(sq, sk, causal, window, meta)
+    for k0 in range(0, sk, 64):
+        first = max(0, k0 - off) // 32 * 32 if causal else 0
+        end = _window_rows_end(k0, min(k0 + 64, sk) - 1, sq, off, window,
+                               meta)
+        rows = np.nonzero(vis[:, k0:k0 + 64].any(1))[0]
+        assert rows.size == 0 or first <= rows[0] and rows[-1] < end
+    for q0 in range(0, sq, 64):
+        k_end = min(sk, min(sq, q0 + 64) + off) if causal else sk
+        walked = np.zeros(sk, bool)
+        for c0 in _key_tiles(k_end, 32, q0 + off, window, meta):
+            walked[c0:c0 + 32] = True
+        assert not (vis[q0:q0 + 64].any(0) & ~walked).any()
+
+
+@pytest.mark.parametrize("meta", [0, 8, 128])
+def test_a_window_of_at_least_sk_walks_the_causal_tiles(meta):
+    sq, sk = 333, 400
+    for window in (sk, sk + 50):
+        for k0 in range(0, sk, 64):
+            for n, nq in ((128, 64), (128, 32), (64, 32)):
+                assert _dkdv_rows(k0, n, nq, sq, sk, True, window, meta) == \
+                    _dkdv_rows(k0, n, nq, sq, sk, True, 0, 0)
+        for rows, tile in ((128, 64), (64, 32)):
+            for qb in range(-(-sq // rows)):
+                assert _dq_tiles(qb, rows, sq, sk, tile, True, window,
+                                 meta) == _dq_tiles(qb, rows, sq, sk, tile,
+                                                    True, 0, 0)
+                assert _dq_longest_first(qb, sq, sk, rows, tile, True,
+                                         window, meta) == _dq_longest_first(
+                    qb, sq, sk, rows, tile, True, 0, 0)
+        for i in range(-(-sk // 128)):
+            assert _dkdv_longest_first(i, sq, sk, 128, 64, True, window,
+                                       meta) == i
 
 
 @pytest.mark.parametrize("d", [16, 48, 64, 112, 128])

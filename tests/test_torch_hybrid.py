@@ -138,17 +138,6 @@ def test_window_refusals():
             fa.flash_attention_plain(x, x, x, **kw)
 
 
-def test_windowed_backward_raises_not_implemented():
-    q, k, v = (torch.from_numpy(a).requires_grad_()
-               for a in _qkv(1, 8, 8, 2, 2, 16))
-    out = ops.flash_attention(q, k, v, window=4, meta_tokens=1)
-    with pytest.raises(NotImplementedError, match="window"):
-        out.sum().backward()
-    # without a window the gradient flows
-    ops.flash_attention(q, k, v, window=0, meta_tokens=1).sum().backward()
-    assert torch.isfinite(q.grad).all()
-
-
 @pytest.mark.parametrize("window,meta,dw", [(6, 0, False), (6, 4, False),
                                             (6, 4, True), (0, 4, False)])
 def test_decode_attention_matches_reference(window, meta, dw):

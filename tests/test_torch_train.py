@@ -113,12 +113,21 @@ def _port(batch):
 
 def _per_layer(tree):
     """A reference tree of numpy arrays by the port's names (stacked
-    ``blocks`` leaves split into layers; factored leaves as name.row)."""
+    ``blocks`` leaves split into layers; factored leaves as name.row; a
+    factored stacked [L, d] leaf's column, shared by the layers, under
+    each layer's name)."""
     out = {}
 
     def walk(t, prefix):
         for key, val in t.items():
-            if isinstance(val, dict):
+            if isinstance(val, dict) and prefix.startswith("blocks.") \
+                    and set(val) == {"row", "col"} \
+                    and np.ndim(val["row"]) == 1:
+                for i, row in enumerate(np.asarray(val["row"], np.float32)):
+                    name = f"blocks.{i}.{prefix[7:]}{key}"
+                    out[f"{name}.row"] = row
+                    out[f"{name}.col"] = np.asarray(val["col"], np.float32)
+            elif isinstance(val, dict):
                 walk(val, f"{prefix}{key}.")
             elif prefix.startswith("blocks."):
                 for i, layer in enumerate(np.asarray(val, np.float32)):
@@ -259,22 +268,27 @@ STEP_VARIANTS = {
 }
 
 
-def _run_steps(variant, n_steps, start=0):
-    """The reference and the port from the same weights, ``start``
-    reference steps carried into the port through
+def _run_steps(variant, n_steps, start=0, arch="tinyllama-1.1b", seq=24,
+               opt_changes=None, **cfg_changes):
+    """The reference and the port from the same weights of ``arch``
+    REDUCED (float32, with ``cfg_changes``) and ``seq``-token batches,
+    the variant's optimizer config with ``opt_changes``,
+    ``start`` reference steps carried into the port through
     ``opt_state_from_arrays``, then ``n_steps`` steps each on the same
     batches. Returns (port params, port state, port metrics, ref params,
     ref state, ref metrics), the trees by the port's names."""
     okw, tkw = STEP_VARIANTS[variant]
-    rcfg, tcfg = _configs()
-    ocfg = dict(lr=LR, warmup_steps=2, total_steps=10, **okw)
+    rcfg, tcfg = (dataclasses.replace(c, **cfg_changes)
+                  for c in _configs(arch))
+    ocfg = dict(dict(lr=LR, warmup_steps=2, total_steps=10, **okw),
+                **(opt_changes or {}))
     r_step = jax.jit(ref_ts.make_train_step(
         rcfg, ref_opt.OptimizerConfig(**ocfg), ref_ts.TrainConfig(**tkw)))
     t_step = ts.make_train_step(tcfg, opt.OptimizerConfig(**ocfg),
                                 ts.TrainConfig(**tkw))
     params = jax.tree.map(jnp.asarray, _weights(rcfg))
     state = ref_opt.init_state(params, ref_opt.OptimizerConfig(**ocfg))
-    batches = [_batch(rcfg, seed=s) for s in range(start + n_steps)]
+    batches = [_batch(rcfg, s=seq, seed=s) for s in range(start + n_steps)]
     for s in range(start):
         params, state, _ = r_step(params, state, _ref(batches[s]))
     model = lm_params_from_arrays(tcfg, jax.tree.map(np.asarray, params),
