@@ -10,9 +10,9 @@ instructions of the bf16 ``flash_attention`` kernels with ``cuobjdump``
 each kernel against its plain PyTorch
 version on the card (edge cases, the sliding window and meta tokens
 included, in the forward and in the backward, and exact-tie inputs),
-prefills each dense, moe and hybrid REDUCED config through the attention
-kernel against the plain attention, then drives ten paths, each with its
-kernel launches counted from zero and checked:
+prefills each dense, moe, hybrid, audio and vlm REDUCED config through
+the attention kernel against the plain attention, then drives twelve
+paths, each with its kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
   -> ``build_pag`` -> ``write_partitions`` (PQ payloads, "dfs" storage
@@ -60,6 +60,22 @@ kernel launches counted from zero and checked:
   against the plain attention, and mamba2's chunked SSD in f32 against
   its recurrence. Prints walls, decode step against its byte bound,
   tokens/s, peak memory and idle share.
+* audio and vlm: whisper-small at its published widths, uncut (12
+  encoder and 12 decoder layers, d 768, seeded bf16 weights): 8 clips of
+  1500 frame embeddings (``batch_at``'s seeded stub for the conv stem's
+  output) with 64-token decoder prompts, 64 greedy tokens, cold, warm and
+  profiled; each prefill runs ``flash_attention`` 36 times (12 full at
+  1500 x 1500, 12 causal, 12 full cross-attention at 64 x 1500). Then
+  internvl2-76b at its published widths cut in depth only (24 of 80
+  layers, d 8192, 64 / 8 heads of 128: 22.6 B parameters): 8 x
+  500-token prompts whose first 256 positions the seeded vision
+  embeddings overlay, 32 greedy tokens. Afterwards: one prefill's
+  launches counted, its logits against the plain attention, the first
+  token and every decode step against the teacher-forced forward (which
+  holds whisper's cross-attention cache), whisper's encoder output
+  against the plain attention and the reference's zero-padded chunks
+  emulated (the size of the fault the port does not copy), and
+  internvl2's logits past the vision tokens moved by other embeddings.
 * train: ``launch/train.py``'s setup and step at TinyLlama-1.1B's
   published width (22 layers, d 2048, 32 / 4 heads, bf16, seeded weights),
   B=8 x S=2048: 6 AdamW steps on one repeated batch, each layer's
@@ -99,10 +115,12 @@ least Sk must give the causal backward bit for bit.
 
 Last, each kernel is timed on the inputs its path gave it (``l2_topk``
 twice: SPANN's closure chunk and the 1M ground-truth chunk;
-``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` five
-times: rag's first prefill layer, the moe path's two, and hymba's first
-windowed and first global layer; ``flash_attention_bwd`` twice: the
-train path's layer 0 and long_train's hymba layer 1, windowed): CUDA
+``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention``
+eight times: rag's first prefill layer, the moe path's two, hymba's first
+windowed and first global layer, whisper's encoder layer and
+cross-attention, and internvl2's first layer; ``flash_attention_bwd``
+twice: the train path's layer 0 and long_train's hymba layer 1,
+windowed): CUDA
 events around back-to-back wrapper calls (``ms``) and the kernel's own
 device time from ``torch.profiler`` (``device_ms``), beside its plain
 version,
@@ -121,6 +139,7 @@ the reference package ``repro``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -194,14 +213,17 @@ RAG_LOGITS_ATOL = 0.25
 # one bf16 step of the output (both sides sum in f32, round once)
 FLASH_BF16_TOL = 2 ** -7
 FLASH_F32_TOL = 1e-5        # f32 sums in another order
-# A prefill of each dense, moe and hybrid REDUCED config (2-3 layers, D =
-# 16, qwen1.5 D = 12; hymba's window 32 and 8 meta tokens over 85 slots)
+# A prefill of each dense, moe, hybrid, audio and vlm REDUCED config (2-3
+# layers, D = 16, qwen1.5 D = 12; hymba's window 32 and 8 meta tokens over
+# 85 slots; whisper's 30 seeded frames through its 2-layer encoder, its
+# cross-attention at 77 x 30; internvl2's 8 seeded vision embeddings)
 # through the kernel against the plain attention: logits of
 # size ~1-5, where 2^-3 is eight bf16 steps; the edge checks hold the
 # kernel itself to one step. The moe configs' capacity_factor 8 drops no
 # token; their logits are held under the route rule below
 REDUCED_ARCHS = ("tinyllama-1.1b", "command-r-plus-104b", "stablelm-1.6b",
-                 "qwen1.5-4b", "dbrx-132b", "kimi-k2-1t-a32b", "hymba-1.5b")
+                 "qwen1.5-4b", "dbrx-132b", "kimi-k2-1t-a32b", "hymba-1.5b",
+                 "whisper-small", "internvl2-76b")
 REDUCED_LOGITS_ATOL = 2 ** -3
 
 # The moe family at its published widths, seeded weights, served as rag
@@ -354,6 +376,35 @@ FLASH_BWD_WINDOW_EDGES = [
     (1, 2, 2, 130, 130, 64, 1, 0),
     (1, 10, 2, 260, 260, 48, 1024, 8),
     (1, 25, 5, 2176, 2176, 64, 1024, 128)]
+
+# The audio family at its published widths, uncut (configs/whisper_small.py,
+# arXiv:2212.04356: 12 encoder and 12 decoder layers, d 768, 12 heads of
+# 64, d_ff 3072, vocab 51,865 padded to 51,968, qkv biases), seeded bf16
+# weights: 8 clips of 1500 frames each (30 s of audio at Whisper's 50
+# frames/s after its conv stem, which the reference stubs as precomputed
+# frame embeddings: batch_at's seeded normal frames), each with a 64-token
+# decoder prompt, and 64 greedy tokens (128 of Whisper's 448 decoder
+# positions). A prefill runs flash_attention 36 times: 12 full at 1500 x
+# 1500 (the encoder), 12 causal at 64 x 64 (the decoder's self-attention)
+# and 12 full at 64 x 1500 (its cross-attention)
+AUDIO_ARCH, AUDIO_BATCH, AUDIO_PROMPT, AUDIO_NEW = "whisper-small", 8, 64, 64
+# The vlm family at InternVL2-76B's published widths
+# (configs/internvl2_76b.py, arXiv:2404.16821: d 8192, 64 / 8 heads of
+# 128, d_ff 28,672, vocab 128,256), seeded bf16 weights, cut in depth only,
+# from 80 to 24 layers: 24 x 0.856 B + 2.1 B of embedding and head = 22.6 B
+# parameters, 45.3 GB in bf16, which leaves room on one card for the
+# checks' f32 logits ([8, 532, 128256]: 2.2 GB each). 8 x 500-token
+# batch_at prompts whose first 256 positions batch_at's seeded vision
+# embeddings overlay (one 448-px tile's 256 tokens, as InternVL2 gives
+# them), 32 greedy tokens, as rag serves TinyLlama
+VLM_ARCH, VLM_DEPTH, VLM_BATCH, VLM_PROMPT, VLM_NEW = \
+    "internvl2-76b", 24, 8, 500, 32
+# The reference's chunked attention pads K and V with zero keys to a
+# multiple of this chunk (when longer) that only a causal mask hides, so
+# its full attention (whisper's encoder and prefill cross-attention) gives
+# them weight (ROADMAP queue 3); the port attends to the real keys, and the
+# audio checks size the difference at full width by emulating the padding
+REF_CHUNK = 512
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -653,6 +704,13 @@ def check_flash_edges(dev) -> None:
             (1, 8, 2, 1, 531, 112, True, bf16),
             (1, 4, 2, 65, 65, 48, True, bf16),
             (1, 4, 2, 65, 65, 100, False, f32),
+            # whisper's encoder layer (full 1500 x 1500) and its
+            # cross-attention (full, 64 x 1500), internvl2's layer (D 128,
+            # G 8) at batch 1
+            (1, 12, 12, 1500, 1500, 64, False, bf16),
+            (2, 12, 12, 64, 1500, 64, False, bf16),
+            (2, 12, 12, 64, 1500, 64, False, f32),
+            (1, 64, 8, 500, 500, 128, True, bf16),
             # last: the refusals below cut this shape
             (RAG_BATCH, 32, 4, RAG_PROMPT, RAG_PROMPT, 64, True, bf16)]:
         q = torch.from_numpy(rng.standard_normal((b, sq, h, d), np.float32))
@@ -1247,7 +1305,8 @@ def rag(dev, index) -> dict:
 
 
 def profile_generate(engine, prompt) -> dict:
-    """One more ``generate`` under ``torch.profiler``: the device's busy
+    """One more ``generate`` of ``prompt`` (tokens, or a batch dict with
+    a modality stub) under ``torch.profiler``: the device's busy
     time (the sum of its kernels' times; one stream, so they do not
     overlap) against the host wall time of the traced call, and the
     kernels that took most of it. The profiler slows the host, so the
@@ -1256,9 +1315,10 @@ def profile_generate(engine, prompt) -> dict:
     events would add several times the kernels' count to the trace
     (~4,000 kernels a decode step on hymba-1.5b)."""
     from torch.profiler import ProfilerActivity, profile
+    batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.generate({"tokens": prompt})
+        engine.generate(batch)
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1286,10 +1346,34 @@ def plain_attention():
         model.attention = saved
 
 
+def prefill_launches(cfg) -> int:
+    """flash_attention launches of one prefill: one a layer, and with an
+    encoder one an encoder layer and a second (cross-attention) a decoder
+    layer."""
+    return cfg.enc_layers + cfg.n_layers * (2 if cfg.enc_layers else 1)
+
+
+def seeded_batch(cfg, tokens, dev, seed: int = 0) -> dict:
+    """``tokens`` with the family's modality stub, seeded numpy standard
+    normal f32: whisper's ``frames`` [B, enc_frames, d], internvl2's
+    ``vision_embeds`` [B, vision_tokens, d]."""
+    rng = np.random.default_rng(seed)
+
+    def normal(n):
+        return torch.from_numpy(rng.standard_normal(
+            (tokens.shape[0], n, cfg.d_model), np.float32)).to(dev)
+    batch = {"tokens": tokens}
+    if cfg.enc_layers:
+        batch["frames"] = normal(cfg.enc_frames)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = normal(cfg.vision_tokens)
+    return batch
+
+
 def check_reduced_prefills(dev) -> dict:
     """A prefill (the teacher-forced forward) of each REDUCED config on
-    the card through the flash_attention kernel, one launch a layer,
-    against the same forward through the plain attention, to
+    the card through the flash_attention kernel (``prefill_launches``
+    launches) against the same forward through the plain attention, to
     REDUCED_LOGITS_ATOL (a moe config's under the route rule, on the
     tokens whose routes agree). Returns each config's head dim, launches
     and max abs error."""
@@ -1302,16 +1386,17 @@ def check_reduced_prefills(dev) -> dict:
         model = init_params(cfg, seed=0, device=dev)
         tokens = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (2, 77))).to(dev)
+        batch = seeded_batch(cfg, tokens, dev)
         moe = cfg.family == "moe"
         routes = [RouteRecorder(cfg) if moe else contextlib.nullcontext()
                   for _ in range(2)]
         before = ops.launch_counts()["flash_attention"]
         with torch.inference_mode():
             with routes[0]:
-                got = forward(model, {"tokens": tokens}, cfg)
+                got = forward(model, batch, cfg)
             launched = ops.launch_counts()["flash_attention"] - before
             with plain_attention(), routes[1]:
-                want = forward(model, {"tokens": tokens}, cfg)
+                want = forward(model, batch, cfg)
         agree = torch.ones(tokens.numel(), dtype=torch.bool, device=dev)
         rep = {}
         if moe:
@@ -1323,7 +1408,8 @@ def check_reduced_prefills(dev) -> dict:
                      "logits_max_abs": float(want.abs().max())}
         if moe:
             out[arch]["routes"] = rep
-        if launched != cfg.n_layers or not torch.isfinite(got).all() \
+        if launched != prefill_launches(cfg) \
+                or not torch.isfinite(got).all() \
                 or err > REDUCED_LOGITS_ATOL or rep.get("violations") \
                 or rep.get("agreement", 1.0) < ROUTE_AGREEMENT.get(arch, 0):
             raise AssertionError(f"REDUCED prefill {arch}: {out[arch]}")
@@ -1473,7 +1559,6 @@ def moe_serve(dev, arch: str, depth: int) -> dict:
     MOE_BATCH x MOE_PROMPT ``batch_at`` prompts, MOE_NEW greedy tokens,
     cold (with the routes recorded, for the capacity drops), warm (with
     the peak memory) and under the profiler."""
-    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.lm import DataConfig, batch_at
     from repro_torch.models import init_params
@@ -1762,7 +1847,6 @@ def check_ssd_recurrence(r: dict) -> dict:
     against SSD_HOLD_S calls of ``ssd_decode_step`` from a zero state,
     outputs and final state within SSD_HOLD_RTOL of their largest
     magnitudes."""
-    import dataclasses
     from repro_torch.models import ssm
     cfg = dataclasses.replace(r["cfg"], dtype="float32")
     dev = r["prompt"].device
@@ -1813,7 +1897,6 @@ def check_long(r: dict) -> dict:
     (RAG_LOGITS_ATOL; the reference's REDUCED bound printed beside it);
     the hybrid prefill through the kernel against the plain attention
     (RAG_LOGITS_ATOL); the ssm's chunked SSD against its recurrence."""
-    import dataclasses
     from repro_torch.models import forward
     from repro_torch.models.model import LM
     tag, cfg, model, prompt = r["tag"], r["cfg"], r["model"], r["prompt"]
@@ -1860,35 +1943,38 @@ def check_long(r: dict) -> dict:
     return out
 
 
-def decode_bound_bytes(cfg, model) -> float:
-    """The bytes a warm decode step must move, averaged over the LONG_NEW
-    - 1 steps: every weight it reads once (all but the embedding table,
-    which a tied head reads whole), the KV slots each attention layer can
-    see (the window and the meta tokens, or every slot on a global
-    layer), its new k/v, and each SSD layer's state ``h`` (f32) and conv
-    window read and written."""
-    b = LONG_BATCH
+def decode_bound_bytes(cfg, model, b: int = LONG_BATCH,
+                       prompt: int = LONG_PROMPT, new: int = LONG_NEW
+                       ) -> float:
+    """The bytes a warm decode step must move, averaged over the ``new``
+    - 1 steps after a ``b`` x ``prompt`` prefill: every weight it reads
+    once (all but the embedding table, which a tied head reads whole,
+    and the encoder's), the KV slots each attention layer can see (the
+    window and the meta tokens, or every slot on a global layer), its new
+    k/v, the cross-attention's ``xk``/``xv``, and each SSD layer's state
+    ``h`` (f32) and conv window read and written."""
     weights = sum(p.numel() * p.element_size()
                   for n, p in model.named_parameters()
-                  if n != "tok_embed" or cfg.tie_embeddings)
+                  if (n != "tok_embed" or cfg.tie_embeddings)
+                  and not n.startswith(("encoder.", "enc_norm")))
     elem = 2   # bf16 caches
-    state = 0
+    slot = 2 * b * cfg.n_kv_heads * cfg.resolved_head_dim * elem
+    state = cfg.n_layers * cfg.enc_frames * slot
     if cfg.family in ("ssm", "hybrid"):
         state = cfg.n_layers * 2 * b * (
             cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
             + (cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * elem)
     kv = 0
     if not cfg.is_attention_free:
-        slot = 2 * b * cfg.n_kv_heads * cfg.resolved_head_dim * elem
-        for t in range(LONG_NEW - 1):
-            pos = cfg.meta_tokens + LONG_PROMPT + t
+        for t in range(new - 1):
+            pos = cfg.meta_tokens + prompt + t
             for i in range(cfg.n_layers):
                 seen = pos + 1
                 if cfg.attn_window and i not in cfg.global_layers:
                     seen = min(pos + 1, cfg.attn_window) + max(
                         0, min(cfg.meta_tokens, pos + 1 - cfg.attn_window))
                 kv += (seen + 1) * slot
-        kv /= LONG_NEW - 1
+        kv /= new - 1
     return weights + state + kv
 
 
@@ -1928,6 +2014,187 @@ def report_long(r: dict, checks: dict, launches: dict) -> None:
           f"{json.dumps(r['prefill_split']['by_class_ms'])}, SSD "
           f"[B, nc, H, Q, Q] passes "
           f"{r['prefill_split']['ssd_quadratic_ms']:.3f} ms")
+    print(f"{tag} report: {json.dumps(rep)}", flush=True)
+
+
+def modal_serve(dev, tag: str, arch: str, depth, batch_size: int,
+                prompt_len: int, new_tokens: int) -> dict:
+    """One modality path: ``arch`` at its published widths (its depth cut
+    to ``depth`` layers unless None; bf16, seeded weights) on the card,
+    ``Engine.generate`` over ``batch_at``'s prompts with the family's
+    modality stub (whisper's frames, internvl2's vision embeddings),
+    ``new_tokens`` greedy tokens, cold, warm (with the peak memory) and
+    under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import DataConfig, batch_at
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+    published = get_config(arch)
+    cfg = dataclasses.replace(published, n_layers=depth or
+                              published.n_layers)
+    with phase(f"{tag}: init {arch} ({cfg.n_layers} of "
+               f"{published.n_layers} layers; seeded, on the card)"):
+        model = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+    batch = batch_at(DataConfig(seed=0, batch_size=batch_size,
+                                seq_len=prompt_len), cfg, 0, device=dev)
+    del batch["labels"]
+    engine = Engine(cfg, model, ServeConfig(max_new_tokens=new_tokens))
+    runs = {}
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        with phase(f"{tag}: {cfg.arch_id} generate ({run})"):
+            gen = engine.generate(batch)
+        runs[run] = dict(engine.timing)
+    peak = torch.cuda.max_memory_allocated()
+    with phase(f"{tag}: {cfg.arch_id} generate (profiled)"):
+        profile = profile_generate(engine, batch)
+    if gen.shape != (batch_size, new_tokens) or (gen < 0).any() \
+            or (gen >= cfg.vocab_size).any():
+        raise AssertionError(f"{tag}: generated {gen.shape} ids out of "
+                             f"range")
+    return {"tag": tag, "cfg": cfg, "model": model, "batch": batch,
+            "gen": gen, "timing": runs, "peak_bytes": peak,
+            "profile": profile, "reduced": {} if depth is None else {
+                "n_layers": [published.n_layers, depth]}}
+
+
+@contextlib.contextmanager
+def padded_full_attention():
+    """The model's attention as the reference's chunked jnp attention
+    computes it (``repro/models/attention.py:67 _chunk_kv``), through the
+    materialised scores: full attention over more than REF_CHUNK keys
+    attends to zero keys padding them to a multiple of REF_CHUNK."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention, model
+    saved = model.attention
+
+    def padded(q, k, v, causal=True, **kw):
+        pad = -k.shape[1] % min(REF_CHUNK, k.shape[1])
+        if not causal and pad:
+            k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+        return attention.attention_reference(q, k, v, causal=causal, **kw)
+    model.attention = padded
+    try:
+        yield
+    finally:
+        model.attention = saved
+
+
+def check_modal(r: dict) -> dict:
+    """At full width, in bf16: (1) one prefill's flash_attention launches,
+    exactly ``prefill_launches``; (2) its logits through the kernel
+    against the same forward through the plain attention; (3) the first
+    token's logits and every decode step's against the teacher-forced
+    forward over prompt + generated tokens (with the modality stub: this
+    holds whisper's cross-attention cache), each to RAG_LOGITS_ATOL.
+    Whisper: the encoder's output through the kernel against the plain
+    attention, and the reference's zero-padded chunks emulated
+    (``padded_full_attention``) against the plain attention, the size of
+    the fault the port does not copy. Internvl2: the logits at every
+    position from ``vision_tokens`` on must move when the vision
+    embeddings change."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, forward, prefill
+    tag, cfg, model, batch = r["tag"], r["cfg"], r["model"], r["batch"]
+    gen = torch.from_numpy(r["gen"]).to(batch["tokens"].device).long()
+    s, new, v = batch["tokens"].shape[1], gen.shape[1], cfg.vocab_size
+    out = {}
+    with torch.inference_mode():
+        before = ops.launch_counts()["flash_attention"]
+        logits = forward(model, batch, cfg)
+        out["prefill_launches"] = \
+            ops.launch_counts()["flash_attention"] - before
+        with plain_attention():
+            want = forward(model, batch, cfg)
+        out["prefill_vs_plain_max_abs"] = float((logits - want).abs().max())
+        out["logits_max_abs"] = float(want[..., :v].abs().max())
+        if cfg.enc_layers:
+            enc = model.encode(batch["frames"])
+            with plain_attention():
+                enc_plain = model.encode(batch["frames"])
+            with padded_full_attention():
+                enc_padded = model.encode(batch["frames"])
+                padded = forward(model, batch, cfg)
+            out["encoder_vs_plain_max_abs"] = float(
+                (enc - enc_plain).float().abs().max())
+            out["padded_reference_encoder_max_abs"] = float(
+                (enc_padded - enc_plain).float().abs().max())
+            out["padded_reference_logits_max_abs"] = float(
+                (padded - want)[..., :v].abs().max())
+            del enc, enc_plain, enc_padded, padded
+        del want
+        if cfg.family == "vlm":
+            moved = forward(model, dict(batch, vision_embeds=-batch[
+                "vision_embeds"]), cfg)
+            by_pos = (moved - logits)[:, cfg.vision_tokens:, :v].abs() \
+                .amax(-1)
+            out["overlay_moved_min_abs"] = float(by_pos.min())
+            del moved
+        del logits
+        full = forward(model, dict(batch, tokens=torch.cat(
+            [batch["tokens"], gen[:, :-1]], 1)), cfg)[..., :v]
+        last, cache = prefill(model, batch, cfg, max_len=s + new)
+        errs = [float((last[:, -1, :v] - full[:, s - 1]).abs().max())]
+        del last
+        for t in range(new - 1):
+            step, cache = decode_step(model, gen[:, t:t + 1], cache, s + t,
+                                      cfg)
+            errs.append(float((step[:, 0, :v] - full[:, s + t]).abs()
+                              .max()))
+        teacher = full[:, s - 1:].argmax(-1)
+        out["greedy_equal_teacher_argmax"] = float(
+            (teacher.cpu().numpy() == r["gen"]).mean())
+        del full, cache
+    out["first_token_vs_forward_max_abs"] = errs[0]
+    out["decode_vs_forward_max_abs"] = max(errs)
+    print(f"{tag} checks: {json.dumps(out)}", flush=True)
+    if out["prefill_launches"] != prefill_launches(cfg):
+        raise AssertionError(f"{tag}: {out['prefill_launches']} "
+                             f"flash_attention launches in a prefill, want "
+                             f"{prefill_launches(cfg)}")
+    if out["prefill_vs_plain_max_abs"] > RAG_LOGITS_ATOL \
+            or out["decode_vs_forward_max_abs"] > RAG_LOGITS_ATOL:
+        raise AssertionError(f"{tag}: logits off by more than "
+                             f"{RAG_LOGITS_ATOL}: {out}")
+    if out.get("overlay_moved_min_abs", 1.0) <= 0.0:
+        raise AssertionError(f"{tag}: a position past the vision tokens "
+                             f"kept its logits when they changed")
+    return out
+
+
+def report_modal(r: dict, checks: dict, launches: dict) -> None:
+    """One modality path's numbers, each on its own line, then one JSON
+    line."""
+    tag, cfg, warm = r["tag"], r["cfg"], r["timing"]["warm"]
+    b, s = r["batch"]["tokens"].shape
+    new = r["gen"].shape[1]
+    step_s = warm["decode_s"] / (new - 1)
+    bound_s = decode_bound_bytes(cfg, r["model"], b, s, new) \
+        / HBM_BYTES_PER_S
+    rep = {"arch": cfg.arch_id, "reduced": r["reduced"],
+           "layers": cfg.n_layers,
+           "enc_layers": cfg.enc_layers, "params": sum(
+               p.numel() for p in r["model"].parameters()),
+           "batch": b, "prompt_len": s, "new_tokens": new,
+           "inputs": {k: list(t.shape) for k, t in r["batch"].items()},
+           "launches": launches, "timing": r["timing"],
+           "tokens_per_s": b * new / (warm["prefill_s"] + warm["decode_s"]),
+           "decode_tokens_per_s": b * (new - 1) / warm["decode_s"],
+           "decode_step_s": step_s, "decode_step_bound_s": bound_s,
+           "peak_memory_bytes": r["peak_bytes"],
+           "first_generated_ids_0": r["gen"][0, :10].tolist(),
+           "profile": r["profile"], **checks}
+    print(f"{tag} {cfg.arch_id} prefill seconds (warm): "
+          f"{warm['prefill_s']:.4f}")
+    print(f"{tag} {cfg.arch_id} decode ms a step (warm, {new - 1} steps): "
+          f"{step_s * 1e3:.3f} (byte bound {bound_s * 1e3:.3f})")
+    print(f"{tag} {cfg.arch_id} tokens per second (warm): "
+          f"{rep['tokens_per_s']:.1f}")
+    print(f"{tag} {cfg.arch_id} peak memory: "
+          f"{r['peak_bytes'] / 2 ** 30:.2f} GiB")
+    print(f"{tag} {cfg.arch_id} idle share (profiled generate): "
+          f"{r['profile']['device_idle_share']}")
     print(f"{tag} report: {json.dumps(rep)}", flush=True)
 
 
@@ -2584,6 +2851,18 @@ def time_kernels(caps, counts) -> list:
                             "global layers a prefill; the window and meta "
                             "tokens are the mask of the reference's jnp "
                             "attention, src/repro/models/attention.py:50")
+    # whisper-small's encoder layer and cross-attention (full attention),
+    # internvl2-76b's first prefill layer (causal, D 128, G 8)
+    for key, what, path in (
+            ("audio encoder", "whisper-small encoder layer", "audio"),
+            ("audio cross", "whisper-small cross-attention layer", "audio"),
+            ("vlm", "internvl2-76b prefill layer", "vlm")):
+        rows.append(flash_row(caps[f"flash_attention:{key}"],
+                              counts[path]["flash_attention"], what))
+        rows[-1]["path"] = path
+    rows[-2]["note"] = rows[-3]["note"] = (
+        "launches: the audio path's, 36 a prefill: 12 encoder layers, 12 "
+        "decoder self-attention (causal, 64 x 64), 12 cross-attention")
     # the long_train path's first windowed layer (layer 1, step 0):
     # hymba-1.5b's attention backward under the window and meta tokens
     (args, kw) = caps["flash_attention_bwd:hybrid windowed"].args
@@ -2750,6 +3029,44 @@ def main() -> int:
         del long_run
         torch.cuda.empty_cache()
 
+    # whisper-small, uncut, then internvl2-76b cut to VLM_DEPTH layers;
+    # the first call of each attention shape is kept for the kernel rows:
+    # whisper's encoder layer (full, Sq = Sk), its cross-attention (full,
+    # Sq < Sk), internvl2's first prefill layer
+    caps["flash_attention:audio encoder"] = Capture(
+        ops, "flash_attention",
+        lambda a, kw: not kw["causal"] and a[0].shape[1] == a[1].shape[1])
+    caps["flash_attention:audio cross"] = Capture(
+        ops, "flash_attention",
+        lambda a, kw: not kw["causal"] and a[0].shape[1] < a[1].shape[1])
+    caps["flash_attention:vlm"] = Capture(ops, "flash_attention",
+                                          lambda a, kw: True)
+    for tag, shape, tag_caps in (
+            ("audio", (AUDIO_ARCH, None, AUDIO_BATCH, AUDIO_PROMPT,
+                       AUDIO_NEW),
+             ("flash_attention:audio encoder", "flash_attention:audio cross")),
+            ("vlm", (VLM_ARCH, VLM_DEPTH, VLM_BATCH, VLM_PROMPT, VLM_NEW),
+             ("flash_attention:vlm",))):
+        with path(tag, ("flash_attention",)), \
+                contextlib.ExitStack() as stack:
+            for key in tag_caps:
+                stack.enter_context(caps[key])
+            run = modal_serve(dev, tag, *shape)
+        cfg = run["cfg"]
+        if counts[tag]["flash_attention"] != 3 * prefill_launches(cfg):
+            raise AssertionError(f"{tag}: {counts[tag]} launches in three "
+                                 f"generates, want 3 x "
+                                 f"{prefill_launches(cfg)} flash_attention")
+        with phase(f"{tag}: checks (prefill launches, prefill vs plain "
+                   f"attention, decode vs forward"
+                   + (", encoder, padded reference)" if cfg.enc_layers
+                      else ", overlay)")):
+            checks = check_modal(run)
+        print(card)
+        report_modal(run, checks, counts[tag])
+        del run
+        torch.cuda.empty_cache()
+
     # the first attention call with gradients: layer 0 of step 0
     caps["flash_attention_bwd"] = Capture(ops, "flash_attention",
                                           lambda a, kw: a[0].requires_grad)
@@ -2829,7 +3146,9 @@ def main() -> int:
                      "flash_attention_bwd": counts["train"],
                      "hybrid": counts["hybrid"],
                      "long_train:hymba-1.5b":
-                     counts["long_train:hymba-1.5b"], **moe_launches}
+                     counts["long_train:hymba-1.5b"],
+                     "audio": counts["audio"], "vlm": counts["vlm"],
+                     **moe_launches}
         rows = time_kernels(caps, by_kernel)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}

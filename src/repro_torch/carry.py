@@ -64,8 +64,8 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def _per_layer(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The reference's nested leaves by the port's parameter names, each
-    stacked ``[L, ...]`` leaf under ``blocks`` or ``dense_blocks`` split
-    into its layers (``blocks.<i>.…``, ``dense_blocks.<i>.…``)."""
+    stacked ``[L, ...]`` leaf under ``blocks``, ``dense_blocks`` or
+    ``encoder`` split into its layers (``blocks.<i>.…``, …)."""
     given = {}
     for name, arr in _flatten(tree).items():
         stack, _, rest = name.partition(".")
@@ -82,8 +82,10 @@ def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
     """The port's model holding the reference's weights. ``params`` is the
     reference's params pytree as numpy arrays, with the per-layer leaves
     stacked ``[L, ...]`` under ``blocks`` (and ``dense_blocks``, the moe
-    family's dense prefix; an SSD's leaves under ``blocks`` ``ssm``, the
-    hybrid family's ``meta_tokens`` at the top); each layer's slice goes
+    family's dense prefix; ``encoder``, the audio family's encoder, beside
+    its ``enc_norm`` and the decoder layers' ``xattn_norm`` and ``xattn``;
+    an SSD's leaves under ``blocks`` ``ssm``, the hybrid family's
+    ``meta_tokens`` at the top); each layer's slice goes
     to its own module, cast to the parameter's dtype (``cfg.dtype``, but
     float32 for the SSD's ``A_log``, ``D`` and ``dt_bias``, as in the
     reference). Raises unless every parameter of the model is given

@@ -29,7 +29,11 @@ def batch_at(dcfg: DataConfig, cfg: ModelConfig, step: int,
              device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """{"tokens": [B, S], "labels": [B, S]} int64 on ``device`` (the CUDA
     card unless ``device="cpu"``); labels are the next tokens, -1 at the
-    end. The stream depends only on (seed, step), not on the device."""
+    end. The modality stubs follow, f32 standard normal, drawn after the
+    tokens from the same generator: the vlm family's ``vision_embeds``
+    [B, vision_tokens, d] (its labels -1 under them, as those positions
+    carry no loss), the audio family's ``frames`` [B, enc_frames, d]. The
+    stream depends only on (seed, step), not on the device."""
     check_family(cfg)   # the modality stubs come with their families
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(dcfg.seed * 1_000_003 + step)
@@ -41,4 +45,12 @@ def batch_at(dcfg: DataConfig, cfg: ModelConfig, step: int,
     coin = torch.rand((b, s), generator=gen) < 0.5
     tokens = torch.where(coin, torch.roll(follow, 1, dims=1), base)
     labels = torch.cat([tokens[:, 1:], torch.full((b, 1), -1)], dim=1)
-    return {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.randn(
+            (b, cfg.vision_tokens, cfg.d_model), generator=gen)
+        labels[:, :cfg.vision_tokens] = -1
+    if cfg.enc_layers:
+        batch["frames"] = torch.randn((b, cfg.enc_frames, cfg.d_model),
+                                      generator=gen)
+    return {key: t.to(dev) for key, t in batch.items()}

@@ -60,6 +60,7 @@ import torch
 from repro_torch.kernels.l2_topk import bind, call, check_cuda_args, on_cpu
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 HEAD_DIMS = (16, 32, 64, 112, 128)   # the kernel's compiled head widths
 BWD_HEAD_DIMS = (16, 32, 64, 128)    # the backward's (112 runs at 128)
 # delta's row stride: each (b, h) row padded to whole 128-row query blocks
@@ -159,8 +160,20 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(hidden, NEG_INF)
     out = _ungrouped(torch.softmax(s, dim=-1) @ vg).to(q.dtype)
     if return_lse:
-        return out, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+        return out, _row_lse(s).reshape(b, h, sq)
     return out
+
+
+def _row_lse(s: torch.Tensor) -> torch.Tensor:
+    """The log-sum-exp of each row of ``s`` [..., Sk] (f32), read off
+    ``log_softmax`` at the row's max, where it is max - lse. Not
+    ``torch.logsumexp`` (nor ``torch.exp``): on the CPU their exp goes to
+    MKL's vector math, which splits a long call over its threads, and the
+    part computed on the calling thread came out up to 1.5e-4 off
+    (against 3e-7) now and then in processes sharing busy cores.
+    ``log_softmax``, ``softmax`` and ``exp2`` are PyTorch's own kernels."""
+    top = s.argmax(-1, keepdim=True)
+    return (s.gather(-1, top) - torch.log_softmax(s, -1).gather(-1, top))[..., 0]
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -186,7 +199,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     kg = k.float().permute(0, 2, 1, 3)[:, :, None]
     vg = v.float().permute(0, 2, 1, 3)[:, :, None]
     s = scale * (qg @ kg.transpose(-1, -2))
-    p = torch.exp(s - lse.float().reshape(b, kvh, h // kvh, sq)[..., None])
+    # exp(x) as exp2(x log2 e): see _row_lse for why not torch.exp
+    lse = lse.float().reshape(b, kvh, h // kvh, sq)[..., None]
+    p = torch.exp2((s - lse) * LOG2E)
     hidden = _hidden(sq, sk, q.device, causal, window, meta_tokens)
     if hidden is not None:
         p = p.masked_fill(hidden, 0.0)

@@ -1,5 +1,5 @@
-"""Shared layer primitives: RMS norm, rotary embeddings, the f32
-softmax, init helpers.
+"""Shared layer primitives: RMS and layer norms, rotary and sinusoidal
+position embeddings, the f32 softmax, init helpers.
 
 Ports of ``repro/models/layers.py``. Norms and rotary embeddings compute
 in float32 and cast back to the input's dtype, as the reference does.
@@ -23,6 +23,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.square().mean(-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) / std * (1 + scale) + bias`` in float32, cast back."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float()) + bias.float()).to(dtype)
 
 
 def softmax_fp32(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -56,6 +67,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     sin = sin[..., None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+def sinusoidal_embedding(length: int, dim: int) -> np.ndarray:
+    """[length, dim] float32: the sines of position / 10000^(2i / dim) for
+    i < dim / 2, then their cosines; computed in float64 and rounded once,
+    as the reference computes it, so the tables are equal bit for bit."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / dim)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return emb.astype(np.float32)
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int],

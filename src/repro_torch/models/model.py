@@ -1,5 +1,5 @@
-"""Language models of the dense, moe, ssm and hybrid families:
-parameters, full-sequence forward (prefill), decode caches and
+"""Language models of all seven families (dense, moe, ssm, hybrid, audio,
+vlm): parameters, full-sequence forward (prefill), decode caches and
 single-token decode. Port of ``repro/models/model.py``.
 
 A pre-norm llama-style stack: per layer an RMS norm, GQA attention with
@@ -21,19 +21,40 @@ attention has a sliding window except on ``global_layers``, and
 the rotary positions, take the first slots of the KV cache, and are cut
 off the logits.
 
+The audio family (Whisper) is an encoder-decoder. The encoder
+(``encoder``, ``enc_layers`` dense blocks, then ``enc_norm``) runs over
+precomputed frame embeddings ``batch["frames"]`` [B, F, d] (the conv
+stem is stubbed, as in the reference) plus a sinusoidal table, with
+full (bidirectional) attention; its blocks apply the rotary embedding
+at the frame positions, as the reference's do. Each decoder layer
+(``CrossBlock``) runs causal self-attention, then cross-attention of the
+normed stream over the encoder's output (no rotary embedding), then the
+audio feed-forward: fc, tanh-approximated GELU, fc, with biases
+(``GeluMLP``, the encoder's too). The decode cache keeps each layer's
+cross-attention keys and values ``xk``/``xv`` [L, B, F, KVH, hd] from
+the prefill, so a decode step never runs the encoder again. Full
+attention goes over the F real keys: the reference's chunked jnp
+attention pads K and V to a multiple of its chunk (512) with zero keys
+that only a causal mask hides, which at F = 1500 gives 36 zero keys
+weight in its prefill (not in its decode); the port does not copy that.
+The vlm family (InternVL2) is the dense family whose first
+``vision_tokens`` token embeddings a prompt's
+``batch["vision_embeds"]`` [B, vision_tokens, d] replace (the vision
+frontend is stubbed); decode has no overlay.
+
 The weights keep the reference's layouts (``wq [d, H, hd]``, ``wk``/``wv
 [d, KVH, hd]``, ``wo [H, hd, d]``, ``w_gate``/``w_up [d, f]``, ``w_down
 [f, d]``, ``tok_embed [Vpad, d]``, ``lm_head [d, Vpad]``, the experts'
 in ``models/moe.py``), one module per layer where the reference stacks
-layers on a leading axis (``blocks`` and ``dense_blocks``), so carrying
-its weights across is a copy (``repro_torch.carry.lm_params_from_arrays``).
-Parameters are made without gradients, for serving; a trainer switches
-them on (``model.requires_grad_()``, as ``repro_torch.launch.train``
-does). Then the full-sequence forward recomputes each block in the
-backward when ``cfg.remat`` is set, as the reference's
-``jax.checkpoint`` over its layer scan does, so activation memory holds
-one block's input per layer. The reference's sharding hints drop out on
-one card. The audio and vlm families raise ``NotImplementedError``.
+layers on a leading axis (``blocks``, ``dense_blocks`` and ``encoder``),
+so carrying its weights across is a copy
+(``repro_torch.carry.lm_params_from_arrays``). Parameters are made
+without gradients, for serving; a trainer switches them on
+(``model.requires_grad_()``, as ``repro_torch.launch.train`` does).
+Then the full-sequence forward recomputes each block in the backward
+when ``cfg.remat`` is set, as the reference's ``jax.checkpoint`` over
+its layer scan does, so activation memory holds one block's input per
+layer. The reference's sharding hints drop out on one card.
 """
 from __future__ import annotations
 
@@ -54,6 +75,7 @@ from repro_torch.models.layers import (
     embed_init,
     rms_norm,
     rope_cos_sin,
+    sinusoidal_embedding,
 )
 
 Cache = Dict[str, torch.Tensor]
@@ -82,16 +104,27 @@ class Attention(nn.Module):
             self.bk = _param((kvh, hd), dtype, device)
             self.bv = _param((kvh, hd), dtype, device)
 
+    def _proj(self, x, name: str):
+        """x [B, S, d] through ``w<name>`` [d, n, hd] -> [B, S, n, hd], plus
+        ``b<name>`` where the config has qkv biases."""
+        w = getattr(self, "w" + name)
+        y = (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:2], *w.shape[1:])
+        bias = getattr(self, "b" + name, None)
+        return y if bias is None else y + bias
+
+    def query(self, x):
+        """x [B, S, d] -> q [B, S, H, hd], no rotary embedding."""
+        return self._proj(x, "q")
+
+    def qkv(self, x, kv):
+        """q [B, S, H, hd] from x, k and v [B, Skv, KVH, hd] from kv, no
+        rotary embedding (cross-attention's projections)."""
+        return self._proj(x, "q"), self._proj(kv, "k"), self._proj(kv, "v")
+
     def project(self, x, cos, sin):
         """x [B, S, d] -> q [B, S, H, hd], k and v [B, S, KVH, hd], with
         rotary embeddings applied to q and k."""
-        b, s, _ = x.shape
-
-        def proj(w):
-            return (x @ w.reshape(w.shape[0], -1)).view(b, s, *w.shape[1:])
-        q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
-        if hasattr(self, "bq"):
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q, k, v = self.qkv(x, x)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def out(self, a):
@@ -115,45 +148,120 @@ class MLP(nn.Module):
         return h @ self.w_down
 
 
-class DenseBlock(nn.Module):
+class GeluMLP(nn.Module):
+    """The audio family's feed-forward (Whisper's): fc, GELU, fc, with
+    biases. The GELU is the tanh approximation, ``jax.nn.gelu``'s default
+    (torch's default, the erf form, is another function)."""
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
-        self.eps = cfg.norm_eps
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_fc = _param((d, f), dtype, device)
+        self.b_fc = _param((f,), dtype, device)
+        self.w_out = _param((f, d), dtype, device)
+        self.b_out = _param((d,), dtype, device)
+
+    def forward(self, x):
+        h = x @ self.w_fc + self.b_fc
+        h = nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
+        return h @ self.w_out + self.b_out
+
+
+class DenseBlock(nn.Module):
+    """Pre-norm attention (causal, or full in an encoder's block) and a
+    feed-forward: the SwiGLU MLP, or ``GeluMLP`` in the audio family."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, causal: bool = True):
+        super().__init__()
+        self.eps, self.causal = cfg.norm_eps, causal
         self.attn_norm = _param((cfg.d_model,), dtype, device)
         self.attn = Attention(cfg, dtype, device)
         self.mlp_norm = _param((cfg.d_model,), dtype, device)
         self.add_ffn(cfg, dtype, device)
 
     def add_ffn(self, cfg: ModelConfig, dtype, device) -> None:
-        self.mlp = MLP(cfg, dtype, device)
+        mlp = GeluMLP if cfg.family == "audio" else MLP
+        self.mlp = mlp(cfg, dtype, device)
 
     def ffn(self, h, with_aux: bool = False):
         """(the feed-forward of h, its aux loss or None)."""
         return self.mlp(h), None
 
-    def forward(self, x, cos, sin, with_aux: bool = False,
-                collect: bool = False):
-        """Full sequence, causal. Returns (x, this layer's cache entries
-        {"k", "v"} when ``collect``, else None, the aux loss when
-        ``with_aux`` and the block has one, else None)."""
+    def self_attn(self, x, cos, sin):
+        """x plus its attention over the whole sequence -> (x, k, v)."""
         q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
                                     cos, sin)
-        x = x + self.attn.out(attention(q, k, v, causal=True))
+        return x + self.attn.out(attention(q, k, v, causal=self.causal)), \
+            k, v
+
+    def forward(self, x, cos, sin, with_aux: bool = False,
+                collect: bool = False):
+        """Full sequence. Returns (x, this layer's cache entries {"k",
+        "v"} when ``collect``, else None, the aux loss when ``with_aux``
+        and the block has one, else None)."""
+        x, k, v = self.self_attn(x, cos, sin)
         y, aux = self.ffn(rms_norm(x, self.mlp_norm, self.eps), with_aux)
         return x + y, ({"k": k, "v": v} if collect else None), aux
 
-    def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
-        """One token in cache slot ``pos``: writes its k/v into slot
-        ``pos`` of this layer's caches ``cache["k"]``, ``cache["v"]`` [B,
-        Smax, KVH, hd] in place."""
+    def self_attn_step(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
+        """x plus one token's attention over the cache, its k/v written
+        into slot ``pos`` of this layer's caches ``cache["k"]``,
+        ``cache["v"]`` [B, Smax, KVH, hd] in place."""
         q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
                                     cos, sin)
         cache["k"][:, pos] = k[:, 0]
         cache["v"][:, pos] = v[:, 0]
         a = decode_attention(q, cache["k"], cache["v"], k_pos=slot_pos,
                              cur_pos=pos)
-        x = x + self.attn.out(a)
+        return x + self.attn.out(a)
+
+    def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
+        """One token in cache slot ``pos`` (``self_attn_step``), then the
+        feed-forward."""
+        x = self.self_attn_step(x, cos, sin, cache, pos, slot_pos)
         return x + self.ffn(rms_norm(x, self.mlp_norm, self.eps))[0]
+
+
+class CrossBlock(DenseBlock):
+    """The audio family's decoder layer: the dense block's causal
+    self-attention, then cross-attention (``xattn_norm``, ``xattn``, no
+    rotary embedding) of the normed stream over the encoder's output, then
+    the ``GeluMLP`` feed-forward."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__(cfg, dtype, device)
+        self.xattn_norm = _param((cfg.d_model,), dtype, device)
+        self.xattn = Attention(cfg, dtype, device)
+
+    def cross(self, x, enc_out):
+        """x plus its full attention over ``enc_out`` [B, F, d] -> (x, xk,
+        xv), the keys and values [B, F, KVH, hd] the decode cache keeps."""
+        q, xk, xv = self.xattn.qkv(rms_norm(x, self.xattn_norm, self.eps),
+                                   enc_out)
+        return x + self.xattn.out(attention(q, xk, xv, causal=False)), xk, xv
+
+    def forward(self, x, cos, sin, with_aux: bool = False,
+                collect: bool = False, enc_out=None):
+        """Full sequence over ``enc_out``. Returns (x, this layer's cache
+        entries {"k", "v", "xk", "xv"} when ``collect``, else None,
+        None)."""
+        x, k, v = self.self_attn(x, cos, sin)
+        x, xk, xv = self.cross(x, enc_out)
+        x = x + self.mlp(rms_norm(x, self.mlp_norm, self.eps))
+        return x, ({"k": k, "v": v, "xk": xk, "xv": xv} if collect
+                   else None), None
+
+    def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
+        """One token: self-attention as the dense block's, then its
+        cross-attention over every slot of the layer's ``xk``/``xv``."""
+        x = self.self_attn_step(x, cos, sin, cache, pos, slot_pos)
+        q = self.xattn.query(rms_norm(x, self.xattn_norm, self.eps))
+        n = cache["xk"].shape[1]
+        a = decode_attention(q, cache["xk"], cache["xv"],
+                             k_pos=torch.arange(n, device=x.device),
+                             cur_pos=n)
+        x = x + self.xattn.out(a)
+        return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps))
 
 
 class MoEBlock(DenseBlock):
@@ -276,8 +384,9 @@ class LM(nn.Module):
     """Embedding, ``n_dense_layers`` dense blocks (``dense_blocks``; none
     outside the moe family), the family's ``n_layers - n_dense_layers``
     blocks (``blocks``), the hybrid family's ``meta_tokens`` rows
-    ``[meta_tokens, d]``, final norm, LM head (the transposed embedding
-    when ``tie_embeddings``)."""
+    ``[meta_tokens, d]``, the audio family's ``enc_layers`` encoder blocks
+    (``encoder``; none elsewhere) and ``enc_norm``, final norm, LM head
+    (the transposed embedding when ``tie_embeddings``)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
@@ -294,10 +403,15 @@ class LM(nn.Module):
                 HybridBlock(cfg, dtype, dev, is_global=flag)
                 for flag in global_flags(cfg, n_main))
         else:
-            block = {"moe": MoEBlock, "ssm": SSMBlock}.get(cfg.family,
-                                                           DenseBlock)
+            block = {"moe": MoEBlock, "ssm": SSMBlock,
+                     "audio": CrossBlock}.get(cfg.family, DenseBlock)
             self.blocks = nn.ModuleList(block(cfg, dtype, dev)
                                         for _ in range(n_main))
+        self.encoder = nn.ModuleList(
+            DenseBlock(cfg, dtype, dev, causal=False)
+            for _ in range(cfg.enc_layers))
+        if cfg.enc_layers:
+            self.enc_norm = _param((cfg.d_model,), dtype, dev)
         if cfg.meta_tokens:
             self.meta_tokens = _param((cfg.meta_tokens, cfg.d_model), dtype,
                                       dev)
@@ -313,14 +427,39 @@ class LM(nn.Module):
         """Every block in depth order: the dense prefix, then ``blocks``."""
         return [*self.dense_blocks, *self.blocks]
 
-    def embed(self, tokens):
+    def embed(self, tokens, vision_embeds=None):
         """tokens [B, S] -> [B, meta_tokens + S, d]: the meta tokens' rows
-        (if any) ahead of each sequence's embeddings."""
+        (if any) ahead of each sequence's embeddings. In the vlm family,
+        ``vision_embeds`` [B, vision_tokens, d] (cast to the model's dtype)
+        replace the first ``vision_tokens`` embeddings."""
         x = self.tok_embed[tokens]
+        if self.cfg.family == "vlm" and vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(x.dtype),
+                           x[:, self.cfg.vision_tokens:]], dim=1)
         if self.cfg.meta_tokens:
             meta = self.meta_tokens[None].expand(x.shape[0], -1, -1)
             x = torch.cat([meta, x], dim=1)
         return x
+
+    def encode(self, frames, remat: bool = False):
+        """The audio encoder over frame embeddings [B, F, d]: the frames
+        and the sinusoidal table, each cast to the model's dtype, added;
+        the ``encoder`` blocks (full attention, rotary embeddings at the
+        frame positions; each recomputed in the backward when ``remat``);
+        ``enc_norm``. Returns [B, F, d] in the model's dtype."""
+        cfg, dtype = self.cfg, self.tok_embed.dtype
+        f = frames.shape[1]
+        table = torch.from_numpy(sinusoidal_embedding(f, cfg.d_model))
+        x = frames.to(dtype) + table.to(frames.device, dtype)[None]
+        cos, sin = rope_cos_sin(torch.arange(f, device=x.device),
+                                cfg.resolved_head_dim, cfg.rope_theta)
+        for blk in self.encoder:
+            if remat:
+                x = checkpoint(lambda x_, b=blk: b(x_, cos, sin)[0], x,
+                               use_reentrant=False)
+            else:
+                x = blk(x, cos, sin)[0]
+        return rms_norm(x, self.enc_norm, cfg.norm_eps)
 
     def logits(self, x):
         cfg = self.cfg
@@ -352,20 +491,23 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         if cfg.meta_tokens:
             model.meta_tokens.copy_(embed_init(gen, model.meta_tokens.shape,
                                                dtype))
-        for blk in model.layers():
+        for blk in [*model.layers(), *model.encoder]:
             if hasattr(blk, "ssm"):
                 ssm_lib.init_ssm(blk.ssm, gen)
             if isinstance(blk, SSMBlock):
                 continue
-            a = blk.attn
-            for w in (a.wq, a.wk, a.wv):
-                w.copy_(dense_init(gen, w.shape, 0, dtype))
-            a.wo.copy_(dense_init(gen, a.wo.shape, (0, 1), dtype))
+            attns = [blk.attn, blk.xattn] if isinstance(blk, CrossBlock) \
+                else [blk.attn]
+            for a in attns:
+                for w in (a.wq, a.wk, a.wv):
+                    w.copy_(dense_init(gen, w.shape, 0, dtype))
+                a.wo.copy_(dense_init(gen, a.wo.shape, (0, 1), dtype))
             if isinstance(blk, MoEBlock):
                 moe_lib.init_moe(blk.moe, gen)
                 continue
-            for w in (blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down):
-                w.copy_(dense_init(gen, w.shape, 0, dtype))
+            for name, w in blk.mlp.named_parameters():
+                if name.startswith("w_"):   # the biases stay zero
+                    w.copy_(dense_init(gen, w.shape, 0, dtype))
         if not cfg.tie_embeddings:
             model.lm_head.copy_(dense_init(gen, model.lm_head.shape, 0,
                                            dtype))
@@ -385,29 +527,36 @@ def forward(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             collect_cache: bool = False, return_aux: bool = False):
     """Teacher-forced full-sequence forward -> logits [B, S, Vpad] f32
     (the meta tokens' rows, which the hybrid family prepends, are cut
-    off).
+    off). ``batch`` holds ``tokens`` [B, S] and the family's modality
+    stub: the audio family's ``frames`` [B, F, d] (the encoder runs once
+    over them), the vlm family's optional ``vision_embeds`` [B,
+    vision_tokens, d]; other entries are ignored.
 
     With ``collect_cache``, also returns each layer's cache entries
     stacked per layer, the dense prefix first: ``{"k", "v"}`` ``[L, B,
     S', KVH, hd]`` (after the rotary embedding, as cached; S' = S plus
     the meta tokens) where the layers attend, ``{"h", "conv"}`` (``[L,
     B, H, P, N]`` f32 and ``[L, B, K - 1, di + 2 N]``) where they run the
-    SSD. With ``return_aux``, also the load-balance aux loss summed over
+    SSD, ``{"xk", "xv"}`` ``[L, B, F, KVH, hd]`` where they attend to the
+    encoder's output. With ``return_aux``, also the load-balance aux loss summed over
     the MoE layers, an f32 scalar (zero for the other families)."""
     check_family(cfg)
-    x = model.embed(batch["tokens"])
+    x = model.embed(batch["tokens"], batch.get("vision_embeds"))
     cos, sin = _rope(model, torch.arange(x.shape[1], device=x.device))
     remat = cfg.remat and not collect_cache and torch.is_grad_enabled() \
         and x.requires_grad
+    # the audio decoder's blocks attend to the encoder's output
+    enc = {"enc_out": model.encode(batch["frames"], remat)} \
+        if cfg.enc_layers else {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for blk in model.layers():
         if remat:   # (x, aux): no cache is collected under remat
             x, a = checkpoint(
-                lambda x_, b=blk: b(x_, cos, sin, return_aux)[::2], x,
-                use_reentrant=False)
+                lambda x_, b=blk: b(x_, cos, sin, return_aux, **enc)[::2],
+                x, use_reentrant=False)
         else:
-            x, c, a = blk(x, cos, sin, return_aux, collect_cache)
+            x, c, a = blk(x, cos, sin, return_aux, collect_cache, **enc)
             if collect_cache:
                 caches.append(c)
         if a is not None:
@@ -428,7 +577,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``[L, B, max_len + meta_tokens, KVH, hd]`` where the layers attend
     (slot i holds position i, the meta tokens first); the SSD's ``h``
     ``[L, B, H, P, N]`` f32 and ``conv`` ``[L, B, K - 1, di + 2 N]``
-    where they run it."""
+    where they run it; the cross-attention's ``xk``, ``xv`` ``[L, B,
+    enc_frames, KVH, hd]`` where the layers attend to an encoder."""
     check_family(cfg)
     dtype = dtype or _dtype(cfg)
     dev = resolve_device(device)
@@ -444,14 +594,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                  dtype=torch.float32, device=dev)
         cache["conv"] = torch.zeros((cfg.n_layers,) + shapes["conv"],
                                     dtype=dtype, device=dev)
+    if cfg.enc_layers:
+        cache["xk"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.enc_frames, cfg.n_kv_heads,
+             cfg.resolved_head_dim), dtype=dtype, device=dev)
+        cache["xv"] = torch.zeros_like(cache["xk"])
     return cache
 
 
 def prefill(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
-    """Process a full prompt -> (logits [B, S, Vpad], decode cache with
-    slots [0, meta_tokens + S) filled and the SSD states after the
-    prompt)."""
+    """Process a full prompt (``batch`` as ``forward``'s) -> (logits [B,
+    S, Vpad], decode cache with slots [0, meta_tokens + S) filled, the SSD
+    states after the prompt, and the cross-attention's keys and values
+    over the encoder's output)."""
     b, s = batch["tokens"].shape
     logits, states = forward(model, batch, cfg, collect_cache=True)
     cache = init_cache(cfg, b, max_len or s, device=model.device)

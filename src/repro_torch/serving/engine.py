@@ -42,15 +42,18 @@ class Engine:
     @torch.inference_mode()
     def generate(self, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
-        """batch: {"tokens": [B, S]} (a tensor or numpy array). Returns
-        generated token ids [B, <=max_new_tokens] int32; after a
-        sequence's EOS every later id is EOS. Sampling at
-        ``temperature > 0`` draws from ``generator``."""
+        """batch: the prompt inputs, {"tokens": [B, S]} plus the family's
+        modality stub (``frames``, ``vision_embeds``), tensors or numpy
+        arrays, each moved to the model's device. Returns generated token
+        ids [B, <=max_new_tokens] int32; after a sequence's EOS every
+        later id is EOS. Sampling at ``temperature > 0`` draws from
+        ``generator``."""
         cfg, scfg = self.cfg, self.scfg
-        tokens = torch.as_tensor(batch["tokens"], device=self.model.device)
-        b, s = tokens.shape
+        batch = {key: torch.as_tensor(val, device=self.model.device)
+                 for key, val in batch.items()}
+        b, s = batch["tokens"].shape
         t0 = time.perf_counter()
-        logits, cache = prefill(self.model, {"tokens": tokens}, cfg,
+        logits, cache = prefill(self.model, batch, cfg,
                                 max_len=s + scfg.max_new_tokens)
         tok = self._sample(logits[:, -1:], generator)
         out: List[np.ndarray] = []

@@ -38,7 +38,8 @@ from typing import Any, Dict, List, Mapping, Tuple, Union
 import torch
 
 Tensors = Mapping[str, torch.Tensor]
-STACKS = ("blocks", "dense_blocks")   # the reference's [L, ...] stacks
+# the reference's [L, ...] stacks
+STACKS = ("blocks", "dense_blocks", "encoder")
 
 
 @dataclasses.dataclass(frozen=True)

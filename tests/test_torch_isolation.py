@@ -40,6 +40,11 @@ SSM_HYBRID_MODULES = {"repro_torch.configs.mamba2_370m",
                       "repro_torch.kernels.flash_attention",
                       "repro_torch.kernels.ops", "repro_torch.carry",
                       "repro_torch.serving.engine"}
+# the audio and vlm families' serving modules
+AUDIO_VLM_MODULES = {"repro_torch.configs.whisper_small",
+                     "repro_torch.configs.internvl2_76b",
+                     "repro_torch.models.layers", "repro_torch.models.model",
+                     "repro_torch.data.lm", "repro_torch.serving.engine"}
 # the training path's modules
 TRAIN_MODULES = {"repro_torch.training", "repro_torch.training.optimizer",
                  "repro_torch.training.train_step",
@@ -58,6 +63,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert LM_MODULES <= loaded, LM_MODULES - loaded
     assert TRAIN_MODULES <= loaded, TRAIN_MODULES - loaded
     assert SSM_HYBRID_MODULES <= loaded, SSM_HYBRID_MODULES - loaded
+    assert AUDIO_VLM_MODULES <= loaded, AUDIO_VLM_MODULES - loaded
 
 
 FORBIDDEN = re.compile(

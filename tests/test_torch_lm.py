@@ -41,7 +41,9 @@ torch.set_num_threads(2)   # xdist runs several workers on the same cores
 DENSE = ("tinyllama-1.1b", "stablelm-1.6b", "command-r-plus-104b",
          "qwen1.5-4b")
 MOE = ("dbrx-132b", "kimi-k2-1t-a32b")   # tests/test_torch_moe.py
-OTHER = {"internvl2-76b": "vlm", "whisper-small": "audio"}
+# whisper-small (audio) and internvl2-76b (vlm): tests/test_torch_audio.py
+# and tests/test_torch_vlm.py
+AUDIO_VLM = ("whisper-small", "internvl2-76b")
 # mamba2-370m (ssm) and hymba-1.5b (hybrid): tests/test_torch_ssm.py and
 # tests/test_torch_hybrid.py
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -88,10 +90,11 @@ def tiny_f32():
 
 # ------------------------------------------------------------------ configs
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + AUDIO_VLM)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_dense_configs_copy_the_reference(arch, reduced):
-    """The dense and moe families' configs, and their analytic counts."""
+    """The dense, moe, audio and vlm families' configs, and their analytic
+    counts (the audio family's with its encoder and cross-attention)."""
     ref = ref_get_config(arch, reduced=reduced)
     got = get_config(arch, reduced=reduced)
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
@@ -101,12 +104,14 @@ def test_dense_configs_copy_the_reference(arch, reduced):
     assert got.active_param_count() == ref.active_param_count()
 
 
-@pytest.mark.parametrize("arch,family", sorted(OTHER.items()))
-def test_other_families_raise_naming_the_family(arch, family):
-    with pytest.raises(NotImplementedError, match=repr(family)):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match=repr(family)):
-        T.init_params(ref_get_config(arch, reduced=True), device="cpu")
+def test_a_family_the_port_does_not_know_raises_naming_it():
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b", reduced=True),
+                              family="diffusion")
+    for call in (lambda: T.init_params(cfg, device="cpu"),
+                 lambda: T.init_cache(cfg, 1, 4, device="cpu"),
+                 lambda: batch_at(DataConfig(), cfg, 0, device="cpu")):
+        with pytest.raises(NotImplementedError, match="'diffusion'"):
+            call()
 
 
 def test_unknown_arch_raises():
