@@ -11,7 +11,7 @@ each kernel against its plain PyTorch
 version on the card (edge cases, the sliding window and meta tokens
 included, in the forward and in the backward, and exact-tie inputs),
 prefills each dense, moe, hybrid, audio and vlm REDUCED config through
-the attention kernel against the plain attention, then drives twelve
+the attention kernel against the plain attention, then drives fourteen
 paths, each with its kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
@@ -98,6 +98,21 @@ paths, each with its kernel launches counted from zero and checked:
   through the plain attention; exactly 32 x 6 backward launches on
   hymba and no attention launch on mamba2. Prints step wall time,
   tokens/s, peak memory, idle share, top kernels and launches a step.
+* audio_train and vlm_train: the audio and vlm families trained as train
+  trains TinyLlama (6 steps on one batch, remat, the last profiled).
+  whisper-small uncut through launch/train.py's setup (f32 AdamW), B=16
+  clips of 1500 frames with 448 decoder tokens each: 72 flash_attention
+  launches a step (12 full at 1500 x 1500, 12 causal at 448 x 448, 12
+  full cross-attention at 448 x 1500, each forward twice) and 36
+  flash_attention_bwd; then internvl2-76b at its published widths cut to
+  6 of 80 layers, factored f32 AdamW, B=4 x S=1024 under 256 vision
+  embeddings a row: 12 and 6. The loss must fall, step 0's agree with
+  the plain attention's, and the attention gradients of whisper's
+  encoder layer 0 (full), decoder layer 0's self-attention (causal) and
+  cross-attention (full, Sq < Sk), and of internvl2's layer 0 (causal,
+  D 128, G 8) with autograd through the plain attention, each under the
+  captured call's own mask; internvl2's loss takes no label under the
+  vision tokens.
 * compare: the paper's comparison (Table IV, Figs 8-10) at 50,000 x 128
   with 1000 queries: PAG, DiskANN (one ``pq_adc_rows`` launch per wave of
   its lock-step traversal, the waves of each sweep printed), SPANN (closure
@@ -115,12 +130,15 @@ least Sk must give the causal backward bit for bit.
 
 Last, each kernel is timed on the inputs its path gave it (``l2_topk``
 twice: SPANN's closure chunk and the 1M ground-truth chunk;
-``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention``
-eight times: rag's first prefill layer, the moe path's two, hymba's first
+``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` ten
+times: rag's first prefill layer, the moe path's two, hymba's first
 windowed and first global layer, whisper's encoder layer and
-cross-attention, and internvl2's first layer; ``flash_attention_bwd``
-twice: the train path's layer 0 and long_train's hymba layer 1,
-windowed): CUDA
+cross-attention, internvl2's first layer, and the two train layers
+audio_train and vlm_train add, whisper's encoder at B=16 and
+internvl2's at 4 x 1024; ``flash_attention_bwd`` five times: the train
+path's layer 0, long_train's hymba layer 1, windowed, whisper's encoder
+layer and cross-attention, and internvl2's layer 0, each under its own
+mask, two calls bit-identical): CUDA
 events around back-to-back wrapper calls (``ms``) and the kernel's own
 device time from ``torch.profiler`` (``device_ms``), beside its plain
 version,
@@ -399,6 +417,46 @@ AUDIO_ARCH, AUDIO_BATCH, AUDIO_PROMPT, AUDIO_NEW = "whisper-small", 8, 64, 64
 # them), 32 greedy tokens, as rag serves TinyLlama
 VLM_ARCH, VLM_DEPTH, VLM_BATCH, VLM_PROMPT, VLM_NEW = \
     "internvl2-76b", 24, 8, 500, 32
+# Training of the audio and vlm families, as the train path trains
+# TinyLlama (TRAIN_STEPS AdamW steps of launch/train.py's step on one
+# repeated batch, remat, the last under torch.profiler), each freed before
+# the next. whisper-small uncut, set up by launch/train.py:setup with
+# --full (the trainer's own optimizer: f32 AdamW, unfactored): B = 16
+# clips of 1500 frames (30 s of audio), each with S = 448 decoder tokens,
+# Whisper's whole decoder context. A step launches flash_attention 72
+# times (12 full at 1500 x 1500, 12 causal at 448 x 448, 12 full at 448 x
+# 1500, each forward and recomputed in the backward) and
+# flash_attention_bwd 36 times
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ = 16, 448
+# internvl2-76b at its published widths cut in depth only, from 80 to 6
+# layers: 6 x 0.856 B + 2.10 B of embedding and head = 7.24 B parameters,
+# whose bf16 weights and gradients, f32 first moment and factored second
+# moment take 57.9 GB (53.9 GiB) of the card's 80. Built as the vlm path
+# builds it and stepped with make_train_step under the reference's
+# optimizer for this arch (repro/launch/dryrun.py arch_opt_config:
+# factored, f32 state). B = 4 x S = 1024: one 448-px tile's 256 vision
+# embeddings (labels -1), then 768 text tokens, as in InternVL2's
+# supervised fine-tuning on single-image samples; the loss counts 4 x 767
+# positions (the last label of a row is -1 too). 12 flash_attention and 6
+# flash_attention_bwd launches a step
+VLM_TRAIN_DEPTH, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 6, 4, 1024
+# scripts/train_lr_sweep.py's choice (see PERF.md): the largest learning
+# rate of 1e-5, 3e-5, 1e-4, 3e-4 and 1e-3 at which the loss fell at
+# every step
+MODAL_TRAIN_LR = {"whisper-small": 1e-4, "internvl2-76b": 3e-5}
+MODAL_TRAIN_PATHS = ("audio_train", "vlm_train")
+# the first attention call with gradients of each kind a layer check and a
+# kernel row take: whisper's encoder layer 0 (full, 1500 x 1500), decoder
+# layer 0's self-attention (causal, 448 x 448) and its cross-attention
+# (full, 448 x 1500); internvl2's layer 0 (causal, D 128, G 8)
+MODAL_TRAIN_LAYERS = {
+    "audio_train": {
+        "encoder layer 0": lambda a, kw: not kw["causal"]
+        and a[0].shape[1] == a[1].shape[1],
+        "decoder layer 0 self-attention": lambda a, kw: kw["causal"],
+        "decoder layer 0 cross-attention": lambda a, kw: not kw["causal"]
+        and a[0].shape[1] < a[1].shape[1]},
+    "vlm_train": {"layer 0": lambda a, kw: True}}
 # The reference's chunked attention pads K and V with zero keys to a
 # multiple of this chunk (when longer) that only a causal mask hides, so
 # its full attention (whisper's encoder and prefill cross-attention) gives
@@ -805,8 +863,9 @@ def flash_bwd_check(got, want, name: str) -> float:
 
 def check_flash_bwd_edges(dev) -> None:
     """flash_attention_bwd against its plain version on the card, fed the
-    kernel forward's (out, lse) (lse itself held to the plain
-    log-sum-exp): bf16 and f32, every compiled D (16, 32, 64, 128) and
+    kernel forward's residuals (lse, held to the plain log-sum-exp, and
+    the f32 output, which must round to the output bit for bit): bf16 and
+    f32, every compiled D (16, 32, 64, 128) and
     padded ones (12, 48, 112), ragged Sq and Sk off the 64-row tiles and
     the 128-key blocks, causal (Sq <= Sk) and full (Sq < Sk and Sq > Sk),
     H/KVH = 1, 2 and 8, Sk < 16, Sq = 1, B = 2, grids of a few blocks and
@@ -855,14 +914,20 @@ def check_flash_bwd_edges(dev) -> None:
             ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d), (b, sq, h, d)))
         name = (f"flash_attention_bwd B{b} H{h}/{kvh} {sq}x{sk} D{d} "
                 f"causal={causal} {dtype}")
-        out, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
-        _, want_lse = fa.flash_attention_plain(q, k, v, causal,
+        rounded, lse, out = fa.flash_attention(q, k, v, causal,
                                                return_lse=True)
+        _, want_lse = fa.flash_attention_plain(q, k, v, causal,
+                                               return_lse=True)[:2]
         tol = FLASH_LSE_BF16_TOL if dtype == bf16 else FLASH_LSE_F32_TOL
         lse_err = (lse - want_lse).abs()
         if not (lse_err <= tol + tol * want_lse.abs()).all():
             raise AssertionError(f"{name}: lse off by "
                                  f"{float(lse_err.max()):.3g}")
+        # the f32 output the backward takes rounds to the output
+        if out.dtype != torch.float32 or not torch.equal(out.to(dtype),
+                                                         rounded):
+            raise AssertionError(f"{name}: the f32 output does not round "
+                                 f"to the output")
         flash_bwd_check(
             fa.flash_attention_bwd(q, k, v, out, lse, dout, causal),
             fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal),
@@ -906,9 +971,9 @@ def check_flash_bwd_edges(dev) -> None:
 def check_flash_bwd_window_edges(dev) -> None:
     """The window and meta tokens in flash_attention_bwd: against its plain
     version over FLASH_BWD_WINDOW_EDGES, bf16 and f32, fed the windowed
-    kernel forward's (out, lse); and a window of at least Sk (meta tokens
-    or none) equal to the causal launch bit for bit, on the causal
-    forward's (out, lse)."""
+    kernel forward's (lse, f32 output); and a window of at least Sk (meta
+    tokens or none) equal to the causal launch bit for bit, on the causal
+    forward's."""
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(5)
     for dtype in (torch.bfloat16, torch.float32):
@@ -920,12 +985,13 @@ def check_flash_bwd_window_edges(dev) -> None:
             kw = dict(window=window, meta_tokens=meta)
             name = (f"flash_attention_bwd B{b} H{h}/{kvh} {sq}x{sk} D{d} "
                     f"window={window} meta={meta} {dtype}")
-            out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            _, lse, out = fa.flash_attention(q, k, v, return_lse=True,
+                                             **kw)
             flash_bwd_check(
                 fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw),
                 fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw),
                 name)
-            out, lse = fa.flash_attention(q, k, v, return_lse=True)
+            _, lse, out = fa.flash_attention(q, k, v, return_lse=True)
             causal = fa.flash_attention_bwd(q, k, v, out, lse, dout)
             for wide, m in ((sk, 0), (sk, meta), (sk + 7, 3)):
                 got = fa.flash_attention_bwd(q, k, v, out, lse, dout,
@@ -1133,8 +1199,9 @@ def nth_call(n: int):
 class Capture:
     """Keeps the inputs of the first call of a kernel entry point in
     ``repro_torch.kernels.ops`` that ``want(args, kw)`` accepts (for timing at
-    a path's own shapes); the call itself goes on to the real wrapper
-    unchanged."""
+    a path's own shapes), its tensors detached (so that a training call's
+    inputs keep no autograd graph, nor the weights it reaches, alive); the
+    call itself goes on to the real wrapper unchanged."""
 
     def __init__(self, ops, name: str, want):
         self.ops, self.name, self.want = ops, name, want
@@ -1146,7 +1213,8 @@ class Capture:
 
         def wrapped(*args, **kw):
             if self.args is None and self.want(args, kw):
-                self.args = (args, kw)
+                self.args = (tuple(a.detach() if torch.is_tensor(a) else a
+                                   for a in args), kw)
             return self.orig(*args, **kw)
         setattr(self.ops, self.name, wrapped)
         return self
@@ -2198,28 +2266,59 @@ def report_modal(r: dict, checks: dict, launches: dict) -> None:
     print(f"{tag} report: {json.dumps(rep)}", flush=True)
 
 
-def train_steps(dev, tag: str, arch: str, lr: float,
-                microbatches: int) -> dict:
+def cut_setup(args, depth: int, factored: bool):
+    """``launch/train.py:setup``'s (cfg, dcfg, model, opt_state, step_fn)
+    for the published config of ``args.arch`` cut in depth to ``depth``
+    layers (as ``modal_serve`` cuts it), with the trainer's schedule, and
+    the optimizer's second moment factored when ``factored``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import DataConfig
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import OptimizerConfig, init_state
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=depth)
+    ocfg = OptimizerConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                           total_steps=args.steps, factored=factored)
+    model = init_params(cfg, seed=0, device=args.device).requires_grad_()
+    opt = init_state(dict(model.named_parameters()), ocfg)
+    return (cfg, DataConfig(seed=0, batch_size=args.batch,
+                            seq_len=args.seq), model, opt,
+            make_train_step(cfg, ocfg,
+                            TrainConfig(microbatches=args.microbatches)))
+
+
+def train_steps(dev, tag: str, arch: str, lr: float, microbatches: int,
+                batch_size: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                depth=None, factored: bool = False) -> dict:
     """``arch`` trained at its published width through ``launch/train.py``'s
-    own setup and step (B=TRAIN_BATCH x S=TRAIN_SEQ, bf16, remat): the
-    seeded model and AdamW state on the card, the loss of the first batch
-    through the plain attention (before any step; none for an
-    attention-free arch), then TRAIN_STEPS steps on that one batch, the
-    last under ``torch.profiler``. Returns the losses, walls, peak memory
-    and profile; frees the model."""
+    own setup and step (B=``batch_size`` x S=``seq``, bf16, remat; with
+    ``depth``, cut to that many layers by ``cut_setup``): the seeded model
+    and AdamW state on the card, the loss of the first batch through the
+    plain attention (before any step; none for an attention-free arch),
+    then TRAIN_STEPS steps on that one batch, the last under
+    ``torch.profiler``. Returns the losses, walls, peak memory, profile and
+    the count of labels the loss takes; frees the model."""
+    from repro_torch.configs import get_config
     from repro_torch.data.lm import batch_at
     from repro_torch.launch import train as trainer
     from repro_torch.training.train_step import TrainConfig, loss_fn
     args = trainer.parser().parse_args([
-        "--arch", arch, "--full", "--batch", str(TRAIN_BATCH),
-        "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+        "--arch", arch, "--full", "--batch", str(batch_size),
+        "--seq", str(seq), "--steps", str(TRAIN_STEPS),
         "--microbatches", str(microbatches), "--lr", str(lr),
         "--device", str(dev)])
-    with phase(f"{tag}: init {arch} and AdamW state (seeded, on the "
-               f"card)"):
-        cfg, dcfg, model, opt, step_fn = trainer.setup(args)
+    with phase(f"{tag}: init {arch}"
+               + (f" ({depth} layers)" if depth else "")
+               + " and AdamW state (seeded, on the card)"):
+        cfg, dcfg, model, opt, step_fn = trainer.setup(args) \
+            if depth is None else cut_setup(args, depth, factored)
         batch = batch_at(dcfg, cfg, 0, device=dev)
         torch.cuda.synchronize()
+    labels = batch["labels"]
+    counted = {"labels_counted": int((labels >= 0).sum())}
+    if cfg.family == "vlm":
+        counted["vision_labels_all_ignored"] = bool(
+            (labels[:, :cfg.vision_tokens] == -1).all())
     plain_loss = None
     if not cfg.is_attention_free:
         with phase(f"{tag}: step 0's loss through the plain attention"), \
@@ -2263,9 +2362,12 @@ def train_steps(dev, tag: str, arch: str, lr: float,
     del model, opt, m, batch
     torch.cuda.empty_cache()
     return {"tag": tag, "arch": arch, "lr": lr, "microbatches": microbatches,
-            "cfg": cfg, "losses": losses, "gnorms": gnorms, "walls": walls,
+            "cfg": cfg, "batch": batch_size, "seq": seq,
+            "reduced": {} if depth is None else {
+                "n_layers": [get_config(arch).n_layers, depth]},
+            "losses": losses, "gnorms": gnorms, "walls": walls,
             "plain_loss": plain_loss, "peak_bytes": peak,
-            "n_params": n_params, "profile": profile_rep}
+            "n_params": n_params, "profile": profile_rep, **counted}
 
 
 def train(dev) -> dict:
@@ -2281,41 +2383,79 @@ def long_train(dev, arch: str) -> dict:
                        LONG_TRAIN_MICROBATCHES[arch])
 
 
-def check_train(r: dict, layer_cap, every_step: bool = False) -> dict:
+def modal_train(dev, tag: str) -> dict:
+    """The audio_train path (whisper-small, uncut, the trainer's setup) or
+    the vlm_train path (internvl2-76b cut to VLM_TRAIN_DEPTH layers,
+    factored f32 AdamW) through ``train_steps``, at MODAL_TRAIN_LR."""
+    if tag == "audio_train":
+        return train_steps(dev, tag, AUDIO_ARCH, MODAL_TRAIN_LR[AUDIO_ARCH],
+                           1, AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ)
+    return train_steps(dev, tag, VLM_ARCH, MODAL_TRAIN_LR[VLM_ARCH], 1,
+                       VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, depth=VLM_TRAIN_DEPTH,
+                       factored=True)
+
+
+def modal_train_captures(tag: str) -> dict:
+    """One ``Capture`` for each of MODAL_TRAIN_LAYERS[tag]: the first
+    ``flash_attention`` call with gradients of that kind."""
+    from repro_torch.kernels import ops
+    return {what: Capture(ops, "flash_attention",
+                          lambda a, kw, t=test: a[0].requires_grad
+                          and t(a, kw))
+            for what, test in MODAL_TRAIN_LAYERS[tag].items()}
+
+
+def attention_mask(kw: dict) -> dict:
+    """The mask of a captured ``flash_attention`` call: causal, window,
+    meta_tokens as its keyword arguments gave them."""
+    return dict(causal=kw["causal"], window=kw.get("window", 0),
+                meta_tokens=kw.get("meta_tokens", 0))
+
+
+def layer_grads(cap, what: str) -> dict:
+    """The attention gradients of the layer ``cap`` kept (its q, k, v and
+    mask, and a seeded dO) through the kernels, against autograd through
+    the materialised-scores attention: each within FLASH_BWD_BF16_TOL
+    (``flash_bwd_check``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    (q, k, v), kw = cap.args
+    mask = attention_mask(kw)
+    gen = torch.Generator(q.device).manual_seed(0)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    got = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention(*got, **mask).backward(dout)
+    want = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention_plain(*want, **mask).backward(dout)
+    out = {"layer": what, "mask": mask,
+           "q": list(q.shape), "k": list(k.shape),
+           "max_abs": flash_bwd_check(
+               [t.grad for t in got], [t.grad for t in want],
+               f"{what}: attention gradients vs plain autograd"),
+           "scale": max(float(t.grad.float().abs().max()) for t in want)}
+    del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_train(r: dict, layer_caps: dict, every_step: bool = False) -> dict:
     """A train run's checks: finite losses that fall on the repeated batch
     (the last below step 0's; with ``every_step``, each below the one
     before); with attention, step 0's loss within TRAIN_LOSS_ATOL of the
-    forward through the plain attention, and the captured layer's
-    attention gradients (its q, k, v and mask as ``layer_cap`` kept them,
-    and a seeded dO) through the kernels within FLASH_BWD_BF16_TOL of
-    autograd through the materialised-scores attention."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
-    losses, tag = r["losses"], r["tag"]
-    out = {"loss_step0": losses[0], "loss_last": losses[-1]}
+    forward through the plain attention, and each captured layer's
+    attention gradients (``layer_caps``: {what: Capture}) through the
+    kernels within FLASH_BWD_BF16_TOL of autograd through the
+    materialised-scores attention, under the captured call's own mask. The
+    vlm family's loss takes no label under the vision tokens, nor the
+    last of a row: B (S - vision_tokens - 1) of them."""
+    losses, tag, cfg = r["losses"], r["tag"], r["cfg"]
+    out = {"loss_step0": losses[0], "loss_last": losses[-1],
+           "labels_counted": r["labels_counted"]}
     if r["plain_loss"] is not None:
-        (q, k, v), kw = layer_cap.args
-        mask = dict(window=kw.get("window", 0),
-                    meta_tokens=kw.get("meta_tokens", 0))
-        q, k, v = (t.detach() for t in (q, k, v))
-        gen = torch.Generator(q.device).manual_seed(0)
-        dout = torch.randn(q.shape, generator=gen, device=q.device) \
-            .to(q.dtype)
-        got = [t.clone().requires_grad_() for t in (q, k, v)]
-        ops.flash_attention(*got, causal=True, **mask).backward(dout)
-        want = [t.clone().requires_grad_() for t in (q, k, v)]
-        fa.flash_attention_plain(*want, causal=True, **mask).backward(dout)
-        out.update(
-            plain_loss_step0=r["plain_loss"],
-            loss_vs_plain_abs=abs(losses[0] - r["plain_loss"]),
-            layer_grad_mask=mask,
-            layer_grad_max_abs=flash_bwd_check(
-                [t.grad for t in got], [t.grad for t in want],
-                f"{tag}: layer attention gradients vs plain autograd"),
-            layer_grad_scale=max(float(t.grad.float().abs().max())
-                                 for t in want))
-        del got, want
-        torch.cuda.empty_cache()
+        out.update(plain_loss_step0=r["plain_loss"],
+                   loss_vs_plain_abs=abs(losses[0] - r["plain_loss"]),
+                   layer_grads=[layer_grads(cap, what)
+                                for what, cap in layer_caps.items()])
     print(f"{tag} checks: {json.dumps(out)}", flush=True)
     falls = all(b < a for a, b in zip(losses, losses[1:])) if every_step \
         else losses[-1] < losses[0]
@@ -2326,18 +2466,26 @@ def check_train(r: dict, layer_cap, every_step: bool = False) -> dict:
             and out["loss_vs_plain_abs"] > TRAIN_LOSS_ATOL:
         raise AssertionError(f"{tag}: step 0 loss {losses[0]} against "
                              f"{r['plain_loss']} through plain attention")
+    if cfg.family == "vlm" and (
+            not r["vision_labels_all_ignored"] or r["labels_counted"]
+            != r["batch"] * (r["seq"] - cfg.vision_tokens - 1)):
+        raise AssertionError(f"{tag}: the loss takes {r['labels_counted']}"
+                             f" labels, some under the vision tokens")
     return out
 
 
 def report_train(r: dict, checks: dict, counts: dict) -> None:
     """A train run's numbers, each on its own line, then one JSON line.
     Warm: steps 1 .. TRAIN_STEPS - 2 (step 0 pays first use, the last
-    runs under the profiler)."""
-    tag, warm = r["tag"], r["walls"][1:-1]
+    runs under the profiler). Tokens are the decoder's; an encoder's
+    frames are counted apart."""
+    tag, warm, cfg = r["tag"], r["walls"][1:-1], r["cfg"]
     step_s = sum(warm) / len(warm)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    rep = {"arch": r["arch"], "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "slots": TRAIN_SEQ + r["cfg"].meta_tokens, "steps": TRAIN_STEPS,
+    tokens = r["batch"] * r["seq"]
+    rep = {"arch": r["arch"], "reduced": r["reduced"],
+           "layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+           "batch": r["batch"], "seq": r["seq"],
+           "slots": r["seq"] + cfg.meta_tokens, "steps": TRAIN_STEPS,
            "microbatches": r["microbatches"], "lr": r["lr"],
            "params": r["n_params"], "losses": r["losses"],
            "grad_norms": r["gnorms"], "step_walls_s": r["walls"],
@@ -2351,6 +2499,11 @@ def report_train(r: dict, checks: dict, counts: dict) -> None:
           f"{step_s:.4f}")
     print(f"{tag} tokens per second (warm, {tokens} tokens a step): "
           f"{tokens / step_s:.1f}")
+    if cfg.enc_layers:
+        frames = r["batch"] * cfg.enc_frames
+        rep["frames_per_s"] = frames / step_s
+        print(f"{tag} encoder frames per second (warm, {frames} frames a "
+              f"step): {frames / step_s:.1f}")
     print(f"{tag} peak memory (torch.cuda.max_memory_allocated): "
           f"{r['peak_bytes'] / 2 ** 30:.2f} GiB")
     print(f"{tag} idle share (profiled step): "
@@ -2592,55 +2745,58 @@ def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
 
 
 def check_flash_bwd_deterministic(*args, **mask) -> None:
-    """Two backward calls on the same inputs (and mask: ``window``,
-    ``meta_tokens``) give bit-identical dq, dk and dv: the kernels sum
-    each element in one order, with no atomics."""
+    """Two backward calls on the same inputs (and mask: ``causal``,
+    ``window``, ``meta_tokens``) give bit-identical dq, dk and dv: the
+    kernels sum each element in one order, with no atomics."""
     from repro_torch.kernels import flash_attention as fa
-    first = fa.flash_attention_bwd(*args, causal=True, **mask)
-    second = fa.flash_attention_bwd(*args, causal=True, **mask)
+    first = fa.flash_attention_bwd(*args, **mask)
+    second = fa.flash_attention_bwd(*args, **mask)
     for part, x, y in zip(("dq", "dk", "dv"), first, second):
         if not torch.equal(x.view(torch.int16), y.view(torch.int16)):
             raise AssertionError(f"flash_attention_bwd: two calls give "
                                  f"different {part} ({mask})")
-    print(f"flash_attention_bwd: two calls bit-identical {mask}", flush=True)
+    print(f"flash_attention_bwd: two calls bit-identical {mask} at "
+          f"{list(args[0].shape)} x {list(args[1].shape)}", flush=True)
 
 
-def flash_bwd_row(layer_args, launches: int, what: str = "train layer 0",
-                  window: int = 0, meta_tokens: int = 0) -> dict:
-    """The kernel row of ``flash_attention_bwd`` on one training layer's
-    (q, k, v) (a train path's, step 0) under its mask (causal, and with
-    ``window > 0`` the window and meta tokens), with the kernel forward's
-    (out, lse) and a seeded dO; the library time is the backward of
-    ``scaled_dot_product_attention`` (GQA; causal, or with a window the
-    boolean mask as ``attn_mask``) on the same inputs."""
+def flash_bwd_row(call, launches: int, what: str) -> dict:
+    """The kernel row of ``flash_attention_bwd`` on a training layer's
+    ``flash_attention`` call, ``((q, k, v), kw)`` as a ``Capture`` keeps it
+    (a train path's, step 0), under the call's own mask (``kw``'s causal or
+    full, window and meta tokens), with the kernel forward's (lse, f32
+    output) and a seeded dO; the library time is the backward of
+    ``scaled_dot_product_attention`` (GQA; no mask for full attention,
+    ``is_causal`` for causal at Sq = Sk, else the boolean mask as
+    ``attn_mask``) on the same inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    mask = dict(window=window, meta_tokens=meta_tokens)
-    q, k, v = (t.detach() for t in layer_args)
+    (q, k, v), kw = call
+    mask = attention_mask(kw)
     (b, sq, h, d), (sk, kvh) = q.shape, k.shape[1:3]
-    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True,
-                                  **mask)
+    _, lse, out = fa.flash_attention(q, k, v, return_lse=True, **mask)
     gen = torch.Generator(q.device).manual_seed(1)
     dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
     check_flash_bwd_deterministic(q, k, v, out, lse, dout, **mask)
-    seen = ~fa._hidden(sq, sk, q.device, True, window, meta_tokens)
-    pairs = b * h * int(seen.sum())
+    hidden = fa._hidden(sq, sk, q.device, **mask)
+    pairs = b * h * (sq * sk if hidden is None else int((~hidden).sum()))
     # S = q.k and dP = dO.v recomputed, then dV, dQ and dK: five products
     # of 2 D FLOPs per unmasked pair
     n_ops = 10 * d * pairs
-    # q, O, dO, dQ and k, v, dK, dV in the inputs' dtype; lse and delta f32
-    nbytes = (4 * b * sq * h + 4 * b * sk * kvh) * d * q.element_size() \
-        + 2 * b * h * sq * 4
+    # q, dO, dQ and k, v, dK, dV in the inputs' dtype; the f32 O, lse and
+    # delta
+    nbytes = (3 * b * sq * h + 4 * b * sk * kvh) * d * q.element_size() \
+        + b * sq * h * d * 4 + 2 * b * h * sq * 4
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    library = dict(attn_mask=seen) if window else dict(is_causal=True)
+    library = dict(attn_mask=~hidden) if hidden is not None and (
+        mask["window"] or sq != sk) else dict(is_causal=mask["causal"])
     sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
                                               **library)
     dout_t = dout.transpose(1, 2)
     row = kernel_report(
         "flash_attention_bwd",
-        lambda *a: fa.flash_attention_bwd(*a, causal=True, **mask),
-        lambda *a: fa.flash_attention_bwd_plain(*a, causal=True, **mask),
+        lambda *a: fa.flash_attention_bwd(*a, **mask),
+        lambda *a: fa.flash_attention_bwd_plain(*a, **mask),
         lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
                                     retain_graph=True),
         (q, k, v, out, lse, dout), launches,
@@ -2649,12 +2805,13 @@ def flash_bwd_row(layer_args, launches: int, what: str = "train layer 0",
         replaces="src/repro/models/attention.py:136",
         check=lambda got, want: flash_bwd_check(got, want, what),
         shape={"B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh, "D": d,
-               "causal": True, **mask, "dtype": str(q.dtype)},
+               **mask, "dtype": str(q.dtype)},
         device_names=("bwd_delta", "bwd_dkdv", "bwd_dq"))
     row["note"] = ("counterpart of the reference's jnp custom_vjp backward, "
                    "not of a pallas_call; library: the backward of "
                    "scaled_dot_product_attention"
-                   + (" with the boolean mask" if window else ""))
+                   + (" with the boolean mask" if "attn_mask" in library
+                      else ""))
     return row
 
 
@@ -2827,9 +2984,9 @@ def time_kernels(caps, counts) -> list:
     rows.append(flash_row(caps["flash_attention"],
                           counts["flash_attention"]["flash_attention"],
                           "first prefill layer"))
-    rows.append(flash_bwd_row(caps["flash_attention_bwd"].args[0],
+    rows.append(flash_bwd_row(caps["flash_attention_bwd"].args,
                               counts["flash_attention_bwd"]
-                              ["flash_attention_bwd"]))
+                              ["flash_attention_bwd"], "train layer 0"))
     for r, path in zip(rows, ("main", "main", "compare", "main", "compare",
                               "rag", "train")):
         r["path"] = path
@@ -2865,14 +3022,38 @@ def time_kernels(caps, counts) -> list:
         "decoder self-attention (causal, 64 x 64), 12 cross-attention")
     # the long_train path's first windowed layer (layer 1, step 0):
     # hymba-1.5b's attention backward under the window and meta tokens
-    (args, kw) = caps["flash_attention_bwd:hybrid windowed"].args
     rows.append(flash_bwd_row(
-        args, counts["long_train:hymba-1.5b"]["flash_attention_bwd"],
-        "hymba-1.5b windowed train layer", window=kw["window"],
-        meta_tokens=kw["meta_tokens"]))
+        caps["flash_attention_bwd:hybrid windowed"].args,
+        counts["long_train:hymba-1.5b"]["flash_attention_bwd"],
+        "hymba-1.5b windowed train layer"))
     rows[-1]["path"] = "long_train"
     rows[-1]["note"] += ("; launches: the long_train path's on hymba-1.5b, "
                          "one a layer and step (29 windowed, 3 global)")
+    # the audio_train and vlm_train paths' layers (step 0): the backward
+    # at whisper-small's encoder layer (full, 1500 x 1500) and
+    # cross-attention (full, 448 x 1500) and at internvl2-76b's layer
+    # (causal, D 128, G 8); the forward at the two train shapes the serve
+    # rows do not have (whisper's encoder at B 16, internvl2's at B 4 x
+    # 1024)
+    for tag, what in (("audio_train", "encoder layer 0"),
+                      ("audio_train", "decoder layer 0 cross-attention"),
+                      ("vlm_train", "layer 0")):
+        rows.append(flash_bwd_row(caps[f"{tag}:{what}"].args,
+                                  counts[tag]["flash_attention_bwd"],
+                                  f"{tag} {what}"))
+        rows[-1]["path"] = tag
+    for tag, what in (("audio_train", "encoder layer 0"),
+                      ("vlm_train", "layer 0")):
+        rows.append(flash_row(caps[f"{tag}:{what}"],
+                              counts[tag]["flash_attention"],
+                              f"{tag} {what}"))
+        rows[-1]["path"] = tag
+    for r in rows[-5:]:
+        r["note"] = "; ".join(filter(None, [r.get("note"), (
+            "launches: the path's over its steps, a step 72 forward and "
+            "36 backward on whisper-small (12 encoder layers, 12 decoder "
+            "self-attention, 12 cross-attention; each forward twice, "
+            "remat), 12 and 6 on internvl2-76b (6 layers)")]))
     return rows
 
 
@@ -3079,7 +3260,8 @@ def main() -> int:
                              "and step")
     with phase("train: checks (losses, step 0 vs plain attention, layer 0 "
                "gradients vs plain autograd)"):
-        train_checks = check_train(train_run, caps["flash_attention_bwd"])
+        train_checks = check_train(train_run,
+                                   {"layer 0": caps["flash_attention_bwd"]})
     print(card)
     report_train(train_run, train_checks, counts["train"])
     del train_run
@@ -3106,13 +3288,43 @@ def main() -> int:
         with phase(f"long_train: {arch} checks (losses fall at every step, "
                    f"step 0 vs plain attention, layer 1 gradients vs plain "
                    f"autograd)"):
-            long_checks = check_train(long_run, cap, every_step=True)
+            long_checks = check_train(long_run, {"layer 1": cap},
+                                      every_step=True)
         print(card)
         report_train(long_run, long_checks, got)
         if hybrid:
             caps["flash_attention_bwd:hybrid windowed"] = cap
             counts["long_train:hymba-1.5b"] = got
         del long_run
+        torch.cuda.empty_cache()
+
+    # whisper-small uncut, then internvl2-76b cut to VLM_TRAIN_DEPTH
+    # layers, each freed before the next; the first attention call with
+    # gradients of each kind in MODAL_TRAIN_LAYERS is kept for the
+    # gradient checks and the kernel rows
+    for tag in MODAL_TRAIN_PATHS:
+        layer_caps = modal_train_captures(tag)
+        with path(tag, ("flash_attention", "flash_attention_bwd")), \
+                contextlib.ExitStack() as stack:
+            for cap in layer_caps.values():
+                stack.enter_context(cap)
+            run = modal_train(dev, tag)
+        # a step: each prefill launch forward twice (remat recomputes the
+        # block in the backward) and backward once
+        per_step = prefill_launches(run["cfg"]) * TRAIN_STEPS
+        want = {"flash_attention": 2 * per_step,
+                "flash_attention_bwd": per_step}
+        if any(counts[tag][k] != n for k, n in want.items()):
+            raise AssertionError(f"{tag}: launches {counts[tag]}, want "
+                                 f"{want} over {TRAIN_STEPS} steps")
+        with phase(f"{tag}: checks (losses, step 0 vs plain attention, "
+                   f"{', '.join(layer_caps)} gradients vs plain "
+                   f"autograd)"):
+            checks = check_train(run, layer_caps)
+        print(card)
+        report_train(run, checks, counts[tag])
+        caps.update({f"{tag}:{what}": cap for what, cap in layer_caps.items()})
+        del run
         torch.cuda.empty_cache()
 
     caps.update({
@@ -3148,6 +3360,7 @@ def main() -> int:
                      "long_train:hymba-1.5b":
                      counts["long_train:hymba-1.5b"],
                      "audio": counts["audio"], "vlm": counts["vlm"],
+                     **{tag: counts[tag] for tag in MODAL_TRAIN_PATHS},
                      **moe_launches}
         rows = time_kernels(caps, by_kernel)
     for r in rows:

@@ -347,8 +347,8 @@ def bench_train(cs, dev, report) -> None:
     print(f"train forward: "
           f"{json.dumps(report['flash_attention_bf16_train_fwd'])}",
           flush=True)
-    report["flash_attention_bwd_bf16_train"] = cs.flash_bwd_row((q, k, v),
-                                                                None)
+    report["flash_attention_bwd_bf16_train"] = cs.flash_bwd_row(
+        ((q, k, v), dict(causal=True)), None, "train layer")
     print(f"train backward: "
           f"{json.dumps(report['flash_attention_bwd_bf16_train'])}",
           flush=True)
@@ -359,8 +359,9 @@ def bench_train(cs, dev, report) -> None:
     for kind, window in (("windowed", HYMBA_WINDOW), ("global", 0)):
         key = f"flash_attention_bwd_bf16_hymba_{kind}"
         report[key] = cs.flash_bwd_row(
-            (q, k, v), None, f"hymba {kind} layer", window=window,
-            meta_tokens=HYMBA_META if window else 0)
+            ((q, k, v), dict(causal=True, window=window,
+                             meta_tokens=HYMBA_META if window else 0)),
+            None, f"hymba {kind} layer")
         print(f"hymba {kind} backward: {json.dumps(report[key])}",
               flush=True)
 

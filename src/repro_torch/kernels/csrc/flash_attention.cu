@@ -142,9 +142,9 @@ __global__ void __launch_bounds__(kThreadsBF)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
-               int Sk, int H, int KVH, int causal, int window, int meta,
-               float scale_log2) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+               float* __restrict__ o32, int Sq, int Sk, int H, int KVH,
+               int causal, int window, int meta, float scale_log2) {
   static_assert(D % 16 == 0, "the bf16 kernel steps D by 16 columns");
   constexpr int LD = D + 8;       // shared row stride, bf16
   constexpr int CH = D / 8;       // 16-byte chunks per row
@@ -321,7 +321,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     if (r0 < rows) lb[r0] = m0 * kLn2 + logf(fmaxf(l0, 1e-30f));
     if (r1 < rows) lb[r1] = m1 * kLn2 + logf(fmaxf(l1, 1e-30f));
   }
-  __nv_bfloat16* o0 = o + ((static_cast<size_t>(b) * Sq + q0 + r0) * H + h) * D;
+  const size_t at0 = ((static_cast<size_t>(b) * Sq + q0 + r0) * H + h) * D;
+  __nv_bfloat16* o0 = o + at0;
   __nv_bfloat16* o1 = o0 + 8 * q_step;
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
@@ -332,6 +333,20 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     if (r1 < rows)
       *reinterpret_cast<uint32_t*>(o1 + c) =
           pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
+  }
+  if (o32 != nullptr) {  // the same output before its rounding to bf16
+    float* p0 = o32 + at0;
+    float* p1 = p0 + 8 * q_step;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int c = j * 8 + 2 * tg;
+      if (r0 < rows)
+        *reinterpret_cast<float2*>(p0 + c) =
+            make_float2(acc[j][0] * inv0, acc[j][1] * inv0);
+      if (r1 < rows)
+        *reinterpret_cast<float2*>(p1 + c) =
+            make_float2(acc[j][2] * inv1, acc[j][3] * inv1);
+    }
   }
 }
 
@@ -468,8 +483,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int Sq, int Sk, int H, int KVH, int causal,
-                int window, int meta, float scale, cudaStream_t s) {
+                float* lse, float* o32, int B, int Sq, int Sk, int H, int KVH,
+                int causal, int window, int meta, float scale,
+                cudaStream_t s) {
   constexpr size_t smem = smem_bytes_bf16<D>();
   const cudaError_t err = allow_smem(flash_fwd_bf16<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -477,14 +493,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   flash_fwd_bf16<D><<<grid, kThreadsBF, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      Sq, Sk, H, KVH, causal, window, meta, scale * kLog2e);
+      o32, Sq, Sk, H, KVH, causal, window, meta, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int Sq, int Sk, int H, int KVH, int causal,
-               int window, int meta, float scale, cudaStream_t s) {
+               float* lse, float* /* o32: o is f32 */, int B, int Sq, int Sk,
+               int H, int KVH, int causal, int window, int meta, float scale,
+               cudaStream_t s) {
   constexpr size_t smem = smem_bytes_f32<D>();
   const cudaError_t err = allow_smem(flash_fwd_f32<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -505,11 +522,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // multiplied by scale (1 / sqrt of the caller's true head width). lse, f32
 // [B, H, Sq], receives the natural log-sum-exp of each row's scaled scores,
 // m + log(max(l, 1e-30)), for the backward; null (serving) writes none.
+// o32, f32 [B, Sq, H, D] (bf16 only; null writes none), receives the
+// output before its rounding to bf16, from which the backward forms delta.
 // Returns the cudaError_t of the launch (0 = queued).
 #define REPRO_FLASH_CASE(launch, W) \
   case W:                           \
-    return launch<W>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, \
-                     KVH, causal, window, meta, scale, s);
+    return launch<W>(q, k, v, o, static_cast<float*>(lse),             \
+                     static_cast<float*>(o32), B, Sq, Sk, H, KVH, causal, \
+                     window, meta, scale, s);
 #define REPRO_FLASH_DISPATCH(launch)                   \
   switch (D) {                                         \
     REPRO_FLASH_CASE(launch, 16)                       \
@@ -521,19 +541,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* o, void* lse, int B, int Sq, int Sk,
-                                   int H, int KVH, int D, int causal,
-                                   int window, int meta, float scale,
-                                   void* stream) {
+                                   void* o, void* lse, void* o32, int B,
+                                   int Sq, int Sk, int H, int KVH, int D,
+                                   int causal, int window, int meta,
+                                   float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_FLASH_DISPATCH(launch_f32)
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, void* lse, int B,
-                                    int Sq, int Sk, int H, int KVH, int D,
-                                    int causal, int window, int meta,
-                                    float scale, void* stream) {
+                                    const void* v, void* o, void* lse,
+                                    void* o32, int B, int Sq, int Sk, int H,
+                                    int KVH, int D, int causal, int window,
+                                    int meta, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_FLASH_DISPATCH(launch_bf16)
 }

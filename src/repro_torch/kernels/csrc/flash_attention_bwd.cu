@@ -1,6 +1,7 @@
 // The backward of attention with an online softmax, causal or full,
 // grouped-query heads, and the hybrid family's sliding window and meta
-// tokens: dQ, dK, dV from (q, k, v, O, dO, lse).
+// tokens: dQ, dK, dV from (q, k, v, O, dO, lse), O the forward's f32
+// output before its rounding (the reference's residual out_g).
 //
 // Counterpart of the reference's custom_vjp backward
 // src/repro/models/attention.py:136 (bwd, a jnp scan over key chunks; not
@@ -46,8 +47,13 @@
 //    every group's long blocks start in the first wave.
 //  * delta in eager torch (0.94 GB of f32 copies a call) and outside the
 //    kernel times: it is launch 0 here, bwd_delta, 16-byte loads of the
-//    bf16 O and dO and a shuffle sum per row; it also writes lse log2(e),
-//    both with rows padded to whole 128-row blocks for the bulk copies.
+//    bf16 dO and the f32 O and a shuffle sum per row; it also writes lse
+//    log2(e), both with rows padded to whole 128-row blocks for the bulk
+//    copies. delta read the bf16 O until whisper's cross-attention
+//    trained (448 queries, full attention over 1500 encoder keys that
+//    share a mean): the rounding entered every dS of a row alike, and
+//    dQ was 0.0167 off autograd through the plain attention, against a
+//    bound of 0.0028 (H100); from the f32 O, 0.00098.
 //
 // Three launches, all deterministic (no atomics, no waits across blocks:
 // each output element is summed by one thread in one order):
@@ -1004,12 +1010,17 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // delta[b, h, r] = rowsum(dO * O) in f32 for r < Sq, 0 for Sq <= r < ld
 // (the row stride ld pads each (b, h) row for the bulk copies of the bf16
-// kernels); with lse2 non-null also lse2 = lse * log2(e) (0 past Sq).
-// L lanes read one W-wide row of O and of dO with 16-byte loads and sum
-// their products through shuffles: one warp covers 32 / L rows.
+// kernels); with lse2 non-null also lse2 = lse * log2(e) (0 past Sq). O is
+// the forward's f32 output before its rounding to dO's dtype (the residual
+// the reference keeps): from a bf16 O, delta would carry its rounding,
+// dO.(O - bf16(O)), into every dS = P (dP - delta) of the row alike, which
+// the products with keys of a common mean do not cancel.
+// L lanes read one W-wide row of dO with 16-byte loads (EPV elements
+// each) and the same columns of O, and sum their products through
+// shuffles: one warp covers 32 / L rows.
 template <typename T, int W>
 __global__ void __launch_bounds__(256)
-bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
+bwd_delta(const float* __restrict__ out, const T* __restrict__ dout,
           const float* __restrict__ lse, float* __restrict__ delta,
           float* __restrict__ lse2, int B, int Sq, int H, int ld) {
   constexpr int EPV = 16 / static_cast<int>(sizeof(T));  // per 16 bytes
@@ -1026,19 +1037,22 @@ bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
     const int b = bh / H, h = bh % H;
     const size_t row =
         ((static_cast<size_t>(b) * Sq + r) * H + h) * W + (lane % L) * EPV;
-    const uint4 x = *reinterpret_cast<const uint4*>(out + row);
     const uint4 y = *reinterpret_cast<const uint4*>(dout + row);
+    const float4* x = reinterpret_cast<const float4*>(out + row);
     if constexpr (sizeof(T) == 2) {
-      const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
       const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 a = __bfloat1622float2(xs[e]), c = __bfloat1622float2(ys[e]);
-        s = fmaf(a.x, c.x, s);
-        s = fmaf(a.y, c.y, s);
+      for (int e = 0; e < 4; e += 2) {
+        const float4 a = x[e / 2];
+        const float2 c0 = __bfloat1622float2(ys[e]);
+        const float2 c1 = __bfloat1622float2(ys[e + 1]);
+        s = fmaf(a.x, c0.x, s);
+        s = fmaf(a.y, c0.y, s);
+        s = fmaf(a.z, c1.x, s);
+        s = fmaf(a.w, c1.y, s);
       }
     } else {
-      const float4 a = *reinterpret_cast<const float4*>(&x);
+      const float4 a = x[0];
       const float4 c = *reinterpret_cast<const float4*>(&y);
       s = fmaf(a.x, c.x, s);
       s = fmaf(a.y, c.y, s);
@@ -1079,7 +1093,7 @@ cudaError_t launch_delta(const Args& a, cudaStream_t s) {
   constexpr int L = D * static_cast<int>(sizeof(T)) / 16;
   const long long threads = static_cast<long long>(a.B) * a.H * a.ld * L;
   bwd_delta<T, D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
-      static_cast<const T*>(a.out), static_cast<const T*>(a.dout), a.lse,
+      static_cast<const float*>(a.out), static_cast<const T*>(a.dout), a.lse,
       a.delta, a.lse2, a.B, a.Sq, a.H, a.ld);
   return cudaGetLastError();
 }
@@ -1194,8 +1208,9 @@ int launch_f32(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// q, out, dout, dq [B, Sq, H, D]; k, v, dk, dv [B, Sk, KVH, D]; one dtype,
-// contiguous, 16-byte aligned; lse f32 [B, H, Sq]; delta f32 [B, H, ld]
+// q, dout, dq [B, Sq, H, D]; k, v, dk, dv [B, Sk, KVH, D]; one dtype,
+// contiguous, 16-byte aligned; out f32 [B, Sq, H, D], the forward's output
+// before its rounding to that dtype; lse f32 [B, H, Sq]; delta f32 [B, H, ld]
 // and (bf16) lse2 f32 [B, H, ld], scratch that launch 0 fills, ld >= Sq
 // (bf16: a multiple of 128; f32: Sq). B, Sq, Sk >= 1; H % KVH == 0; D in
 // {16, 32, 64, 128}; causal needs Sq <= Sk; window >= 0 and meta >= 0, a

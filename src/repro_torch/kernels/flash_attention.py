@@ -33,14 +33,17 @@ output's padding columns are cut off.
 reference oracle ``repro/kernels/ref.py:flash_attention_ref`` does, and is
 used on the CPU and as the kernel's yardstick on the card.
 
-For training, both can also return ``lse`` f32 ``[B, H, Sq]``, the natural
-log-sum-exp of each row's scaled scores (the residual the reference's
-``_flash_fwd_impl`` keeps, ``repro/models/attention.py:113-116``), and
+For training, both can also return the residuals the reference's
+``_flash_fwd_impl`` keeps (``repro/models/attention.py:113-116``): ``lse``
+f32 ``[B, H, Sq]``, the natural log-sum-exp of each row's scaled scores,
+and the output in f32 before its rounding to q's dtype (``out_g``). And
 ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu``, the
 counterpart of the reference's ``custom_vjp`` backward
-(``repro/models/attention.py:136 bwd``): dQ, dK and dV from (q, k, v, O,
-lse, dO), recomputing the scores tile by tile, never storing them. Three
-launches: delta = rowsum(dO * O) (launch 0), then dK/dV and dQ, each on
+(``repro/models/attention.py:136 bwd``): dQ, dK and dV from (q, k, v, the
+f32 O, lse, dO), recomputing the scores tile by tile, never storing them.
+Three launches: delta = rowsum(dO * O) (launch 0; from the f32 O, as the
+reference forms it: a bf16 O's rounding would enter every dS of its row
+alike), then dK/dV and dQ, each on
 ``wgmma`` with a TMA ring (bf16; the f32 variant runs on the CUDA cores),
 at the head widths ``BWD_HEAD_DIMS`` (any other D zero-padded to the next).
 Both take the forward's window and meta tokens (the mask and the key
@@ -143,8 +146,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Sq, H, D]; k, v [B, Sk, KVH, D] -> [B, Sq, H, D] (q's dtype),
     through the whole [Sq, Sk] score matrix of each head. ``scale``
     multiplies q (default 1/sqrt(D)). ``window`` and ``meta_tokens`` as
-    ``flash_attention``'s. With ``return_lse``, also the log-sum-exp of
-    each row's scaled scores, f32 [B, H, Sq]."""
+    ``flash_attention``'s. With ``return_lse``, (out, lse, out_f32): also
+    the log-sum-exp of each row's scaled scores, f32 [B, H, Sq], and the
+    output before its rounding to q's dtype, f32."""
     _check_window("flash_attention", causal, window, meta_tokens)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -158,10 +162,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hidden = _hidden(sq, sk, q.device, causal, window, meta_tokens)
     if hidden is not None:
         s = s.masked_fill(hidden, NEG_INF)
-    out = _ungrouped(torch.softmax(s, dim=-1) @ vg).to(q.dtype)
+    out32 = _ungrouped(torch.softmax(s, dim=-1) @ vg)
     if return_lse:
-        return out, _row_lse(s).reshape(b, h, sq)
-    return out
+        return out32.to(q.dtype), _row_lse(s).reshape(b, h, sq), out32
+    return out32.to(q.dtype)
 
 
 def _row_lse(s: torch.Tensor) -> torch.Tensor:
@@ -188,8 +192,10 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     causal mask and, with ``window > 0``, the window and meta tokens),
     delta = rowsum(dO * O), dV = P^T dO, dS = P (dO V^T - delta) scale,
     dQ = dS K, dK = dS^T Q, dK and dV summed over each KV head's query
-    heads. Shapes as ``flash_attention``'s; lse f32 [B, H, Sq]; each
-    gradient in its input's dtype."""
+    heads. Shapes as ``flash_attention``'s; ``out`` the forward's output
+    (in f32 before its rounding, as ``flash_attention_bwd`` takes it, or
+    any dtype); lse f32 [B, H, Sq]; each gradient in its input's
+    dtype."""
     _check_window("flash_attention_bwd", causal, window, meta_tokens)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -249,33 +255,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``meta_tokens``. Sq == 0 or B == 0
     returns an empty tensor without a launch. Raises on anything else, and
     on a non-CUDA tensor. With ``return_lse`` the kernel also writes the
-    rows' log-sum-exp, returned as ``(out, lse)``."""
+    rows' log-sum-exp and (bf16) the output in f32 before its rounding,
+    returned as ``(out, lse, out_f32)`` (for f32 inputs ``out_f32`` is
+    ``out``): the residuals ``flash_attention_bwd`` takes."""
     width = _check_args("flash_attention", q, k, v, causal)
     _check_window("flash_attention", causal, window, meta_tokens)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     if sq == 0 or b == 0:
         out = torch.empty_like(q)
-        return (out, lse) if return_lse else out
+        return (out, lse, out.float()) if return_lse else out
     qp, kp, vp = pad_head_dim(q, k, v, width)
     if any(t.data_ptr() % 16 for t in (qp, kp, vp)):
         raise ValueError("flash_attention: inputs must be 16-byte aligned "
                          "(the kernel stages them with 16-byte copies)")
     out = torch.empty_like(qp)
+    out32 = torch.empty(qp.shape, dtype=torch.float32, device=q.device) \
+        if return_lse and bf16 else None
     from repro_torch.kernels import build
-    fn_name = ("flash_attention_bf16" if q.dtype == torch.bfloat16
-               else "flash_attention_f32")
+    fn_name = "flash_attention_bf16" if bf16 else "flash_attention_f32"
     # the true D's scale, rounded once to f32 by ctypes
-    call(bind(build.load("flash_attention"), fn_name, 5, 9, 1), fn_name,
+    call(bind(build.load("flash_attention"), fn_name, 6, 9, 1), fn_name,
          q.device, [qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                    out.data_ptr(), 0 if lse is None else lse.data_ptr()],
+                    out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+                    0 if out32 is None else out32.data_ptr()],
          [b, sq, sk, h, kvh, width, int(causal), int(window),
           int(meta_tokens), 1.0 / math.sqrt(d)])
     launches["flash_attention"] += 1
-    out = out if width == d else out[..., :d].contiguous()
-    return (out, lse) if return_lse else out
+    if width != d:
+        out = out[..., :d].contiguous()
+        out32 = None if out32 is None else out32[..., :d].contiguous()
+    if not return_lse:
+        return out
+    return out, lse, out if out32 is None else out32
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -283,17 +298,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, causal: bool = True,
                         window: int = 0, meta_tokens: int = 0):
     """Launch the backward kernels: (dq, dk, dv) in the inputs' dtype from
-    the forward's inputs, output ``out`` and ``lse`` (f32 [B, H, Sq]) and
-    the output's gradient ``dout`` [B, Sq, H, D]. Takes what
-    ``flash_attention`` takes (``out`` and ``dout`` with q's shape and
-    dtype) and raises on anything else. Three launches, counted together
-    as one ``flash_attention_bwd``: delta = rowsum(dO * O) in f32 from
-    ``out`` as given (rounded to bf16 by a bf16 forward), then dK/dV,
-    then dQ. D runs at the next of ``BWD_HEAD_DIMS``, zero-padded.
+    the forward's inputs, its residuals ``out`` (the output in f32 before
+    its rounding: ``flash_attention(..., return_lse=True)``'s third) and
+    ``lse`` (f32 [B, H, Sq]), and the output's gradient ``dout`` [B, Sq, H,
+    D]. Takes what ``flash_attention`` takes (``dout`` with q's shape and
+    dtype, ``out`` with q's shape in f32) and raises on anything else.
+    Three launches, counted together as one ``flash_attention_bwd``: delta
+    = rowsum(dO * O) in f32, then dK/dV, then dQ. D runs at the next of
+    ``BWD_HEAD_DIMS``, zero-padded.
     ``window`` and ``meta_tokens`` are the forward's mask. Sq == 0 or B ==
     0 gives zeros without a launch."""
     width = _check_args("flash_attention_bwd", q, k, v, causal,
-                        extra=(out, dout), widths=BWD_HEAD_DIMS)
+                        extra=(dout,), widths=BWD_HEAD_DIMS)
+    if out.shape != q.shape or out.dtype != torch.float32 \
+            or out.device != q.device or not out.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} "
+                         f"{out.dtype} is not the f32 output of q's shape "
+                         f"on q's device")
     _check_window("flash_attention_bwd", causal, window, meta_tokens)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -332,18 +353,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose gradient is the flash backward: the forward keeps
-    (q, k, v, out, lse), the backward recomputes the scores from them. On
-    CUDA tensors both directions are the kernels (a refused launch
-    raises); on CPU tensors both are the plain versions. The sliding
-    window and meta tokens go to both directions."""
+    (q, k, v, the f32 output, lse), the backward recomputes the scores
+    from them. On CUDA tensors both directions are the kernels (a refused
+    launch raises); on CPU tensors both are the plain versions. The
+    sliding window and meta tokens go to both directions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int = 0,
                 meta_tokens: int = 0):
         fwd = flash_attention_plain if on_cpu(q) else flash_attention
-        out, lse = fwd(q, k, v, causal=causal, return_lse=True,
-                       window=window, meta_tokens=meta_tokens)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, out32 = fwd(q, k, v, causal=causal, return_lse=True,
+                              window=window, meta_tokens=meta_tokens)
+        ctx.save_for_backward(q, k, v, out32, lse)
         ctx.mask = dict(causal=causal, window=window,
                         meta_tokens=meta_tokens)
         return out

@@ -1,8 +1,9 @@
-"""Training launcher: an arch of the dense, moe, ssm or hybrid family
-(reduced or full config) on one device, with checkpoint/resume. Port of
-``repro/launch/train.py``. The audio and vlm families' train steps are
-not ported yet: ``setup`` refuses them rather than run a step that no
-test holds to the reference.
+"""Training launcher: an arch of any of the seven families (dense, moe,
+ssm, hybrid, audio, vlm; reduced or full config) on one device, with
+checkpoint/resume. Port of ``repro/launch/train.py``. The audio family's
+batches carry ``frames`` and the vlm family's ``vision_embeds``
+(``batch_at``'s stubs), which the step splits into microbatches with the
+tokens.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --reduced --steps 100 [--device cpu]
@@ -55,14 +56,10 @@ def parser() -> argparse.ArgumentParser:
 
 def setup(args: argparse.Namespace):
     """(cfg, dcfg, model, opt_state, step_fn) for ``args``: the model
-    seeded and trainable on the device, the AdamW state at zero. Raises
-    ``NotImplementedError`` for the audio and vlm families: their serving
-    is ported, their train steps are not yet held to the reference's."""
+    seeded and trainable on the device, the AdamW state at zero; every
+    family alike, as the reference sets them up."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(f"{cfg.arch_id}: the {cfg.family!r} "
-                                  f"family's train step is not ported yet")
     ocfg = OptimizerConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                            total_steps=args.steps)
     tcfg = TrainConfig(microbatches=args.microbatches)

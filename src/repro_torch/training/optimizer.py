@@ -11,7 +11,8 @@ parameter names (``model.named_parameters()``); the state is
 ``{"step": int32 scalar, "m": {name: tensor}, "v": {name: tensor or
 {"row", "col"}}}``. ``apply_updates`` writes the new parameters and
 moments in place (the reference returns new arrays; in place, a step at
-TinyLlama-1.1B's width holds no second copy of them).
+TinyLlama-1.1B's width holds no second copy of them), a parameter of
+more than ``UPDATE_BLOCK`` elements a block of rows at a time.
 
 The reference stacks a layer's parameters on a leading ``[L, ...]`` axis
 where the port keeps one tensor per layer (``blocks.<i>.<name>``,
@@ -55,6 +56,14 @@ class OptimizerConfig:
     state_dtype: str = "float32"
     factored: bool = False           # Adafactor-style factored 2nd moment
     min_dim_size_to_factor: int = 128
+
+
+# A parameter's f32 update runs over blocks of its leading dim of at most
+# this many elements, so that its f32 temporaries (the gradient, the new
+# moments, the reconstructed second moment, the step: about eight of its
+# size at once) stay that small. At InternVL2-76B's width a whole [128256,
+# 8192] embedding would hold eight temporaries of 4.2 GB each
+UPDATE_BLOCK = 1 << 26
 
 
 def _f32(x) -> torch.Tensor:
@@ -103,6 +112,42 @@ def stacked_vectors(params: Tensors,
             for key, members in groups.items()
             if _factorable((len(members), params[members[0][1]].shape[0]),
                            cfg)}
+
+
+def _row_blocks(p: torch.Tensor) -> list:
+    """Index blocks of ``p`` along its leading dim, each of at most
+    UPDATE_BLOCK elements; ``[...]`` (all of it) when ``p`` is no larger
+    or has fewer than two dims."""
+    if p.dim() < 2 or p.numel() <= UPDATE_BLOCK:
+        return [...]
+    rows = max(1, UPDATE_BLOCK // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
+def _factored_v_hat(grad_of, v: Dict[str, torch.Tensor], ndim: int,
+                    blocks: list, cfg: OptimizerConfig):
+    """A factored second moment's step: writes the new row and column
+    statistics of the (clipped) gradient, ``grad_of(block)`` f32, into
+    ``v`` and returns the function of a block giving the reconstructed
+    v = row x col / mean(row) there. Over several blocks of a matrix the
+    column statistic's mean over the rows is summed block by block; a
+    block of a higher-rank leaf holds whole matrices."""
+    rows, cols = [], []
+    for blk in blocks:
+        g2 = grad_of(blk).square() + 1e-30
+        rows.append(g2.mean(-1))
+        cols.append(g2.mean(-2) if ndim > 2 or len(blocks) == 1
+                    else g2.sum(-2))
+    row = cfg.b2 * v["row"].float() + (1 - cfg.b2) * torch.cat(rows)
+    g2_col = torch.cat(cols) if ndim > 2 or len(blocks) == 1 \
+        else torch.stack(cols).sum(0) / sum(r.shape[0] for r in rows)
+    col = cfg.b2 * v["col"].float() + (1 - cfg.b2) * g2_col
+    denom = torch.clamp(row.mean(-1, keepdim=True), min=1e-30)
+    v["row"].copy_(row)
+    v["col"].copy_(col)
+    ratio = row / denom
+    return lambda blk: ratio[blk][..., None] \
+        * (col if ndim == 2 else col[blk])[..., None, :]
 
 
 def init_state(params: Tensors, cfg: OptimizerConfig) -> Dict[str, Any]:
@@ -172,27 +217,31 @@ def apply_updates(params: Tensors, grads: Tensors, state: Dict[str, Any],
             v_across[n] = v_hat[i]
 
     for name, p in params.items():
-        g = grads[name].float() * scale
-        m_new = cfg.b1 * state["m"][name].float() + (1 - cfg.b1) * g
         v = state["v"][name]
+        blocks = _row_blocks(p)
+
+        def grad_of(blk, name=name):
+            return grads[name][blk].float() * scale
         if name in v_across:
-            v_hat = v_across[name]
-        elif isinstance(v, dict):  # factored
-            g2 = g.square() + 1e-30
-            row = cfg.b2 * v["row"].float() + (1 - cfg.b2) * g2.mean(-1)
-            col = cfg.b2 * v["col"].float() + (1 - cfg.b2) * g2.mean(-2)
-            # reconstruct: v ~ row x col / mean(row)
-            denom = torch.clamp(row.mean(-1, keepdim=True), min=1e-30)
-            v_hat = (row / denom)[..., None] * col[..., None, :]
-            v["row"].copy_(row)
-            v["col"].copy_(col)
+            v_hat_of = v_across[name].__getitem__
+        elif isinstance(v, dict):
+            v_hat_of = _factored_v_hat(grad_of, v, p.dim(), blocks, cfg)
         else:
-            v_hat = cfg.b2 * v.float() + (1 - cfg.b2) * g.square()
-            v.copy_(v_hat)
-        delta = (m_new / b1c) / (torch.sqrt(v_hat / b2c) + cfg.eps)
-        if cfg.weight_decay and reference_ndim(name, p) >= 2:
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        state["m"][name].copy_(m_new.to(dt))
+            v_hat_of = None
+        decay = cfg.weight_decay and reference_ndim(name, p) >= 2
+        for blk in blocks:
+            g = grad_of(blk)
+            m = state["m"][name][blk]
+            m_new = cfg.b1 * m.float() + (1 - cfg.b1) * g
+            if v_hat_of is None:
+                v_hat = cfg.b2 * v[blk].float() + (1 - cfg.b2) * g.square()
+                v[blk].copy_(v_hat)
+            else:
+                v_hat = v_hat_of(blk)
+            delta = (m_new / b1c) / (torch.sqrt(v_hat / b2c) + cfg.eps)
+            if decay:
+                delta = delta + cfg.weight_decay * p[blk].float()
+            p[blk].copy_(p[blk].float() - lr * delta)
+            m.copy_(m_new.to(dt))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -117,9 +117,9 @@ def test_lse_matches_reference_forward_residual(b, h, kvh, sq, sk, d,
     """The forward's log-sum-exp, f32 [B, H, Sq], against the ``lse``
     residual of the reference's ``fwd`` ([B, KVH, G, Sq])."""
     q, k, v, _ = _inputs(b, h, kvh, sq, sk, d, seed=1)
-    _, lse = fa.flash_attention_plain(*(torch.from_numpy(x) for x in
-                                        (q, k, v)), causal,
-                                      return_lse=True)
+    _, lse, _ = fa.flash_attention_plain(*(torch.from_numpy(x) for x in
+                                           (q, k, v)), causal,
+                                         return_lse=True)
     assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
     _, want = ref_attn._flash_fwd_impl(
         *(jnp.asarray(x) for x in (q, k, v)), jnp.zeros(()), causal, 0, 0,
@@ -195,7 +195,7 @@ def test_windowed_backward_in_bf16_within_2_to_the_minus_6(
 def test_windowed_bwd_plain_refuses_a_window_without_causal():
     q, k, v, dout = (torch.from_numpy(a) for a in
                      _inputs(1, 2, 2, 8, 8, 16))
-    out, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    _, lse, out = fa.flash_attention_plain(q, k, v, return_lse=True)
     for kw in (dict(causal=False, window=4), dict(window=-1),
                dict(window=4, meta_tokens=-1)):
         with pytest.raises(ValueError):
@@ -302,9 +302,10 @@ def _dkdv_rows(k0, n_keys, nq, sq, sk, causal, window, meta):
 
 
 def _fwd_tiled_bf16(q, k, v, causal, tile=64, window=0, meta=0):
-    """(out, lse) as ``flash_fwd_bf16`` computes them: 64-key tiles, scores
-    times scale * log2(e), P rounded to bf16 for P.V and for l, lse =
-    m ln 2 + log(max(l, 1e-30)). A tile masked for a row before its first
+    """(out, lse, out_f32) as ``flash_fwd_bf16`` computes them: 64-key
+    tiles, scores times scale * log2(e), P rounded to bf16 for P.V and for
+    l, lse = m ln 2 + log(max(l, 1e-30)), the f32 output rounded once to
+    bf16. A tile masked for a row before its first
     visible key gives p = 1 that the next visible tile's correction
     clears, after it p = 0, as in the kernel."""
     b, sq, h, d = q.shape
@@ -327,25 +328,25 @@ def _fwd_tiled_bf16(q, k, v, causal, tile=64, window=0, meta=0):
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + p @ vf[..., k0:k0 + tile, :]
         m = m_new
-    out = _ungrouped(acc / l.clamp_min(1e-30)[..., None]).bfloat16()
+    out = _ungrouped(acc / l.clamp_min(1e-30)[..., None])
     lse = m * float(LN2) + torch.log(l.clamp_min(1e-30))
-    return out, lse.reshape(b, h, sq)
+    return out.bfloat16(), lse.reshape(b, h, sq), out
 
 
 def _delta_launch0(out, dout):
-    """delta f32 [B, H, Sq] as ``bwd_delta`` forms it from the bf16 O and
-    dO: each of L lanes sums the products of its 8 columns in order (a
-    bf16 product is exact in f32, so fmaf rounds only the sum), then the
-    lanes' partial sums meet in a butterfly of shuffles (xor L/2 .. 1),
-    whose lane 0 writes the row."""
+    """delta f32 [B, H, Sq] as ``bwd_delta`` forms it from the f32 O and
+    the bf16 dO: each of L lanes sums the products of its 8 columns in
+    order with fmaf (the product of an f32 and a bf16 is exact in f64, so
+    each step rounds once, to f32), then the lanes' partial sums meet in a
+    butterfly of shuffles (xor L/2 .. 1), whose lane 0 writes the row."""
     b, sq, h, d = out.shape
     width = fa.head_width(d, fa.BWD_HEAD_DIMS)   # the zero-padded row
     lanes = width // 8
-    prod = torch.nn.functional.pad(out.float() * dout.float(),
+    prod = torch.nn.functional.pad(out.double() * dout.double(),
                                    (0, width - d)).reshape(b, sq, h, lanes, 8)
     part = torch.zeros(b, sq, h, lanes)
     for c in range(8):
-        part = part + prod[..., c]
+        part = (part.double() + prod[..., c]).float()
     m = lanes // 2
     while m:
         part = part + part[..., torch.arange(lanes) ^ m]
@@ -376,7 +377,8 @@ def _bwd_bf16(q, k, v, out, lse, dout, causal, true_d=None, window=0,
     tiles, then the first row's window start to the diagonal), skipping
     and masking likewise. Per tile: S = exp2(s * f32(scale log2 e) -
     f32(lse log2 e)), P rounded to bf16 for dV, dS from the f32 P rounded
-    to bf16 for dQ and dK, f32 sums, outputs rounded once."""
+    to bf16 for dQ and dK, f32 sums, outputs rounded once. ``out`` is the
+    forward's f32 output, as the kernels take it."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -502,9 +504,9 @@ def test_bf16_kernel_rounding_holds_the_chip_tolerance(b, h, kvh, sq, sk, d,
     (the chip check's comparison), and the forward's lse within 2^-7 of
     the plain one (bf16 P in l)."""
     q, k, v, dout = _bf16(*_inputs(b, h, kvh, sq, sk, d, seed=sq + d))
-    out, lse = _fwd_tiled_bf16(q, k, v, causal)
-    _, plain_lse = fa.flash_attention_plain(q, k, v, causal,
-                                            return_lse=True)
+    _, lse, out = _fwd_tiled_bf16(q, k, v, causal)
+    _, plain_lse, _ = fa.flash_attention_plain(q, k, v, causal,
+                                               return_lse=True)
     assert float((lse - plain_lse).abs().max()) <= 2 ** -7
     got = _bwd_bf16(q, k, v, out, lse, dout, causal)
     want = tref.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
@@ -520,8 +522,49 @@ def test_bf16_pipeline_holds_the_tolerance_against_plain_autograd(
     inside. The bf16 O in delta and the bf16 rounding add up to under
     2^-7 of each gradient's largest magnitude here, inside 2^-6."""
     q, k, v, dout = _bf16(*_inputs(b, h, kvh, sq, sk, d, seed=sq * 3))
-    out, lse = _fwd_tiled_bf16(q, k, v, causal)
+    _, lse, out = _fwd_tiled_bf16(q, k, v, causal)
     got = _bwd_bf16(q, k, v, out, lse, dout, causal)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention_plain(qr, kr, vr, causal).backward(dout)
+    _assert_within(got, (qr.grad, kr.grad, vr.grad), BWD_BF16_TOL)
+
+
+# full attention off both tiles (the dK/dV blocks' 128 keys and the dQ
+# blocks' 64-key tiles): Sq = Sk = 150 and Sq 45 x Sk 150 (the shapes of
+# whisper's encoder and cross-attention, cut), and D 128 at G = 8 (NQ =
+# 32 query steps; internvl2's 64 / 8 heads of 128), full and causal
+FULL_EMUL_SHAPES = [(1, 4, 4, 150, 150, 64, False),
+                    (2, 4, 4, 45, 150, 64, False),
+                    (1, 8, 1, 150, 150, 128, False),
+                    (1, 8, 1, 150, 150, 128, True)]
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal", FULL_EMUL_SHAPES)
+def test_full_and_d128_backward_matches_reference_vjp(b, h, kvh, sq, sk, d,
+                                                      causal):
+    """The plain backward through the autograd Function against the
+    reference's ``custom_vjp`` (``causal=False`` over a chunk dividing Sk)
+    at the emulated shapes, in float32."""
+    q, k, v, dout = _inputs(b, h, kvh, sq, sk, d, seed=sq + sk + d)
+    got = _port_grads(q, k, v, dout, causal)
+    want = _ref_grads(q, k, v, dout, causal, _chunk(sk, causal))
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **F32_TOL)
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal", FULL_EMUL_SHAPES)
+def test_bf16_full_and_d128_kernel_rounding_holds_the_chip_tolerance(
+        b, h, kvh, sq, sk, d, causal):
+    """The emulated bf16 backward (the kernels' walks and rounding, fed
+    the emulated forward's f32 output and lse) within BWD_BF16_TOL of the
+    plain backward on the same inputs, and of autograd through the
+    materialised-scores attention (the train paths' layer check)."""
+    q, k, v, dout = _bf16(*_inputs(b, h, kvh, sq, sk, d, seed=sq * 7 + d))
+    _, lse, out = _fwd_tiled_bf16(q, k, v, causal)
+    got = _bwd_bf16(q, k, v, out, lse, dout, causal)
+    _assert_within(got, tref.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                       dout, causal),
+                   BWD_BF16_TOL)
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
     fa.flash_attention_plain(qr, kr, vr, causal).backward(dout)
     _assert_within(got, (qr.grad, kr.grad, vr.grad), BWD_BF16_TOL)
@@ -546,10 +589,10 @@ def test_bf16_windowed_kernel_holds_the_chip_tolerance(b, h, kvh, sq, sk, d,
     emulated forward's (out, lse), within BWD_BF16_TOL of the plain
     backward, with no NaN or inf."""
     q, k, v, dout = _bf16(*_inputs(b, h, kvh, sq, sk, d, seed=window + sq))
-    out, lse = _fwd_tiled_bf16(q, k, v, True, window=window, meta=meta)
-    _, plain_lse = fa.flash_attention_plain(q, k, v, window=window,
-                                            meta_tokens=meta,
-                                            return_lse=True)
+    _, lse, out = _fwd_tiled_bf16(q, k, v, True, window=window, meta=meta)
+    _, plain_lse, _ = fa.flash_attention_plain(q, k, v, window=window,
+                                               meta_tokens=meta,
+                                               return_lse=True)
     assert float((lse - plain_lse).abs().max()) <= 2 ** -7
     got = _bwd_bf16(q, k, v, out, lse, dout, True, window=window, meta=meta)
     want = tref.flash_attention_bwd_plain(q, k, v, out, lse, dout, True,
@@ -560,7 +603,7 @@ def test_bf16_windowed_kernel_holds_the_chip_tolerance(b, h, kvh, sq, sk, d,
 @pytest.mark.parametrize("meta", [0, 8])
 def test_bf16_emulation_with_a_window_of_at_least_sk_is_causal_exactly(meta):
     q, k, v, dout = _bf16(*_inputs(1, 5, 1, 150, 200, 16, seed=meta))
-    out, lse = _fwd_tiled_bf16(q, k, v, True)
+    _, lse, out = _fwd_tiled_bf16(q, k, v, True)
     want = _bwd_bf16(q, k, v, out, lse, dout, True)
     for window in (200, 333):
         got = _bwd_bf16(q, k, v, out, lse, dout, True, window=window,
@@ -673,6 +716,22 @@ def test_f32_kernel_ranges_cover_the_mask(sq, sk, causal, window, meta, nq):
         assert not (vis[q0:q0 + 64].any(0) & ~walked).any()
 
 
+# the train paths' own shapes: whisper's encoder (full, 1500 x 1500) and
+# cross-attention (full, 448 x 1500), and internvl2's layer (causal, 1024
+# x 1024, NQ = 32 at D 128)
+PATH_RANGE_CASES = [(1500, 1500, False, 0, 0, 64),
+                    (448, 1500, False, 0, 0, 64),
+                    (1024, 1024, True, 0, 0, 32)]
+
+
+@pytest.mark.parametrize("sq,sk,causal,window,meta,nq", PATH_RANGE_CASES)
+def test_tile_ranges_cover_the_mask_at_the_train_paths_shapes(
+        sq, sk, causal, window, meta, nq):
+    test_wgmma_tile_ranges_cover_the_mask_longest_first(sq, sk, causal,
+                                                        window, meta, nq)
+    test_f32_kernel_ranges_cover_the_mask(sq, sk, causal, window, meta, nq)
+
+
 @pytest.mark.parametrize("meta", [0, 8, 128])
 def test_a_window_of_at_least_sk_walks_the_causal_tiles(meta):
     sq, sk = 333, 400
@@ -697,34 +756,59 @@ def test_a_window_of_at_least_sk_walks_the_causal_tiles(meta):
 @pytest.mark.parametrize("d", [16, 48, 64, 112, 128])
 def test_delta_as_launch_0_forms_it_matches_the_f32_formula(d):
     """delta summed as ``bwd_delta`` sums it (per-lane runs of 8 columns,
-    then a shuffle butterfly) from bf16 O and dO, against rowsum(dO * O)
-    in f64 and in the f32 formula the wrapper used before launch 0: both
-    within f32 rounding of a sum of d terms (1e-5 of the sum of the
+    then a shuffle butterfly) from the f32 O and the bf16 dO, against
+    rowsum(dO * O) in f64 and in the f32 formula of the plain backward:
+    both within f32 rounding of a sum of d terms (1e-5 of the sum of the
     products' magnitudes)."""
-    out, dout = (t.bfloat16() for t in (torch.from_numpy(a) for a in
-                                        _inputs(2, 4, 4, 37, 37, d,
-                                                seed=d)[::3]))
+    out, dout = (torch.from_numpy(a) for a in
+                 _inputs(2, 4, 4, 37, 37, d, seed=d)[::3])
+    dout = dout.bfloat16()
     got = _delta_launch0(out, dout)
     prod = out.double() * dout.double()
     bound = 1e-5 * prod.abs().sum(-1).transpose(1, 2)
     assert got.shape == (2, 4, 37) and got.dtype == torch.float32
     assert ((got.double() - prod.sum(-1).transpose(1, 2)).abs()
             <= bound).all()
-    old = (dout.float() * out.float()).sum(-1).transpose(1, 2)
-    assert ((got - old).abs().double() <= bound).all()
+    plain = (dout.float() * out).sum(-1).transpose(1, 2)
+    assert ((got - plain).abs().double() <= bound).all()
 
 
 def test_delta_from_the_bf16_output_costs_under_2_to_the_minus_7():
-    """The reference takes delta from its f32 output; the port's forward
-    rounds O to bf16 and delta is formed from that. The cost, on the
-    plain backward: within 2^-7 of each gradient's largest magnitude."""
+    """The reference takes delta from its f32 output, and so does the
+    port's backward. What forming it from the output rounded to bf16
+    would cost at TinyLlama's head layout (causal, keys of zero mean), on
+    the plain backward: within 2^-7 of each gradient's largest
+    magnitude."""
     q, k, v, dout = (torch.from_numpy(a) for a in
                      _inputs(1, 32, 4, 128, 128, 64, seed=5))
-    out, lse = fa.flash_attention_plain(q, k, v, True, return_lse=True)
+    _, lse, out = fa.flash_attention_plain(q, k, v, True, return_lse=True)
     want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, True)
     got = fa.flash_attention_bwd_plain(q, k, v, out.bfloat16().float(), lse,
                                        dout, True)
     _assert_within(got, want, 2 ** -7)
+
+
+def test_delta_from_the_bf16_output_fails_full_attention_over_keys_of_a_mean():
+    """Full attention of 45 queries over 1500 keys and values that share a
+    mean (a cross-attention over an encoder's normed output, with no
+    rotary embedding to turn it): the rounding of a bf16 O enters delta,
+    and through dS = P (dP - delta) every key of its row alike, so dQ = dS
+    K takes the keys' mean with it where it would cancel. The emulated
+    bf16 backward fed the bf16 O puts dQ more than 2^-6 of its largest
+    magnitude off autograd through the plain attention; fed the f32 O, as
+    the kernels take it, it holds BWD_BF16_TOL."""
+    q, k, v, dout = _inputs(1, 2, 2, 45, 1500, 64, seed=9)
+    mean = np.random.default_rng(10).standard_normal((1, 1, 2, 64)) * 2
+    q, k, v, dout = _bf16(q * 0.3, k + mean, v + mean, dout)
+    rounded, lse, out = _fwd_tiled_bf16(q, k, v, False)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention_plain(qr, kr, vr, False).backward(dout)
+    want = (qr.grad, kr.grad, vr.grad)
+    _assert_within(_bwd_bf16(q, k, v, out, lse, dout, False), want,
+                   BWD_BF16_TOL)
+    dq = _bwd_bf16(q, k, v, rounded.float(), lse, dout, False)[0]
+    err = float((dq.float() - want[0].float()).abs().max())
+    assert err > BWD_BF16_TOL * float(want[0].float().abs().max())
 
 
 @pytest.mark.parametrize("d", [12, 48, 100])
@@ -736,7 +820,7 @@ def test_bwd_plain_on_zero_padded_heads_equals_unpadded(d, causal):
     columns add exact zeros to every score and to dP)."""
     q, k, v, dout = (torch.from_numpy(a) for a in
                      _inputs(1, 4, 2, 33, 50, d, seed=d))
-    out, lse = fa.flash_attention_plain(q, k, v, causal, return_lse=True)
+    _, lse, out = fa.flash_attention_plain(q, k, v, causal, return_lse=True)
     want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
     width = fa.head_width(d, fa.BWD_HEAD_DIMS)
     qp, kp, vp = fa.pad_head_dim(q, k, v, width)
@@ -763,7 +847,7 @@ def test_bwd_wrapper_refuses_cpu_tensors_and_counts_nothing_on_the_cpu():
     ops.reset_launch_counts()
     q, k, v, dout = (torch.from_numpy(a) for a in
                      _inputs(1, 4, 2, 9, 9, 16))
-    out, lse = fa.flash_attention_plain(q, k, v, True, return_lse=True)
+    _, lse, out = fa.flash_attention_plain(q, k, v, True, return_lse=True)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_bwd(q, k, v, out, lse, dout)
     with pytest.raises(ValueError, match="CUDA"):

@@ -2,7 +2,8 @@
 the sinusoidal table, the fc-GELU-fc feed-forward, the encoder, the
 cross-attention, the model's forward, prefill (its ``xk``/``xv`` cache),
 decode and ``Engine.generate``, the parameter layout and the carry of the
-``encoder`` and ``xattn`` leaves, and the trainer's refusal.
+``encoder`` and ``xattn`` leaves (training:
+``tests/test_torch_modal_train.py``).
 
 Weights come from the reference's ``init_params`` (norms and biases
 perturbed so that ``1 + scale`` and the biases matter), carried into the
@@ -41,7 +42,6 @@ from repro_torch import models as T  # noqa: E402
 from repro_torch.carry import lm_params_from_arrays  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.lm import DataConfig, batch_at  # noqa: E402
-from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 
@@ -336,9 +336,3 @@ def test_batch_at_draws_frames_after_the_tokens():
     assert torch.equal(a["tokens"], dense["tokens"])
     assert torch.equal(a["frames"],
                        batch_at(dcfg, cfg, 5, device="cpu")["frames"])
-
-
-def test_trainer_refuses_the_audio_family():
-    args = ttrain.parser().parse_args(["--arch", ARCH, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="'audio'"):
-        ttrain.setup(args)

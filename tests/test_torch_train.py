@@ -64,6 +64,9 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 STEP_TOL = dict(rtol=1e-4, atol=1e-6)
 PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 LR = 1e-2
+# the leaves _weights perturbs beside the norms: the qkv biases and the
+# audio family's feed-forward biases
+BIASES = ("['bq']", "['bk']", "['bv']", "['b_fc']", "['b_out']")
 # the few elements Adam's eps or the bf16 state flips (see the docstring)
 MOMENT_OUTLIERS = dict(outlier_atol=1e-6, outlier_rtol=2 ** -7)
 
@@ -85,7 +88,7 @@ def _weights(cfg, seed=0):
 
     def perturb(path, a):
         name = jax.tree_util.keystr(path)
-        if "norm" in name or name.endswith(("['bq']", "['bk']", "['bv']")):
+        if "norm" in name or name.endswith(BIASES):
             return (rng.standard_normal(a.shape) * 0.1).astype(a.dtype)
         return a
     return jax.tree_util.tree_map_with_path(perturb, params)
@@ -93,14 +96,25 @@ def _weights(cfg, seed=0):
 
 def _batch(cfg, b=4, s=24, seed=1):
     """Numpy tokens and next-token labels, -1 at the end and at a few
-    random places."""
+    random places; then the family's modality stub, f32 standard normal:
+    the audio family's ``frames`` [b, enc_frames, d], the vlm family's
+    ``vision_embeds`` [b, vision_tokens, d] (its labels -1 under them, as
+    ``batch_at`` draws them)."""
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (b, s + 1))
     labels = tokens[:, 1:].copy()
     labels[rng.random((b, s)) < 0.1] = -1
     labels[:, -1] = -1
-    return {"tokens": tokens[:, :-1].astype(np.int32),
-            "labels": labels.astype(np.int32)}
+    batch = {"tokens": tokens[:, :-1].astype(np.int32),
+             "labels": labels.astype(np.int32)}
+    if cfg.enc_layers:
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+        batch["labels"][:, :cfg.vision_tokens] = -1
+    return batch
 
 
 def _ref(batch):
@@ -108,30 +122,35 @@ def _ref(batch):
 
 
 def _port(batch):
-    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()}
+    """Integer entries as int64 tensors, the stubs' floats as they are."""
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind == "i"
+                                else v) for k, v in batch.items()}
 
 
 def _per_layer(tree):
-    """A reference tree of numpy arrays by the port's names (stacked
-    ``blocks`` leaves split into layers; factored leaves as name.row; a
-    factored stacked [L, d] leaf's column, shared by the layers, under
-    each layer's name)."""
+    """A reference tree of numpy arrays by the port's names (the stacked
+    leaves under each of ``optimizer.STACKS``: ``blocks``,
+    ``dense_blocks`` and ``encoder``, split into layers; factored leaves
+    as name.row; a factored stacked [L, d] leaf's column, shared by the
+    layers, under each layer's name)."""
     out = {}
 
     def walk(t, prefix):
+        stack, dot, rest = prefix.partition(".")
+        stacked = bool(dot) and stack in opt.STACKS
         for key, val in t.items():
-            if isinstance(val, dict) and prefix.startswith("blocks.") \
+            if isinstance(val, dict) and stacked \
                     and set(val) == {"row", "col"} \
                     and np.ndim(val["row"]) == 1:
                 for i, row in enumerate(np.asarray(val["row"], np.float32)):
-                    name = f"blocks.{i}.{prefix[7:]}{key}"
+                    name = f"{stack}.{i}.{rest}{key}"
                     out[f"{name}.row"] = row
                     out[f"{name}.col"] = np.asarray(val["col"], np.float32)
             elif isinstance(val, dict):
                 walk(val, f"{prefix}{key}.")
-            elif prefix.startswith("blocks."):
+            elif stacked:
                 for i, layer in enumerate(np.asarray(val, np.float32)):
-                    out[f"blocks.{i}.{prefix[7:]}{key}"] = layer
+                    out[f"{stack}.{i}.{rest}{key}"] = layer
             else:
                 out[prefix + key] = np.asarray(val, np.float32)
     walk(tree, "")

@@ -1,7 +1,7 @@
 """The vlm family (internvl2-76b) against the reference: the vision
 embeddings' overlay in the forward, prefill and decode, ``batch_at``'s
-modality stub, ``Engine.generate`` passing the stub through, and the
-trainer's refusal.
+modality stub and ``Engine.generate`` passing the stub through (training:
+``tests/test_torch_modal_train.py``).
 
 The vlm model is the dense family whose first ``vision_tokens`` token
 embeddings the prompt's ``vision_embeds`` replace. Weights come from the
@@ -28,7 +28,6 @@ from repro_torch import models as T  # noqa: E402
 from repro_torch.carry import lm_params_from_arrays  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.lm import DataConfig, batch_at  # noqa: E402
-from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 
 torch.set_num_threads(2)   # xdist runs several workers on the same cores
@@ -173,9 +172,3 @@ def test_batch_at_draws_vision_embeds_and_masks_their_labels():
     assert torch.equal(a["tokens"], dense["tokens"])
     assert torch.equal(a["vision_embeds"],
                        batch_at(dcfg, cfg, 4, device="cpu")["vision_embeds"])
-
-
-def test_trainer_refuses_the_vlm_family():
-    args = ttrain.parser().parse_args(["--arch", ARCH, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="'vlm'"):
-        ttrain.setup(args)
