@@ -11,7 +11,7 @@ each kernel against its plain PyTorch
 version on the card (edge cases, the sliding window and meta tokens
 included, in the forward and in the backward, and exact-tie inputs),
 prefills each dense, moe, hybrid, audio and vlm REDUCED config through
-the attention kernel against the plain attention, then drives fourteen
+the attention kernel against the plain attention, then drives fifteen
 paths, each with its kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
@@ -21,7 +21,7 @@ paths, each with its kernel launches counted from zero and checked:
   (``l2_topk_masked``, ``pq_adc_masked``). At 30,000 x 128 with 512
   queries the recall floor of the algorithm's working regime must hold;
   the main run is SIFT1M's shape (1,000,000 x 128 float32, made from a
-  seed) with 2048 queries.
+  seed) with 1024 queries.
 * rag: the LM half of retrieval-augmented serving (the reference's
   examples/rag_serve.py) at TinyLlama-1.1B's published width, weights
   from a seed: ``search_pag`` on the quality index answers 8 queries
@@ -113,6 +113,22 @@ paths, each with its kernel launches counted from zero and checked:
   D 128, G 8) with autograd through the plain attention, each under the
   captured call's own mask; internvl2's loss takes no label under the
   vision tokens.
+* pod: the pod-scale data plane (``core/distributed.py``'s serve and
+  assign steps) at the reference's anns-sift-10m dry-run shapes, on
+  ``make_local_mesh(model_axis=2)`` over 4 gloo ranks that share the card
+  (spawned, ``file://`` rendezvous, the kernels built once before): the
+  serve step over a 10,000,000 x 128 database (2.5M rows a rank), 4096
+  queries, 32 probed rows a rank, k 100 (each rank's scan through
+  ``l2_topk_masked``, the merge over data then model); the assign step,
+  155,648 residual rows over data against 1,966,080 aggregation points
+  over model, k 8 (``l2_topk`` a row chunk of 4096). Each rank counts its
+  launches from 0 around its two steps; then the steps are timed (all
+  ranks together), the merges, and each rank's gather and scans alone.
+  Afterwards: the serve result bit for bit the same on every rank and
+  each id within ``norm_atol`` of the plain scan over the query's
+  candidates of all ranks (near-ties counted); every rank's assign block
+  equal, ids and d2 bit for bit, to one unsharded ``l2_topk``; and both
+  steps at world size 1 under nccl equal to the direct kernel calls.
 * compare: the paper's comparison (Table IV, Figs 8-10) at 50,000 x 128
   with 1000 queries: PAG, DiskANN (one ``pq_adc_rows`` launch per wave of
   its lock-step traversal, the waves of each sweep printed), SPANN (closure
@@ -128,8 +144,11 @@ f32, against the plain backward) take windows of 1, 17, 64, 100, 128,
 and Sq = Sk with ragged lengths, and hymba's own layer; a window of at
 least Sk must give the causal backward bit for bit.
 
-Last, each kernel is timed on the inputs its path gave it (``l2_topk``
-twice: SPANN's closure chunk and the 1M ground-truth chunk;
+Last, each kernel is timed on the inputs its path gave it
+(``l2_topk_masked`` twice: the main path's batch and the pod path's
+serve scan; ``l2_topk`` three times: SPANN's closure chunk, the 1M
+ground-truth chunk and the pod path's assign chunk; the pod path's
+inputs drawn again from the seed as its rank 0 drew them;
 ``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` ten
 times: rag's first prefill layer, the moe path's two, hymba's first
 windowed and first global layer, whisper's encoder layer and
@@ -171,8 +190,10 @@ ROOT = Path(__file__).resolve().parent
 
 # SIFT1M shape; index and search at the repo's DFS/PQ operating point
 # (benchmarks/qps_recall.py pq_main: p=0.01, lam=8, redundancy=2,
-# n_probe_max=32, rerank_k from its sweep (16, 32, 64))
-N, D, N_QUERIES, K = 1_000_000, 128, 2048, 10
+# n_probe_max=32, rerank_k from its sweep (16, 32, 64)). 1024 queries
+# (four micro-batches a plane; 2048 until the pod path, cut for the
+# smoke's clock)
+N, D, N_QUERIES, K = 1_000_000, 128, 1024, 10
 PAG_ARGS = dict(p=0.01, lam=8, redundancy=2, R=16)
 N_SHARDS, MAX_BATCH = 4, 256
 SEARCH_ARGS = dict(L=32, k=K, n_probe_max=32, rerank_k=64)
@@ -457,6 +478,21 @@ MODAL_TRAIN_LAYERS = {
         "decoder layer 0 cross-attention": lambda a, kw: not kw["causal"]
         and a[0].shape[1] < a[1].shape[1]},
     "vlm_train": {"layer 0": lambda a, kw: True}}
+# The pod path: the reference's anns-sift-10m dry-run row
+# (src/repro/launch/dryrun.py:221; SIFT10M's shape, the paper's Table
+# III: 10M x 128 f32, 4096 queries, k 100, p_loc 2 probed partitions of
+# cap 16 a rank, aggregation points p_agg 0.2 of n) on
+# make_local_mesh(model_axis=2) over 4 gloo ranks that share the card
+# (data 2, model 2): the database sharded over all four (2.5M rows, 1.28
+# GB a rank); the assign step's residual rows over data and aggregation
+# points over model, rounded to its chunks as lower_anns_cell rounds them
+# (k 8, row chunk 4096, column chunk 65,536)
+POD_RANKS, POD_MODEL_AXIS = 4, 2
+POD_N, POD_D, POD_Q, POD_K = 10_000_000, 128, 4096, 100
+POD_P_LOC, POD_CAP, POD_P_AGG = 2, 16, 0.2
+POD_ASSIGN_K, POD_ROW_CHUNK, POD_COL_CHUNK = 8, 4096, 65536
+POD_DATA = ("queries", "db", "rows", "res", "agg")   # the seeded blocks
+POD_TIMEOUT_S = 300   # a collective that waits longer fails the path
 # The reference's chunked attention pads K and V with zero keys to a
 # multiple of this chunk (when longer) that only a causal mask hides, so
 # its full attention (whisper's encoder and prefill cross-attention) gives
@@ -2678,6 +2714,308 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
     return rows
 
 
+def pod_sizes() -> tuple:
+    """(rows of a database block, residual rows of a data rank,
+    aggregation points of a model rank), sized as the reference's
+    ``lower_anns_cell`` sizes them for the mesh."""
+    dp, mp = POD_RANKS // POD_MODEL_AXIS, POD_MODEL_AXIS
+    m_agg = max(int(POD_N * POD_P_AGG) // (mp * POD_COL_CHUNK), 1) \
+        * mp * POD_COL_CHUNK
+    n_res = max(POD_N // 64 // (dp * POD_ROW_CHUNK), 1) * dp * POD_ROW_CHUNK
+    return POD_N // POD_RANKS, n_res // dp, m_agg // mp
+
+
+def pod_block(what: str, index: int, dev) -> torch.Tensor:
+    """Block ``index`` of ``what``, drawn on the card from the seed and the
+    block's index, so that any process draws it again: the queries (one
+    block, replicated), a rank's database block and its probed rows ([Q,
+    p_loc * cap] local ids, drawn with replacement), a data rank's
+    residual rows, a model rank's aggregation points."""
+    n_loc, r_loc, m_loc = pod_sizes()
+    g = torch.Generator(device=dev)
+    g.manual_seed(1000 * POD_DATA.index(what) + index)
+    if what == "rows":
+        return torch.randint(0, n_loc, (POD_Q, POD_P_LOC * POD_CAP),
+                             generator=g, device=dev, dtype=torch.int32)
+    n = {"queries": POD_Q, "db": n_loc, "res": r_loc, "agg": m_loc}[what]
+    return torch.randn((n, POD_D), generator=g, device=dev)
+
+
+def pod_rank(rank: int, init: str, out: str, src: str) -> None:
+    """One gloo rank of the pod path (``pod`` spawns it): draws its
+    blocks on the card, runs the serve and the assign step once with its
+    launches counted from 0, then times the steps (all ranks started
+    together), the merges, and, one rank at a time, its gather and local
+    scans; saves it all to ``out/pod<rank>.pt``."""
+    sys.path.insert(0, src)
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.core import distributed as pd
+    from repro_torch.distributed import compat
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    compat.init_ranks("gloo", init, rank, POD_RANKS,
+                      timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+    try:
+        mesh = pm.make_local_mesh(model_axis=POD_MODEL_AXIS)
+        r, mi = pd.linear_rank(mesh), mesh.axis_index("model")
+        queries = pod_block("queries", 0, dev)
+        db, rows = pod_block("db", r, dev), pod_block("rows", r, dev)
+        res = pod_block("res", mesh.axis_index("data"), dev)
+        agg = pod_block("agg", mi, dev)
+        serve = pd.make_anns_serve_step(mesh, k=POD_K)
+        assign = pd.make_anns_assign_step(mesh, k=POD_ASSIGN_K,
+                                          row_chunk=POD_ROW_CHUNK,
+                                          col_chunk=POD_COL_CHUNK)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def wall(fn, reps: int) -> float:
+            """Mean s of ``fn()`` from a start every rank shares to its
+            result on this rank."""
+            ts = []
+            for _ in range(reps):
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            return float(np.mean(ts))
+
+        got = {}
+        dist.barrier()
+        ops.reset_launch_counts()
+        rep = {"rank": r, "coords": mesh.coords,
+               "serve_first_s": wall(lambda: got.update(
+                   serve=serve(queries, db, rows)), 1),
+               "assign_first_s": wall(lambda: got.update(
+                   assign=assign(res, agg)), 1)}
+        rep["launches"] = ops.launch_counts()
+        rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rep["serve_s"] = wall(lambda: serve(queries, db, rows), 5)
+        rep["assign_s"] = wall(lambda: assign(res, agg), 2)
+        # the local parts, one rank at a time with the card to itself
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for turn in range(POD_RANKS):
+            dist.barrier()
+            if turn != rank:
+                continue
+            rep["gather_ms"] = cuda_time_ms(lambda: pd.gather_pools(db, rows),
+                                            reps=10)
+            pools = pd.gather_pools(db, rows)
+            rep["serve_scan_ms"] = cuda_time_ms(
+                lambda: pd.serve_scan(queries, pools, rows, POD_K), reps=10)
+            d2, local = pd.serve_scan(queries, pools, rows, POD_K)
+            start.record()
+            a_d2, a_local = pd.assign_scan(res, agg, POD_ASSIGN_K,
+                                           POD_ROW_CHUNK)
+            end.record()
+            torch.cuda.synchronize()
+            rep["assign_scan_ms"] = start.elapsed_time(end)
+        # the merges alone, every rank in them: all_gathers (through host
+        # memory under gloo) and the stable top-k
+        gids, a_gids = local + r * db.shape[0], a_local + mi * agg.shape[0]
+        rep["serve_merge_ms"] = 1e3 * wall(lambda: pd.merge_topk(
+            mesh, mesh.axis_names, d2, gids, POD_K), 10)
+        rep["assign_merge_ms"] = 1e3 * wall(lambda: pd.merge_topk(
+            mesh, ("model",), a_d2, a_gids, POD_ASSIGN_K), 10)
+        torch.save({**rep, **{k: [t.cpu() for t in v]
+                              for k, v in got.items()}},
+                   f"{out}/pod{rank}.pt")
+    finally:
+        compat.shutdown()
+
+
+def pod_nccl(_: int, init: str, out: str, src: str) -> None:
+    """The serve and the assign step at world size 1 (a 1 x 1 mesh) under
+    nccl, the backend of one card a rank, against the direct kernel calls
+    on rank 0's blocks; saves the verdicts to ``out/nccl.pt``."""
+    sys.path.insert(0, src)
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.core import distributed as pd
+    from repro_torch.distributed import compat
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
+
+    dev = torch.device("cuda", 0)
+    compat.init_ranks("nccl", init, 0, 1, device=dev,
+                      timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+    try:
+        mesh = pm.make_local_mesh()
+        q, db = pod_block("queries", 0, dev), pod_block("db", 0, dev)
+        rows = pod_block("rows", 0, dev)
+        ids, d2 = pd.make_anns_serve_step(mesh, k=POD_K)(q, db, rows)
+        want_d2, want_ids = ops.l2_topk_masked(q, pd.gather_pools(db, rows),
+                                               rows, POD_K)
+        w = ids.shape[1]
+        rep = {"backend": dist.get_backend(mesh.groups["data"]),
+               "serve_width": w,
+               "serve_equal": torch.equal(ids, want_ids[:, :w])
+               and torch.equal(d2, want_d2[:, :w])}
+        res, agg = pod_block("res", 0, dev), pod_block("agg", 0, dev)
+        ids, d2 = pd.make_anns_assign_step(
+            mesh, k=POD_ASSIGN_K, row_chunk=POD_ROW_CHUNK,
+            col_chunk=POD_COL_CHUNK)(res, agg)
+        want_d2, want_ids = ops.l2_topk(res, agg, POD_ASSIGN_K)
+        rep["assign_equal"] = torch.equal(ids, want_ids) \
+            and torch.equal(d2, want_d2)
+        torch.save(rep, f"{out}/nccl.pt")
+    finally:
+        compat.shutdown()
+
+
+def pod() -> dict:
+    """The pod path: POD_RANKS gloo ranks on one card (spawned: a fork
+    after CUDA is set up does not work; ``file://`` rendezvous), then one
+    nccl rank. A rank that raises fails the path (``join=True``
+    re-raises)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    src = str(ROOT / "src")
+    r = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(pod_rank, args=(f"file://{tmp}/rendezvous", tmp,
+                                           src),
+                           nprocs=POD_RANKS, join=True, start_method="spawn")
+        r["ranks_s"] = time.perf_counter() - t0
+        r["ranks"] = [torch.load(f"{tmp}/pod{i}.pt")
+                      for i in range(POD_RANKS)]
+        t0 = time.perf_counter()
+        mp.start_processes(pod_nccl, args=(f"file://{tmp}/rendezvous_nccl",
+                                           tmp, src),
+                           nprocs=1, join=True, start_method="spawn")
+        r["nccl_s"] = time.perf_counter() - t0
+        r["nccl"] = torch.load(f"{tmp}/nccl.pt")
+    return r
+
+
+def check_pod(r: dict, dev) -> dict:
+    """The pod path's gates: both kernels launched on every rank; the
+    serve result the same on every rank bit for bit, k wide, and each of
+    its ids a candidate whose plain distance is within ``norm_atol`` of
+    the plain scan's at that place (over the query's candidates of all
+    ranks, with global ids: exact cross-rank ties break in merge order,
+    so ids may differ at near-ties, counted); the sharded assign equal,
+    ids and d2 bit for bit, to one ``l2_topk`` over the whole aggregation
+    set; the nccl run equal to the direct calls."""
+    from repro_torch.kernels import l2_topk, ops
+    ranks = r["ranks"]
+    for x in ranks:
+        missing = [k for k in ("l2_topk_masked", "l2_topk")
+                   if x["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"pod rank {x['rank']}: not launched: "
+                                 f"{missing}")
+    ids, d2 = ranks[0]["serve"]
+    for x in ranks[1:]:
+        if not (torch.equal(x["serve"][0], ids)
+                and torch.equal(x["serve"][1], d2)):
+            raise AssertionError(f"pod serve: rank {x['rank']} differs "
+                                 f"from rank 0")
+    if tuple(ids.shape) != (POD_Q, POD_K):
+        raise AssertionError(f"pod serve: width {tuple(ids.shape)}")
+    n_loc, r_loc, _ = pod_sizes()
+    queries = pod_block("queries", 0, dev)
+    pools, gids = [], []
+    for rank in range(POD_RANKS):
+        rows = pod_block("rows", rank, dev)
+        pools.append(pod_block("db", rank, dev)[rows.long()])
+        gids.append(rows + rank * n_loc)
+    pools, gids = torch.cat(pools, 1), torch.cat(gids, 1)
+    c = pools.shape[1]
+    atol = norm_atol(queries, pools.reshape(-1, POD_D))
+    all_d2, all_ids = (t.cpu() for t in l2_topk.l2_topk_masked_plain(
+        queries, pools, gids, c))
+    del pools
+    want_d2, want_ids = all_d2[:, :POD_K], all_ids[:, :POD_K]
+    err = (d2 - want_d2).abs()
+    # the plain distance of each id the step returned
+    of_got = torch.where(all_ids[:, None, :] == ids[:, :, None],
+                         all_d2[:, None, :], INF).amin(-1)
+    if (err > atol).any() or ((of_got - want_d2).abs() > atol).any():
+        raise AssertionError(f"pod serve: off the plain scan by "
+                             f"{err.max():.3g} / "
+                             f"{(of_got - want_d2).abs().max():.3g} (atol "
+                             f"{atol:.3g})")
+    differ = int((ids != want_ids).sum())
+
+    dp = POD_RANKS // POD_MODEL_AXIS
+    res = torch.cat([pod_block("res", i, dev) for i in range(dp)])
+    agg = torch.cat([pod_block("agg", j, dev)
+                     for j in range(POD_MODEL_AXIS)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ops.l2_topk(res, agg, POD_ASSIGN_K)
+    torch.cuda.synchronize()
+    unsharded_s = time.perf_counter() - t0
+    want_d2, want_ids = (t.cpu() for t in want)
+    del res, agg, want
+    for x in ranks:
+        lo = x["coords"][0] * r_loc
+        got_ids, got_d2 = x["assign"]
+        if not torch.equal(got_ids, want_ids[lo:lo + r_loc]):
+            raise AssertionError(f"pod assign: rank {x['rank']}'s ids differ "
+                                 f"from the unsharded l2_topk")
+        if not torch.equal(got_d2, want_d2[lo:lo + r_loc]):
+            raise AssertionError(f"pod assign: rank {x['rank']}'s d2 not bit "
+                                 f"for bit the unsharded l2_topk's")
+    nccl = r["nccl"]
+    if nccl["backend"] != "nccl" or not nccl["serve_equal"] \
+            or not nccl["assign_equal"]:
+        raise AssertionError(f"pod nccl at world size 1: {nccl}")
+    return {"serve_identical_on_ranks": True,
+            "serve_max_abs_err": float(err.max()), "serve_atol": atol,
+            "serve_ids_differing_at_near_ties": differ,
+            "assign_equal_to_unsharded": True,
+            "unsharded_assign_s": unsharded_s, "nccl": nccl}
+
+
+def report_pod(r: dict, checks: dict, card: str) -> None:
+    """The pod path's numbers, each on its own line, then one JSON line."""
+    n_loc, r_loc, m_loc = pod_sizes()
+    ranks = r["ranks"]
+    keys = ("serve_first_s", "assign_first_s", "serve_s", "assign_s",
+            "gather_ms", "serve_scan_ms", "assign_scan_ms", "serve_merge_ms",
+            "assign_merge_ms", "peak_gib")
+    rep = {"card": card, "mesh": {"data": POD_RANKS // POD_MODEL_AXIS,
+                                  "model": POD_MODEL_AXIS},
+           "backend": "gloo", "ranks_on_one_card": POD_RANKS,
+           "serve": {"n": POD_N, "d": POD_D, "n_local": n_loc, "Q": POD_Q,
+                     "rows_a_rank": POD_P_LOC * POD_CAP, "k": POD_K},
+           "assign": {"n_res": r_loc * POD_RANKS // POD_MODEL_AXIS,
+                      "m_agg": m_loc * POD_MODEL_AXIS, "n_local": r_loc,
+                      "m_local": m_loc, "k": POD_ASSIGN_K,
+                      "row_chunk": POD_ROW_CHUNK,
+                      "col_chunk": POD_COL_CHUNK},
+           "per_rank": [{k: x[k] for k in ("rank", "launches") + keys}
+                        for x in ranks],
+           "ranks_s": r["ranks_s"], "nccl_s": r["nccl_s"], **checks}
+    for key, what in (("serve_s", "serve step wall s (mean of 5)"),
+                      ("assign_s", "assign step wall s (mean of 2)")):
+        print(f"pod {what}, all ranks started together, by rank: "
+              f"{[x[key] for x in ranks]} ({card})")
+    for x in ranks:
+        print(f"pod rank {x['rank']} {x['coords']}: gather "
+              f"{x['gather_ms']:.4f} ms, l2_topk_masked scan "
+              f"{x['serve_scan_ms']:.4f} ms, l2_topk scans "
+              f"{x['assign_scan_ms']:.2f} ms (alone on the card); merges "
+              f"{x['serve_merge_ms']:.3f} / {x['assign_merge_ms']:.3f} ms; "
+              f"peak {x['peak_gib']:.3f} GiB ({card})")
+    print(f"pod unsharded assign check (one l2_topk, "
+          f"{r_loc * POD_RANKS // POD_MODEL_AXIS} x "
+          f"{m_loc * POD_MODEL_AXIS}): {checks['unsharded_assign_s']:.3f} s "
+          f"({card})")
+    print(f"pod report: {json.dumps(rep)}", flush=True)
+
+
 def device_split(fn, reps: int, names, tries: int = 4) -> dict | None:
     """The device time of one call of ``fn()`` by kernel, from
     ``torch.profiler`` over ``reps`` calls: for each kernel whose name
@@ -2719,7 +3057,7 @@ def device_ms(fn, reps: int, names, tries: int = 4) -> float | None:
 
 def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
                   source, replaces, check, shape, device_names,
-                  ops_per_s=FP32_OPS_PER_S) -> dict:
+                  ops_per_s=FP32_OPS_PER_S, plain_reps: int = 5) -> dict:
     """Times one kernel on captured path inputs beside its plain version,
     a library formulation and its bound (operations at ``ops_per_s``);
     ``check(got, want)`` holds the kernel to the plain version and
@@ -2730,7 +3068,7 @@ def kernel_report(name, fn, plain, library, args, launches, nbytes, n_ops,
     ms = cuda_time_ms(lambda: fn(*args), reps=20)
     split = device_split(lambda: fn(*args), 20, device_names)
     dev_ms = None if split is None else sum(split.values())
-    plain_ms = cuda_time_ms(lambda: plain(*args), reps=5)
+    plain_ms = cuda_time_ms(lambda: plain(*args), reps=plain_reps)
     library_ms = cuda_time_ms(library, reps=10)
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": n_ops / ops_per_s * 1e3}
@@ -2862,41 +3200,107 @@ def flash_row(cap, launches: int, what: str) -> dict:
     return row
 
 
-def time_kernels(caps, counts) -> list:
-    """One row per kernel at the shapes its path gave it. ``caps`` and
-    ``counts`` map each kernel to its captured inputs and to the launch
-    counts of the path they came from."""
-    from repro_torch.core.distances import cdist2
-    from repro_torch.kernels import l2_topk, pq_adc
-    rows = []
-
-    def masked_check(atol):
-        return lambda got, want: compare("main path", got, want,
-                                         exact=False, atol=atol)
-
-    (q, pools, ids), kw = caps["l2_topk_masked"].args
-    k = kw["k"]
+def l2_masked_row(q, pools, ids, k, launches, what) -> dict:
+    """The l2_topk_masked row on these inputs."""
+    from repro_torch.kernels import l2_topk
     real = int((ids >= 0).sum())
     qn, c, d = pools.shape
 
-    def l2_masked_library():
+    def library():
         xn = torch.einsum("qcd,qcd->qc", pools, pools)
         d2 = torch.baddbmm((xn + (q * q).sum(-1)[:, None])[:, :, None],
                            pools, q[:, :, None], alpha=-2.0)[:, :, 0]
         d2 = d2.clamp_min_(0.0).masked_fill_(ids < 0, INF)
-        return torch.topk(d2, k, dim=1, largest=False)
+        # a pool narrower than k (the pod path's 32) has min(k, C) to give
+        return torch.topk(d2, min(k, c), dim=1, largest=False)
 
-    rows.append(kernel_report(
+    return kernel_report(
         "l2_topk_masked", lambda *a: l2_topk.l2_topk_masked(*a, k=k),
-        lambda *a: l2_topk.l2_topk_masked_plain(*a, k=k), l2_masked_library,
-        (q, pools, ids), counts["l2_topk_masked"]["l2_topk_masked"],
+        lambda *a: l2_topk.l2_topk_masked_plain(*a, k=k), library,
+        (q, pools, ids), launches,
         nbytes=qn * d * 4 + qn * c * 4 + real * d * 4 + qn * k * 8,
         n_ops=real * d * 4,
         source="src/repro_torch/kernels/csrc/l2_topk_masked.cu",
         replaces="src/repro/kernels/l2_topk.py:138",
-        check=masked_check(norm_atol(q, pools.reshape(-1, d))),
+        check=lambda got, want: compare(
+            what, got, want, exact=False,
+            atol=norm_atol(q, pools.reshape(-1, d))),
         shape={"Q": qn, "C": c, "real_rows": real, "d": d, "k": k},
-        device_names=("l2_topk_masked_kernel",)))
+        device_names=("l2_topk_masked_kernel",))
+
+
+def l2_row(q, x, k, launches, what, plain=None, library=None,
+           plain_reps=5) -> dict:
+    """The l2_topk row on these inputs (plain: ``l2_topk_plain`` unless
+    given; library: cdist2 and topk unless given)."""
+    from repro_torch.core.distances import cdist2
+    from repro_torch.kernels import l2_topk
+    (qn, d), n = q.shape, x.shape[0]
+    return kernel_report(
+        "l2_topk", l2_topk.l2_topk, plain or l2_topk.l2_topk_plain,
+        library or (lambda: torch.topk(cdist2(q, x), k, dim=1,
+                                       largest=False)),
+        (q, x, k), launches, plain_reps=plain_reps,
+        nbytes=(qn + n) * d * 4 + qn * k * 8,
+        # q.x for every pair, both norms, the combine and clamp
+        n_ops=2 * qn * n * d + 2 * (qn + n) * d + 4 * qn * n,
+        source="src/repro_torch/kernels/csrc/l2_topk.cu",
+        replaces="src/repro/kernels/l2_topk.py:70",
+        check=lambda got, want: compare(what, got, want, exact=False,
+                                        atol=norm_atol(q, x)),
+        shape={"Q": qn, "N": n, "d": d, "k": k},
+        device_names=("l2_topk_scan", "l2_topk_merge"))
+
+
+def pod_kernel_rows(counts: dict, dev) -> list:
+    """The two kernels at the pod path's shapes, on rank 0's inputs drawn
+    again from the seed: its serve scan, and its assign step's first row
+    chunk against its aggregation block. The plain l2_topk runs in blocks
+    of 512 queries (its sort of the whole [4096, 983,040] would take ~64
+    GB at once); the library formulation takes one [4096, 983,040]
+    buffer. ``counts``: the pod path's launches."""
+    from repro_torch.core import distributed as pd
+    from repro_torch.kernels import l2_topk
+    queries, ids = pod_block("queries", 0, dev), pod_block("rows", 0, dev)
+    rows = [l2_masked_row(queries, pd.gather_pools(
+        pod_block("db", 0, dev), ids), ids, POD_K, counts["l2_topk_masked"],
+        "pod serve scan")]
+    res = pod_block("res", 0, dev)[:POD_ROW_CHUNK]
+    agg = pod_block("agg", 0, dev)
+
+    def plain_blocks(q, x, k):
+        parts = [l2_topk.l2_topk_plain(q[i:i + 512], x, k)
+                 for i in range(0, q.shape[0], 512)]
+        return tuple(torch.cat(t) for t in zip(*parts))
+
+    def assign_library():
+        d2 = torch.addmm((agg * agg).sum(-1)[None, :], res, agg.T,
+                         alpha=-2.0)
+        d2.add_((res * res).sum(-1)[:, None]).clamp_min_(0.0)
+        return torch.topk(d2, POD_ASSIGN_K, dim=1, largest=False)
+
+    rows.append(l2_row(res, agg, POD_ASSIGN_K, counts["l2_topk"],
+                       "pod assign chunk", plain=plain_blocks,
+                       library=assign_library, plain_reps=1))
+    for r in rows:
+        r["path"] = "pod"
+        r["note"] = ("launches: the pod path's, over its 4 ranks (1 "
+                     "l2_topk_masked and 19 l2_topk a rank); timed on rank "
+                     "0's inputs with the card to itself")
+    return rows
+
+
+def time_kernels(caps, counts) -> list:
+    """One row per kernel at the shapes its path gave it. ``caps`` and
+    ``counts`` map each kernel to its captured inputs and to the launch
+    counts of the path they came from."""
+    from repro_torch.kernels import pq_adc
+    rows = []
+
+    (q, pools, ids), kw = caps["l2_topk_masked"].args
+    rows.append(l2_masked_row(q, pools, ids, kw["k"],
+                              counts["l2_topk_masked"]["l2_topk_masked"],
+                              "main path"))
 
     (luts, codes, pos), kw = caps["pq_adc_masked"].args
     k = kw["k"]
@@ -2916,32 +3320,17 @@ def time_kernels(caps, counts) -> list:
         n_ops=real * m,
         source="src/repro_torch/kernels/csrc/pq_adc_masked.cu",
         replaces="src/repro/kernels/pq_adc.py:100",
-        check=masked_check(1e-4),
+        check=lambda got, want: compare("main path", got, want,
+                                        exact=False, atol=1e-4),
         shape={"Q": qn, "C": c, "real_rows": real, "M": m, "k": k},
         device_names=("pq_adc_masked_kernel",)))
 
-    def l2_row(cap, launches, what):
-        (q, x, k), _ = cap.args
-        (qn, d), n = q.shape, x.shape[0]
-        return kernel_report(
-            "l2_topk", l2_topk.l2_topk, l2_topk.l2_topk_plain,
-            lambda: torch.topk(cdist2(q, x), k, dim=1, largest=False),
-            (q, x, k), launches,
-            nbytes=(qn + n) * d * 4 + qn * k * 8,
-            # q.x for every pair, both norms, the combine and clamp
-            n_ops=2 * qn * n * d + 2 * (qn + n) * d + 4 * qn * n,
-            source="src/repro_torch/kernels/csrc/l2_topk.cu",
-            replaces="src/repro/kernels/l2_topk.py:70",
-            check=lambda got, want: compare(what, got, want, exact=False,
-                                            atol=norm_atol(q, x)),
-            shape={"Q": qn, "N": n, "d": d, "k": k},
-            device_names=("l2_topk_scan", "l2_topk_merge"))
-
     # SPANN's closure assignment (13 of the compare path's launches), then
     # the main path's ground-truth chunk
-    rows.append(l2_row(caps["l2_topk_closure"], counts["l2_closure"]
-                       ["l2_topk"], "SPANN closure chunk"))
-    rows.append(l2_row(caps["l2_topk"], counts["l2_topk"]["l2_topk"],
+    rows.append(l2_row(*caps["l2_topk_closure"].args[0],
+                       counts["l2_closure"]["l2_topk"],
+                       "SPANN closure chunk"))
+    rows.append(l2_row(*caps["l2_topk"].args[0], counts["l2_topk"]["l2_topk"],
                        "ground-truth chunk"))
 
     (luts, table, node_ids, offsets), _ = caps["pq_adc_rows"].args
@@ -3054,6 +3443,9 @@ def time_kernels(caps, counts) -> list:
             "36 backward on whisper-small (12 encoder layers, 12 decoder "
             "self-attention, 12 cross-attention; each forward twice, "
             "remat), 12 and 6 on internvl2-76b (6 layers)")]))
+
+    rows += pod_kernel_rows(counts["pod"], caps["l2_topk"].args[0][0]
+                            .device)
     return rows
 
 
@@ -3327,6 +3719,22 @@ def main() -> int:
         del run
         torch.cuda.empty_cache()
 
+    # four gloo ranks share the card; each counts its own launches from 0
+    # around its steps, and the path's counts are their sum
+    with phase("pod: 4 gloo ranks on one card (serve and assign steps), "
+               "then 1 nccl rank"):
+        pod_run = pod()
+    counts["pod"] = {k: sum(x["launches"][k] for x in pod_run["ranks"])
+                     for k in pod_run["ranks"][0]["launches"]}
+    print(f"[launches] pod: {json.dumps(counts['pod'])}", flush=True)
+    with phase("pod: checks (ranks agree, serve vs plain scan, assign vs "
+               "unsharded l2_topk, nccl vs direct calls)"):
+        pod_checks = check_pod(pod_run, dev)
+    print(card)
+    report_pod(pod_run, pod_checks, card)
+    del pod_run
+    torch.cuda.empty_cache()
+
     caps.update({
         "l2_topk_masked": Capture(ops, "l2_topk_masked",
                                   lambda a, kw: a[0].shape[0] == MAX_BATCH),
@@ -3361,7 +3769,7 @@ def main() -> int:
                      counts["long_train:hymba-1.5b"],
                      "audio": counts["audio"], "vlm": counts["vlm"],
                      **{tag: counts[tag] for tag in MODAL_TRAIN_PATHS},
-                     **moe_launches}
+                     "pod": counts["pod"], **moe_launches}
         rows = time_kernels(caps, by_kernel)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}

@@ -8,18 +8,28 @@ the router drops that shard's partitions (bounded recall degradation);
 stragglers tamed by hedged duplicate fetches. ``device`` is where the
 graph phase and the scan kernels run (default: the CUDA card).
 
-The reference's pod-scale ``shard_map`` steps are not ported yet.
+make_anns_serve_step / make_anns_assign_step: the pod-scale data plane,
+the reference's ``shard_map`` steps on a ``launch.mesh.Mesh`` of
+``torch.distributed`` ranks. Every rank holds its block of the database
+(the "distributed storage" tier is the mesh's aggregate device memory),
+scans it through a CUDA kernel (``l2_topk_masked`` to serve, ``l2_topk``
+to assign) and merges k-candidates with ``all_gather`` over each mesh
+axis. Each rank calls the step with its own blocks.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Set
+from typing import Optional, Sequence, Set, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.core.pag import PAG
 from repro_torch.core.search import SearchConfig, search_pag
 from repro_torch.device import DeviceLike
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import Mesh, data_axes
 from repro_torch.storage.simulator import ComputeModel, ObjectStore
 
 
@@ -89,3 +99,156 @@ class ShardedServing:
                           n_shards=self.n_shards,
                           dead_shard_fallback=True, device=self.device,
                           **kw)
+
+
+# --------------------------------------------------------------------------
+# pod-scale data plane (torch.distributed over a launch.mesh.Mesh)
+# --------------------------------------------------------------------------
+
+def gather_axis(mesh: Mesh, axis: str, t: torch.Tensor,
+                dim: int = 1) -> torch.Tensor:
+    """``jax.lax.all_gather(t, axis, axis=dim, tiled=True)``: the blocks of
+    the ranks along ``axis`` concatenated on ``dim`` in their order along
+    it. Under gloo a CUDA tensor crosses through host memory, copied out
+    and back here (gloo's transport is the host's; the ranks may share
+    one card); under nccl it stays on the card."""
+    group = mesh.groups[axis]
+    via_host = t.is_cuda and dist.get_backend(group) == "gloo"
+    src = t.cpu() if via_host else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(t.device) if via_host else out
+
+
+def stable_topk(d2: torch.Tensor, ids: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``min(k, width)`` columns by (d2, column), ascending:
+    ``jax.lax.top_k(-d2, k)``'s order, ties to the lower column."""
+    d2, pos = torch.sort(d2, dim=1, stable=True)
+    w = min(k, d2.shape[1])
+    return d2[:, :w].contiguous(), torch.gather(ids, 1, pos[:, :w])
+
+
+def merge_topk(mesh: Mesh, axes: Sequence[str], d2: torch.Tensor,
+               ids: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hierarchical merge: for each axis in turn, gather the ranks'
+    [Q, w] candidates along it and keep the stable top-k. Returns (ids,
+    d2), the same on every rank of the gathered axes."""
+    for a in axes:
+        d2, ids = stable_topk(gather_axis(mesh, a, d2),
+                              gather_axis(mesh, a, ids), k)
+    return ids, d2
+
+
+def linear_rank(mesh: Mesh) -> int:
+    """This rank's block index: its coordinates row-major over the mesh
+    axes, as the reference's serve step linearises them."""
+    r = 0
+    for a in mesh.axis_names:
+        r = r * mesh.shape[a] + mesh.axis_index(a)
+    return r
+
+
+def gather_pools(db_block: torch.Tensor, rows: torch.Tensor
+                 ) -> torch.Tensor:
+    """``db_block[rows]``: [Q, C] local row ids -> pools [Q, C, d]."""
+    q, c = rows.shape
+    return db_block.index_select(0, rows.reshape(-1)).view(q, c, -1)
+
+
+def serve_scan(queries: torch.Tensor, pools: torch.Tensor,
+               rows: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A rank's local scan: ``l2_topk_masked`` over each query's own
+    pool, cut to the reference's ``min(k, C)`` columns (the kernel pads a
+    narrower pool to k with ``(3.4e38, -1)``). Returns (d2, local ids)."""
+    d2, local = ops.l2_topk_masked(queries, pools, rows, k)
+    w = min(k, rows.shape[1])
+    return d2[:, :w].contiguous(), local[:, :w].contiguous()
+
+
+def make_anns_serve_step(mesh: Mesh, k: int = 100):
+    """DSANN's serving data plane at pod scale: every rank owns a block of
+    residual partitions (the whole database sharded over ALL mesh axes,
+    row-major); the replicated in-memory PG has already produced, per
+    query, the probed partitions' local row ids on each owner rank. The
+    step gathers those rows (the async fetch), full-scans them with the
+    ``l2_topk_masked`` kernel (ties to the lower pool position, so a row
+    probed twice comes out twice, as in the reference) and merges top-k
+    hierarchically across the mesh, axis by axis (the I/O+merge pattern
+    of Alg 5).
+
+    Inputs (this rank's): queries [Q, d] f32 (the same on every rank),
+             db_block [N_loc, d] f32,
+             rows [Q, P_loc * cap] int32 local row ids in [0, N_loc).
+    Returns: (ids [Q, min(k, world * C)] int32 global row ids, d2 f32),
+             the same on every rank.
+    """
+    axes = tuple(mesh.axis_names)
+
+    def step(queries, db_block, rows):
+        pools = gather_pools(db_block, rows)
+        d2, local = serve_scan(queries, pools, rows, k)
+        gids = local + linear_rank(mesh) * db_block.shape[0]
+        return merge_topk(mesh, axes, d2, gids, k)
+
+    return step
+
+
+def assign_scan(res_block: torch.Tensor, agg_block: torch.Tensor, k: int,
+                row_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A rank's local scan: ``l2_topk`` of each chunk of ``row_chunk``
+    residual rows against the whole aggregation block (ties to the lower
+    id). Returns (d2, local ids) [n_local, k]."""
+    parts = [ops.l2_topk(res_block[i:i + row_chunk], agg_block, k)
+             for i in range(0, res_block.shape[0], row_chunk)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def make_anns_assign_step(mesh: Mesh, k: int = 8, row_chunk: int = 4096,
+                          col_chunk: int = 65536):
+    """DRS/CIC assignment data plane: residual blocks sharded over the
+    data axes (``pod`` and ``data``) find their k nearest aggregation
+    points; the aggregation set (p*n, too big to replicate at billion
+    scale) is sharded over the model axis, with a top-k merge over it —
+    the dominant compute of index construction (Alg 3 line 16),
+    distributed.
+
+    The reference walks each row chunk over column chunks of the block
+    with a running top-k; ``l2_topk`` gives the same top-k over the whole
+    block in one launch a row chunk, so ``col_chunk`` only keeps the
+    reference's limits: both chunks must divide their blocks and the
+    column chunk hold k.
+
+    Inputs (this rank's): res_block [n_local, d] f32 (its data block),
+             agg_block [m_local, d] f32 (its model block).
+    Returns: (ids [n_local, k] int32 global aggregation ids, d2 f32) of
+             this rank's residual block; ``gather_rows`` assembles them.
+    """
+    def step(res_block, agg_block):
+        n_local, m_local = res_block.shape[0], agg_block.shape[0]
+        rc, cc = min(row_chunk, n_local), min(col_chunk, m_local)
+        if n_local % rc or m_local % cc:
+            raise ValueError(f"chunks ({rc}, {cc}) do not divide the "
+                             f"blocks ({n_local}, {m_local})")
+        if cc < k:
+            raise ValueError(f"column chunk {cc} holds fewer than k={k}")
+        d2, local = assign_scan(res_block, agg_block, k, rc)
+        gids = local + mesh.axis_index("model") * m_local
+        return merge_topk(mesh, ("model",), d2, gids, k)
+
+    return step
+
+
+def gather_rows(mesh: Mesh, *blocks: torch.Tensor):
+    """The whole result of a step sharded over the data axes: each block
+    gathered on its rows over ``data``, then ``pod`` (the reference's
+    ``P(("pod", "data"))`` order)."""
+    out = []
+    for t in blocks:
+        for a in reversed(data_axes(mesh)):
+            t = gather_axis(mesh, a, t, dim=0)
+        out.append(t)
+    return tuple(out)

@@ -52,6 +52,10 @@ TRAIN_MODULES = {"repro_torch.training", "repro_torch.training.optimizer",
                  "repro_torch.launch.train", "repro_torch.checkpoint.ckpt",
                  "repro_torch.kernels.flash_attention", "repro_torch.carry"}
 
+# the pod-scale data plane's modules
+POD_MODULES = {"repro_torch.distributed", "repro_torch.distributed.compat",
+               "repro_torch.launch.mesh", "repro_torch.core.distributed"}
+
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -64,6 +68,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert TRAIN_MODULES <= loaded, TRAIN_MODULES - loaded
     assert SSM_HYBRID_MODULES <= loaded, SSM_HYBRID_MODULES - loaded
     assert AUDIO_VLM_MODULES <= loaded, AUDIO_VLM_MODULES - loaded
+    assert POD_MODULES <= loaded, POD_MODULES - loaded
 
 
 FORBIDDEN = re.compile(
