@@ -11,7 +11,7 @@ each kernel against its plain PyTorch
 version on the card (edge cases, the sliding window and meta tokens
 included, in the forward and in the backward, and exact-tie inputs),
 prefills each dense, moe, hybrid, audio and vlm REDUCED config through
-the attention kernel against the plain attention, then drives fifteen
+the attention kernel against the plain attention, then drives sixteen
 paths, each with its kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
@@ -129,6 +129,27 @@ paths, each with its kernel launches counted from zero and checked:
   candidates of all ranks (near-ties counted); every rank's assign block
   equal, ids and d2 bit for bit, to one unsharded ``l2_topk``; and both
   steps at world size 1 under nccl equal to the direct kernel calls.
+* ep: the moe path's DBRX-132B (published widths, 4 of 40 layers, seed
+  0, the same prompts) served with expert parallelism
+  (``models/moe.py``'s ``moe_sharded`` under ``mesh_context``) by 4 gloo
+  ranks that share the card, each drawing the seeded model and keeping
+  its blocks of the experts. Phase A, mesh (data 1, model 4): 4 of 16
+  experts a rank, ``Engine.generate`` cold and warm, then the prefill and
+  decode steps with the unsharded cold run's tokens fed (routes recorded),
+  the partial outputs all-gathered over model and added in rank order; phase
+  B, mesh (data 2, model 2): 8 experts a rank with d over data, gathered
+  (FSDP) through host memory before use, one prefill of each data line's
+  4 prompts. Afterwards, against the moe path's unsharded model (kept on
+  the host from that path): the ranks' tokens and fed logits (A) and a
+  line's logits (B) bit for bit the same, A's warm tokens the cold ones,
+  the routes of the prefill and every fed decode step under the route
+  rule, the logits of the prefill and of every fed decode step within
+  RAG_LOGITS_ATOL on the agreeing sequences (B's prefill against the
+  unsharded prefill of the line's block), the first MoE layer in f32
+  within EP_LAYER_RTOL of the unsharded layer, and one ``flash_attention``
+  a layer and prefill on every rank. Prints each rank's phase times
+  (dispatch and expert products alone, the partial sum, the FSDP gather,
+  prefill and decode step), peaks and the bytes moved a layer.
 * compare: the paper's comparison (Table IV, Figs 8-10) at 50,000 x 128
   with 1000 queries: PAG, DiskANN (one ``pq_adc_rows`` launch per wave of
   its lock-step traversal, the waves of each sweep printed), SPANN (closure
@@ -167,7 +188,8 @@ boolean mask as ``attn_mask`` for a window; its backward, with the mask
 likewise, for ``flash_attention_bwd``; timed only, never called by the
 port) and its bound.
 
-Prints each phase's wall time, the card's name and power limit, one JSON
+Each served path's profiled generate decodes PROFILE_NEW tokens. Prints
+each phase's wall time, the card's name and power limit, one JSON
 line of kernel numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no CUDA card or any check fails. Imports nothing of JAX or of
@@ -493,12 +515,33 @@ POD_P_LOC, POD_CAP, POD_P_AGG = 2, 16, 0.2
 POD_ASSIGN_K, POD_ROW_CHUNK, POD_COL_CHUNK = 8, 4096, 65536
 POD_DATA = ("queries", "db", "rows", "res", "agg")   # the seeded blocks
 POD_TIMEOUT_S = 300   # a collective that waits longer fails the path
+# The ep path: the moe path's DBRX-132B (MOE_ARCHS' row: published widths,
+# 4 of 40 layers, seed 0, MOE_BATCH x MOE_PROMPT batch_at prompts, MOE_NEW
+# greedy tokens) served with expert parallelism by 4 gloo ranks that share
+# the card. Phase A, mesh (data 1, model 4): 4 of 16 experts a rank, the
+# tokens whole on every rank, so the capacities are the unsharded model's;
+# Engine.generate cold and warm. Phase B, mesh (data 2, model 2), after A's
+# weights are freed: 8 experts a rank with d over data, all-gathered (FSDP)
+# before use, one prefill of 4 prompts a data line (no decode: each step
+# would gather 6.3 GB a rank through host memory again)
+EP_RANKS = 4
+EP_MESHES = {"A": ((1, 4), ("data", "model")),
+             "B": ((2, 2), ("data", "model"))}
+# the first MoE layer in f32, sharded against unsharded on the same input:
+# a token's contributions are grouped by rank before they are added
+EP_LAYER_RTOL = 1e-5
 # The reference's chunked attention pads K and V with zero keys to a
 # multiple of this chunk (when longer) that only a causal mask hides, so
 # its full attention (whisper's encoder and prefill cross-attention) gives
 # them weight (ROADMAP queue 3); the port attends to the real keys, and the
 # audio checks size the difference at full width by emulating the padding
 REF_CHUNK = 512
+
+# The profiled generate of each served path decodes this many tokens (its
+# path's other generates decode theirs): the profiler's own work grows with
+# each decode step's launches (~4,000 a step on hymba-1.5b); with all of a
+# path's tokens it took 5-35 s a path, 117 s of the smoke on an H100
+PROFILE_NEW = 8
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -1410,16 +1453,20 @@ def rag(dev, index) -> dict:
 
 def profile_generate(engine, prompt) -> dict:
     """One more ``generate`` of ``prompt`` (tokens, or a batch dict with
-    a modality stub) under ``torch.profiler``: the device's busy
-    time (the sum of its kernels' times; one stream, so they do not
-    overlap) against the host wall time of the traced call, and the
-    kernels that took most of it. The profiler slows the host, so the
+    a modality stub), of PROFILE_NEW tokens, under ``torch.profiler``:
+    the device's busy time (the sum of its kernels' times; one stream, so
+    they do not overlap) against the host wall time of the traced call,
+    and the kernels that took most of it. The profiler slows the host, so the
     idle share is an upper bound. Device times are None where the
     profiler records none. Only the device is traced: host operator
     events would add several times the kernels' count to the trace
     (~4,000 kernels a decode step on hymba-1.5b)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import Engine
     batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    engine = Engine(engine.cfg, engine.model, dataclasses.replace(
+        engine.scfg, max_new_tokens=PROFILE_NEW))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.generate(batch)
@@ -1589,6 +1636,10 @@ class RouteRecorder:
     def __exit__(self, *exc):
         self.moe.route = self.orig
 
+    def host_calls(self) -> list:
+        """The calls recorded so far, each tensor copied to the host."""
+        return [tuple(t.cpu() for t in call) for call in self.calls]
+
     def dropped(self, n_tokens: int) -> dict:
         """Over the calls of ``n_tokens`` tokens: how many (token, expert)
         assignments capacity dropped, and how many tokens lost at least
@@ -1680,10 +1731,11 @@ def moe_serve(dev, arch: str, depth: int) -> dict:
     runs = {}
     with phase(f"moe: {arch} generate (cold, routes recorded)"), \
             RouteRecorder(cfg) as rec:
-        engine.generate({"tokens": prompt})
+        cold = engine.generate({"tokens": prompt})
     runs["cold"] = dict(engine.timing)
     drops = {"prefill": rec.dropped(MOE_BATCH * MOE_PROMPT),
              "decode": rec.dropped(MOE_BATCH)}
+    cold_routes = rec.host_calls()
     del rec
     torch.cuda.reset_peak_memory_stats()
     with phase(f"moe: {arch} generate (warm)"):
@@ -1698,7 +1750,8 @@ def moe_serve(dev, arch: str, depth: int) -> dict:
                              f"of range")
     return {"arch": arch, "cfg": cfg, "published_layers": published.n_layers,
             "model": model, "prompt": prompt, "gen": gen, "timing": runs,
-            "peak_bytes": peak, "drops": drops, "profile": profile}
+            "peak_bytes": peak, "drops": drops, "profile": profile,
+            "cold_gen": cold, "cold_routes": cold_routes}
 
 
 def check_moe(r: dict) -> dict:
@@ -2741,6 +2794,20 @@ def pod_block(what: str, index: int, dev) -> torch.Tensor:
     return torch.randn((n, POD_D), generator=g, device=dev)
 
 
+def ranks_wall(fn, reps: int) -> float:
+    """Mean s of ``fn()`` from a start every rank shares (a barrier) to
+    its result on this rank."""
+    import torch.distributed as dist
+    ts = []
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return float(np.mean(ts))
+
+
 def pod_rank(rank: int, init: str, out: str, src: str) -> None:
     """One gloo rank of the pod path (``pod`` spawns it): draws its
     blocks on the card, runs the serve and the assign step once with its
@@ -2774,30 +2841,18 @@ def pod_rank(rank: int, init: str, out: str, src: str) -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-        def wall(fn, reps: int) -> float:
-            """Mean s of ``fn()`` from a start every rank shares to its
-            result on this rank."""
-            ts = []
-            for _ in range(reps):
-                dist.barrier()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                ts.append(time.perf_counter() - t0)
-            return float(np.mean(ts))
-
         got = {}
         dist.barrier()
         ops.reset_launch_counts()
         rep = {"rank": r, "coords": mesh.coords,
-               "serve_first_s": wall(lambda: got.update(
+               "serve_first_s": ranks_wall(lambda: got.update(
                    serve=serve(queries, db, rows)), 1),
-               "assign_first_s": wall(lambda: got.update(
+               "assign_first_s": ranks_wall(lambda: got.update(
                    assign=assign(res, agg)), 1)}
         rep["launches"] = ops.launch_counts()
         rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        rep["serve_s"] = wall(lambda: serve(queries, db, rows), 5)
-        rep["assign_s"] = wall(lambda: assign(res, agg), 2)
+        rep["serve_s"] = ranks_wall(lambda: serve(queries, db, rows), 5)
+        rep["assign_s"] = ranks_wall(lambda: assign(res, agg), 2)
         # the local parts, one rank at a time with the card to itself
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         for turn in range(POD_RANKS):
@@ -2819,9 +2874,9 @@ def pod_rank(rank: int, init: str, out: str, src: str) -> None:
         # the merges alone, every rank in them: all_gathers (through host
         # memory under gloo) and the stable top-k
         gids, a_gids = local + r * db.shape[0], a_local + mi * agg.shape[0]
-        rep["serve_merge_ms"] = 1e3 * wall(lambda: pd.merge_topk(
+        rep["serve_merge_ms"] = 1e3 * ranks_wall(lambda: pd.merge_topk(
             mesh, mesh.axis_names, d2, gids, POD_K), 10)
-        rep["assign_merge_ms"] = 1e3 * wall(lambda: pd.merge_topk(
+        rep["assign_merge_ms"] = 1e3 * ranks_wall(lambda: pd.merge_topk(
             mesh, ("model",), a_d2, a_gids, POD_ASSIGN_K), 10)
         torch.save({**rep, **{k: [t.cpu() for t in v]
                               for k, v in got.items()}},
@@ -3014,6 +3069,430 @@ def report_pod(r: dict, checks: dict, card: str) -> None:
           f"{m_loc * POD_MODEL_AXIS}): {checks['unsharded_assign_s']:.3f} s "
           f"({card})")
     print(f"pod report: {json.dumps(rep)}", flush=True)
+
+
+def ep_reference(r: dict) -> dict:
+    """The unsharded side of the ep path, from the moe path's DBRX-132B
+    while it is on the card, kept on the host: the prompts, the cold
+    generate's tokens and routes, the prefill's last-position logits (with
+    the input of the first MoE layer), each decode step's logits with the
+    cold tokens fed (the cold generate's own steps again), each data
+    block's prefill of MOE_BATCH // 2 prompts (its own capacity: phase B's
+    per-rank one) with its routes, and the first MoE layer in f32 on that
+    input."""
+    from repro_torch.models import forward, moe
+    cfg, model, prompt = r["cfg"], r["model"], r["prompt"]
+    out = {"prompt": prompt.cpu(), "gen": r["cold_gen"],
+           "routes": r["cold_routes"]}
+    saved, first = moe.moe_forward, []
+
+    def keep_input(params, x, cfg_):
+        if not first:
+            first.append(x)
+        return saved(params, x, cfg_)
+    with torch.inference_mode():
+        moe.moe_forward = keep_input
+        try:
+            out["logits"] = forward(model, {"tokens": prompt}, cfg)[:, -1]\
+                .cpu()
+        finally:
+            moe.moe_forward = saved
+        out["x0"] = first[0].cpu()
+        out["forced"] = forced_decode(model, cfg, prompt,
+                                      torch.from_numpy(r["cold_gen"]))[1:]
+        half = MOE_BATCH // 2
+        out["blocks"] = []
+        for j in range(2):
+            with RouteRecorder(cfg) as rec:
+                logits = forward(model, {"tokens": prompt[j * half:
+                                                          (j + 1) * half]},
+                                 cfg)
+            out["blocks"].append({"logits": logits[:, -1].cpu(),
+                                  "routes": rec.host_calls()})
+            del logits
+        params = {k: v.float() for k, v in
+                  model.blocks[0].moe.named_parameters()}
+        out["layer_f32"] = moe.moe_forward(params, first[0].float(), cfg)\
+            .cpu()
+        del params, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def forced_decode(model, cfg, prompt, gen) -> torch.Tensor:
+    """Generation with the tokens ``gen`` [B, MOE_NEW] fed instead of the
+    model's own, as ``Engine.generate`` feeds them: the prefill, then
+    MOE_NEW - 1 decode steps. Returns the last-position logits of each,
+    [MOE_NEW, B, V] on the host."""
+    from repro_torch.models import decode_step, prefill
+    gen = gen.to(prompt.device).long()
+    logits, cache = prefill(model, {"tokens": prompt}, cfg,
+                            max_len=MOE_PROMPT + MOE_NEW)
+    out = [logits[:, -1].cpu()]
+    for i in range(MOE_NEW - 1):
+        logits, cache = decode_step(model, gen[:, i:i + 1], cache,
+                                    MOE_PROMPT + i, cfg)
+        out.append(logits[:, -1].cpu())
+    return torch.stack(out)
+
+
+def ep_rank(rank: int, init: str, tmp: str, src: str) -> None:
+    """One gloo rank of the ep path (``ep`` spawns it): phase A on the
+    (data 1, model 4) mesh, ``Engine.generate`` cold and warm (peak
+    memory), then the prefill and decode steps again with the unsharded
+    cold run's tokens fed (``forced_decode``; routes recorded), the first
+    MoE layer in f32 on the unsharded side's input, the parts timed; phase
+    B on the (data 2, model 2) mesh, one prefill of the rank's data block
+    (routes recorded) and the FSDP gather timed. Each phase runs under
+    ``mesh_context`` given the whole batch's size. Launches are counted
+    from 0 over both phases' generates and prefills. Saves it all to
+    ``tmp/ep<rank>.pt``."""
+    sys.path.insert(0, src)
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
+    from repro_torch.models import init_params, moe, prefill
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    compat.init_ranks("gloo", init, rank, EP_RANKS,
+                      timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+    try:
+        arch, depth = MOE_ARCHS[0]
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        ref = torch.load(f"{tmp}/ep_in.pt")
+        rep = {"rank": rank}
+        launches = {}
+
+        def serving_part(fn):
+            """``fn()`` with its launches added to the path's count."""
+            ops.reset_launch_counts()
+            try:
+                return fn()
+            finally:
+                for k, c in ops.launch_counts().items():
+                    launches[k] = launches.get(k, 0) + c
+
+        # phase A: expert parallelism alone
+        mesh = pm.make_mesh(*EP_MESHES["A"])
+        dcfg = shd.DistConfig()
+        with mesh_context(mesh, dcfg):
+            t0 = time.perf_counter()
+            model = init_params(cfg, seed=0, device=dev)
+            torch.cuda.synchronize()
+            rep["A_init_s"] = time.perf_counter() - t0
+        with mesh_context(mesh, dcfg, batch=MOE_BATCH), \
+                torch.inference_mode():
+            spec = shd.batch_spec(MOE_BATCH, mesh)
+            prompt = shd.local_block(ref["prompt"].to(dev), spec, mesh)
+            engine = Engine(cfg, model, ServeConfig(max_new_tokens=MOE_NEW))
+            dist.barrier()
+            rep["A_gen"] = torch.from_numpy(serving_part(
+                lambda: engine.generate({"tokens": prompt})))
+            rep["A_cold"] = dict(engine.timing)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            rep["A_gen_warm"] = torch.from_numpy(serving_part(
+                lambda: engine.generate({"tokens": prompt})))
+            rep["A_warm"] = dict(engine.timing)
+            rep["A_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            fed = shd.local_block(ref["gen"].to(dev), spec, mesh)
+            with RouteRecorder(cfg) as rec:
+                rep["A_forced"] = serving_part(
+                    lambda: forced_decode(model, cfg, prompt, fed))
+            rep["A_routes"] = rec.host_calls()
+            del rec, engine
+            layer = dict(model.blocks[0].moe.named_parameters())
+            x0 = ref["x0"].to(dev)
+            p32 = {k: v.float() for k, v in layer.items()}
+            rep["A_layer_f32"] = moe.moe_sharded(p32, x0.float(), cfg, mesh,
+                                                 dcfg).cpu()
+            del p32
+            # the parts of the first MoE layer: this rank's dispatch and
+            # expert products alone on the card, at the prefill's and a
+            # decode step's token counts; the partial sum with every rank
+            # in it
+            xf = x0.reshape(-1, cfg.d_model)
+            gate_w, gate_e = moe.route(xf, layer["router"], cfg.moe_top_k)
+            e_local = cfg.n_experts // mesh.shape["model"]
+            off = mesh.axis_index("model") * e_local
+            experts = moe.gather_experts(layer, cfg, mesh, dcfg)
+            for turn in range(EP_RANKS):
+                dist.barrier()
+                if turn != rank:
+                    continue
+                for what, n in (("prefill", xf.shape[0]),
+                                ("decode", MOE_BATCH)):
+                    cap = moe.capacity(cfg, n)
+                    rep[f"A_dispatch_{what}_ms"] = cuda_time_ms(
+                        lambda: moe.dispatch_compute(
+                            xf[:n], gate_w[:n], gate_e[:n], *experts,
+                            n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                            cap=cap, expert_offset=off), reps=5)
+                    buf = torch.randn(e_local, cap, cfg.d_model, device=dev,
+                                      dtype=xf.dtype)
+
+                    def products():
+                        h = torch.bmm(buf, experts[0])
+                        h = torch.nn.functional.silu(h.float()).to(
+                            buf.dtype) * torch.bmm(buf, experts[1])
+                        return torch.bmm(h, experts[2])
+                    rep[f"A_products_{what}_ms"] = cuda_time_ms(products,
+                                                                reps=5)
+                    rep[f"A_capacity_{what}"] = cap
+            for what, n, reps in (("prefill", xf.shape[0], 5),
+                                  ("decode", MOE_BATCH, 20)):
+                part = xf[:n].clone()
+                rep[f"A_partial_sum_{what}_ms"] = 1e3 * ranks_wall(
+                    lambda: moe.sum_over_model(mesh, part), reps)
+            del model, layer, experts, xf, x0, gate_w, gate_e
+        torch.cuda.empty_cache()
+
+        # phase B: data 2 x model 2, the experts' d over data (FSDP)
+        mesh = pm.make_mesh(*EP_MESHES["B"])
+        with mesh_context(mesh, dcfg):
+            t0 = time.perf_counter()
+            model = init_params(cfg, seed=0, device=dev)
+            torch.cuda.synchronize()
+            rep["B_init_s"] = time.perf_counter() - t0
+        with mesh_context(mesh, dcfg, batch=MOE_BATCH), \
+                torch.inference_mode():
+            rep["B_coords"] = mesh.coords
+            block = shd.local_block(ref["prompt"].to(dev),
+                                    shd.batch_spec(MOE_BATCH, mesh), mesh)
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            t0 = time.perf_counter()
+            with RouteRecorder(cfg) as rec:
+                logits, _ = serving_part(
+                    lambda: prefill(model, {"tokens": block}, cfg))
+            torch.cuda.synchronize()
+            rep["B_prefill_s"] = time.perf_counter() - t0
+            rep["B_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            rep["B_routes"] = rec.host_calls()
+            rep["B_logits"] = logits[:, -1].cpu()
+            del logits, rec
+            layer = dict(model.blocks[0].moe.named_parameters())
+            rep["B_expert_block"] = tuple(layer["w_gate"].shape)
+            rep["B_fsdp_gather_s"] = ranks_wall(
+                lambda: moe.gather_experts(layer, cfg, mesh, dcfg), 1)
+            del model, layer
+        rep["launches"] = launches
+        torch.save(rep, f"{tmp}/ep{rank}.pt")
+    finally:
+        compat.shutdown()
+
+
+def ep(ref: dict) -> dict:
+    """The ep path: EP_RANKS gloo ranks on one card (spawned, ``file://``
+    rendezvous) given the unsharded side's prompts and first MoE layer
+    input (``ep_reference``). A rank that raises fails the path."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    src = str(ROOT / "src")
+    r = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"prompt": ref["prompt"], "x0": ref["x0"],
+                    "gen": torch.from_numpy(ref["gen"])}, f"{tmp}/ep_in.pt")
+        t0 = time.perf_counter()
+        mp.start_processes(ep_rank, args=(f"file://{tmp}/rendezvous", tmp,
+                                          src),
+                           nprocs=EP_RANKS, join=True, start_method="spawn")
+        r["ranks_s"] = time.perf_counter() - t0
+        r["ranks"] = [torch.load(f"{tmp}/ep{i}.pt") for i in range(EP_RANKS)]
+    return r
+
+
+def pooled_route_rule(pairs, n_experts: int) -> dict:
+    """``route_rule`` over several runs of calls (each a prefill or a
+    decode step: (got calls, want calls)), pooled: the share of identical
+    routes over all of them, every run's violations, each run's mask of
+    the tokens whose routes agree at every layer."""
+    reports = [route_rule(got, want, n_experts) for got, want in pairs]
+    return {"routes": sum(rp["routes"] for rp, _ in reports),
+            "identical": sum(rp["identical"] for rp, _ in reports),
+            "agreement": sum(rp["identical"] for rp, _ in reports)
+            / sum(rp["routes"] for rp, _ in reports),
+            "violations": [v for rp, _ in reports for v in rp["violations"]],
+            "runs": len(reports), "agree": [a for _, a in reports]}
+
+
+def check_ep(r: dict, ref: dict, cfg) -> dict:
+    """The ep path's gates. A: the 4 ranks' tokens bit for bit the same,
+    and the warm generate's the cold one's; with the unsharded cold run's
+    tokens fed (``forced_decode``, which on the unsharded side gives that
+    run's own greedy tokens again), every rank's logits bit for bit the
+    same, the routes of the prefill and every decode step under the route
+    rule (ROUTE_AGREEMENT) against the unsharded cold run's, and the
+    last-position logits of the prefill and of every decode step within
+    RAG_LOGITS_ATOL of the unsharded model's on the sequences whose routes
+    at that position agree at every layer (as the moe path holds them),
+    at least one a step; the first MoE layer in f32 within EP_LAYER_RTOL
+    of max |out| of the unsharded layer on the same input. B: the two
+    ranks of a data line bit for bit the same, and each line's logits
+    within RAG_LOGITS_ATOL of the unsharded prefill of its block (at the
+    block's capacity) on the agreeing prompts. Launches: exactly one
+    ``flash_attention`` a layer and prefill on every rank."""
+    ranks, n_layers = r["ranks"], cfg.n_layers
+    out = {}
+    gen = ranks[0]["A_gen"].numpy()
+    out["A_tokens_identical_on_ranks"] = all(
+        torch.equal(x["A_gen"], ranks[0]["A_gen"]) for x in ranks)
+    out["A_warm_tokens_equal_cold"] = all(
+        torch.equal(x["A_gen_warm"], x["A_gen"]) for x in ranks)
+    want_gen = ref["gen"]
+    out["A_generated_equal_unsharded"] = int((gen == want_gen).sum())
+    out["A_generated_of"] = int(gen.size)
+    vocab = cfg.vocab_size
+    out["unsharded_forced_reproduces_its_tokens"] = bool(
+        (ref["forced"][..., :vocab].argmax(-1).T.numpy()
+         == want_gen[:, 1:]).all())
+    out["A_forced_identical_on_ranks"] = all(
+        torch.equal(x["A_forced"], ranks[0]["A_forced"]) for x in ranks)
+    got_calls, want_calls = ranks[0]["A_routes"], ref["routes"]
+    pairs = [(got_calls[n_layers * i:n_layers * (i + 1)],
+              want_calls[n_layers * i:n_layers * (i + 1)])
+             for i in range(MOE_NEW)]
+    routes = pooled_route_rule(pairs, cfg.n_experts)
+    out["A_routes"] = {k: v for k, v in routes.items() if k != "agree"}
+    out["A_decode_steps_compared"] = len(pairs) - 1
+    # the prefill's last position, then each decode step's one token
+    agree = [routes["agree"][0].view(MOE_BATCH, MOE_PROMPT)[:, -1]] \
+        + routes["agree"][1:]
+    got = ranks[0]["A_forced"]
+    want = torch.cat([ref["logits"][None], ref["forced"]])
+    diff = (got[..., :vocab].float() - want[..., :vocab].float()).abs()\
+        .amax(-1)                                           # [MOE_NEW, B]
+    mask = torch.stack(agree).cpu()
+    out["A_logits_max_abs"] = float(diff[mask].max()) if mask.any() else 0.0
+    out["A_logits_max_abs_all"] = float(diff.max())
+    out["A_logits_prefill_max_abs"] = float(diff[0][mask[0]].max()) \
+        if mask[0].any() else 0.0
+    out["A_logits_compared"] = [int(m.sum()) for m in mask]
+    want = ref["layer_f32"]
+    layer_err = [float((x["A_layer_f32"] - want).abs().max()) for x in ranks]
+    out["A_layer_f32_max_abs"] = max(layer_err)
+    out["A_layer_f32_bound"] = EP_LAYER_RTOL * float(want.abs().max())
+    out["A_layer_f32_identical_on_ranks"] = all(
+        torch.equal(x["A_layer_f32"], ranks[0]["A_layer_f32"])
+        for x in ranks)
+    half = MOE_BATCH // 2
+    lines = {}
+    for x in ranks:
+        lines.setdefault(x["B_coords"][0], []).append(x)
+    out["B_lines"] = []
+    for j, line in sorted(lines.items()):
+        block = ref["blocks"][j]
+        rule = pooled_route_rule([(line[0]["B_routes"], block["routes"])],
+                                 cfg.n_experts)
+        agree = rule["agree"][0].view(half, MOE_PROMPT)[:, -1]
+        diff = (line[0]["B_logits"] - block["logits"]).abs()
+        out["B_lines"].append({
+            "data": j, "ranks": [x["rank"] for x in line],
+            "identical": all(torch.equal(x["B_logits"], line[0]["B_logits"])
+                             for x in line),
+            "route_agreement": rule["agreement"],
+            "logits_max_abs": float(diff[agree].max()) if agree.any()
+            else 0.0,
+            "logits_max_abs_all_prompts": float(diff.max()),
+            "prompts_compared": int(agree.sum())})
+    prefills = 4   # cold, warm, the fed run's (A), B's
+    out["launches_a_rank"] = [x["launches"]["flash_attention"]
+                              for x in ranks]
+    print(f"ep checks: {json.dumps(out)}", flush=True)
+    bad = []
+    if not out["A_tokens_identical_on_ranks"]:
+        bad.append("A: ranks generated different tokens")
+    if not out["A_warm_tokens_equal_cold"]:
+        bad.append("A: the warm generate differs from the cold one")
+    if not out["unsharded_forced_reproduces_its_tokens"]:
+        bad.append("A: the unsharded model fed its tokens gives others")
+    if not out["A_forced_identical_on_ranks"]:
+        bad.append("A: ranks' logits differ with the tokens fed")
+    if routes["agreement"] < ROUTE_AGREEMENT[MOE_ARCHS[0][0]] \
+            or routes["violations"]:
+        bad.append("A: routes break the route rule")
+    if out["A_logits_max_abs"] > RAG_LOGITS_ATOL \
+            or min(out["A_logits_compared"]) == 0:
+        bad.append("A: prefill or decode logits off the unsharded model's")
+    if out["A_layer_f32_max_abs"] > out["A_layer_f32_bound"]:
+        bad.append("A: the f32 layer off the unsharded layer")
+    for line in out["B_lines"]:
+        if not line["identical"] or line["logits_max_abs"] > RAG_LOGITS_ATOL:
+            bad.append(f"B: data line {line['data']}")
+    if len(lines) != 2 or any(len(v) != 2 for v in lines.values()):
+        bad.append(f"B: data lines {sorted(lines)}")
+    for x in ranks:
+        if x["launches"]["flash_attention"] != prefills * n_layers \
+                or any(c for k, c in x["launches"].items()
+                       if k != "flash_attention"):
+            bad.append(f"rank {x['rank']} launches {x['launches']}")
+    if bad:
+        raise AssertionError(f"ep: {bad}")
+    return out
+
+
+def report_ep(r: dict, checks: dict, cfg, published_layers: int,
+              card: str) -> None:
+    """The ep path's numbers, each on its own line, then one JSON line:
+    per rank its phase times, peaks and the bytes moved a layer (a
+    partial sum sends the rank's [T, d] and receives the other ranks' of
+    its line; an FSDP gather sends the rank's block of the three expert
+    weights and receives the other data rank's)."""
+    ranks = r["ranks"]
+    d, el = cfg.d_model, torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    t_prefill = MOE_BATCH * MOE_PROMPT
+    mp_a = EP_MESHES["A"][0][1]
+    block_bytes = 3 * (cfg.n_experts // EP_MESHES["B"][0][1]) \
+        * (d // EP_MESHES["B"][0][0]) * cfg.d_ff * el
+    moved = {"A_partial_prefill_sent": t_prefill * d * el,
+             "A_partial_prefill_received": (mp_a - 1) * t_prefill * d * el,
+             "A_partial_decode_sent": MOE_BATCH * d * el,
+             "B_fsdp_sent": block_bytes, "B_fsdp_received": block_bytes}
+    keys = ("A_init_s", "A_dispatch_prefill_ms", "A_products_prefill_ms",
+            "A_dispatch_decode_ms", "A_products_decode_ms",
+            "A_partial_sum_prefill_ms", "A_partial_sum_decode_ms",
+            "A_peak_gib", "B_init_s", "B_prefill_s", "B_fsdp_gather_s",
+            "B_peak_gib", "A_capacity_prefill", "A_capacity_decode")
+    per_rank = []
+    for x in ranks:
+        row = {k: x[k] for k in keys}
+        row.update({"rank": x["rank"], "B_coords": x["B_coords"],
+                    "B_expert_block": x["B_expert_block"],
+                    "launches": x["launches"],
+                    "A_prefill_s": x["A_warm"]["prefill_s"],
+                    "A_decode_step_s": x["A_warm"]["decode_s"]
+                    / (MOE_NEW - 1), "A_cold": x["A_cold"]})
+        per_rank.append(row)
+        print(f"ep rank {x['rank']}: A prefill {row['A_prefill_s']:.4f} s, "
+              f"decode step {row['A_decode_step_s'] * 1e3:.3f} ms (warm); "
+              f"layer 0 alone: dispatch+products "
+              f"{x['A_dispatch_prefill_ms']:.3f} ms (products "
+              f"{x['A_products_prefill_ms']:.3f}) prefill, "
+              f"{x['A_dispatch_decode_ms']:.3f} ms decode; partial sum "
+              f"{x['A_partial_sum_prefill_ms']:.3f} / "
+              f"{x['A_partial_sum_decode_ms']:.3f} ms; B prefill "
+              f"{x['B_prefill_s']:.4f} s, FSDP gather "
+              f"{x['B_fsdp_gather_s']:.4f} s a layer; peak "
+              f"{x['A_peak_gib']:.3f} / {x['B_peak_gib']:.3f} GiB ({card})")
+    print(f"ep bytes moved a layer and rank: {json.dumps(moved)}")
+    rep = {"card": card, "arch": MOE_ARCHS[0][0],
+           "reduced": {"n_layers": [published_layers, cfg.n_layers]},
+           "meshes": EP_MESHES, "backend": "gloo",
+           "ranks_on_one_card": EP_RANKS, "batch": MOE_BATCH,
+           "prompt_len": MOE_PROMPT, "new_tokens": MOE_NEW,
+           "bytes_moved_a_layer": moved, "per_rank": per_rank,
+           "ranks_s": r["ranks_s"], **checks}
+    print(f"ep report: {json.dumps(rep)}", flush=True)
 
 
 def device_split(fn, reps: int, names, tries: int = 4) -> dict | None:
@@ -3386,6 +3865,9 @@ def time_kernels(caps, counts) -> list:
                               counts[f"moe:{arch}"]["flash_attention"],
                               f"{arch} first prefill layer"))
         rows[-1]["path"] = "moe"
+    rows[-2]["note"] = ("the ep path runs DBRX-132B's prefill layers at this "
+                        "shape on each of its 4 ranks: its launches are "
+                        "launches_by_path['ep']")
     # the hybrid path's first windowed prefill layer (layer 1) and its
     # first global one (layer 0): hymba-1.5b, 25 / 5 heads, D 64
     for kind in ("windowed", "global"):
@@ -3569,6 +4051,11 @@ def main() -> int:
                    f"routes)"):
             moe_checks = check_moe(moe_run)
         report_moe(moe_run, moe_checks, launched)
+        if arch == MOE_ARCHS[0][0]:
+            with phase(f"moe: {arch} unsharded side of the ep path"):
+                ep_ref = ep_reference(moe_run)
+                ep_cfg = moe_run["cfg"]
+                ep_published = moe_run["published_layers"]
         del moe_run
         torch.cuda.empty_cache()
     with path("moe_train", ("flash_attention", "flash_attention_bwd")), \
@@ -3734,6 +4221,24 @@ def main() -> int:
     report_pod(pod_run, pod_checks, card)
     del pod_run
     torch.cuda.empty_cache()
+
+    # DBRX-132B with expert parallelism: four gloo ranks share the card;
+    # each counts its own launches from 0 over its generates and
+    # prefills, and the path's counts are their sum
+    with phase("ep: 4 gloo ranks on one card, mesh (data 1, model 4) "
+               "generate, then (data 2, model 2) prefill"):
+        ep_run = ep(ep_ref)
+    counts["ep"] = {k: sum(x["launches"].get(k, 0) for x in ep_run["ranks"])
+                    for k in counts["pod"]}
+    print(f"[launches] ep: {json.dumps(counts['ep'])}", flush=True)
+    if counts["ep"]["flash_attention"] == 0:
+        raise AssertionError("ep: not launched: ['flash_attention']")
+    with phase("ep: checks (ranks agree, routes, logits and the f32 layer "
+               "vs the unsharded model)"):
+        ep_checks = check_ep(ep_run, ep_ref, ep_cfg)
+    print(card)
+    report_ep(ep_run, ep_checks, ep_cfg, ep_published, card)
+    del ep_run, ep_ref
 
     caps.update({
         "l2_topk_masked": Capture(ops, "l2_topk_masked",

@@ -23,7 +23,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pag import PAG
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.context import mesh_context
+from repro_torch.distributed.sharding import local_block
 from repro_torch.models.model import LM
+from repro_torch.models.moe import MoE
 from repro_torch.storage.simulator import ObjectStore, StorageConfig
 from repro_torch.training.optimizer import STACKS
 
@@ -78,7 +81,8 @@ def _per_layer(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
-                          device: DeviceLike = None) -> LM:
+                          device: DeviceLike = None, mesh=None,
+                          dist=None) -> LM:
     """The port's model holding the reference's weights. ``params`` is the
     reference's params pytree as numpy arrays, with the per-layer leaves
     stacked ``[L, ...]`` under ``blocks`` (and ``dense_blocks``, the moe
@@ -88,9 +92,21 @@ def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
     ``meta_tokens`` at the top); each layer's slice goes
     to its own module, cast to the parameter's dtype (``cfg.dtype``, but
     float32 for the SSD's ``A_log``, ``D`` and ``dt_bias``, as in the
-    reference). Raises unless every parameter of the model is given
-    exactly once, with its shape."""
-    model = LM(cfg, device)
+    reference). With ``mesh`` (and ``dist``, a
+    ``distributed.sharding.DistConfig``) the model is this rank's, built
+    under that mesh context: the parameters it holds as blocks (the
+    experts of an expert-parallel MoE layer) get this rank's block of the
+    whole weight by their layer's specs (``MoE.specs``); run it under the
+    same context.
+    Raises unless every parameter of the model is given exactly once,
+    with its shape."""
+    if mesh is None:
+        model = LM(cfg, device)
+    else:
+        with mesh_context(mesh, dist):
+            model = LM(cfg, device)
+    specs = {f"{path}.{name}": spec for path, mod in model.named_modules()
+             if isinstance(mod, MoE) for name, spec in mod.specs.items()}
     target = dict(model.named_parameters())
     given = _per_layer(params)
     if set(given) != set(target):
@@ -98,6 +114,8 @@ def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
                          f", unknown: {sorted(set(given) - set(target))}")
     with torch.no_grad():
         for name, t in given.items():
+            if name in specs:
+                t = local_block(t, specs[name], mesh)
             if t.shape != target[name].shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)}, the model "
                                  f"holds {tuple(target[name].shape)}")

@@ -1,0 +1,329 @@
+"""Logical-to-physical sharding rules with a divisibility fallback: port
+of ``repro/distributed/sharding.py``.
+
+Every parameter is matched by its *name* to a per-dimension list of
+candidate logical axes; each candidate resolves to mesh axes ("data" may
+expand to ("pod", "data") for FSDP over pods). A candidate is taken only
+if the dimension divides the axis group's size and no mesh axis is used
+twice within the spec; otherwise the next candidate (or replication)
+applies. This absorbs qwen's 20 heads, hymba's 25 / 5, whisper's 12 and
+every kv_heads below 16.
+
+A spec is a plain tuple with one entry a dimension, entry for entry the
+reference's ``PartitionSpec``: ``None`` (whole), an axis name, or a tuple
+of axis names (the dimension split over their product, the first axis
+major). The functions read only ``axis_names`` and ``shape`` of their
+mesh: a ``launch.mesh.Mesh`` of live ranks, or a ``MeshShape`` with no
+process groups (the production meshes, for the specs alone).
+
+The reference stacks each per-layer leaf ``[L, ...]`` under ``blocks``,
+``dense_blocks`` or ``encoder``, and its spec for such a leaf starts with
+``None`` for L. The port holds one module a layer, so ``param_specs``
+gives a layer's parameter the reference's spec without that ``None``.
+
+``local_block`` cuts this rank's block of a whole tensor by its spec: the
+port's counterpart of placing an array under a ``NamedSharding``. The
+reference's ``constrain`` (``with_sharding_constraint``) is not ported:
+it is a hint to XLA's partitioner, which the port does not have, and
+changes no value.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.launch.mesh import data_axes
+from repro_torch.training.optimizer import STACKS
+
+Entry = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Entry, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axes and sizes, with no ranks behind it (the reference's
+    ``AbstractMesh``)."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+@dataclasses.dataclass(frozen=True)
+class DistConfig:
+    """How logical axes map onto the mesh."""
+    data: Tuple[str, ...] = ("data",)
+    model: Tuple[str, ...] = ("model",)
+    fsdp_over_pod: bool = False  # fold "pod" into the FSDP (data) axes
+    # when n_heads % model != 0, shard head_dim over model (an activation
+    # all-reduce a product) instead of replicating attention over it
+    shard_head_dim_fallback: bool = False
+
+    def logical(self, name: str, mesh) -> Tuple[str, ...]:
+        axes = {"data": self.data, "model": self.model}[name]
+        if name == "data" and self.fsdp_over_pod and "pod" in mesh.axis_names:
+            axes = ("pod",) + tuple(a for a in axes if a != "pod")
+        return tuple(a for a in axes if a in mesh.axis_names)
+
+
+# per-leaf-name rules: a tuple over the trailing dims; each entry is a
+# priority list of logical axis names (() = replicate)
+_RULES: Dict[str, Tuple[Sequence[str], ...]] = {
+    # embeddings
+    "tok_embed": (("model",), ("data",)),
+    "lm_head": (("data",), ("model",)),
+    "meta_tokens": ((), ()),
+    # attention
+    "wq": (("data",), ("model",), ("model",)),
+    "wk": (("data",), ("model",), ("model",)),
+    "wv": (("data",), ("model",), ("model",)),
+    "wo": (("model",), ("model",), ("data",)),
+    "bq": (("model",), ("model",)),
+    "bk": (("model",), ("model",)),
+    "bv": (("model",), ("model",)),
+    # dense mlp
+    "w_gate": (("data",), ("model",)),
+    "w_up": (("data",), ("model",)),
+    "w_down": (("model",), ("data",)),
+    "w_fc": (("data",), ("model",)),
+    "b_fc": (("model",),),
+    "w_out": (("model",), ("data",)),
+    "b_out": ((),),
+    # moe (leading expert dim); the router replicated (small, read by
+    # every token)
+    "router": ((), ()),
+    "moe/w_gate": (("model",), ("data",), ()),
+    "moe/w_up": (("model",), ("data",), ()),
+    "moe/w_down": (("model",), (), ("data",)),
+    "shared_gate": (("data",), ("model",)),
+    "shared_up": (("data",), ("model",)),
+    "shared_down": (("model",), ("data",)),
+    # ssm
+    "in_proj": (("data",), ("model",)),
+    "out_proj": (("model",), ("data",)),
+    "conv_w": ((), ("model",)),
+    "conv_b": (("model",),),
+    "A_log": ((),),
+    "D": ((),),
+    "dt_bias": ((),),
+    "ssm_norm": (("model",),),
+}
+
+
+def _leaf_rule(path: Tuple[str, ...]
+               ) -> Optional[Tuple[Sequence[str], ...]]:
+    name = path[-1]
+    if name in ("row", "col") and len(path) >= 2:
+        # factored optimizer statistics: the parent parameter's rule
+        # without the reduced dim (row: the last; col: the second-to-last)
+        parent = _leaf_rule(path[:-1])
+        if parent is None:
+            return None
+        if name == "row":
+            return parent[:-1]
+        return parent[:-2] + parent[-1:]
+    if len(path) >= 2 and path[-2] == "moe" and f"moe/{name}" in _RULES:
+        return _RULES[f"moe/{name}"]
+    return _RULES.get(name)
+
+
+# attention leaves: (the heads dim's position within the rule, head_dim's)
+_ATTN_HD_DIMS = {"wq": (1, 2), "wk": (1, 2), "wv": (1, 2), "wo": (0, 1),
+                 "bq": (0, 1), "bk": (0, 1), "bv": (0, 1)}
+
+
+def spec_for_leaf(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
+                  dist: DistConfig, stacked: bool) -> Spec:
+    """The spec of the leaf at ``path`` (names, outermost first) of
+    ``shape``; ``stacked``: its first dim is the reference's layer stack,
+    never sharded."""
+    rule = _leaf_rule(path)
+    ndim = len(shape)
+    offset = 1 if stacked and ndim >= 1 else 0
+    entries: list = [None] * ndim
+    if rule is None:
+        return tuple(entries)
+    if not dist.shard_head_dim_fallback and path[-1] in _ATTN_HD_DIMS:
+        _, hd_dim = _ATTN_HD_DIMS[path[-1]]
+        if hd_dim < len(rule):
+            rule = tuple(() if i == hd_dim else c
+                         for i, c in enumerate(rule))
+    used: set = set()
+    for i, candidates in enumerate(rule):
+        dim = i + offset
+        if dim >= ndim:
+            break
+        size = shape[dim]
+        for logical in candidates:
+            axes = dist.logical(logical, mesh)
+            if not axes or any(a in used for a in axes):
+                continue
+            group = _group(mesh, axes)
+            if group > 1 and size % group == 0:
+                entries[dim] = axes if len(axes) > 1 else axes[0]
+                used.update(axes)
+                break
+    return tuple(entries)
+
+
+def reference_path(name: str) -> Tuple[Tuple[str, ...], bool]:
+    """A port parameter name -> (the reference's leaf path, whether the
+    reference stacks it): ``blocks.3.attn.wq`` -> (("blocks", "attn",
+    "wq"), True), the layer index dropped."""
+    parts = tuple(name.split("."))
+    if parts[0] in STACKS:
+        return (parts[0],) + parts[2:], True
+    return parts, False
+
+
+def param_specs(model: nn.Module, mesh,
+                dist: Optional[DistConfig] = None) -> Dict[str, Spec]:
+    """{parameter name: spec} over ``model.named_parameters()`` at their
+    shapes, so ``model`` holds whole parameters (built with no ambient
+    mesh; on the meta device it allocates nothing). A layer's parameter
+    gets the reference's spec of its stacked leaf without the leading
+    ``None``."""
+    dist = dist or DistConfig()
+    out = {}
+    for name, p in model.named_parameters():
+        path, _ = reference_path(name)
+        out[name] = spec_for_leaf(path, tuple(p.shape), mesh, dist,
+                                  stacked=False)
+    return out
+
+
+def _group(mesh, axes: Sequence[str]) -> int:
+    g = 1
+    for a in axes:
+        g *= mesh.shape[a]
+    return g
+
+
+def entry_axes(entry: Entry) -> Tuple[str, ...]:
+    """The mesh axes a spec entry splits its dim over (major first)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def group_size(mesh, entry: Entry) -> int:
+    """How many blocks a spec entry splits its dim into."""
+    return _group(mesh, entry_axes(entry))
+
+
+def local_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``spec``: each
+    sharded dim split into even blocks, the block index row-major over the
+    entry's axes (the first major), as jax lays out a ``NamedSharding``.
+    ``mesh`` gives this rank's coordinates (``axis_index``)."""
+    if len(spec) != t.dim():
+        raise ValueError(f"spec {spec} for a tensor of {t.dim()} dims")
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        n = _group(mesh, axes)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {axes} ({n})")
+        index = 0
+        for a in axes:
+            index = index * mesh.shape[a] + mesh.axis_index(a)
+        size = t.shape[dim] // n
+        t = t.narrow(dim, index * size, size)
+    return t
+
+
+# ------------------------------ activations -------------------------------
+
+def _dp_entry(mesh, batch: int) -> Entry:
+    axes = data_axes(mesh)
+    group = _group(mesh, axes)
+    if group <= 1 or batch % group != 0:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def batch_spec(batch_size: int, mesh, dist: Optional[DistConfig] = None,
+               extra_dims: int = 1) -> Spec:
+    """Spec for [B, ...] token-level inputs: B over (pod, data) when they
+    divide it, else replicated (e.g. a batch of one)."""
+    return (_dp_entry(mesh, batch_size),) + (None,) * extra_dims
+
+
+def cache_spec(cfg, batch_size: int, mesh,
+               dist: Optional[DistConfig] = None,
+               seq_len: Optional[int] = None) -> Dict[str, Spec]:
+    """Specs for the decode cache: [L, B, S, KVH, hd] k/v (and the SSD's
+    h, conv). B over (pod, data) when divisible, else the sequence dim
+    takes them; the kv heads over model when divisible, else head_dim
+    (with ``shard_head_dim_fallback``), else the sequence dim also takes
+    model (minor axes dropped until ``seq_len`` divides)."""
+    dist = dist or DistConfig()
+    daxes = data_axes(mesh)
+    dgroup = _group(mesh, daxes)
+    b_ax = daxes if (dgroup > 1 and batch_size % dgroup == 0) else None
+    s_axes = [] if b_ax is not None else list(daxes if dgroup > 1 else ())
+
+    m = mesh.shape.get("model", 1)
+    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    kv_ax = hd_ax = None
+    if m > 1 and kvh and kvh % m == 0:
+        kv_ax = "model"
+    elif m > 1 and dist.shard_head_dim_fallback and hd and hd % m == 0:
+        hd_ax = "model"
+    elif m > 1:
+        s_axes.append("model")
+
+    if seq_len is not None:
+        while s_axes and seq_len % _group(mesh, s_axes) != 0:
+            s_axes = s_axes[:-1]
+
+    def flat(ax) -> Entry:
+        if not ax:
+            return None
+        ax = tuple(ax)
+        return ax[0] if len(ax) == 1 else ax
+
+    kv = (None, flat(b_ax), flat(s_axes), kv_ax, hd_ax)
+    specs: Dict[str, Spec] = {key: kv for key in ("k", "v", "xk", "xv")}
+    # ssm state [L, B, H, P, N]; conv [L, B, K-1, C]
+    nh = cfg.ssm_heads if cfg.ssm_state else 0
+    h_ax = "model" if (m > 1 and nh and nh % m == 0) else None
+    specs["h"] = (None, flat(b_ax), h_ax, None, None)
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state if cfg.ssm_state else 0
+    c_ax = "model" if (m > 1 and conv_dim and conv_dim % m == 0) else None
+    specs["conv"] = (None, flat(b_ax), None, c_ax)
+    return specs
+
+
+def token_act_spec(mesh, batch: int) -> Spec:
+    """[B, S, D] activations: B over (pod, data) when divisible."""
+    return (_dp_entry(mesh, batch), None, None)
+
+
+def head_act_spec(mesh, batch: int, n_heads: int, head_dim: int,
+                  dist: Optional[DistConfig] = None) -> Spec:
+    """[B, S, H, hd]: heads over model when divisible; head_dim only when
+    ``shard_head_dim_fallback`` allows it."""
+    dist = dist or DistConfig()
+    m = mesh.shape.get("model", 1)
+    if m > 1 and n_heads % m == 0:
+        h_ax, d_ax = "model", None
+    elif m > 1 and head_dim % m == 0 and dist.shard_head_dim_fallback:
+        h_ax, d_ax = None, "model"
+    else:
+        h_ax, d_ax = None, None
+    return (_dp_entry(mesh, batch), None, h_ax, d_ax)
+
+
+def ff_act_spec(mesh, batch: int, ff: int) -> Spec:
+    """[B, S, F] MLP hidden: F over model when divisible."""
+    m = mesh.shape.get("model", 1)
+    f_ax = "model" if (m > 1 and ff % m == 0) else None
+    return (_dp_entry(mesh, batch), None, f_ax)

@@ -54,7 +54,18 @@ without gradients, for serving; a trainer switches them on
 Then the full-sequence forward recomputes each block in the backward
 when ``cfg.remat`` is set, as the reference's ``jax.checkpoint`` over
 its layer scan does, so activation memory holds one block's input per
-layer. The reference's sharding hints drop out on one card.
+layer.
+
+Under an ambient mesh (``repro_torch.distributed.context.mesh_context``)
+the model is one rank's: its inputs are the rank's block of the batch
+(``sharding.batch_spec``), whose whole size the context is given
+(``mesh_context(..., batch=B)``) where the data axes are above 1, and a
+model built and seeded there holds, in
+each expert-parallel MoE layer, only the rank's blocks of the experts
+(``models/moe.py``), the same weights as the unsharded model of the same
+seed. Every other weight stays whole on every rank. The reference's
+sharding hints (``constrain_*``) place values and change none: the port
+has no partitioner to give them to.
 """
 from __future__ import annotations
 
@@ -266,7 +277,8 @@ class CrossBlock(DenseBlock):
 
 class MoEBlock(DenseBlock):
     """The dense block with a top-k MoE (``self.moe``) in place of the
-    MLP."""
+    MLP; built under an ambient mesh, the MoE holds this rank's expert
+    blocks."""
 
     def add_ffn(self, cfg: ModelConfig, dtype, device) -> None:
         self.moe = moe_lib.MoE(cfg, dtype, device)
@@ -482,7 +494,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     biases, fan-in normal projections and experts, 0.02-normal
     embeddings and meta tokens, the SSD's as ``ssm.init_ssm``), drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
-    CUDA card unless ``device="cpu"``)."""
+    CUDA card unless ``device="cpu"``). Under an ambient mesh each MoE
+    layer draws every expert whole and keeps this rank's blocks."""
     model = LM(cfg, device)
     gen = torch.Generator(model.device).manual_seed(seed)
     dtype = _dtype(cfg)

@@ -20,9 +20,21 @@ the reference's scatter-add sums them. No float atomics, so two calls on
 the same input give the same bits. (The backward of those gathers is
 autograd's, which accumulates with ``index_put``.)
 
-The reference's ``moe_forward`` takes its local path (``_moe_local``)
-without a mesh, as on one card; expert parallelism over a ``model`` mesh
-axis (``_moe_sharded``) is pod-scale work not ported here.
+Two paths, as in the reference's ``moe_forward``. Without a mesh (one
+card) every expert is local (``_moe_local``). Under an ambient mesh
+(``distributed.context``) whose ``model`` axis divides ``n_experts``,
+``moe_sharded`` (the reference's ``_moe_sharded``, expert parallelism
+over ``torch.distributed`` ranks): each rank holds its data block of the
+tokens, whole across the ``model`` axis (the whole batch's size, which
+sets the capacity, from the context), and ``E/mp`` experts, their
+``d`` dim FSDP-sharded over the data axes (``sharding.param_specs``'
+rules: ``w_gate [E/mp, d/dp, f]``). It all-gathers its experts' blocks
+over the data axes, routes with the whole router, dispatches only to its
+own experts (``expert_offset``), and the ranks of a ``model`` line add
+their partial outputs: all-gathered and summed in rank order in the
+model dtype, so every rank of the line holds the same bits under gloo as
+under nccl (an ``all_reduce`` promises no order). Shared experts run on
+the rank's own tokens. The layer has no backward across ranks yet.
 
 Weights keep the reference's layouts, so carrying them is a copy:
 ``router [d, E]``, ``w_gate``/``w_up [E, d, f]``, ``w_down [E, f, d]``,
@@ -38,6 +50,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.distributed import gather_axis
+from repro_torch.distributed import sharding
+from repro_torch.distributed.context import get_batch, get_mesh
+from repro_torch.launch.mesh import data_axes
 from repro_torch.models.layers import dense_init, softmax_fp32
 
 Params = Mapping[str, torch.Tensor]
@@ -81,18 +97,23 @@ def route(xf: torch.Tensor, router: torch.Tensor, top_k: int
         gate_e
 
 
-def _by_expert(gate_e: torch.Tensor, n_experts: int, cap: int):
-    """The T*k assignments (token-major) sorted stably by expert: (order,
-    expert of each sorted assignment, its position in its expert's queue,
-    whether that position is under ``cap``)."""
-    flat_e = gate_e.reshape(-1)
+def _by_expert(gate_e: torch.Tensor, n_local: int, cap: int,
+               offset: int = 0):
+    """The T*k assignments (token-major) sorted stably by local expert
+    ``id - offset``; ids outside ``[offset, offset + n_local)`` park in
+    bucket ``n_local``, after every local one, and are never kept.
+    Returns (order, bucket of each sorted assignment, its position in its
+    bucket's queue, whether it is kept: local and under ``cap``)."""
+    flat_e = gate_e.reshape(-1) - offset
+    local = (flat_e >= 0) & (flat_e < n_local)
+    flat_e = torch.where(local, flat_e, n_local)
     order = torch.argsort(flat_e, stable=True)
     e_sorted = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    counts = torch.bincount(flat_e, minlength=n_local + 1)
     offsets = torch.cumsum(counts, 0) - counts
     pos = torch.arange(flat_e.numel(), device=flat_e.device) \
         - offsets[e_sorted]
-    return order, e_sorted, pos, pos < cap
+    return order, e_sorted, pos, (pos < cap) & local[order]
 
 
 def capacity_keep(gate_e: torch.Tensor, n_experts: int, cap: int
@@ -108,25 +129,31 @@ def capacity_keep(gate_e: torch.Tensor, n_experts: int, cap: int
 def dispatch_compute(xf: torch.Tensor, gate_w: torch.Tensor,
                      gate_e: torch.Tensor, w_gate: torch.Tensor,
                      w_up: torch.Tensor, w_down: torch.Tensor, *,
-                     n_experts: int, top_k: int, cap: int) -> torch.Tensor:
+                     n_experts: int, top_k: int, cap: int,
+                     expert_offset: int = 0) -> torch.Tensor:
     """Sort-based dispatch, the expert products and the weighted combine
     over tokens xf [T, d] -> [T, d] (the reference's
-    ``_dispatch_compute`` with every expert local)."""
+    ``_dispatch_compute``). The weights hold experts ``[expert_offset,
+    expert_offset + E_local)`` (``E_local = w_gate.shape[0]``); an
+    assignment to any other expert contributes zero, for the ranks of a
+    ``model`` line to add up."""
     t, d = xf.shape
-    order, e_sorted, pos, keep = _by_expert(gate_e, n_experts, cap)
-    slot = torch.where(keep, e_sorted * cap + pos, n_experts * cap)
+    e_local = w_gate.shape[0]
+    order, e_sorted, pos, keep = _by_expert(gate_e, e_local, cap,
+                                            expert_offset)
+    slot = torch.where(keep, e_sorted * cap + pos, e_local * cap)
     # each slot holds at most one kept assignment: the buffer gathers its
     # token (row t of the padded input is zeros, for empty slots)
-    src = torch.full((n_experts * cap + 1,), t, dtype=torch.long,
+    src = torch.full((e_local * cap + 1,), t, dtype=torch.long,
                      device=xf.device)
     src[slot] = torch.where(keep, order // top_k, t)
-    buf = F.pad(xf, (0, 0, 0, 1))[src[:-1]].view(n_experts, cap, d)
+    buf = F.pad(xf, (0, 0, 0, 1))[src[:-1]].view(e_local, cap, d)
 
     g = torch.bmm(buf, w_gate)
     u = torch.bmm(buf, w_up)
     h = F.silu(g.float()).to(xf.dtype) * u
-    out_buf = F.pad(torch.bmm(h, w_down).view(n_experts * cap, d),
-                    (0, 0, 0, 1))          # row E*cap: dropped, zeros
+    out_buf = F.pad(torch.bmm(h, w_down).view(e_local * cap, d),
+                    (0, 0, 0, 1))   # row E_local*cap: dropped or not local
 
     # each token's k contributions in ascending expert order, summed in
     # the model dtype in that order, as the reference's scatter-add does
@@ -149,11 +176,10 @@ def shared_experts(params: Params, xf: torch.Tensor) -> torch.Tensor:
     return sh @ params["shared_down"]
 
 
-def moe_forward(params: Params, x: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]: the reference's ``moe_forward`` on one
-    device (its ``_moe_local``); the capacity follows from this call's
-    B*S tokens, so a decode step (S = 1) has its own."""
+def _moe_local(params: Params, x: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Every expert local: the capacity follows from this call's B*S
+    tokens, so a decode step (S = 1) has its own."""
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
@@ -165,6 +191,127 @@ def moe_forward(params: Params, x: torch.Tensor,
     if cfg.n_shared_experts:
         out = out + shared_experts(params, xf)
     return out.view(b, s, d)
+
+
+EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+def expert_parallel(cfg: ModelConfig, mesh) -> bool:
+    """Whether the layer takes the sharded path under ``mesh``: the
+    reference's test, a ``model`` axis above 1 that divides the experts."""
+    mp = 1 if mesh is None else mesh.shape.get("model", 1)
+    return mp > 1 and cfg.n_experts % mp == 0
+
+
+def expert_specs(cfg: ModelConfig, mesh,
+                 dist: Optional[sharding.DistConfig] = None
+                 ) -> Dict[str, sharding.Spec]:
+    """The specs of the expert weights under ``mesh``: ``param_specs``'
+    rules, experts over ``model``, ``d`` over the data axes that divide
+    it."""
+    shapes = moe_param_shapes(cfg)
+    dist = dist or sharding.DistConfig()
+    return {name: sharding.spec_for_leaf(("moe", name), shapes[name], mesh,
+                                         dist, stacked=False)
+            for name in EXPERT_WEIGHTS}
+
+
+def gather_experts(params: Params, cfg: ModelConfig, mesh,
+                   dist: Optional[sharding.DistConfig] = None
+                   ) -> Tuple[torch.Tensor, ...]:
+    """This rank's experts with their whole ``d``: each weight's block
+    all-gathered over the data axes its spec shards ``d`` on, the minor
+    axis first so that the blocks fall in place (``w_gate``/``w_up``
+    along dim 1, ``w_down`` along dim 2)."""
+    out = []
+    for name, spec in expert_specs(cfg, mesh, dist).items():
+        w, dim = params[name], (2 if name == "w_down" else 1)
+        for ax in reversed(sharding.entry_axes(spec[dim])):
+            w = gather_axis(mesh, ax, w, dim=dim)
+        out.append(w)
+    return tuple(out)
+
+
+def sum_over_model(mesh, out: torch.Tensor) -> torch.Tensor:
+    """The reference's ``psum`` over ``model``: the line's partials
+    all-gathered and added in rank order, in ``out``'s dtype, so that
+    every rank of the line holds the same bits."""
+    parts = gather_axis(mesh, "model", out[None], dim=0)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
+def moe_sharded(params: Params, x: torch.Tensor, cfg: ModelConfig, mesh,
+                dist: Optional[sharding.DistConfig] = None) -> torch.Tensor:
+    """The reference's ``_moe_sharded`` on this rank: x is its tokens
+    [b, S, d] (its block of the batch by ``sharding.batch_spec``, the
+    whole batch where the data axes do not divide it), ``params`` its
+    blocks of the expert weights (``expert_specs``) and the whole router
+    and shared experts. Returns this rank's [b, S, d].
+
+    The capacity comes from the reference's per-rank token count, ``(B
+    S) // dp``, also where the batch is replicated (``B % dp != 0``): such
+    a rank routes all B S tokens at that capacity (ROADMAP queue 3). B,
+    the whole batch's size, is the ambient context's (``mesh_context(...,
+    batch=B)``); under data parallelism the layer raises without it, as
+    a rank's block does not tell a block of a larger batch from a whole
+    replicated one."""
+    b_loc, s, d = x.shape
+    dp = 1
+    for a in data_axes(mesh):
+        dp *= mesh.shape[a]
+    mp = mesh.shape["model"]
+    e_local = cfg.n_experts // mp
+    b = get_batch()
+    if b is None:
+        if dp > 1:
+            raise ValueError(f"the MoE layer over {dp} data ranks needs the "
+                             f"whole batch's size: mesh_context(..., "
+                             f"batch=B)")
+        b = b_loc
+    if b_loc != (b // dp if b % dp == 0 else b):
+        raise ValueError(f"{b_loc} rows a rank do not lay out a batch of {b}"
+                         f" over {dp} data ranks")
+    if tuple(params["w_gate"].shape[:1]) != (e_local,):
+        raise ValueError(f"w_gate {tuple(params['w_gate'].shape)} holds not "
+                         f"this rank's {e_local} experts")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in params.values())):
+        raise NotImplementedError("the sharded MoE layer has no backward "
+                                  "across ranks")
+    t_local = (b * s) // dp if (b * s) % dp == 0 else b * s
+    w_gate, w_up, w_down = gather_experts(params, cfg, mesh, dist)
+    xf = x.reshape(b_loc * s, d)
+    gate_w, gate_e = route(xf, params["router"], cfg.moe_top_k)
+    out = dispatch_compute(xf, gate_w, gate_e, w_gate, w_up, w_down,
+                           n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                           cap=capacity(cfg, t_local),
+                           expert_offset=mesh.axis_index("model") * e_local)
+    out = sum_over_model(mesh, out)
+    if cfg.n_shared_experts:
+        out = out + shared_experts(params, xf)
+    return out.view(b_loc, s, d)
+
+
+def moe_forward(params: Params, x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d]: ``moe_sharded`` under an ambient mesh
+    whose ``model`` axis divides the experts, else every expert local.
+    Under a mesh with data parallelism that does not, the reference's
+    local path takes its capacity from the whole batch's tokens, which a
+    rank holding its block cannot see: that case raises."""
+    mesh, dist = get_mesh()
+    if expert_parallel(cfg, mesh):
+        return moe_sharded(params, x, cfg, mesh, dist)
+    if mesh is not None and any(mesh.shape[a] > 1
+                                for a in data_axes(mesh)):
+        raise NotImplementedError(
+            f"{cfg.n_experts} experts over a model axis of "
+            f"{mesh.shape.get('model', 1)} under data parallelism: the "
+            f"reference's local path needs the whole batch's token count")
+    return _moe_local(params, x, cfg)
 
 
 def moe_aux_loss(params: Params, x: torch.Tensor,
@@ -182,12 +329,22 @@ def moe_aux_loss(params: Params, x: torch.Tensor,
 
 class MoE(nn.Module):
     """One MoE layer's weights (``moe_param_shapes``, the reference's
-    layouts) and its forward."""
+    layouts) and its forward. Built under an ambient mesh where the layer
+    is expert-parallel (``expert_parallel``), it holds this rank's blocks
+    of the expert weights (``expert_specs``: ``w_gate [E/mp, d/dp, f]``)
+    and must run under that mesh; the router and shared experts stay
+    whole."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
         self.cfg = cfg
+        self.mesh, self.dist = get_mesh()
+        self.specs = expert_specs(cfg, self.mesh, self.dist) \
+            if expert_parallel(cfg, self.mesh) else {}
         for name, shape in moe_param_shapes(cfg).items():
+            if name in self.specs:
+                shape = tuple(n // sharding.group_size(self.mesh, entry)
+                              for n, entry in zip(shape, self.specs[name]))
             self.register_parameter(name, nn.Parameter(
                 torch.zeros(shape, dtype=dtype, device=device),
                 requires_grad=False))
@@ -195,6 +352,12 @@ class MoE(nn.Module):
     def forward(self, x: torch.Tensor, with_aux: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(moe_forward of x, its aux loss when ``with_aux`` else None)."""
+        if get_mesh()[0] is not self.mesh:
+            raise RuntimeError("an MoE layer runs under the mesh context it "
+                               "was built under")
+        if with_aux and self.mesh is not None:
+            raise NotImplementedError("the aux loss under a mesh (training "
+                                      "with expert parallelism)")
         params = dict(self.named_parameters())
         aux = moe_aux_loss(params, x, self.cfg) if with_aux else None
         return moe_forward(params, x, self.cfg), aux
@@ -205,11 +368,21 @@ def init_moe(moe: MoE, gen: torch.Generator) -> None:
     """The reference's ``init_moe``: fan-in normal weights, the fan-in
     along d for the router, ``w_gate``, ``w_up`` and the shared gate and
     up, along f for ``w_down`` and ``shared_down`` (``in_axis=1`` for the
-    ``w_*`` experts). Each expert is drawn on its own, so no f32 copy of a
-    whole ``[E, d, f]`` tensor is made (Kimi-K2's would be 22.5 GB)."""
+    ``w_*`` experts). Each expert is drawn whole and on its own, in order,
+    so no f32 copy of a whole ``[E, d, f]`` tensor is made (Kimi-K2's
+    would be 22.5 GB); a layer built under a mesh keeps its block of each
+    of its own experts, so it holds the unsharded layer's weights for the
+    same generator."""
+    shapes = moe_param_shapes(moe.cfg)
     for name, w in moe.named_parameters():
-        if name.startswith("w_"):
-            for e in range(w.shape[0]):
-                w[e].copy_(dense_init(gen, w.shape[1:], 0, w.dtype))
-        else:
+        if not name.startswith("w_"):
             w.copy_(dense_init(gen, w.shape, 0, w.dtype))
+            continue
+        spec = moe.specs.get(name)
+        first = moe.mesh.axis_index("model") * w.shape[0] if spec else 0
+        for e in range(shapes[name][0]):
+            expert = dense_init(gen, shapes[name][1:], 0, w.dtype)
+            if first <= e < first + w.shape[0]:
+                w[e - first].copy_(expert if spec is None else
+                                   sharding.local_block(expert, spec[1:],
+                                                        moe.mesh))

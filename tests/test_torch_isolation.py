@@ -55,6 +55,10 @@ TRAIN_MODULES = {"repro_torch.training", "repro_torch.training.optimizer",
 # the pod-scale data plane's modules
 POD_MODULES = {"repro_torch.distributed", "repro_torch.distributed.compat",
                "repro_torch.launch.mesh", "repro_torch.core.distributed"}
+# expert parallelism: the sharding rules, the mesh context, the MoE layer
+EP_MODULES = {"repro_torch.distributed.sharding",
+              "repro_torch.distributed.context", "repro_torch.models.moe",
+              "repro_torch.carry"}
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -69,6 +73,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert SSM_HYBRID_MODULES <= loaded, SSM_HYBRID_MODULES - loaded
     assert AUDIO_VLM_MODULES <= loaded, AUDIO_VLM_MODULES - loaded
     assert POD_MODULES <= loaded, POD_MODULES - loaded
+    assert EP_MODULES <= loaded, EP_MODULES - loaded
 
 
 FORBIDDEN = re.compile(
