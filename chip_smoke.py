@@ -11,7 +11,7 @@ each kernel against its plain PyTorch
 version on the card (edge cases, the sliding window and meta tokens
 included, in the forward and in the backward, and exact-tie inputs),
 prefills each dense, moe, hybrid, audio and vlm REDUCED config through
-the attention kernel against the plain attention, then drives sixteen
+the attention kernel against the plain attention, then drives seventeen
 paths, each with its kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
@@ -137,9 +137,9 @@ paths, each with its kernel launches counted from zero and checked:
   experts a rank, ``Engine.generate`` cold and warm, then the prefill and
   decode steps with the unsharded cold run's tokens fed (routes recorded),
   the partial outputs all-gathered over model and added in rank order; phase
-  B, mesh (data 2, model 2): 8 experts a rank with d over data, gathered
-  (FSDP) through host memory before use, one prefill of each data line's
-  4 prompts. Afterwards, against the moe path's unsharded model (kept on
+  B, mesh (data 2, model 2), the model cut to EP_B_DEPTH layers: 8
+  experts a rank with d over data, gathered (FSDP) through host memory
+  before use, one prefill of each data line's 4 prompts. Afterwards, against the moe path's unsharded model (kept on
   the host from that path): the ranks' tokens and fed logits (A) and a
   line's logits (B) bit for bit the same, A's warm tokens the cold ones,
   the routes of the prefill and every fed decode step under the route
@@ -150,6 +150,29 @@ paths, each with its kernel launches counted from zero and checked:
   a layer and prefill on every rank. Prints each rank's phase times
   (dispatch and expert products alone, the partial sum, the FSDP gather,
   prefill and decode step), peaks and the bytes moved a layer.
+* dp_train: ``launch/train.py``'s setup and step on 2 gloo ranks that
+  share the card (the trainer's own mesh, ``make_local_mesh``, on the
+  process group; each rank keeping its ``batch_spec`` block of the
+  batch). T1: TinyLlama-1.1B at its published widths, 2 of 22 layers,
+  on (data 2, model 1), B=8 x S=2048 (4 rows a rank), a warm step and 3
+  timed ones, the gradients summed over data. T2: DBRX-132B at its
+  published widths, 1 of 40 layers, capacity 1.25, on (data 1, model
+  2): 8 of 16 experts a rank, factored f32 AdamW, B=4 x S=512, 3 steps,
+  the MoE layer's backward across the ranks (its experts' gradients
+  summed over model into the tokens' and the router's). The ranks start
+  before the pod path and wait (DP_WAIT_S); before they get the go, one
+  process takes both steps unsharded on the whole batch (the
+  references, then freed). Gates: every parameter (T1), the
+  router and every dense weight (T2), bit for bit the same on both
+  ranks after every step (fingerprints of their bits); step 0's loss
+  within TRAIN_LOSS_ATOL of the one-process step; T2's routes under the
+  route rule; T2's layer in f32 on one input against the unsharded
+  layer's autograd (the input's, the router's and each rank's first
+  expert's gradients within DP_LAYER_RTOL of their largest); the loss
+  falls; exact ``flash_attention`` and ``flash_attention_bwd`` launches
+  on each rank. Prints the step walls, the data all-reduce of T1's
+  gradients, T2's model-axis sums forward and backward, and each rank's
+  peak.
 * compare: the paper's comparison (Table IV, Figs 8-10) at 50,000 x 128
   with 1000 queries: PAG, DiskANN (one ``pq_adc_rows`` launch per wave of
   its lock-step traversal, the waves of each sweep printed), SPANN (closure
@@ -170,15 +193,17 @@ Last, each kernel is timed on the inputs its path gave it
 serve scan; ``l2_topk`` three times: SPANN's closure chunk, the 1M
 ground-truth chunk and the pod path's assign chunk; the pod path's
 inputs drawn again from the seed as its rank 0 drew them;
-``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` ten
+``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` twelve
 times: rag's first prefill layer, the moe path's two, hymba's first
 windowed and first global layer, whisper's encoder layer and
-cross-attention, internvl2's first layer, and the two train layers
+cross-attention, internvl2's first layer, the two train layers
 audio_train and vlm_train add, whisper's encoder at B=16 and
-internvl2's at 4 x 1024; ``flash_attention_bwd`` five times: the train
-path's layer 0, long_train's hymba layer 1, windowed, whisper's encoder
-layer and cross-attention, and internvl2's layer 0, each under its own
-mask, two calls bit-identical): CUDA
+internvl2's at 4 x 1024, and dp_train's layer 0 of a rank, TinyLlama's
+at 4 x 2048 and DBRX's at 4 x 512; ``flash_attention_bwd`` seven times:
+the train path's layer 0, long_train's hymba layer 1, windowed,
+whisper's encoder layer and cross-attention, internvl2's layer 0 and
+dp_train's two layers, each under its own mask, two calls
+bit-identical): CUDA
 events around back-to-back wrapper calls (``ms``) and the kernel's own
 device time from ``torch.profiler`` (``device_ms``), beside its plain
 version,
@@ -203,6 +228,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -523,13 +549,49 @@ POD_TIMEOUT_S = 300   # a collective that waits longer fails the path
 # Engine.generate cold and warm. Phase B, mesh (data 2, model 2), after A's
 # weights are freed: 8 experts a rank with d over data, all-gathered (FSDP)
 # before use, one prefill of 4 prompts a data line (no decode: each step
-# would gather 6.3 GB a rank through host memory again)
+# would gather 6.3 GB a rank through host memory again), at EP_B_DEPTH of
+# the 4 layers (for the smoke's clock: a layer's gather took 6-7 s on an
+# H100 host), against an unsharded model of that depth
 EP_RANKS = 4
 EP_MESHES = {"A": ((1, 4), ("data", "model")),
              "B": ((2, 2), ("data", "model"))}
+EP_B_DEPTH = 1
 # the first MoE layer in f32, sharded against unsharded on the same input:
 # a token's contributions are grouped by rank before they are added
 EP_LAYER_RTOL = 1e-5
+# The dp_train path: launch/train.py's setup and step on 2 gloo ranks
+# that share the card, the trainer's own (data, model) mesh
+# (make_local_mesh over --model-axis). T1: TinyLlama-1.1B at its
+# published widths cut to 2 of 22 layers, (data 2, model 1), B=8 x
+# S=2048 (the train path's batch: 4 rows a rank), TRAIN_LR, a warm step
+# and 3 timed ones on one repeated batch. T2: DBRX-132B at its published
+# widths cut to 1 of 40 layers, capacity 1.25 (its config's), (data 1,
+# model 2): 8 of 16 experts a rank, factored f32 AdamW (launch/dryrun.py's
+# policy for dbrx), B=4 x S=512, 3 steps. At full width with the
+# embeddings whole on every rank, a DBRX layer holds ~23 GB a rank at
+# (data 1, model 2); (data 2, model 2) needs four ranks of ~23 GB and
+# waits for the embeddings' placement (ROADMAP queue 1)
+DP_RANKS = 2
+DP_PHASES = {"T1": dict(arch=TRAIN_ARCH, depth=2, changes={},
+                        model_axis=1, batch=8, seq=2048, steps=4,
+                        factored=False),
+             "T2": dict(arch="dbrx-132b", depth=1,
+                        changes={"capacity_factor": 1.25}, model_axis=2,
+                        batch=4, seq=512, steps=3, factored=True)}
+# T2's MoE layer in f32 on one input (the first row of the one-process
+# step's layer input) and a seeded cotangent, sharded against unsharded:
+# each gradient within this share of its largest magnitude (f32 sums of a
+# token's contributions grouped by rank, the experts' split over model)
+DP_LAYER_RTOL = 1e-5
+# elements a parameter's bit fingerprint sums at a time
+FINGERPRINT_ROW = 4096
+# The dp_train ranks start before the pod path (dp_spawn): a fresh rank's
+# Python start-up and the torch._dynamo import that its first checkpointed
+# step makes (torch.utils.checkpoint's dynamo-disabling wrapper; on an
+# H100 host the first step took 15.3 s against 1.0 s for the next) then
+# overlap the paths before theirs; a rank waits for dp_train's "go" file,
+# at most this long, before it touches the card
+DP_WAIT_S = 900
 # The reference's chunked attention pads K and V with zero keys to a
 # multiple of this chunk (when longer) that only a causal mask hides, so
 # its full attention (whisper's encoder and prefill cross-attention) gives
@@ -2361,19 +2423,9 @@ def cut_setup(args, depth: int, factored: bool):
     layers (as ``modal_serve`` cuts it), with the trainer's schedule, and
     the optimizer's second moment factored when ``factored``."""
     from repro_torch.configs import get_config
-    from repro_torch.data.lm import DataConfig
-    from repro_torch.models import init_params
-    from repro_torch.training.optimizer import OptimizerConfig, init_state
-    from repro_torch.training.train_step import TrainConfig, make_train_step
+    from repro_torch.launch import train as trainer
     cfg = dataclasses.replace(get_config(args.arch), n_layers=depth)
-    ocfg = OptimizerConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
-                           total_steps=args.steps, factored=factored)
-    model = init_params(cfg, seed=0, device=args.device).requires_grad_()
-    opt = init_state(dict(model.named_parameters()), ocfg)
-    return (cfg, DataConfig(seed=0, batch_size=args.batch,
-                            seq_len=args.seq), model, opt,
-            make_train_step(cfg, ocfg,
-                            TrainConfig(microbatches=args.microbatches)))
+    return trainer.setup(args, cfg=cfg, factored=factored)
 
 
 def train_steps(dev, tag: str, arch: str, lr: float, microbatches: int,
@@ -3078,9 +3130,9 @@ def ep_reference(r: dict) -> dict:
     the input of the first MoE layer), each decode step's logits with the
     cold tokens fed (the cold generate's own steps again), each data
     block's prefill of MOE_BATCH // 2 prompts (its own capacity: phase B's
-    per-rank one) with its routes, and the first MoE layer in f32 on that
-    input."""
-    from repro_torch.models import forward, moe
+    per-rank one) with its routes, by the same seeded model cut to
+    EP_B_DEPTH layers, and the first MoE layer in f32 on that input."""
+    from repro_torch.models import forward, init_params, moe
     cfg, model, prompt = r["cfg"], r["model"], r["prompt"]
     out = {"prompt": prompt.cpu(), "gen": r["cold_gen"],
            "routes": r["cold_routes"]}
@@ -3102,14 +3154,17 @@ def ep_reference(r: dict) -> dict:
                                       torch.from_numpy(r["cold_gen"]))[1:]
         half = MOE_BATCH // 2
         out["blocks"] = []
+        cfg_b = dataclasses.replace(cfg, n_layers=EP_B_DEPTH)
+        model_b = init_params(cfg_b, seed=0, device=prompt.device)
         for j in range(2):
-            with RouteRecorder(cfg) as rec:
-                logits = forward(model, {"tokens": prompt[j * half:
-                                                          (j + 1) * half]},
-                                 cfg)
+            with RouteRecorder(cfg_b) as rec:
+                logits = forward(model_b, {"tokens": prompt[j * half:
+                                                            (j + 1) * half]},
+                                 cfg_b)
             out["blocks"].append({"logits": logits[:, -1].cpu(),
                                   "routes": rec.host_calls()})
             del logits
+        del model_b
         params = {k: v.float() for k, v in
                   model.blocks[0].moe.named_parameters()}
         out["layer_f32"] = moe.moe_forward(params, first[0].float(), cfg)\
@@ -3256,8 +3311,10 @@ def ep_rank(rank: int, init: str, tmp: str, src: str) -> None:
             del model, layer, experts, xf, x0, gate_w, gate_e
         torch.cuda.empty_cache()
 
-        # phase B: data 2 x model 2, the experts' d over data (FSDP)
+        # phase B: data 2 x model 2, the experts' d over data (FSDP),
+        # EP_B_DEPTH layers
         mesh = pm.make_mesh(*EP_MESHES["B"])
+        cfg = dataclasses.replace(cfg, n_layers=EP_B_DEPTH)
         with mesh_context(mesh, dcfg):
             t0 = time.perf_counter()
             model = init_params(cfg, seed=0, device=dev)
@@ -3310,6 +3367,371 @@ def ep(ref: dict) -> dict:
         r["ranks_s"] = time.perf_counter() - t0
         r["ranks"] = [torch.load(f"{tmp}/ep{i}.pt") for i in range(EP_RANKS)]
     return r
+
+
+def dp_setup(tag: str, dev, *, ranks: bool):
+    """``launch/train.py``'s setup of dp_train's phase ``tag``
+    (DP_PHASES): the published config cut in depth, the trainer's
+    parser's arguments; on a process group (``ranks``) its mesh of
+    ``--model-axis``, else one process on the whole batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as trainer
+    ph = DP_PHASES[tag]
+    args = trainer.parser().parse_args([
+        "--arch", ph["arch"], "--full", "--batch", str(ph["batch"]),
+        "--seq", str(ph["seq"]), "--steps", str(ph["steps"]),
+        "--lr", str(TRAIN_LR), "--device", str(dev),
+        "--model-axis", str(ph["model_axis"] if ranks else 1)])
+    cfg = dataclasses.replace(get_config(ph["arch"]), n_layers=ph["depth"],
+                              **ph["changes"])
+    return trainer.setup(args, cfg=cfg, factored=ph["factored"])
+
+
+def fingerprint(t: torch.Tensor) -> torch.Tensor:
+    """Two sums a row of FINGERPRINT_ROW elements of ``t``'s bits (as
+    integers: their sum and their sum of squares), int64 [2, rows] on the
+    host: equal for equal bits, and for unequal ones unless two changes
+    in a row cancel in both."""
+    ints = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    flat = t.detach().reshape(-1).view(ints)
+    out = []
+    step = FINGERPRINT_ROW * 4096
+    for s in range(0, flat.numel(), step):
+        part = flat[s:s + step].long()
+        part = torch.nn.functional.pad(part, (0, -part.numel()
+                                              % FINGERPRINT_ROW))
+        part = part.view(-1, FINGERPRINT_ROW)
+        out.append(torch.stack([part.sum(1), (part * part).sum(1)]).cpu())
+    return torch.cat(out, 1)
+
+
+def dp_reference(dev) -> dict:
+    """The one-process side of the dp_train path, on the whole batch:
+    each phase's step 0 loss and T2's routes; before T2's step, its MoE
+    layer in f32 on the first row of its layer-0 input (a forward with no
+    gradient) with a seeded cotangent: the input's, the router's and
+    experts 0 and E/2's gradients (each rank's first expert). Everything
+    kept on the host, the models freed."""
+    from repro_torch.data.lm import batch_at
+    out = {}
+    for tag in DP_PHASES:
+        cfg, dcfg, model, opt, step_fn = dp_setup(tag, dev, ranks=False)
+        batch = batch_at(dcfg, cfg, 0, device=dev)
+        if cfg.n_experts:
+            out[f"{tag}_layer"] = f32_layer_grads(model, batch, cfg, dev)
+        with RouteRecorder(cfg) as rec:
+            _, opt, m = step_fn(model, opt, batch)
+        out[f"{tag}_loss"] = float(m["loss"])
+        out[f"{tag}_routes"] = rec.host_calls()[:cfg.n_layers]
+        del model, opt, m, rec, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_layer_grads(model, batch, cfg, dev) -> dict:
+    """The first MoE layer of ``model`` in f32, unsharded, on the first row
+    of its input in ``model``'s forward of ``batch``, back-propagating a
+    seeded cotangent: for each model rank r, the input's gradient, the
+    router's and its first expert's three (expert r E / mp), on the
+    host."""
+    from repro_torch.models import forward, moe
+    saved, first = moe.moe_forward, []
+
+    def keep_input(params, x, cfg_):
+        if not first:
+            first.append(x[:1].float())
+        return saved(params, x, cfg_)
+    moe.moe_forward = keep_input
+    try:
+        with torch.no_grad():
+            forward(model, batch, cfg)
+    finally:
+        moe.moe_forward = saved
+    x = first[0].requires_grad_()
+    gen = torch.Generator(dev).manual_seed(2)
+    cot = torch.randn(x.shape, generator=gen, device=dev)
+    params = {k: v.detach().float().requires_grad_()
+              for k, v in model.blocks[0].moe.named_parameters()}
+    names = ("router",) + moe.EXPERT_WEIGHTS
+    grads = torch.autograd.grad(
+        (moe.moe_forward(params, x, cfg).float() * cot).sum(),
+        [x] + [params[k] for k in names])
+    mp = DP_PHASES["T2"]["model_axis"]
+    e_local = cfg.n_experts // mp
+    common = {"x": x.detach().cpu(), "cot": cot.cpu(),
+              "x_grad": grads[0].cpu(), "router_grad": grads[1].cpu()}
+    out = [{**common, "expert_id": r * e_local,
+            "expert": [g[r * e_local].cpu() for g in grads[2:]]}
+           for r in range(mp)]
+    del params, grads, x, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(rank: int, init: str, tmp: str, src: str) -> None:
+    """One gloo rank of the dp_train path (``dp_train`` spawns it): T1 then
+    T2 (DP_PHASES), each through ``dp_setup`` on the process group and
+    its steps on ``batch_at``'s batch 0, a barrier before each step, the
+    launches counted from 0 around the steps, the parameters'
+    fingerprints after each, layer 0's first attention call with
+    gradients kept (its kernel rows); T1's data all-reduce of gradients
+    shaped as its parameters, timed alone; T2's f32 layer on the
+    one-process side's input (before its steps), its routes at step 0,
+    and its model-axis sums forward (the partial outputs) and backward
+    (the copy's gradient), timed alone at the step's [B S, d]. Saves it
+    all to ``tmp/dp<rank>.pt``. Waits for ``tmp/go`` (``dp_train``) before
+    it touches the card."""
+    sys.path.insert(0, src)
+    import datetime
+
+    import torch._dynamo  # noqa: F401  (see DP_WAIT_S)
+    import torch.distributed as dist
+    from repro_torch.core.distributed import copy_over, psum
+    from repro_torch.data.lm import batch_at
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
+    from repro_torch.models import moe
+
+    deadline = time.monotonic() + DP_WAIT_S
+    while not Path(tmp, "go").exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"dp_train rank {rank}: no go in {DP_WAIT_S} s")
+        time.sleep(0.05)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    compat.init_ranks("gloo", init, rank, DP_RANKS,
+                      timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+    try:
+        rep = {"rank": rank}
+        for tag, ph in DP_PHASES.items():
+            t0 = time.perf_counter()
+            cfg, dcfg, model, opt, step_fn = dp_setup(tag, dev, ranks=True)
+            torch.cuda.synchronize()
+            rep[f"{tag}_setup_s"] = time.perf_counter() - t0
+            mesh = pm.make_local_mesh(ph["model_axis"])
+            rep[f"{tag}_coords"] = mesh.coords
+            blocks = moe.block_specs(model)
+            if tag == "T2":
+                ref = torch.load(f"{tmp}/dp_layer{mesh.coords[-1]}.pt")
+                layer = model.blocks[0].moe
+                p32 = {k: v.detach().float().requires_grad_()
+                       for k, v in layer.named_parameters()}
+                x = ref["x"].to(dev).requires_grad_()
+                names = ("router",) + moe.EXPERT_WEIGHTS
+                with mesh_context(mesh, batch=x.shape[0]):
+                    grads = torch.autograd.grad(
+                        (moe.moe_sharded(p32, x, cfg, mesh).float()
+                         * ref["cot"].to(dev)).sum(),
+                        [x] + [p32[k] for k in names])
+                got = {"x_grad": grads[0], "router_grad": grads[1],
+                       **{f"expert_{n}": g[0] for n, g in
+                          zip(moe.EXPERT_WEIGHTS, grads[2:])}}
+                want = {"x_grad": ref["x_grad"],
+                        "router_grad": ref["router_grad"],
+                        **{f"expert_{n}": g for n, g in
+                           zip(moe.EXPERT_WEIGHTS, ref["expert"])}}
+                rep["T2_layer"] = {
+                    k: {"max_abs": float((got[k].cpu() - w).abs().max()),
+                        "bound": DP_LAYER_RTOL * float(w.abs().max())}
+                    for k, w in want.items()}
+                rep["T2_layer"]["expert"] = ref["expert_id"]
+                del ref, p32, x, grads, got, want
+                torch.cuda.empty_cache()
+            batch = batch_at(dcfg, cfg, 0, device=dev)
+            cap = Capture(ops, "flash_attention",
+                          lambda a, kw: a[0].requires_grad)
+            losses, aux, gnorms, walls, prints = [], [], [], [], []
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            with cap:
+                for s in range(ph["steps"]):
+                    rec = RouteRecorder(cfg) if s == 0 and cfg.n_experts \
+                        else contextlib.nullcontext()
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    with rec:
+                        _, opt, m = step_fn(model, opt, batch)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    if s == 0 and cfg.n_experts:
+                        rep["T2_routes"] = rec.host_calls()[:cfg.n_layers]
+                    losses.append(float(m["loss"]))
+                    aux.append(float(m["aux_loss"]))
+                    gnorms.append(float(m["grad_norm"]))
+                    prints.append({n: fingerprint(p) for n, p in
+                                   model.named_parameters()
+                                   if n not in blocks})
+            rep[f"{tag}_launches"] = ops.launch_counts()
+            rep[f"{tag}_peak_gib"] = torch.cuda.max_memory_allocated() \
+                / 2 ** 30
+            rep.update({f"{tag}_losses": losses, f"{tag}_aux": aux,
+                        f"{tag}_gnorms": gnorms, f"{tag}_walls": walls,
+                        f"{tag}_prints": prints,
+                        f"{tag}_blocks": sorted(blocks),
+                        f"{tag}_n_params": sum(p.numel() for p in
+                                               model.parameters())})
+            (q, k, v), kw = cap.args
+            rep[f"{tag}_call"] = ((q.cpu(), k.cpu(), v.cpu()), kw)
+            del batch, cap, m
+            params = [p.detach() for p in model.parameters()]
+            if tag == "T1":
+                rep["T1_allreduce_s"] = ranks_wall(
+                    lambda: [psum(mesh, ("data",), g) for g in params], 1)
+                rep["T1_allreduce_bytes"] = sum(
+                    g.numel() * g.element_size() for g in params)
+            else:
+                part = torch.randn(ph["batch"] * ph["seq"], cfg.d_model,
+                                   device=dev).to(params[0].dtype)
+                leaf = part.clone().requires_grad_()
+                rep["T2_model_sum_fwd_ms"] = 1e3 * ranks_wall(
+                    lambda: moe.sum_over_model(mesh, part), 5)
+                rep["T2_model_sum_bwd_ms"] = 1e3 * ranks_wall(
+                    lambda: torch.autograd.grad(
+                        copy_over(mesh, ("model",), leaf), leaf, part), 5)
+                rep["T2_model_sum_bytes"] = part.numel() \
+                    * part.element_size()
+                del part, leaf
+            del model, opt, params, step_fn
+            torch.cuda.empty_cache()
+        torch.save(rep, f"{tmp}/dp{rank}.pt")
+    finally:
+        compat.shutdown()
+
+
+def dp_spawn() -> dict:
+    """Start the dp_train path's DP_RANKS gloo ranks (spawned, daemonic,
+    ``file://`` rendezvous in a fresh directory, removed at exit); each
+    imports what its steps need and waits for ``dp_train``. Returns the
+    handle ``dp_train`` takes."""
+    import atexit
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, tmp, True)
+    ctx = mp.start_processes(dp_rank, args=(f"file://{tmp}/rendezvous", tmp,
+                                            str(ROOT / "src")),
+                             nprocs=DP_RANKS, join=False, daemon=True,
+                             start_method="spawn")
+    return {"ctx": ctx, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def dp_train(ref: dict, spawned: dict) -> dict:
+    """The dp_train path: the ranks ``dp_spawn`` started, given the
+    one-process side's T2 layer input (``dp_reference``) and then the go;
+    joined. A rank that raises fails the path."""
+    tmp = spawned["tmp"]
+    for i, layer in enumerate(ref["T2_layer"]):
+        torch.save(layer, f"{tmp}/dp_layer{i}.pt")
+    t0 = time.perf_counter()
+    Path(tmp, "go").touch()
+    while not spawned["ctx"].join():
+        pass
+    return {"ranks_s": time.perf_counter() - t0,
+            "waited_s": t0 - spawned["t0"],
+            "ranks": [torch.load(f"{tmp}/dp{i}.pt")
+                      for i in range(DP_RANKS)]}
+
+
+def check_dp_train(r: dict, ref: dict) -> dict:
+    """The dp_train path's gates (see the module docstring)."""
+    ranks = r["ranks"]
+    out, bad = {}, []
+    for tag, ph in DP_PHASES.items():
+        losses = [x[f"{tag}_losses"] for x in ranks]
+        same = all(all(torch.equal(a[n], b[n]) for n in a)
+                   for x in ranks[1:]
+                   for a, b in zip(x[f"{tag}_prints"],
+                                   ranks[0][f"{tag}_prints"]))
+        want = {"flash_attention": 2 * ph["depth"] * ph["steps"],
+                "flash_attention_bwd": ph["depth"] * ph["steps"]}
+        o = out[tag] = {
+            "losses": losses[0], "loss_step0_one_process": ref[f"{tag}_loss"],
+            "loss_vs_one_process_abs": abs(losses[0][0] - ref[f"{tag}_loss"]),
+            "losses_equal_on_ranks": all(x == losses[0] for x in losses),
+            "whole_params_identical_on_ranks": same,
+            "whole_params_compared": len(ranks[0][f"{tag}_prints"][0]),
+            "launches_a_rank": [{k: x[f"{tag}_launches"][k] for k in want}
+                                for x in ranks], "launches_want": want}
+        if not (o["losses_equal_on_ranks"] and same):
+            bad.append(f"{tag}: ranks differ")
+        if not np.isfinite(losses[0] + ranks[0][f"{tag}_gnorms"]).all() \
+                or losses[0][-1] >= losses[0][0]:
+            bad.append(f"{tag}: losses {losses[0]} do not fall")
+        if o["loss_vs_one_process_abs"] > TRAIN_LOSS_ATOL:
+            bad.append(f"{tag}: step 0 loss off the one-process step's")
+        if any(x[f"{tag}_launches"][k] != n for x in ranks
+               for k, n in want.items()):
+            bad.append(f"{tag}: launches {o['launches_a_rank']}")
+    cfg_e = DP_PHASES["T2"]
+    from repro_torch.configs import get_config
+    n_experts = get_config(cfg_e["arch"]).n_experts
+    routes, _ = route_rule(ranks[0]["T2_routes"], ref["T2_routes"],
+                           n_experts)
+    out["T2"]["routes"] = {k: v for k, v in routes.items()
+                           if k != "by_layer"}
+    if routes["agreement"] < ROUTE_AGREEMENT[cfg_e["arch"]] \
+            or routes["violations"]:
+        bad.append("T2: routes break the route rule")
+    out["T2"]["layer_f32"] = [x["T2_layer"] for x in ranks]
+    for x in ranks:
+        for k, e in x["T2_layer"].items():
+            if k != "expert" and e["max_abs"] > e["bound"]:
+                bad.append(f"T2: rank {x['rank']} f32 layer {k}")
+    print(f"dp_train checks: {json.dumps(out)}", flush=True)
+    if bad:
+        raise AssertionError(f"dp_train: {bad}")
+    return out
+
+
+def report_dp_train(r: dict, checks: dict, card: str) -> None:
+    """The dp_train path's numbers, each on its own line, then one JSON
+    line: per rank and phase the step walls (T1: the warm step 0, then
+    the timed ones), peaks, T1's gradient all-reduce and T2's model-axis
+    sums, timed alone."""
+    per_rank = []
+    for x in r["ranks"]:
+        row = {"rank": x["rank"]}
+        for tag, ph in DP_PHASES.items():
+            walls = x[f"{tag}_walls"]
+            timed = walls[1:] if tag == "T1" else walls
+            row[tag] = {"coords": x[f"{tag}_coords"],
+                        "setup_s": x[f"{tag}_setup_s"],
+                        "step_walls_s": walls,
+                        "mean_step_s": float(np.mean(timed)),
+                        "tokens_per_s_all_ranks": ph["batch"] * ph["seq"]
+                        / float(np.mean(timed)),
+                        "aux_losses": x[f"{tag}_aux"],
+                        "grad_norms": x[f"{tag}_gnorms"],
+                        "peak_gib": x[f"{tag}_peak_gib"],
+                        "params_a_rank": x[f"{tag}_n_params"],
+                        "blocks": x[f"{tag}_blocks"]}
+        row["T1"]["grad_allreduce_s"] = x["T1_allreduce_s"]
+        row["T1"]["grad_allreduce_bytes"] = x["T1_allreduce_bytes"]
+        row["T2"]["model_sum_fwd_ms"] = x["T2_model_sum_fwd_ms"]
+        row["T2"]["model_sum_bwd_ms"] = x["T2_model_sum_bwd_ms"]
+        row["T2"]["model_sum_bytes"] = x["T2_model_sum_bytes"]
+        per_rank.append(row)
+        print(f"dp_train rank {x['rank']}: T1 step "
+              f"{row['T1']['mean_step_s']:.4f} s (timed mean), gradient "
+              f"all-reduce {x['T1_allreduce_s']:.4f} s "
+              f"({x['T1_allreduce_bytes'] / 2 ** 20:.0f} MiB), peak "
+              f"{x['T1_peak_gib']:.2f} GiB; T2 step "
+              f"{row['T2']['mean_step_s']:.4f} s, model sums fwd "
+              f"{x['T2_model_sum_fwd_ms']:.3f} / bwd "
+              f"{x['T2_model_sum_bwd_ms']:.3f} ms, peak "
+              f"{x['T2_peak_gib']:.2f} GiB ({card})")
+    rep = {"card": card, "backend": "gloo", "ranks_on_one_card": DP_RANKS,
+           "phases": {tag: {**ph, "reduced": {"n_layers": [
+               {"tinyllama-1.1b": 22, "dbrx-132b": 40}[ph["arch"]],
+               ph["depth"]]}} for tag, ph in DP_PHASES.items()},
+           "lr": TRAIN_LR, "per_rank": per_rank, "ranks_s": r["ranks_s"],
+           "ranks_started_s_before": r["waited_s"],
+           **checks}
+    print(f"dp_train report: {json.dumps(rep)}", flush=True)
 
 
 def pooled_route_rule(pairs, n_experts: int) -> dict:
@@ -3405,7 +3827,8 @@ def check_ep(r: dict, ref: dict, cfg) -> dict:
             else 0.0,
             "logits_max_abs_all_prompts": float(diff.max()),
             "prompts_compared": int(agree.sum())})
-    prefills = 4   # cold, warm, the fed run's (A), B's
+    # A's cold, warm and fed prefills, then B's at its depth
+    launches = 3 * n_layers + EP_B_DEPTH
     out["launches_a_rank"] = [x["launches"]["flash_attention"]
                               for x in ranks]
     print(f"ep checks: {json.dumps(out)}", flush=True)
@@ -3432,7 +3855,7 @@ def check_ep(r: dict, ref: dict, cfg) -> dict:
     if len(lines) != 2 or any(len(v) != 2 for v in lines.values()):
         bad.append(f"B: data lines {sorted(lines)}")
     for x in ranks:
-        if x["launches"]["flash_attention"] != prefills * n_layers \
+        if x["launches"]["flash_attention"] != launches \
                 or any(c for k, c in x["launches"].items()
                        if k != "flash_attention"):
             bad.append(f"rank {x['rank']} launches {x['launches']}")
@@ -3486,7 +3909,8 @@ def report_ep(r: dict, checks: dict, cfg, published_layers: int,
               f"{x['A_peak_gib']:.3f} / {x['B_peak_gib']:.3f} GiB ({card})")
     print(f"ep bytes moved a layer and rank: {json.dumps(moved)}")
     rep = {"card": card, "arch": MOE_ARCHS[0][0],
-           "reduced": {"n_layers": [published_layers, cfg.n_layers]},
+           "reduced": {"n_layers": [published_layers, cfg.n_layers],
+                       "B_n_layers": [published_layers, EP_B_DEPTH]},
            "meshes": EP_MESHES, "backend": "gloo",
            "ranks_on_one_card": EP_RANKS, "batch": MOE_BATCH,
            "prompt_len": MOE_PROMPT, "new_tokens": MOE_NEW,
@@ -3926,6 +4350,23 @@ def time_kernels(caps, counts) -> list:
             "self-attention, 12 cross-attention; each forward twice, "
             "remat), 12 and 6 on internvl2-76b (6 layers)")]))
 
+    # the dp_train path's layer 0 on a rank (step 0): TinyLlama-1.1B at 4
+    # x 2048 (T1), DBRX-132B at 4 x 512 (T2, D 128, 48 / 8 heads)
+    for tag, what in (("T1", "tinyllama-1.1b layer 0, 4 x 2048 a rank"),
+                      ("T2", "dbrx-132b layer 0, 4 x 512 a rank")):
+        cap = caps[f"dp_train:{tag}"]
+        rows.append(flash_row(cap, counts["dp_train"]["flash_attention"],
+                              f"dp_train {what}"))
+        rows.append(flash_bwd_row(cap.args,
+                                  counts["dp_train"]["flash_attention_bwd"],
+                                  f"dp_train {what}"))
+        for r in rows[-2:]:
+            r["path"] = "dp_train"
+            r["note"] = "; ".join(filter(None, [r.get("note"), (
+                f"{what}; launches: the dp_train path's over both ranks and "
+                f"both phases (a rank and step: T1 4 forward and 2 "
+                f"backward, 2 layers with remat; T2 2 and 1)")]))
+
     rows += pod_kernel_rows(counts["pod"], caps["l2_topk"].args[0][0]
                             .device)
     return rows
@@ -4206,6 +4647,9 @@ def main() -> int:
         del run
         torch.cuda.empty_cache()
 
+    # the dp_train path's ranks start now and wait (DP_WAIT_S)
+    dp_ranks = dp_spawn()
+
     # four gloo ranks share the card; each counts its own launches from 0
     # around its steps, and the path's counts are their sum
     with phase("pod: 4 gloo ranks on one card (serve and assign steps), "
@@ -4239,6 +4683,33 @@ def main() -> int:
     print(card)
     report_ep(ep_run, ep_checks, ep_cfg, ep_published, card)
     del ep_run, ep_ref
+
+    # two gloo ranks on the card train through launch/train.py's setup;
+    # each counts its own launches from 0 around its steps, and the
+    # path's counts are their sum
+    with phase("dp_train: one process on the whole batch (TinyLlama-1.1B "
+               "2 layers, DBRX-132B 1 layer, the f32 layer)"):
+        dp_ref = dp_reference(dev)
+    with phase("dp_train: 2 gloo ranks on one card, T1 (data 2, model 1) "
+               "then T2 (data 1, model 2)"):
+        dp_run = dp_train(dp_ref, dp_ranks)
+    counts["dp_train"] = {k: sum(x[f"{tag}_launches"].get(k, 0)
+                                 for x in dp_run["ranks"]
+                                 for tag in DP_PHASES)
+                          for k in counts["pod"]}
+    print(f"[launches] dp_train: {json.dumps(counts['dp_train'])}",
+          flush=True)
+    with phase("dp_train: checks (ranks agree, losses vs one process, "
+               "routes, the f32 layer's gradients)"):
+        dp_checks = check_dp_train(dp_run, dp_ref)
+    print(card)
+    report_dp_train(dp_run, dp_checks, card)
+    # rank 0's layer-0 call of each phase, for the kernel rows
+    for tag in DP_PHASES:
+        (q, k, v), kw = dp_run["ranks"][0][f"{tag}_call"]
+        caps[f"dp_train:{tag}"] = types.SimpleNamespace(
+            args=(tuple(t.to(dev) for t in (q, k, v)), kw))
+    del dp_run, dp_ref
 
     caps.update({
         "l2_topk_masked": Capture(ops, "l2_topk_masked",
@@ -4274,7 +4745,8 @@ def main() -> int:
                      counts["long_train:hymba-1.5b"],
                      "audio": counts["audio"], "vlm": counts["vlm"],
                      **{tag: counts[tag] for tag in MODAL_TRAIN_PATHS},
-                     "pod": counts["pod"], **moe_launches}
+                     "pod": counts["pod"], "dp_train": counts["dp_train"],
+                     **moe_launches}
         rows = time_kernels(caps, by_kernel)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}

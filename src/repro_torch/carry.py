@@ -11,7 +11,8 @@ A language model's weights carry the same way: the reference's params
 pytree as numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the
 port's model with ``lm_params_from_arrays(cfg, params)``, and its AdamW
 state (``repro.training.optimizer.init_state`` or a later step's) the
-port's with ``opt_state_from_arrays(cfg, state)``.
+port's with ``opt_state_from_arrays(cfg, state)``. With ``mesh=`` both
+give this rank's blocks of what the rank holds as blocks.
 """
 from __future__ import annotations
 
@@ -24,9 +25,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pag import PAG
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.context import mesh_context
-from repro_torch.distributed.sharding import local_block
+from repro_torch.distributed.sharding import (
+    DistConfig,
+    local_block,
+    spec_for_leaf,
+)
 from repro_torch.models.model import LM
-from repro_torch.models.moe import MoE
+from repro_torch.models.moe import block_specs
 from repro_torch.storage.simulator import ObjectStore, StorageConfig
 from repro_torch.training.optimizer import STACKS
 
@@ -105,8 +110,7 @@ def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
     else:
         with mesh_context(mesh, dist):
             model = LM(cfg, device)
-    specs = {f"{path}.{name}": spec for path, mod in model.named_modules()
-             if isinstance(mod, MoE) for name, spec in mod.specs.items()}
+    specs = block_specs(model)
     target = dict(model.named_parameters())
     given = _per_layer(params)
     if set(given) != set(target):
@@ -138,7 +142,8 @@ def _split_factored(v: Dict[str, Any]):
 
 
 def opt_state_from_arrays(cfg: ModelConfig, state: Dict[str, Any],
-                          device: DeviceLike = None) -> Dict[str, Any]:
+                          device: DeviceLike = None, mesh=None,
+                          dist=None) -> Dict[str, Any]:
     """The port's optimizer state (``repro_torch.training.optimizer``)
     holding the reference's: ``state`` is its ``{"step", "m", "v"}`` as
     numpy arrays, per-layer moments stacked ``[L, ...]`` under
@@ -146,10 +151,22 @@ def opt_state_from_arrays(cfg: ModelConfig, state: Dict[str, Any],
     ``{"row", "col"}`` leaves. Each layer's slice goes to its
     parameter's name (a stacked ``[L, d]`` leaf's column, shared by the
     layers, to each of them), in the stored dtype (``state_dtype``), on
-    ``device`` (the CUDA card unless ``"cpu"``).
+    ``device`` (the CUDA card unless ``"cpu"``). With ``mesh`` (and
+    ``dist``), the state of this rank's model as ``lm_params_from_arrays``
+    builds it there: for a parameter it holds as a block
+    (``moe.block_specs``), its block of ``m`` and of a plain ``v`` by the
+    parameter's spec, and of a factored ``v``'s ``row`` and ``col`` by
+    the specs ``sharding`` derives for them (the parameter's rule without
+    the reduced dim).
     Raises unless ``m`` names every parameter of ``cfg``'s model."""
     dev = resolve_device(device)
-    names = set(dict(LM(cfg, "meta").named_parameters()))
+    if mesh is None:
+        model = LM(cfg, "meta")
+    else:
+        with mesh_context(mesh, dist):
+            model = LM(cfg, "meta")
+    names = set(dict(model.named_parameters()))
+    specs = block_specs(model)
     m = _per_layer(state["m"])
     if set(m) != names:
         raise ValueError(f"moments missing: {sorted(names - set(m))}, "
@@ -161,12 +178,23 @@ def opt_state_from_arrays(cfg: ModelConfig, state: Dict[str, Any],
             col[name] = np.broadcast_to(np.asarray(col[name]),
                                         (len(r),) + np.shape(col[name]))
     plain, row, col = (_per_layer(t) for t in (plain, row, col))
-    v = {n: t.to(dev) for n, t in plain.items()}
-    v.update({n: {"row": row[n].to(dev), "col": col[n].to(dev)}
-              for n in row})
+    dist = dist or (DistConfig() if mesh is not None else None)
+
+    def block(name, t, stat=None):
+        if name not in specs:
+            return t.to(dev)
+        spec = specs[name]
+        if stat is not None:   # the statistic's own leaf under the layer's
+            path = ("moe", name.rpartition(".")[2], stat)
+            spec = spec_for_leaf(path, tuple(t.shape), mesh, dist,
+                                 stacked=False)
+        return local_block(t, spec, mesh).clone().to(dev)
+    v = {n: block(n, t) for n, t in plain.items()}
+    v.update({n: {"row": block(n, row[n], "row"),
+                  "col": block(n, col[n], "col")} for n in row})
     if set(v) != names:
         raise ValueError(f"second moments do not name the parameters: "
                          f"{sorted(set(v) ^ names)}")
     return {"step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32, device=dev),
-            "m": {n: t.to(dev) for n, t in m.items()}, "v": v}
+            "m": {n: block(n, t) for n, t in m.items()}, "v": v}

@@ -105,13 +105,8 @@ class ShardedServing:
 # pod-scale data plane (torch.distributed over a launch.mesh.Mesh)
 # --------------------------------------------------------------------------
 
-def gather_axis(mesh: Mesh, axis: str, t: torch.Tensor,
-                dim: int = 1) -> torch.Tensor:
-    """``jax.lax.all_gather(t, axis, axis=dim, tiled=True)``: the blocks of
-    the ranks along ``axis`` concatenated on ``dim`` in their order along
-    it. Under gloo a CUDA tensor crosses through host memory, copied out
-    and back here (gloo's transport is the host's; the ranks may share
-    one card); under nccl it stays on the card."""
+def _gather(mesh: Mesh, axis: str, t: torch.Tensor, dim: int
+            ) -> torch.Tensor:
     group = mesh.groups[axis]
     via_host = t.is_cuda and dist.get_backend(group) == "gloo"
     src = t.cpu() if via_host else t.contiguous()
@@ -119,6 +114,104 @@ def gather_axis(mesh: Mesh, axis: str, t: torch.Tensor,
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     return out.to(t.device) if via_host else out
+
+
+def _sum_axis(mesh: Mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
+    """The ranks' ``t`` along ``axis`` added in rank order, in ``t``'s
+    dtype: the same bits on every rank of the line. Two ranks make one
+    addition an element, which ``all_reduce`` gives alike on both, with
+    half a gather's bytes."""
+    if mesh.shape[axis] == 2:
+        group = mesh.groups[axis]
+        via_host = t.is_cuda and dist.get_backend(group) == "gloo"
+        out = t.cpu() if via_host else t.clone()
+        dist.all_reduce(out, group=group)
+        return out.to(t.device) if via_host else out
+    parts = _gather(mesh, axis, t[None], 0)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
+def psum(mesh: Mesh, axes: Sequence[str], t: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.psum(t, axes)``, no gradient: summed over each axis in
+    turn, in rank order along it (``_sum_axis``)."""
+    for a in axes:
+        t = _sum_axis(mesh, a, t)
+    return t
+
+
+class _Gather(torch.autograd.Function):
+    """The gather forward; backward, each rank keeps its own block of the
+    gathered gradient summed over the axis (a reduce-scatter, made of a
+    gather and a rank-order sum: gloo has no reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.size = mesh, axis, dim, t.shape[dim]
+        return _gather(mesh, axis, t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        start = ctx.mesh.axis_index(ctx.axis) * ctx.size
+        parts = _gather(ctx.mesh, ctx.axis, g[None], 0)
+        acc = parts[0].narrow(ctx.dim, start, ctx.size)
+        for part in parts[1:]:
+            acc = acc + part.narrow(ctx.dim, start, ctx.size)
+        return acc, None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    """``psum`` forward, the identity backward: for a sum that every rank
+    consumes whole, so that each rank back-propagates only its own
+    part."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return psum(mesh, axes, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity forward, ``psum`` backward: for a tensor that every
+    rank of the axes holds whole and feeds to its own part of a sum."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(ctx.mesh, ctx.axes, g), None, None
+
+
+def gather_axis(mesh: Mesh, axis: str, t: torch.Tensor,
+                dim: int = 1) -> torch.Tensor:
+    """``jax.lax.all_gather(t, axis, axis=dim, tiled=True)``: the blocks of
+    the ranks along ``axis`` concatenated on ``dim`` in their order along
+    it. Under gloo a CUDA tensor crosses through host memory, copied out
+    and back here (gloo's transport is the host's; the ranks may share
+    one card); under nccl it stays on the card. Its gradient is the
+    reduce-scatter: each rank gets its block of the gathered gradient
+    summed over the axis."""
+    return _Gather.apply(t, mesh, axis, dim)
+
+
+def sum_over(mesh: Mesh, axes: Sequence[str], t: torch.Tensor
+             ) -> torch.Tensor:
+    """``psum`` over ``axes`` whose gradient is the identity."""
+    return _Sum.apply(t, mesh, tuple(axes))
+
+
+def copy_over(mesh: Mesh, axes: Sequence[str], t: torch.Tensor
+              ) -> torch.Tensor:
+    """``t`` itself, whose gradient is summed over ``axes``."""
+    return _Copy.apply(t, mesh, tuple(axes))
 
 
 def stable_topk(d2: torch.Tensor, ids: torch.Tensor, k: int

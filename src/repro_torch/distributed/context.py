@@ -10,10 +10,11 @@ sharded weights, and must run under the same context.
 
 Each rank holds its block of the batch (``sharding.batch_spec``: the
 whole batch where the data axes do not divide it), whereas the
-reference's model sees the whole batch. Where a layer's result depends
-on the whole batch's size (the MoE layer's per-rank capacity), the code
-that lays the batch out gives that size to the context (``batch``) and
-the layer reads it (``get_batch``).
+reference's model sees the whole batch. Where a result depends on the
+whole batch's size (the MoE layer's capacities, the train step's
+microbatches), the code that lays the batch out gives that size to the
+context (``batch``) and the code that needs it reads it
+(``whole_batch``).
 
 The reference's ``constrain_tokens`` / ``constrain_heads`` /
 ``constrain_ff`` are not ported: they tell XLA's partitioner where
@@ -26,7 +27,7 @@ import contextlib
 from typing import Optional, Tuple
 
 from repro_torch.distributed.sharding import DistConfig
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, data_axes
 
 _STATE: dict = {"mesh": None, "dist": None, "batch": None}
 
@@ -46,6 +47,30 @@ def get_mesh() -> Tuple[Optional[Mesh], Optional[DistConfig]]:
 
 def get_batch() -> Optional[int]:
     return _STATE["batch"]
+
+
+def whole_batch(mesh: Mesh, b_loc: int) -> Tuple[int, int]:
+    """(the whole batch's size B, the data ranks dp) for a rank holding
+    ``b_loc`` rows under ``mesh``: B is the ambient context's
+    (``mesh_context(..., batch=B)``). Under data parallelism this raises
+    without it, as a rank's block does not tell a block of a larger batch
+    from a whole replicated one, and raises where ``b_loc`` rows do not
+    lay out B (its ``batch_spec`` block, or all of it where the data axes
+    do not divide it)."""
+    dp = 1
+    for a in data_axes(mesh):
+        dp *= mesh.shape[a]
+    b = get_batch()
+    if b is None:
+        if dp > 1:
+            raise ValueError(f"a block of a batch over {dp} data ranks "
+                             f"needs the whole batch's size: "
+                             f"mesh_context(..., batch=B)")
+        b = b_loc
+    if b_loc != (b // dp if b % dp == 0 else b):
+        raise ValueError(f"{b_loc} rows a rank do not lay out a batch of {b}"
+                         f" over {dp} data ranks")
+    return b, dp
 
 
 @contextlib.contextmanager

@@ -31,10 +31,29 @@ sets the capacity, from the context), and ``E/mp`` experts, their
 rules: ``w_gate [E/mp, d/dp, f]``). It all-gathers its experts' blocks
 over the data axes, routes with the whole router, dispatches only to its
 own experts (``expert_offset``), and the ranks of a ``model`` line add
-their partial outputs: all-gathered and summed in rank order in the
-model dtype, so every rank of the line holds the same bits under gloo as
-under nccl (an ``all_reduce`` promises no order). Shared experts run on
-the rank's own tokens. The layer has no backward across ranks yet.
+their partial outputs in rank order in the model dtype
+(``core/distributed.py:psum``), so every rank of the line holds the same
+bits under gloo as under nccl. Shared experts run on the rank's own
+tokens.
+
+The backward across ranks is ``shard_map``'s transpose (the collectives
+of ``core/distributed.py``): the experts' side reads the tokens and the
+router through a copy whose gradient is summed over ``model`` (each rank
+back-propagates its own experts' part), the partial sum's gradient is
+the identity, and the FSDP gather's is a reduce-scatter over the data
+axes. What a rank computes whole (the aux loss, the shared experts) is
+not summed over ``model``. Each rank's gradients then cover its own
+tokens; the train step sums them over the data axes.
+
+Under data parallelism without expert parallelism (a ``model`` axis of
+1, or one that does not divide the experts), every expert is local and
+the layer is the reference's ``_moe_local`` over the whole batch: the
+capacity comes from the whole batch's tokens, and a rank's place in
+each expert's queue follows the assignments of the data ranks before it
+(all-gathered counts; the batch's blocks are contiguous rows, and the
+queue is token-major). The load-balance loss under data parallelism
+takes the whole batch's statistics: the top-1 counts and probability
+sums summed over the data axes.
 
 Weights keep the reference's layouts, so carrying them is a copy:
 ``router [d, E]``, ``w_gate``/``w_up [E, d, f]``, ``w_down [E, f, d]``,
@@ -50,9 +69,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.distributed import gather_axis
+from repro_torch.core.distributed import copy_over, gather_axis, psum, sum_over
 from repro_torch.distributed import sharding
-from repro_torch.distributed.context import get_batch, get_mesh
+from repro_torch.distributed.context import get_mesh, whole_batch
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models.layers import dense_init, softmax_fp32
 
@@ -98,12 +117,14 @@ def route(xf: torch.Tensor, router: torch.Tensor, top_k: int
 
 
 def _by_expert(gate_e: torch.Tensor, n_local: int, cap: int,
-               offset: int = 0):
+               offset: int = 0, queue_start: Optional[torch.Tensor] = None):
     """The T*k assignments (token-major) sorted stably by local expert
     ``id - offset``; ids outside ``[offset, offset + n_local)`` park in
     bucket ``n_local``, after every local one, and are never kept.
-    Returns (order, bucket of each sorted assignment, its position in its
-    bucket's queue, whether it is kept: local and under ``cap``)."""
+    ``queue_start`` [n_local]: where each expert's queue starts (the
+    assignments it took before these; default 0). Returns (order, bucket
+    of each sorted assignment, its position in its bucket's queue,
+    whether it is kept: local and under ``cap``)."""
     flat_e = gate_e.reshape(-1) - offset
     local = (flat_e >= 0) & (flat_e < n_local)
     flat_e = torch.where(local, flat_e, n_local)
@@ -111,6 +132,8 @@ def _by_expert(gate_e: torch.Tensor, n_local: int, cap: int,
     e_sorted = flat_e[order]
     counts = torch.bincount(flat_e, minlength=n_local + 1)
     offsets = torch.cumsum(counts, 0) - counts
+    if queue_start is not None:
+        offsets = offsets - F.pad(queue_start, (0, 1))
     pos = torch.arange(flat_e.numel(), device=flat_e.device) \
         - offsets[e_sorted]
     return order, e_sorted, pos, (pos < cap) & local[order]
@@ -130,17 +153,20 @@ def dispatch_compute(xf: torch.Tensor, gate_w: torch.Tensor,
                      gate_e: torch.Tensor, w_gate: torch.Tensor,
                      w_up: torch.Tensor, w_down: torch.Tensor, *,
                      n_experts: int, top_k: int, cap: int,
-                     expert_offset: int = 0) -> torch.Tensor:
+                     expert_offset: int = 0,
+                     queue_start: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Sort-based dispatch, the expert products and the weighted combine
     over tokens xf [T, d] -> [T, d] (the reference's
     ``_dispatch_compute``). The weights hold experts ``[expert_offset,
     expert_offset + E_local)`` (``E_local = w_gate.shape[0]``); an
     assignment to any other expert contributes zero, for the ranks of a
-    ``model`` line to add up."""
+    ``model`` line to add up. ``queue_start``: as ``_by_expert`` takes
+    it."""
     t, d = xf.shape
     e_local = w_gate.shape[0]
     order, e_sorted, pos, keep = _by_expert(gate_e, e_local, cap,
-                                            expert_offset)
+                                            expert_offset, queue_start)
     slot = torch.where(keep, e_sorted * cap + pos, e_local * cap)
     # each slot holds at most one kept assignment: the buffer gathers its
     # token (row t of the padded input is zeros, for empty slots)
@@ -176,18 +202,42 @@ def shared_experts(params: Params, xf: torch.Tensor) -> torch.Tensor:
     return sh @ params["shared_down"]
 
 
-def _moe_local(params: Params, x: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+def _queue_start(mesh, gate_e: torch.Tensor, n_experts: int
+                 ) -> torch.Tensor:
+    """[E]: the assignments to each expert on the data ranks before this
+    one, in the data axes' row-major order (the order of their blocks in
+    the batch), from their counts all-gathered."""
+    axes = data_axes(mesh)
+    counts = torch.bincount(gate_e.reshape(-1), minlength=n_experts)[None]
+    for a in reversed(axes):
+        counts = gather_axis(mesh, a, counts, dim=0)
+    me = 0
+    for a in axes:
+        me = me * mesh.shape[a] + mesh.axis_index(a)
+    return counts[:me].sum(0)
+
+
+def _moe_local(params: Params, x: torch.Tensor, cfg: ModelConfig,
+               mesh=None) -> torch.Tensor:
     """Every expert local: the capacity follows from this call's B*S
-    tokens, so a decode step (S = 1) has its own."""
+    tokens, so a decode step (S = 1) has its own. Under ``mesh``, where
+    the rank holds a block of the batch, it is the whole batch's, and
+    the rank's queues start after the ranks before it (``_queue_start``)."""
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
     gate_w, gate_e = route(xf, params["router"], cfg.moe_top_k)
+    n_tokens, queue_start = t, None
+    if mesh is not None:
+        whole, _ = whole_batch(mesh, b)
+        if whole != b:
+            n_tokens = whole * s
+            queue_start = _queue_start(mesh, gate_e, cfg.n_experts)
     out = dispatch_compute(xf, gate_w, gate_e, params["w_gate"],
                            params["w_up"], params["w_down"],
                            n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
-                           cap=capacity(cfg, t))
+                           cap=capacity(cfg, n_tokens),
+                           queue_start=queue_start)
     if cfg.n_shared_experts:
         out = out + shared_experts(params, xf)
     return out.view(b, s, d)
@@ -233,14 +283,11 @@ def gather_experts(params: Params, cfg: ModelConfig, mesh,
 
 
 def sum_over_model(mesh, out: torch.Tensor) -> torch.Tensor:
-    """The reference's ``psum`` over ``model``: the line's partials
-    all-gathered and added in rank order, in ``out``'s dtype, so that
-    every rank of the line holds the same bits."""
-    parts = gather_axis(mesh, "model", out[None], dim=0)
-    acc = parts[0]
-    for part in parts[1:]:
-        acc = acc + part
-    return acc
+    """The reference's ``psum`` over ``model``: the line's partials added
+    in rank order, in ``out``'s dtype, so that every rank of the line
+    holds the same bits. Its gradient is the identity: each rank
+    back-propagates its own partial."""
+    return sum_over(mesh, ("model",), out)
 
 
 def moe_sharded(params: Params, x: torch.Tensor, cfg: ModelConfig, mesh,
@@ -254,38 +301,23 @@ def moe_sharded(params: Params, x: torch.Tensor, cfg: ModelConfig, mesh,
     The capacity comes from the reference's per-rank token count, ``(B
     S) // dp``, also where the batch is replicated (``B % dp != 0``): such
     a rank routes all B S tokens at that capacity (ROADMAP queue 3). B,
-    the whole batch's size, is the ambient context's (``mesh_context(...,
-    batch=B)``); under data parallelism the layer raises without it, as
-    a rank's block does not tell a block of a larger batch from a whole
-    replicated one."""
+    the whole batch's size, is the ambient context's (``whole_batch``).
+    The experts' side reads ``x`` and the router through ``copy_over``
+    ``model``, so that their gradients sum the experts of every rank of
+    the line."""
     b_loc, s, d = x.shape
-    dp = 1
-    for a in data_axes(mesh):
-        dp *= mesh.shape[a]
-    mp = mesh.shape["model"]
-    e_local = cfg.n_experts // mp
-    b = get_batch()
-    if b is None:
-        if dp > 1:
-            raise ValueError(f"the MoE layer over {dp} data ranks needs the "
-                             f"whole batch's size: mesh_context(..., "
-                             f"batch=B)")
-        b = b_loc
-    if b_loc != (b // dp if b % dp == 0 else b):
-        raise ValueError(f"{b_loc} rows a rank do not lay out a batch of {b}"
-                         f" over {dp} data ranks")
+    b, dp = whole_batch(mesh, b_loc)
+    e_local = cfg.n_experts // mesh.shape["model"]
     if tuple(params["w_gate"].shape[:1]) != (e_local,):
         raise ValueError(f"w_gate {tuple(params['w_gate'].shape)} holds not "
                          f"this rank's {e_local} experts")
-    if torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in params.values())):
-        raise NotImplementedError("the sharded MoE layer has no backward "
-                                  "across ranks")
     t_local = (b * s) // dp if (b * s) % dp == 0 else b * s
     w_gate, w_up, w_down = gather_experts(params, cfg, mesh, dist)
     xf = x.reshape(b_loc * s, d)
-    gate_w, gate_e = route(xf, params["router"], cfg.moe_top_k)
-    out = dispatch_compute(xf, gate_w, gate_e, w_gate, w_up, w_down,
+    xe = copy_over(mesh, ("model",), xf)
+    router = copy_over(mesh, ("model",), params["router"])
+    gate_w, gate_e = route(xe, router, cfg.moe_top_k)
+    out = dispatch_compute(xe, gate_w, gate_e, w_gate, w_up, w_down,
                            n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
                            cap=capacity(cfg, t_local),
                            expert_offset=mesh.axis_index("model") * e_local)
@@ -298,32 +330,36 @@ def moe_sharded(params: Params, x: torch.Tensor, cfg: ModelConfig, mesh,
 def moe_forward(params: Params, x: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]: ``moe_sharded`` under an ambient mesh
-    whose ``model`` axis divides the experts, else every expert local.
-    Under a mesh with data parallelism that does not, the reference's
-    local path takes its capacity from the whole batch's tokens, which a
-    rank holding its block cannot see: that case raises."""
+    whose ``model`` axis divides the experts, else every expert local
+    (under a mesh, the reference's local path over the whole batch)."""
     mesh, dist = get_mesh()
     if expert_parallel(cfg, mesh):
         return moe_sharded(params, x, cfg, mesh, dist)
-    if mesh is not None and any(mesh.shape[a] > 1
-                                for a in data_axes(mesh)):
-        raise NotImplementedError(
-            f"{cfg.n_experts} experts over a model axis of "
-            f"{mesh.shape.get('model', 1)} under data parallelism: the "
-            f"reference's local path needs the whole batch's token count")
-    return _moe_local(params, x, cfg)
+    return _moe_local(params, x, cfg, mesh)
 
 
-def moe_aux_loss(params: Params, x: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+def moe_aux_loss(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                 mesh=None) -> torch.Tensor:
     """Switch-style load-balance loss, f32 scalar: E times the sum over
     experts of (share of tokens whose top-1 it is) x (mean router
-    probability). The gradient flows through the probabilities."""
+    probability). The gradient flows through the probabilities. Under
+    ``mesh``, where the rank holds a block of the batch, both shares are
+    the whole batch's: the counts and the probability sums summed over
+    the data axes (``sum_over``: each rank's gradient covers its own
+    tokens), over the whole batch's tokens."""
     b, s, d = x.shape
     t = b * s
     probs = softmax_fp32((x.reshape(t, d) @ params["router"]).float())
-    frac_tokens = torch.bincount(probs.argmax(-1),
-                                 minlength=cfg.n_experts).float() / t
+    top1 = torch.bincount(probs.argmax(-1), minlength=cfg.n_experts)
+    if mesh is not None:
+        whole, _ = whole_batch(mesh, b)
+        if whole != b:
+            n = whole * s
+            axes = data_axes(mesh)
+            frac_tokens = psum(mesh, axes, top1).float() / n
+            frac_probs = sum_over(mesh, axes, probs.sum(0)) / n
+            return cfg.n_experts * (frac_tokens * frac_probs).sum()
+    frac_tokens = top1.float() / t
     return cfg.n_experts * (frac_tokens * probs.mean(0)).sum()
 
 
@@ -355,12 +391,18 @@ class MoE(nn.Module):
         if get_mesh()[0] is not self.mesh:
             raise RuntimeError("an MoE layer runs under the mesh context it "
                                "was built under")
-        if with_aux and self.mesh is not None:
-            raise NotImplementedError("the aux loss under a mesh (training "
-                                      "with expert parallelism)")
         params = dict(self.named_parameters())
-        aux = moe_aux_loss(params, x, self.cfg) if with_aux else None
+        aux = moe_aux_loss(params, x, self.cfg, self.mesh) if with_aux \
+            else None
         return moe_forward(params, x, self.cfg), aux
+
+
+def block_specs(model: nn.Module) -> Dict[str, sharding.Spec]:
+    """{parameter name: spec} of every parameter ``model`` holds as a block
+    of the whole weight: the experts of its expert-parallel MoE layers
+    (``MoE.specs``). Every other parameter is whole on every rank."""
+    return {f"{path}.{name}": spec for path, mod in model.named_modules()
+            if isinstance(mod, MoE) for name, spec in mod.specs.items()}
 
 
 @torch.no_grad()

@@ -29,14 +29,27 @@ layers, a row entry per layer and one column ``[d]`` shared by all of
 them, and the port updates the layers of such a vector together
 (``stacked_vectors``), each layer's state holding its row entry (a 0-d
 tensor) and a copy of the shared column.
+
+Under a mesh (``apply_updates(..., mesh=, specs=)``) a parameter that a
+rank holds as a block (``specs``: the expert weights of an
+expert-parallel MoE layer, ``w_gate [E/mp, d/dp, f]``) updates as the
+reference's global array does: its squares enter the global norm summed
+over the mesh axes its spec shards it on (a whole parameter counts
+once), whether its second moment factors is decided on its global shape
+(``global_shape``), and a factored statistic that averages over a
+sharded dim is averaged over that dim's axes too: ``w_gate``'s and
+``w_up``'s column statistic and the row statistic's mean over ``d``,
+``w_down``'s row statistic. The moments are the rank's blocks.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Mapping, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.core.distributed import psum
 
 Tensors = Mapping[str, torch.Tensor]
 # the reference's [L, ...] stacks
@@ -95,6 +108,22 @@ def _factorable(shape, cfg: OptimizerConfig) -> bool:
             and shape[-2] >= cfg.min_dim_size_to_factor)
 
 
+def _axes(spec, dim: int) -> Tuple[str, ...]:
+    """The mesh axes a spec (``distributed.sharding``'s tuples) splits
+    ``dim`` over; none without a spec."""
+    entry = spec[dim] if spec else None
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def global_shape(p: torch.Tensor, spec, mesh) -> Tuple[int, ...]:
+    """The shape of the whole parameter of which ``p`` is the block under
+    ``spec`` (``p``'s own shape without one)."""
+    return tuple(n * math.prod(mesh.shape[a] for a in _axes(spec, i))
+                 for i, n in enumerate(p.shape))
+
+
 def stacked_vectors(params: Tensors,
                     cfg: OptimizerConfig) -> Dict[str, List[str]]:
     """The per-layer vectors whose stacked ``[L, d]`` leaf the reference
@@ -125,24 +154,31 @@ def _row_blocks(p: torch.Tensor) -> list:
 
 
 def _factored_v_hat(grad_of, v: Dict[str, torch.Tensor], ndim: int,
-                    blocks: list, cfg: OptimizerConfig):
+                    blocks: list, cfg: OptimizerConfig, mean_last=None,
+                    mean_rows=None):
     """A factored second moment's step: writes the new row and column
     statistics of the (clipped) gradient, ``grad_of(block)`` f32, into
     ``v`` and returns the function of a block giving the reconstructed
     v = row x col / mean(row) there. Over several blocks of a matrix the
     column statistic's mean over the rows is summed block by block; a
-    block of a higher-rank leaf holds whole matrices."""
+    block of a higher-rank leaf holds whole matrices. ``mean_last`` and
+    ``mean_rows`` complete a mean over the last and the second-to-last
+    dim of a parameter held as a block (None: the dim is whole)."""
+    def whole(mean, t):
+        return t if mean is None else mean(t)
     rows, cols = [], []
     for blk in blocks:
         g2 = grad_of(blk).square() + 1e-30
         rows.append(g2.mean(-1))
         cols.append(g2.mean(-2) if ndim > 2 or len(blocks) == 1
                     else g2.sum(-2))
-    row = cfg.b2 * v["row"].float() + (1 - cfg.b2) * torch.cat(rows)
+    row = cfg.b2 * v["row"].float() \
+        + (1 - cfg.b2) * whole(mean_last, torch.cat(rows))
     g2_col = torch.cat(cols) if ndim > 2 or len(blocks) == 1 \
         else torch.stack(cols).sum(0) / sum(r.shape[0] for r in rows)
-    col = cfg.b2 * v["col"].float() + (1 - cfg.b2) * g2_col
-    denom = torch.clamp(row.mean(-1, keepdim=True), min=1e-30)
+    col = cfg.b2 * v["col"].float() + (1 - cfg.b2) * whole(mean_rows, g2_col)
+    denom = torch.clamp(whole(mean_rows, row.mean(-1, keepdim=True)),
+                        min=1e-30)
     v["row"].copy_(row)
     v["col"].copy_(col)
     ratio = row / denom
@@ -150,9 +186,13 @@ def _factored_v_hat(grad_of, v: Dict[str, torch.Tensor], ndim: int,
         * (col if ndim == 2 else col[blk])[..., None, :]
 
 
-def init_state(params: Tensors, cfg: OptimizerConfig) -> Dict[str, Any]:
-    """Zero moments in ``cfg.state_dtype`` on each parameter's device."""
+def init_state(params: Tensors, cfg: OptimizerConfig, mesh=None,
+               specs: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+    """Zero moments in ``cfg.state_dtype`` on each parameter's device;
+    under ``mesh``, a parameter held as a block (``specs``) factors by its
+    global shape and holds the statistics of its block."""
     dt = getattr(torch, cfg.state_dtype)
+    specs = specs or {}
     across = {n for names in stacked_vectors(params, cfg).values()
               for n in names}
 
@@ -160,7 +200,9 @@ def init_state(params: Tensors, cfg: OptimizerConfig) -> Dict[str, Any]:
         if name in across:   # a row entry and the shared column
             return {"row": p.new_zeros((), dtype=dt),
                     "col": p.new_zeros(p.shape, dtype=dt)}
-        if cfg.factored and _factorable(p.shape, cfg):
+        whole = global_shape(p, specs[name], mesh) if name in specs \
+            else p.shape
+        if cfg.factored and _factorable(whole, cfg):
             return {"row": p.new_zeros(p.shape[:-1], dtype=dt),
                     "col": p.new_zeros(p.shape[:-2] + p.shape[-1:],
                                        dtype=dt)}
@@ -173,25 +215,49 @@ def init_state(params: Tensors, cfg: OptimizerConfig) -> Dict[str, Any]:
             "v": {n: init_v(n, p) for n, p in params.items()}}
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, mesh=None,
+                specs: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor (a dict's values or a
-    sequence), in f32."""
+    sequence), in f32. Under ``mesh``, a dict's tensor held as a block
+    (``specs``) adds its squares summed over the axes its spec shards it
+    on (``psum``, the same bits on every rank); the others count once."""
+    if isinstance(tensors, Mapping) and specs:
+        by_axes: Dict[Tuple[str, ...], list] = {}
+        for name, x in tensors.items():
+            spec = specs.get(name)
+            axes = tuple(a for i in range(x.dim()) for a in _axes(spec, i))
+            by_axes.setdefault(axes, []).append(x.float().square().sum())
+        return torch.sqrt(torch.stack([
+            psum(mesh, axes, torch.stack(sq).sum())
+            for axes, sq in sorted(by_axes.items())]).sum())
     if isinstance(tensors, Mapping):
         tensors = tensors.values()
     return torch.sqrt(torch.stack([x.float().square().sum()
                                    for x in tensors]).sum())
 
 
+def _mean_over(mesh, axes: Tuple[str, ...]):
+    """The function completing a mean over a dim split over ``axes`` (its
+    blocks equal), or None where the dim is whole."""
+    if not axes:
+        return None
+    n = math.prod(mesh.shape[a] for a in axes)
+    return lambda t: psum(mesh, axes, t) / n
+
+
 @torch.no_grad()
 def apply_updates(params: Tensors, grads: Tensors, state: Dict[str, Any],
-                  cfg: OptimizerConfig
+                  cfg: OptimizerConfig, mesh=None,
+                  specs: Optional[Mapping[str, Any]] = None
                   ) -> Tuple[Tensors, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: writes the new parameters into ``params`` and the
     new moments into ``state`` (both in place) and returns (params, state,
-    {"grad_norm", "lr"})."""
+    {"grad_norm", "lr"}). Under ``mesh``, ``specs`` names the parameters
+    held as blocks (see the module docstring)."""
+    specs = specs or {}
     step = state["step"] + 1
     lr = schedule(cfg, step).to(step.device)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.clip_norm else 1.0
     stepf = step.float()
@@ -225,7 +291,10 @@ def apply_updates(params: Tensors, grads: Tensors, state: Dict[str, Any],
         if name in v_across:
             v_hat_of = v_across[name].__getitem__
         elif isinstance(v, dict):
-            v_hat_of = _factored_v_hat(grad_of, v, p.dim(), blocks, cfg)
+            means = [_mean_over(mesh, _axes(specs.get(name), dim))
+                     for dim in (p.dim() - 1, p.dim() - 2)]
+            v_hat_of = _factored_v_hat(grad_of, v, p.dim(), blocks, cfg,
+                                       *means)
         else:
             v_hat_of = None
         decay = cfg.weight_decay and reference_ndim(name, p) >= 2

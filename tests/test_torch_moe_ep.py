@@ -417,19 +417,35 @@ def test_dispatch_with_an_expert_offset_matches_the_reference():
     assert none_here.any() and (got.numpy()[none_here] == 0).all()
 
 
-def test_data_parallel_mesh_without_expert_parallelism_raises():
+def test_data_parallel_mesh_without_expert_parallelism_raises(monkeypatch):
     """6 experts over a model axis of 4 under data 2: the reference takes
-    its local path with the whole batch's capacity, which one rank cannot
-    see; the port raises instead of returning another result. A layer
-    built under a mesh refuses to run outside it."""
-    cfg = dataclasses.replace(_cfgs("dbrx-132b")[1], n_experts=6)
+    its local path over the whole batch. Without the whole batch's size
+    the port raises, as ``moe_sharded`` does; given it, the local path
+    runs at the whole batch's capacity, each rank's queues after the
+    data ranks before it. Here the other rank's counts are this rank's
+    (the count gather patched: both hold the same rows), so each rank's
+    output is its half of the local path over the two blocks stacked. A
+    layer built under a mesh refuses to run outside it."""
+    cfg = dataclasses.replace(_cfgs("dbrx-132b")[1], n_experts=6,
+                              capacity_factor=1.0)
     mesh = Mesh(("data", "model"), (2, 4), (0, 0), {})
-    params = {n: torch.zeros(sh) for n, sh in moe.moe_param_shapes(cfg)
-              .items()}
-    x = torch.zeros(2, 4, cfg.d_model)
-    with mesh_context(mesh), pytest.raises(NotImplementedError,
-                                           match="whole batch"):
+    rng = np.random.default_rng(5)
+    params = {n: torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32) / 4) for n, sh in moe.moe_param_shapes(cfg).items()}
+    x = torch.from_numpy(rng.standard_normal((2, 4, cfg.d_model)).astype(
+        np.float32))
+    with mesh_context(mesh), pytest.raises(ValueError,
+                                           match="whole batch's size"):
         moe.moe_forward(params, x, cfg)
+    monkeypatch.setattr(moe, "gather_axis", lambda mesh_, ax, t, dim:
+                        torch.cat([t] * mesh_.shape[ax], dim))
+    whole = moe.moe_forward(params, torch.cat([x, x]), cfg)
+    for coords in ((0, 0), (1, 0)):
+        rank = Mesh(("data", "model"), (2, 4), coords, {})
+        with mesh_context(rank, batch=4):
+            got = moe.moe_forward(params, x, cfg)
+        assert torch.equal(got, whole[2 * coords[0]:2 * coords[0] + 2])
+    assert not torch.equal(whole[:2], whole[2:])   # the queues dropped
     # without data parallelism the local path runs, every expert whole
     one = Mesh(("data", "model"), (1, 4), (0, 0), {})
     with mesh_context(one):
