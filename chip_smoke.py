@@ -11,7 +11,7 @@ each kernel against its plain PyTorch
 version on the card (edge cases, the sliding window and meta tokens
 included, in the forward and in the backward, and exact-tie inputs),
 prefills each dense, moe, hybrid, audio and vlm REDUCED config through
-the attention kernel against the plain attention, then drives seventeen
+the attention kernel against the plain attention, then drives eighteen
 paths, each with its kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
@@ -173,6 +173,30 @@ paths, each with its kernel launches counted from zero and checked:
   on each rank. Prints the step walls, the data all-reduce of T1's
   gradients, T2's model-axis sums forward and backward, and each rank's
   peak.
+* census: ``launch/dryrun.py``'s whole grid in this process (10 archs
+  x 4 shapes x 2 meshes, and the ANNS cells: 3 x 2 kinds x 2 meshes; no
+  cell may FAIL), then one rank's share of anns-bigann-1b (d 128) and
+  anns-deep-1b (d 96) at the 16x16 mesh and world size 1, drawn on the
+  card from a seed: 3,906,250 database rows, 4096 queries probing 128
+  local rows each, the serve scan (``gather_pools``, ``serve_scan``:
+  ``l2_topk_masked`` at C 128, k 100) and the whole assign scan
+  (``assign_scan``: 974,848 residual rows against 589,824 aggregation
+  points, 238 ``l2_topk`` chunks of 4096, k 8), launches counted around
+  the scans alone (the merges are the identity at world size 1; the pod
+  path runs them across ranks). Gates: serve against the plain scan on
+  every query, assign on its first and last chunk, ids equal up to
+  near-ties and distances within ``norm_atol``; the placed tensors'
+  bytes equal to the census's argument bytes, the allocator's within its
+  rounding (ALLOC_SMALL, ALLOC_LARGE).
+  Then the long_500k decode on one card (census mesh (1, 1)):
+  mamba2-370m and hymba-1.5b uncut, seeded weights, a seeded cache of
+  524,288 slots at B 1, a warm ``decode_step`` at position 524,287 and
+  CENSUS_LONG_STEPS timed ones; the placed bytes against the census's
+  ``port_argument_bytes``, the warm step's bf16 logits within
+  RAG_LOGITS_ATOL of the same step in f32 (the cache cast a layer at a
+  time). Prints the grid's counts and seconds, each scan's wall and
+  device ms beside its bound, each decode step beside its byte bound and
+  the peak.
 * compare: the paper's comparison (Table IV, Figs 8-10) at 50,000 x 128
   with 1000 queries: PAG, DiskANN (one ``pq_adc_rows`` launch per wave of
   its lock-step traversal, the waves of each sweep printed), SPANN (closure
@@ -189,10 +213,13 @@ and Sq = Sk with ragged lengths, and hymba's own layer; a window of at
 least Sk must give the causal backward bit for bit.
 
 Last, each kernel is timed on the inputs its path gave it
-(``l2_topk_masked`` twice: the main path's batch and the pod path's
-serve scan; ``l2_topk`` three times: SPANN's closure chunk, the 1M
-ground-truth chunk and the pod path's assign chunk; the pod path's
-inputs drawn again from the seed as its rank 0 drew them;
+(``l2_topk_masked`` four times: the main path's batch, the pod path's
+serve scan and the census path's two 1B serve scans; ``l2_topk`` five
+times: SPANN's closure chunk, the 1M ground-truth chunk, the pod path's
+assign chunk and the census path's first assign chunk at d 128 and 96,
+those two timed within the census path while its inputs are on the
+card; the pod path's inputs drawn again from the seed as its rank 0 drew
+them;
 ``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` twelve
 times: rag's first prefill layer, the moe path's two, hymba's first
 windowed and first global layer, whisper's encoder layer and
@@ -598,6 +625,20 @@ DP_WAIT_S = 900
 # them weight (ROADMAP queue 3); the port attends to the real keys, and the
 # audio checks size the difference at full width by emulating the padding
 REF_CHUNK = 512
+
+# The census path: launch/dryrun.py's whole grid in process, then one
+# rank's share of the paper's billion-scale rows at the 16x16 mesh (world
+# size 1: the merges are the identity; the pod path runs them across
+# ranks), then the long_500k decode on one card
+CENSUS_ANNS = ("anns-bigann-1b", "anns-deep-1b")
+CENSUS_LONG = ("mamba2-370m", "hymba-1.5b")
+CENSUS_LONG_STEPS = 3     # timed decode steps after a warm one
+CENSUS_SEED = 7
+# the caching allocator rounds a block of up to 1 MiB up to a multiple of
+# 512 bytes; a larger one may keep the rest of its segment, itself a
+# multiple of 2 MiB, when less than 1 MiB of it is left (on an H100, a
+# 2,000,000,000-byte block took 683,008 bytes more)
+ALLOC_SMALL, ALLOC_LARGE = 512, 2 << 20
 
 # The profiled generate of each served path decodes this many tokens (its
 # path's other generates decode theirs): the profiler's own work grows with
@@ -3734,6 +3775,284 @@ def report_dp_train(r: dict, checks: dict, card: str) -> None:
     print(f"dp_train report: {json.dumps(rep)}", flush=True)
 
 
+def placed_bytes_check(what: str, tensors, allocated: int,
+                       census: int) -> dict:
+    """The placed tensors' bytes equal the census's; the allocator's bytes
+    for them exceed those by less than its rounding (ALLOC_SMALL a block
+    up to 1 MiB, ALLOC_LARGE above)."""
+    exact = sum(t.numel() * t.element_size() for t in tensors)
+    slack = sum(ALLOC_SMALL if t.numel() * t.element_size() <= 1 << 20
+                else ALLOC_LARGE for t in tensors)
+    if exact != census or not 0 <= allocated - exact < slack:
+        raise AssertionError(f"census {what}: {exact} bytes in "
+                             f"{len(tensors)} tensors ({allocated} "
+                             f"allocated), the census says {census}")
+    return {"census_bytes": census, "tensor_bytes": exact,
+            "allocated_bytes": allocated, "tensors": len(tensors)}
+
+
+def census_grid() -> dict:
+    """launch/dryrun.py's grid in this process: every (arch x shape) cell
+    on both production meshes, and the ANNS cells; fails on a FAIL."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    recs = list(dryrun.grid()) + list(dryrun.grid(anns=True))
+    secs = time.perf_counter() - t0
+    status = [r["status"].split(":")[0].split("(")[0] for r in recs]
+    counts = {k: status.count(k) for k in ("OK", "SKIP", "FAIL")}
+    if counts["FAIL"] or sum(counts.values()) != len(recs):
+        failed = [r["status"] for r in recs if "FAIL" in r["status"]]
+        raise AssertionError(f"census grid: {counts}; failed: {failed[:3]}")
+    return {**counts, "cells": len(recs), "seconds": secs,
+            "records": {(r["mesh"], r["arch"], r["shape"]): r
+                        for r in recs}}
+
+
+def census_anns(dev, name: str, rows_out: list) -> dict:
+    """One rank's share of ``name`` at the 16x16 mesh, drawn on the card
+    from a seeded generator: the serve scan (``gather_pools`` and
+    ``serve_scan``: ``l2_topk_masked``) and the whole assign scan
+    (``assign_scan``: ``l2_topk`` a row chunk), launches counted; then
+    each held to its plain version (serve on every query, assign on the
+    first and the last chunk) and timed as a kernel row (appended to
+    ``rows_out``)."""
+    from repro_torch.core import distributed as pd
+    from repro_torch.kernels import l2_topk, ops
+    from repro_torch.launch import dryrun
+    spec = dryrun.ANNS_CELLS[name]
+    serve = dryrun.census_anns_cell(name, False, "serve")
+    assign = dryrun.census_anns_cell(name, False, "assign")
+    z, d, nq, k = serve["blocks"], spec["d"], spec["q"], spec["k"]
+    g = torch.Generator(device=dev).manual_seed(CENSUS_SEED)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    q = torch.randn((nq, d), generator=g, device=dev)
+    db = torch.randn((z["n_local"], d), generator=g, device=dev)
+    rows = torch.randint(0, z["n_local"], (nq, z["rows"]), generator=g,
+                         device=dev, dtype=torch.int32)
+    placed_serve = torch.cuda.memory_allocated() - before
+    res = torch.randn((z["res_local"], d), generator=g, device=dev)
+    agg = torch.randn((z["agg_local"], d), generator=g, device=dev)
+    placed_assign = torch.cuda.memory_allocated() - before - placed_serve
+    r = {"name": name, "blocks": z, "d": d, "memory": {
+        "serve": placed_bytes_check(
+            f"{name} serve", (q, db, rows), placed_serve,
+            serve["memory"]["argument_size_in_bytes"]),
+        "assign": placed_bytes_check(
+            f"{name} assign", (res, agg), placed_assign,
+            assign["memory"]["argument_size_in_bytes"])}}
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    start.record()
+    pools = pd.gather_pools(db, rows)
+    d2, local = pd.serve_scan(q, pools, rows, k)
+    end.record()
+    torch.cuda.synchronize()
+    r["serve_wall_s"], r["serve_ms"] = time.perf_counter() - t0, \
+        start.elapsed_time(end)
+    t0 = time.perf_counter()
+    start.record()
+    a_d2, a_local = pd.assign_scan(res, agg, dryrun.ASSIGN_K,
+                                   dryrun.ROW_CHUNK)
+    end.record()
+    torch.cuda.synchronize()
+    r["assign_wall_s"], r["assign_ms"] = time.perf_counter() - t0, \
+        start.elapsed_time(end)
+    r["launches"] = ops.launch_counts()
+    chunks = z["res_local"] // dryrun.ROW_CHUNK
+    if r["launches"]["l2_topk_masked"] != 1 \
+            or r["launches"]["l2_topk"] != chunks:
+        raise AssertionError(f"census {name}: launches {r['launches']}, "
+                             f"want 1 l2_topk_masked and {chunks} l2_topk")
+
+    w = min(k, z["rows"])
+    want = l2_topk.l2_topk_masked_plain(q, pools, rows, k)
+    r["serve_max_abs_err"] = compare(
+        f"census {name} serve", (d2, local),
+        tuple(t[:, :w] for t in want), exact=False,
+        atol=norm_atol(q, pools.reshape(-1, d)))
+
+    def plain_blocks(x, y, kk):
+        parts = [l2_topk.l2_topk_plain(x[i:i + 512], y, kk)
+                 for i in range(0, x.shape[0], 512)]
+        return tuple(torch.cat(t) for t in zip(*parts))
+
+    r["assign_max_abs_err"] = 0.0
+    for lo in (0, (chunks - 1) * dryrun.ROW_CHUNK):
+        hi = lo + dryrun.ROW_CHUNK
+        r["assign_max_abs_err"] = max(r["assign_max_abs_err"], compare(
+            f"census {name} assign chunk at {lo}",
+            (a_d2[lo:hi], a_local[lo:hi]),
+            plain_blocks(res[lo:hi], agg, dryrun.ASSIGN_K), exact=False,
+            atol=norm_atol(res[lo:hi], agg)))
+    # each scan against its bound (l2_masked_row's and l2_row's counts)
+    out = nq * k * 8
+    r["serve_bound_ms"] = max(
+        (nq * d * 4 + pools.numel() * 4 + rows.numel() * 4 + out)
+        / HBM_BYTES_PER_S, 4 * nq * z["rows"] * d / FP32_OPS_PER_S) * 1e3
+    n, m = z["res_local"], z["agg_local"]
+    r["assign_bound_ms"] = max(
+        ((n + m) * d * 4 + n * dryrun.ASSIGN_K * 8) / HBM_BYTES_PER_S,
+        (2 * n * m * d + 2 * (n + chunks * m) * d + 4 * n * m)
+        / FP32_OPS_PER_S) * 1e3
+
+    del d2, local, a_d2, a_local, want
+    res0 = res[:dryrun.ROW_CHUNK]
+
+    def assign_library():
+        d2 = torch.addmm((agg * agg).sum(-1)[None, :], res0, agg.T,
+                         alpha=-2.0)
+        d2.add_((res0 * res0).sum(-1)[:, None]).clamp_min_(0.0)
+        return torch.topk(d2, dryrun.ASSIGN_K, dim=1, largest=False)
+
+    for row in (l2_masked_row(q, pools, rows, k,
+                              2 * r["launches"]["l2_topk_masked"],
+                              f"census {name} serve scan"),
+                l2_row(res0, agg, dryrun.ASSIGN_K,
+                       2 * r["launches"]["l2_topk"],
+                       f"census {name} assign chunk", plain=plain_blocks,
+                       library=assign_library, plain_reps=1)):
+        row["path"] = "census"
+        row["note"] = (f"{name}'s rank share at 16x16 (d {d}); launches: "
+                       f"the census path's, both 1B shares")
+        rows_out.append(row)
+    return r
+
+
+class F32Layers:
+    """A cache stack ``[L, ...]`` read one layer at a time in f32: the f32
+    decode step beside a bf16 cache holds one layer's f32 copy at once."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t, self.shape = t, t.shape
+
+    def __getitem__(self, i):
+        return self.t[i].float()
+
+
+def census_long(dev, arch: str) -> dict:
+    """``long_500k`` on one card (census mesh (1, 1)): the uncut model from
+    a seed, a seeded cache of 524,288 slots (and the meta tokens') at
+    B 1, a warm ``decode_step`` at position 524,287 and
+    CENSUS_LONG_STEPS timed ones; the placed bytes against the census's
+    ``port_argument_bytes``; the warm step's logits against the same step
+    in f32 (the parameters cast, the cache cast a layer at a time)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as lm
+    cfg, shape = get_config(arch), SHAPES["long_500k"]
+    rec = dryrun.lm_record(cfg, shape, MeshShape(("data", "model"), (1, 1)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = lm.init_params(cfg, CENSUS_SEED, dev)
+    g = torch.Generator(device=dev).manual_seed(CENSUS_SEED)
+    cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, device=dev)
+    for key, c in cache.items():   # keys, values, SSD states and windows
+        c.normal_(0.0, 0.1 if key == "h" else 1.0, generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
+                           generator=g, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    r = {"arch": arch, "memory": placed_bytes_check(
+        f"{arch} long_500k", [*model.parameters(), *cache.values(), tokens],
+        torch.cuda.memory_allocated() - before, rec["port_argument_bytes"]),
+        "census": {k: rec[k] for k in ("memory", "port_argument_bytes",
+                                       "cost")}}
+    state = {k: cache[k].clone() for k in ("h", "conv") if k in cache}
+    pos = shape.seq_len - 1
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        first = lm.decode_step(model, tokens, cache, pos, cfg)[0]
+        torch.cuda.synchronize()
+        r["warm_s"] = time.perf_counter() - t0
+        walls = []
+        for _ in range(CENSUS_LONG_STEPS):
+            t0 = time.perf_counter()
+            lm.decode_step(model, tokens, cache, pos, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        r["step_walls_s"] = walls
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        for k, v in state.items():   # the warm step's states again
+            cache[k].copy_(v)
+        del state
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        m32 = lm.LM(cfg32, dev)
+        for p32, p in zip(m32.parameters(), model.parameters()):
+            p32.copy_(p)
+        want = lm.decode_step(m32, tokens,
+                              {k: F32Layers(c) for k, c in cache.items()},
+                              pos, cfg32)[0]
+    v = cfg.vocab_size
+    r["logits_max_abs_err_vs_f32"] = float(
+        (first[..., :v].float() - want[..., :v]).abs().max())
+    if not torch.isfinite(first[..., :v]).all() \
+            or r["logits_max_abs_err_vs_f32"] > RAG_LOGITS_ATOL:
+        raise AssertionError(f"census {arch} long_500k: bf16 logits off the "
+                             f"f32 step by {r['logits_max_abs_err_vs_f32']}")
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    r.update(cache_gib=cache_bytes / 2 ** 30, param_gib=param_bytes / 2 ** 30,
+             bound_ms=(cache_bytes + param_bytes) / HBM_BYTES_PER_S * 1e3,
+             slots=cache["k"].shape[2] if "k" in cache else 0)
+    del model, m32, cache, first, want
+    torch.cuda.empty_cache()
+    return r
+
+
+def census(dev, rows_out: list) -> dict:
+    """The census path: the grid, the two 1B rank shares (their kernel
+    launches counted from 0 around their scans alone), the long_500k
+    decodes."""
+    out = {}
+    with phase("census: the grid (10 archs x 4 shapes x 2 meshes, ANNS "
+               "3 x 2 x 2) in process"):
+        out["grid"] = census_grid()
+    with phase("census: one rank's share of anns-bigann-1b and "
+               "anns-deep-1b at 16x16 (serve and assign scans, checks, "
+               "kernel rows)"):
+        out["anns"] = [census_anns(dev, name, rows_out)
+                       for name in CENSUS_ANNS]
+    with phase("census: long_500k decode on one card (mamba2-370m, "
+               "hymba-1.5b)"):
+        out["long"] = [census_long(dev, arch) for arch in CENSUS_LONG]
+    return out
+
+
+def report_census(r: dict, card: str) -> None:
+    """The census path's numbers, each on its own line, then one JSON
+    line."""
+    grid = r["grid"]
+    print(f"census grid: {grid['OK']} OK, {grid['SKIP']} SKIP, "
+          f"{grid['FAIL']} FAIL of {grid['cells']} cells in "
+          f"{grid['seconds']:.3f} s ({card})")
+    for a in r["anns"]:
+        print(f"census {a['name']} (d {a['d']}, blocks {a['blocks']}): "
+              f"serve scan {a['serve_wall_s'] * 1e3:.3f} ms wall / "
+              f"{a['serve_ms']:.4f} ms device (bound "
+              f"{a['serve_bound_ms']:.4f}); assign scan "
+              f"{a['assign_wall_s']:.3f} s wall / {a['assign_ms']:.2f} ms "
+              f"device (bound {a['assign_bound_ms']:.2f}); launches "
+              f"{a['launches']}; placed {a['memory']} ({card})")
+    for x in r["long"]:
+        print(f"census {x['arch']} long_500k: warm step {x['warm_s']:.4f} "
+              f"s, steps {[round(w, 5) for w in x['step_walls_s']]} s "
+              f"against a byte bound of {x['bound_ms']:.3f} ms (cache "
+              f"{x['cache_gib']:.3f} GiB, parameters {x['param_gib']:.3f} "
+              f"GiB); peak {x['peak_gib']:.3f} GiB; logits vs f32 "
+              f"{x['logits_max_abs_err_vs_f32']:.4g}; placed "
+              f"{x['memory']} ({card})")
+    rep = {"card": card,
+           "grid": {k: v for k, v in grid.items() if k != "records"},
+           "anns": r["anns"], "long": r["long"]}
+    print(f"census report: {json.dumps(rep)}", flush=True)
+
+
 def pooled_route_rule(pairs, n_experts: int) -> dict:
     """``route_rule`` over several runs of calls (each a prefill or a
     decode step: (got calls, want calls)), pooled: the share of identical
@@ -4710,6 +5029,19 @@ def main() -> int:
         caps[f"dp_train:{tag}"] = types.SimpleNamespace(
             args=(tuple(t.to(dev) for t in (q, k, v)), kw))
     del dp_run, dp_ref
+    torch.cuda.empty_cache()
+
+    # the census grid in process, then one rank's share of the two 1B rows
+    # (each share's scans counted from 0, their launches gated there) and
+    # the long_500k decodes, which launch no kernel
+    census_rows = []
+    census_run = census(dev, census_rows)
+    counts["census"] = {k: sum(a["launches"][k] for a in census_run["anns"])
+                        for k in counts["pod"]}
+    print(f"[launches] census: {json.dumps(counts['census'])}", flush=True)
+    print(card)
+    report_census(census_run, card)
+    del census_run
 
     caps.update({
         "l2_topk_masked": Capture(ops, "l2_topk_masked",
@@ -4747,7 +5079,7 @@ def main() -> int:
                      **{tag: counts[tag] for tag in MODAL_TRAIN_PATHS},
                      "pod": counts["pod"], "dp_train": counts["dp_train"],
                      **moe_launches}
-        rows = time_kernels(caps, by_kernel)
+        rows = time_kernels(caps, by_kernel) + census_rows
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}
     print(card)

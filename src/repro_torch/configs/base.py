@@ -5,7 +5,9 @@ reference package): every architecture module defines ``CONFIG`` (the
 published config) and ``REDUCED`` (a tiny same-family config for CPU
 tests). The port carries every architecture of the reference's registry
 and runs all seven families; ``check_family`` raises, naming the family,
-for a config of any other.
+for a config of any other. ``SHAPES`` and ``cell_is_applicable`` are the
+dry-run census's input shapes and its skip rule
+(``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -144,6 +146,23 @@ class ModelConfig:
                    - (self.n_layers - self.n_dense_layers) * inactive)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+# the dry-run census's input shapes (repro/configs/base.py SHAPES)
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 # the reference's architectures (repro/configs/base.py ARCH_IDS) and their
 # families, each of which the port runs
 FAMILIES = {
@@ -198,3 +217,11 @@ def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{normalize_arch(arch_id)}")
     return mod.REDUCED if reduced else mod.CONFIG
+
+
+def cell_is_applicable(cfg: ModelConfig, shape: ShapeConfig
+                       ) -> Tuple[bool, str]:
+    """Whether a (arch x shape) dry-run cell runs, else the skip reason."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "SKIP(full-attention: 500k dense-KV decode is quadratic)"
+    return True, ""

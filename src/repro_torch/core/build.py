@@ -21,6 +21,27 @@ from repro_torch.core.graph_search import greedy_search, robust_prune
 from repro_torch.device import DeviceLike, resolve_device
 
 
+# rows of a host distance block: their [rows, W, d] differences stay in
+# the cache between the subtraction and the sum, where a whole 4096-row
+# block goes through memory twice
+DIST_ROWS = 32
+
+
+def gathered_dist2(points: np.ndarray, cand: np.ndarray,
+                   centers: np.ndarray) -> np.ndarray:
+    """[B, W]: the squared distance of ``points[cand[b, w]]`` to
+    ``centers[b]``, as the reference takes it (the difference, then
+    ``np.einsum`` over d, in the inputs' dtype), DIST_ROWS rows at a
+    time: each entry's arithmetic is the same, so the bits are those of
+    one pass."""
+    out = np.empty(cand.shape, np.result_type(points, centers))
+    for i in range(0, cand.shape[0], DIST_ROWS):
+        diffs = points[cand[i:i + DIST_ROWS]] \
+            - centers[i:i + DIST_ROWS][:, None, :]
+        out[i:i + DIST_ROWS] = np.einsum("bcd,bcd->bc", diffs, diffs)
+    return out
+
+
 @dataclasses.dataclass
 class PG:
     """Mutable proximity-graph arena.
@@ -114,9 +135,7 @@ def _reverse_edges(pg: PG, ids: np.ndarray, alpha2: float, device):
     if over.any():
         rows = uniq[over]
         cand = compact[over]                                  # [B, W]
-        cand_safe = np.minimum(cand, m_cap - 1)
-        diffs = pg.A[cand_safe] - pg.A[rows][:, None, :]
-        cd = np.einsum("bcd,bcd->bc", diffs, diffs).astype(np.float32)
+        cd = gathered_dist2(pg.A, np.minimum(cand, m_cap - 1), pg.A[rows])
         cd = np.where(cand < pg.n_nodes, cd, np.float32(3.4e38))
         pruned = robust_prune(
             torch.from_numpy(cand).to(device),
@@ -218,9 +237,7 @@ def _insert_batch(pg: PG, ids: np.ndarray, L: int, alpha2: float,
         cand = np.concatenate([res.ids.cpu().numpy(),
                                res.path.cpu().numpy(), pg.nbrs[part]],
                               axis=1)
-        cand_safe = np.minimum(cand, m_cap - 1)
-        diffs = pg.A[cand_safe] - pg.A[part][:, None, :]
-        cd = np.einsum("bcd,bcd->bc", diffs, diffs).astype(np.float32)
+        cd = gathered_dist2(pg.A, np.minimum(cand, m_cap - 1), pg.A[part])
         invalid = (cand >= pg.n_nodes) | (cand == part[:, None])
         cd = np.where(invalid, np.float32(3.4e38), cd)
         pruned.append(robust_prune(

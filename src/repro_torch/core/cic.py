@@ -18,7 +18,13 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch.core.build import PG, _medoid, build_pg, repair_connectivity
+from repro_torch.core.build import (
+    PG,
+    _medoid,
+    build_pg,
+    gathered_dist2,
+    repair_connectivity,
+)
 from repro_torch.core.clustering import kmeans
 from repro_torch.core.distances import cdist2
 from repro_torch.core.graph_search import greedy_search, robust_prune
@@ -103,9 +109,7 @@ def cic_build(x: np.ndarray, c: int = 4, R: int = 16, L: int = 48,
         cand = np.concatenate([pg.nbrs[rows], cand_foreign[perm[rows]]],
                               axis=1)
         # note: cand_foreign is indexed by ORIGINAL id; rows are global
-        safe = np.minimum(cand, n - 1)
-        diffs = pg.A[safe] - pg.A[rows][:, None, :]
-        cd = np.einsum("bcd,bcd->bc", diffs, diffs).astype(np.float32)
+        cd = gathered_dist2(pg.A, np.minimum(cand, n - 1), pg.A[rows])
         cd = np.where((cand >= n) | (cand == rows[:, None]), INF, cd)
         pruned = robust_prune(torch.from_numpy(cand).to(device),
                               torch.from_numpy(cd).to(device), A_dev, n,

@@ -105,8 +105,13 @@ class ShardedServing:
 # pod-scale data plane (torch.distributed over a launch.mesh.Mesh)
 # --------------------------------------------------------------------------
 
-def _gather(mesh: Mesh, axis: str, t: torch.Tensor, dim: int
-            ) -> torch.Tensor:
+def _exchange(mesh: Mesh, axis: str, t: torch.Tensor, dim: int
+              ) -> torch.Tensor:
+    """The ranks' ``t`` along ``axis`` (``all_gather``) concatenated on
+    ``dim`` in their order along it, on ``t``'s device. Every collective
+    of the port goes through one of ``_gather``, ``_sum_axis`` and
+    ``_reduce_scatter``, which name it (the census's ``collectives``,
+    ``launch/dryrun.py``, counts the bytes each of them receives)."""
     group = mesh.groups[axis]
     via_host = t.is_cuda and dist.get_backend(group) == "gloo"
     src = t.cpu() if via_host else t.contiguous()
@@ -116,21 +121,42 @@ def _gather(mesh: Mesh, axis: str, t: torch.Tensor, dim: int
     return out.to(t.device) if via_host else out
 
 
+def _gather(mesh: Mesh, axis: str, t: torch.Tensor, dim: int
+            ) -> torch.Tensor:
+    """An all-gather: n x ``t``'s bytes received."""
+    return _exchange(mesh, axis, t, dim)
+
+
 def _sum_axis(mesh: Mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
     """The ranks' ``t`` along ``axis`` added in rank order, in ``t``'s
     dtype: the same bits on every rank of the line. Two ranks make one
     addition an element, which ``all_reduce`` gives alike on both, with
-    half a gather's bytes."""
+    half a gather's bytes (``t``'s received); more ranks gather every
+    ``t`` (n x its bytes)."""
     if mesh.shape[axis] == 2:
         group = mesh.groups[axis]
         via_host = t.is_cuda and dist.get_backend(group) == "gloo"
         out = t.cpu() if via_host else t.clone()
         dist.all_reduce(out, group=group)
         return out.to(t.device) if via_host else out
-    parts = _gather(mesh, axis, t[None], 0)
+    parts = _exchange(mesh, axis, t[None], 0)
     acc = parts[0]
     for part in parts[1:]:
         acc = acc + part
+    return acc
+
+
+def _reduce_scatter(mesh: Mesh, axis: str, g: torch.Tensor, dim: int
+                    ) -> torch.Tensor:
+    """This rank's block along ``dim`` of the ranks' ``g`` summed over
+    ``axis``, in rank order: a gather of every ``g`` (n x its bytes; gloo
+    has no reduce-scatter) and a sum of this rank's slice of each."""
+    size = g.shape[dim] // mesh.shape[axis]
+    start = mesh.axis_index(axis) * size
+    parts = _exchange(mesh, axis, g[None], 0)
+    acc = parts[0].narrow(dim, start, size)
+    for part in parts[1:]:
+        acc = acc + part.narrow(dim, start, size)
     return acc
 
 
@@ -149,17 +175,13 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, mesh, axis, dim):
-        ctx.mesh, ctx.axis, ctx.dim, ctx.size = mesh, axis, dim, t.shape[dim]
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
         return _gather(mesh, axis, t, dim)
 
     @staticmethod
     def backward(ctx, g):
-        start = ctx.mesh.axis_index(ctx.axis) * ctx.size
-        parts = _gather(ctx.mesh, ctx.axis, g[None], 0)
-        acc = parts[0].narrow(ctx.dim, start, ctx.size)
-        for part in parts[1:]:
-            acc = acc + part.narrow(ctx.dim, start, ctx.size)
-        return acc, None, None, None
+        return _reduce_scatter(ctx.mesh, ctx.axis, g, ctx.dim), None, None, \
+            None
 
 
 class _Sum(torch.autograd.Function):

@@ -16,7 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.core.build import PG, build_pg, insert_nodes
+from repro_torch.core.build import PG, build_pg, gathered_dist2, insert_nodes
 from repro_torch.core.graph_search import greedy_search
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -66,9 +66,7 @@ class PAG:
 def _neighbor_radii(pg: PG, ids: np.ndarray, gamma1: float) -> np.ndarray:
     """Per-node radius = gamma1-percentile of PG-neighbor TRUE distances."""
     nbrs = pg.nbrs[ids, :pg.R_prune]
-    safe = np.minimum(nbrs, pg.m_cap - 1)
-    diffs = pg.A[safe] - pg.A[ids][:, None, :]
-    d2 = np.einsum("bcd,bcd->bc", diffs, diffs)
+    d2 = gathered_dist2(pg.A, np.minimum(nbrs, pg.m_cap - 1), pg.A[ids])
     valid = nbrs < pg.n_nodes
     d2 = np.where(valid, d2, INF)
     order = np.sort(d2, axis=1)
@@ -201,13 +199,14 @@ def build_pag(x: np.ndarray, *, p: float = 0.2, k: int = 8,
             break
         force = round_i == max_promote_rounds  # last round: must assign
         promote: list = []
+        # the arena changes only between rounds (promotion)
+        A_dev, nbrs_dev, n_nodes, entry = pg.device_arrays(device)
         for i in range(0, len(pending), batch):
             ids = pending[i:i + batch]
             n_real = len(ids)
             pad = batch - n_real  # fixed shapes -> one jit compile
             if pad:
                 ids = np.concatenate([ids, ids[:1].repeat(pad)])
-            A_dev, nbrs_dev, n_nodes, entry = pg.device_arrays(device)
             res = greedy_search(A_dev, nbrs_dev, n_nodes, entry,
                                 torch.from_numpy(x[ids]).to(device),
                                 L=L_assign, K=k)
@@ -216,9 +215,8 @@ def build_pag(x: np.ndarray, *, p: float = 0.2, k: int = 8,
             if use_path_redundancy:
                 # routing-path candidates: last hops of the search path
                 path = res.path.cpu().numpy()[:, -k:]
-                path_safe = np.minimum(path, pg.m_cap - 1)
-                pdiff = pg.A[path_safe] - x[ids][:, None, :]
-                pd2 = np.einsum("bcd,bcd->bc", pdiff, pdiff)
+                pd2 = gathered_dist2(pg.A, np.minimum(path, pg.m_cap - 1),
+                                     x[ids])
                 pd2 = np.where(path < pg.n_nodes, pd2, INF)
                 cand = np.concatenate([cand, path], axis=1)
                 cand_d2 = np.concatenate([cand_d2, pd2], axis=1)

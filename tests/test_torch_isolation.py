@@ -59,6 +59,9 @@ POD_MODULES = {"repro_torch.distributed", "repro_torch.distributed.compat",
 EP_MODULES = {"repro_torch.distributed.sharding",
               "repro_torch.distributed.context", "repro_torch.models.moe",
               "repro_torch.carry"}
+# the dry-run census: the shapes, the abstract inputs and specs, the census
+CENSUS_MODULES = {"repro_torch.configs.base", "repro_torch.launch.specs",
+                  "repro_torch.launch.dryrun"}
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -74,6 +77,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert AUDIO_VLM_MODULES <= loaded, AUDIO_VLM_MODULES - loaded
     assert POD_MODULES <= loaded, POD_MODULES - loaded
     assert EP_MODULES <= loaded, EP_MODULES - loaded
+    assert CENSUS_MODULES <= loaded, CENSUS_MODULES - loaded
 
 
 FORBIDDEN = re.compile(
