@@ -133,29 +133,29 @@ paths, each with its kernel launches counted from zero and checked:
   0, the same prompts) served with expert parallelism
   (``models/moe.py``'s ``moe_sharded`` under ``mesh_context``) by 4 gloo
   ranks that share the card, each drawing the seeded model and keeping
-  its blocks of the experts. Phase A, mesh (data 1, model 4): 4 of 16
-  experts a rank, ``Engine.generate`` cold and warm, then the prefill and
-  decode steps with the unsharded cold run's tokens fed (routes recorded),
-  the partial outputs all-gathered over model and added in rank order; phase
-  B, mesh (data 2, model 2), the model cut to EP_B_DEPTH layers: 8
-  experts a rank with d over data, gathered (FSDP) through host memory
-  before use, one prefill of each data line's 4 prompts. Afterwards, against the moe path's unsharded model (kept on
-  the host from that path): the ranks' tokens and fed logits (A) and a
-  line's logits (B) bit for bit the same, A's warm tokens the cold ones,
-  the routes of the prefill and every fed decode step under the route
-  rule, the logits of the prefill and of every fed decode step within
-  RAG_LOGITS_ATOL on the agreeing sequences (B's prefill against the
-  unsharded prefill of the line's block), the first MoE layer in f32
-  within EP_LAYER_RTOL of the unsharded layer, and one ``flash_attention``
-  a layer and prefill on every rank. Prints each rank's phase times
-  (dispatch and expert products alone, the partial sum, the FSDP gather,
-  prefill and decode step), peaks and the bytes moved a layer.
+  its blocks of the experts and, by the reference's specs, of every
+  other weight (the heads and the vocabulary over model). Mesh (data 1,
+  model 4): 4 of 16 experts a rank, ``Engine.generate`` cold and warm,
+  then the prefill and decode steps with the unsharded cold run's tokens
+  fed (routes recorded), the partial outputs all-gathered over model and
+  added in rank order. Afterwards, against the moe path's unsharded
+  model (kept on the host from that path): the ranks' tokens and fed
+  logits bit for bit the same, the warm tokens the cold ones, the routes
+  of the prefill and every fed decode step under the route rule, the
+  logits of the prefill and of every fed decode step within
+  RAG_LOGITS_ATOL on the agreeing sequences, the first MoE layer in f32
+  within EP_LAYER_RTOL of the unsharded layer, and one
+  ``flash_attention`` a layer and prefill on every rank. Prints each
+  rank's times (dispatch and expert products alone, the partial sum,
+  prefill and decode step), peak and the bytes moved a layer.
 * dp_train: ``launch/train.py``'s setup and step on 2 gloo ranks that
   share the card (the trainer's own mesh, ``make_local_mesh``, on the
   process group; each rank keeping its ``batch_spec`` block of the
   batch). T1: TinyLlama-1.1B at its published widths, 2 of 22 layers,
   on (data 2, model 1), B=8 x S=2048 (4 rows a rank), a warm step and 3
-  timed ones, the gradients summed over data. T2: DBRX-132B at its
+  timed ones, every weight's d split over data (FSDP: gathered before
+  use, its gradient reduce-scattered), the norms' gradients summed over
+  data. T2: DBRX-132B at its
   published widths, 1 of 40 layers, capacity 1.25, on (data 1, model
   2): 8 of 16 experts a rank, factored f32 AdamW, B=4 x S=512, 3 steps,
   the MoE layer's backward across the ranks (its experts' gradients
@@ -173,6 +173,31 @@ paths, each with its kernel launches counted from zero and checked:
   on each rank. Prints the step walls, the data all-reduce of T1's
   gradients, T2's model-axis sums forward and backward, and each rank's
   peak.
+* tp: TinyLlama-1.1B at its published widths with every weight and the
+  decode cache placed by the reference's specs (``models/model.py``
+  under ``mesh_context``: column- and row-parallel products summed over
+  model, the FSDP gathers over data, the vocab-parallel embedding,
+  logits, greedy choice and loss, the sequence-split cache) on 4 gloo
+  ranks that share the card (started with dp_train's, each waiting for
+  its go). Phase A, (data 1, model 4), all 22 layers: 8 of 32 query
+  heads, 1 of 4 kv heads, 1408 of d_ff and 8000 vocabulary rows a rank;
+  the seeded model's parameter bytes against the census's
+  (``tree_bytes`` under the specs) and the allocator's; a prefill of 4 x
+  512 seeded tokens and 16 decode steps in f32 with the unsharded f32
+  run's tokens fed, then ``Engine.generate`` in bf16 (layer 0's attention
+  call kept for its kernel row), its collectives timed. Phase B, (data 2,
+  model 2), the model cut to TP_B_DEPTH layers, f32: a batch of one
+  generated (the cache's slots split over data), then one AdamW step on
+  4 x 512, its collectives timed. Against one process unsharded (taken
+  just before): the ranks' f32 logits bit for bit the same and within
+  TP_LOGITS_RTOL of the row's largest, their greedy choices the
+  unsharded tokens, the bf16 tokens the same on the ranks (agreement
+  with the unsharded bf16 run reported), B's tokens the unsharded
+  decode's, the step's loss and grad norm within TP_LOSS_RTOL and
+  TP_GNORM_RTOL and its updated parameters gathered whole within
+  TP_PARAM_TOL but for TP_PARAM_OUTLIERS of them (each within 3 lr),
+  and exact launches a rank. Prints each rank's walls, its collectives'
+  seconds against them, peaks and parameter bytes.
 * census: ``launch/dryrun.py``'s whole grid in this process (10 archs
   x 4 shapes x 2 meshes, and the ANNS cells: 3 x 2 kinds x 2 meshes; no
   cell may FAIL), then one rank's share of anns-bigann-1b (d 128) and
@@ -220,13 +245,14 @@ assign chunk and the census path's first assign chunk at d 128 and 96,
 those two timed within the census path while its inputs are on the
 card; the pod path's inputs drawn again from the seed as its rank 0 drew
 them;
-``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention`` twelve
-times: rag's first prefill layer, the moe path's two, hymba's first
+``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention``
+thirteen times: rag's first prefill layer, the moe path's two, hymba's first
 windowed and first global layer, whisper's encoder layer and
 cross-attention, internvl2's first layer, the two train layers
 audio_train and vlm_train add, whisper's encoder at B=16 and
-internvl2's at 4 x 1024, and dp_train's layer 0 of a rank, TinyLlama's
-at 4 x 2048 and DBRX's at 4 x 512; ``flash_attention_bwd`` seven times:
+internvl2's at 4 x 1024, dp_train's layer 0 of a rank, TinyLlama's
+at 4 x 2048 and DBRX's at 4 x 512, and tp's layer 0 of a rank in phase
+A (4 x 512, 8 / 1 heads, bf16); ``flash_attention_bwd`` seven times:
 the train path's layer 0, long_train's hymba layer 1, windowed,
 whisper's encoder layer and cross-attention, internvl2's layer 0 and
 dp_train's two layers, each under its own mask, two calls
@@ -573,16 +599,13 @@ POD_TIMEOUT_S = 300   # a collective that waits longer fails the path
 # greedy tokens) served with expert parallelism by 4 gloo ranks that share
 # the card. Phase A, mesh (data 1, model 4): 4 of 16 experts a rank, the
 # tokens whole on every rank, so the capacities are the unsharded model's;
-# Engine.generate cold and warm. Phase B, mesh (data 2, model 2), after A's
-# weights are freed: 8 experts a rank with d over data, all-gathered (FSDP)
-# before use, one prefill of 4 prompts a data line (no decode: each step
-# would gather 6.3 GB a rank through host memory again), at EP_B_DEPTH of
-# the 4 layers (for the smoke's clock: a layer's gather took 6-7 s on an
-# H100 host), against an unsharded model of that depth
+# Engine.generate cold and warm. Its phase B (mesh (data 2, model 2), the
+# experts' d over data, one prefill at 1 layer: 9.7 s and a 6.1 s gather
+# timed on an H100 host) was cut for the smoke's clock when the tp path
+# came, which runs (data 2, model 2) with FSDP; tests/test_torch_moe_ep.py
+# holds the experts' FSDP on the CPU
 EP_RANKS = 4
-EP_MESHES = {"A": ((1, 4), ("data", "model")),
-             "B": ((2, 2), ("data", "model"))}
-EP_B_DEPTH = 1
+EP_MESH = ((1, 4), ("data", "model"))
 # the first MoE layer in f32, sharded against unsharded on the same input:
 # a token's contributions are grouped by rank before they are added
 EP_LAYER_RTOL = 1e-5
@@ -619,6 +642,35 @@ FINGERPRINT_ROW = 4096
 # overlap the paths before theirs; a rank waits for dp_train's "go" file,
 # at most this long, before it touches the card
 DP_WAIT_S = 900
+# The tp path: TinyLlama-1.1B at its published widths with every weight
+# and the decode cache placed by the reference's specs (models/model.py
+# under mesh_context), on 4 gloo ranks that share the card (started with
+# dp_train's, each waiting for its go). Phase A, mesh (data 1, model 4), all
+# 22 layers: 8 of 32 query heads, 1 of 4 kv heads, 1408 of 5632 d_ff and
+# 8000 of 32,000 vocabulary rows a rank; a prefill of TP_BATCH x TP_PROMPT
+# seeded tokens and TP_NEW - 1 greedy decode steps, in f32 with the
+# unsharded f32 run's tokens fed (its logits and greedy choices gated) and
+# in bf16 through Engine.generate. Phase B, mesh (data 2, model 2), the
+# model cut to TP_B_DEPTH layers (each decode step gathers every weight's
+# data block through host memory), f32: a batch of one decoded, TP_B_NEW
+# tokens (its cache's slots split over data: TP_PROMPT + TP_B_NEW slots),
+# then one AdamW step on TP_BATCH x TP_PROMPT
+TP_RANKS = 4
+TP_MESHES = {"A": ((1, 4), ("data", "model")),
+             "B": ((2, 2), ("data", "model"))}
+TP_BATCH, TP_PROMPT, TP_NEW = 4, 512, 17
+TP_B_DEPTH, TP_B_NEW = 2, 4
+TP_SEED = 0
+# f32, sharded against unsharded: the logits within this share of the
+# row's largest |logit| (sums over model added in another order); the
+# step's loss and grad norm relative; the updated parameters to
+# tests/test_torch_train.py's tolerance but for a share of elements where
+# Adam's g / (|g| + eps) turns f32 noise into up to lr, each within 3 lr
+TP_LOGITS_RTOL = 1e-4
+TP_LOSS_RTOL, TP_GNORM_RTOL = 1e-5, 1e-4
+TP_PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
+TP_PARAM_OUTLIERS = 1e-3
+
 # The reference's chunked attention pads K and V with zero keys to a
 # multiple of this chunk (when longer) that only a causal mask hides, so
 # its full attention (whisper's encoder and prefill cross-attention) gives
@@ -3169,20 +3221,18 @@ def ep_reference(r: dict) -> dict:
     while it is on the card, kept on the host: the prompts, the cold
     generate's tokens and routes, the prefill's last-position logits (with
     the input of the first MoE layer), each decode step's logits with the
-    cold tokens fed (the cold generate's own steps again), each data
-    block's prefill of MOE_BATCH // 2 prompts (its own capacity: phase B's
-    per-rank one) with its routes, by the same seeded model cut to
-    EP_B_DEPTH layers, and the first MoE layer in f32 on that input."""
-    from repro_torch.models import forward, init_params, moe
+    cold tokens fed (the cold generate's own steps again), and the first
+    MoE layer in f32 on that input."""
+    from repro_torch.models import forward, moe
     cfg, model, prompt = r["cfg"], r["model"], r["prompt"]
     out = {"prompt": prompt.cpu(), "gen": r["cold_gen"],
            "routes": r["cold_routes"]}
     saved, first = moe.moe_forward, []
 
-    def keep_input(params, x, cfg_):
+    def keep_input(params, x, cfg_, *shared):
         if not first:
             first.append(x)
-        return saved(params, x, cfg_)
+        return saved(params, x, cfg_, *shared)
     with torch.inference_mode():
         moe.moe_forward = keep_input
         try:
@@ -3193,19 +3243,6 @@ def ep_reference(r: dict) -> dict:
         out["x0"] = first[0].cpu()
         out["forced"] = forced_decode(model, cfg, prompt,
                                       torch.from_numpy(r["cold_gen"]))[1:]
-        half = MOE_BATCH // 2
-        out["blocks"] = []
-        cfg_b = dataclasses.replace(cfg, n_layers=EP_B_DEPTH)
-        model_b = init_params(cfg_b, seed=0, device=prompt.device)
-        for j in range(2):
-            with RouteRecorder(cfg_b) as rec:
-                logits = forward(model_b, {"tokens": prompt[j * half:
-                                                            (j + 1) * half]},
-                                 cfg_b)
-            out["blocks"].append({"logits": logits[:, -1].cpu(),
-                                  "routes": rec.host_calls()})
-            del logits
-        del model_b
         params = {k: v.float() for k, v in
                   model.blocks[0].moe.named_parameters()}
         out["layer_f32"] = moe.moe_forward(params, first[0].float(), cfg)\
@@ -3221,27 +3258,26 @@ def forced_decode(model, cfg, prompt, gen) -> torch.Tensor:
     MOE_NEW - 1 decode steps. Returns the last-position logits of each,
     [MOE_NEW, B, V] on the host."""
     from repro_torch.models import decode_step, prefill
+    from repro_torch.models.model import gather_vocab
     gen = gen.to(prompt.device).long()
     logits, cache = prefill(model, {"tokens": prompt}, cfg,
                             max_len=MOE_PROMPT + MOE_NEW)
-    out = [logits[:, -1].cpu()]
+    out = [gather_vocab(model, logits[:, -1]).cpu()]
     for i in range(MOE_NEW - 1):
         logits, cache = decode_step(model, gen[:, i:i + 1], cache,
                                     MOE_PROMPT + i, cfg)
-        out.append(logits[:, -1].cpu())
+        out.append(gather_vocab(model, logits[:, -1]).cpu())
     return torch.stack(out)
 
 
 def ep_rank(rank: int, init: str, tmp: str, src: str) -> None:
-    """One gloo rank of the ep path (``ep`` spawns it): phase A on the
-    (data 1, model 4) mesh, ``Engine.generate`` cold and warm (peak
+    """One gloo rank of the ep path (``ep`` spawns it): on the (data 1,
+    model 4) mesh, ``Engine.generate`` cold and warm (peak
     memory), then the prefill and decode steps again with the unsharded
     cold run's tokens fed (``forced_decode``; routes recorded), the first
-    MoE layer in f32 on the unsharded side's input, the parts timed; phase
-    B on the (data 2, model 2) mesh, one prefill of the rank's data block
-    (routes recorded) and the FSDP gather timed. Each phase runs under
+    MoE layer in f32 on the unsharded side's input, the parts timed, under
     ``mesh_context`` given the whole batch's size. Launches are counted
-    from 0 over both phases' generates and prefills. Saves it all to
+    from 0 over the generates and the prefill. Saves it all to
     ``tmp/ep<rank>.pt``."""
     sys.path.insert(0, src)
     import datetime
@@ -3253,7 +3289,7 @@ def ep_rank(rank: int, init: str, tmp: str, src: str) -> None:
     from repro_torch.distributed.context import mesh_context
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as pm
-    from repro_torch.models import init_params, moe, prefill
+    from repro_torch.models import init_params, moe
     from repro_torch.serving.engine import Engine, ServeConfig
 
     dev = torch.device("cuda", 0)
@@ -3276,8 +3312,7 @@ def ep_rank(rank: int, init: str, tmp: str, src: str) -> None:
                 for k, c in ops.launch_counts().items():
                     launches[k] = launches.get(k, 0) + c
 
-        # phase A: expert parallelism alone
-        mesh = pm.make_mesh(*EP_MESHES["A"])
+        mesh = pm.make_mesh(*EP_MESH)
         dcfg = shd.DistConfig()
         with mesh_context(mesh, dcfg):
             t0 = time.perf_counter()
@@ -3352,37 +3387,6 @@ def ep_rank(rank: int, init: str, tmp: str, src: str) -> None:
             del model, layer, experts, xf, x0, gate_w, gate_e
         torch.cuda.empty_cache()
 
-        # phase B: data 2 x model 2, the experts' d over data (FSDP),
-        # EP_B_DEPTH layers
-        mesh = pm.make_mesh(*EP_MESHES["B"])
-        cfg = dataclasses.replace(cfg, n_layers=EP_B_DEPTH)
-        with mesh_context(mesh, dcfg):
-            t0 = time.perf_counter()
-            model = init_params(cfg, seed=0, device=dev)
-            torch.cuda.synchronize()
-            rep["B_init_s"] = time.perf_counter() - t0
-        with mesh_context(mesh, dcfg, batch=MOE_BATCH), \
-                torch.inference_mode():
-            rep["B_coords"] = mesh.coords
-            block = shd.local_block(ref["prompt"].to(dev),
-                                    shd.batch_spec(MOE_BATCH, mesh), mesh)
-            torch.cuda.reset_peak_memory_stats()
-            dist.barrier()
-            t0 = time.perf_counter()
-            with RouteRecorder(cfg) as rec:
-                logits, _ = serving_part(
-                    lambda: prefill(model, {"tokens": block}, cfg))
-            torch.cuda.synchronize()
-            rep["B_prefill_s"] = time.perf_counter() - t0
-            rep["B_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-            rep["B_routes"] = rec.host_calls()
-            rep["B_logits"] = logits[:, -1].cpu()
-            del logits, rec
-            layer = dict(model.blocks[0].moe.named_parameters())
-            rep["B_expert_block"] = tuple(layer["w_gate"].shape)
-            rep["B_fsdp_gather_s"] = ranks_wall(
-                lambda: moe.gather_experts(layer, cfg, mesh, dcfg), 1)
-            del model, layer
         rep["launches"] = launches
         torch.save(rep, f"{tmp}/ep{rank}.pt")
     finally:
@@ -3478,10 +3482,10 @@ def f32_layer_grads(model, batch, cfg, dev) -> dict:
     from repro_torch.models import forward, moe
     saved, first = moe.moe_forward, []
 
-    def keep_input(params, x, cfg_):
+    def keep_input(params, x, cfg_, *shared):
         if not first:
             first.append(x[:1].float())
-        return saved(params, x, cfg_)
+        return saved(params, x, cfg_, *shared)
     moe.moe_forward = keep_input
     try:
         with torch.no_grad():
@@ -3660,6 +3664,23 @@ def dp_spawn() -> dict:
     return {"ctx": ctx, "tmp": tmp, "t0": time.perf_counter()}
 
 
+def tp_spawn() -> dict:
+    """Start the tp path's TP_RANKS gloo ranks as ``dp_spawn`` starts
+    dp_train's; each waits for ``tp``'s go."""
+    import atexit
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, tmp, True)
+    ctx = mp.start_processes(tp_rank, args=(f"file://{tmp}/rendezvous", tmp,
+                                            str(ROOT / "src")),
+                             nprocs=TP_RANKS, join=False, daemon=True,
+                             start_method="spawn")
+    return {"ctx": ctx, "tmp": tmp, "t0": time.perf_counter()}
+
+
 def dp_train(ref: dict, spawned: dict) -> dict:
     """The dp_train path: the ranks ``dp_spawn`` started, given the
     one-process side's T2 layer input (``dp_reference``) and then the go;
@@ -3773,6 +3794,436 @@ def report_dp_train(r: dict, checks: dict, card: str) -> None:
            "ranks_started_s_before": r["waited_s"],
            **checks}
     print(f"dp_train report: {json.dumps(rep)}", flush=True)
+
+
+class CollectiveTimer:
+    """Times every collective of the port (``core/distributed.py``'s
+    ``_gather``, ``_sum_axis`` and ``_reduce_scatter``, through which the
+    census counts them all) on the host's clock, the card synchronised
+    before and after each, by kind: seconds and calls."""
+    KINDS = {"_gather": "all-gather", "_sum_axis": "all-reduce",
+             "_reduce_scatter": "reduce-scatter"}
+
+    def __enter__(self):
+        from repro_torch.core import distributed as pd
+        self.pd, self.saved = pd, {}
+        self.seconds = {k: 0.0 for k in self.KINDS.values()}
+        self.calls = {k: 0 for k in self.KINDS.values()}
+        for name, kind in self.KINDS.items():
+            fn = self.saved[name] = getattr(pd, name)
+
+            def timed(*a, _fn=fn, _kind=kind, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_kind] += time.perf_counter() - t0
+                self.calls[_kind] += 1
+                return out
+            setattr(pd, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.pd, name, fn)
+
+    def record(self) -> dict:
+        return {"seconds": dict(self.seconds), "calls": dict(self.calls),
+                "total_s": sum(self.seconds.values())}
+
+
+def tp_configs():
+    """(TinyLlama-1.1B bf16, f32, f32 cut to TP_B_DEPTH layers)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    return cfg, cfg32, dataclasses.replace(cfg32, n_layers=TP_B_DEPTH)
+
+
+def tp_train_setup(cfg, dev):
+    """The phase B step's optimizer config and batch (batch_at's batch 0
+    of TP_BATCH x TP_PROMPT)."""
+    from repro_torch.data.lm import DataConfig, batch_at
+    from repro_torch.training.optimizer import OptimizerConfig
+    ocfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    dcfg = DataConfig(seed=TP_SEED, batch_size=TP_BATCH, seq_len=TP_PROMPT)
+    return ocfg, batch_at(dcfg, cfg, 0, device=dev)
+
+
+def tp_forced(model, cfg, prompt, gen) -> tuple:
+    """The prefill of ``prompt`` and TP_NEW - 1 decode steps fed the tokens
+    ``gen`` [B, TP_NEW]: (the last-position logits of each, whole over the
+    vocabulary, [TP_NEW, B, V] on the host; the model's greedy choice at
+    each, [B, TP_NEW]; the walls)."""
+    from repro_torch.models.model import (decode_step, gather_vocab, greedy,
+                                          prefill)
+    gen = gen.to(prompt.device).long()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, {"tokens": prompt}, cfg,
+                            max_len=TP_PROMPT + TP_NEW)
+    logits = logits[:, -1:]
+    rows, picks = [gather_vocab(model, logits)[:, 0].cpu()], \
+        [greedy(model, logits)[:, 0].cpu()]
+    t1 = time.perf_counter()
+    for i in range(TP_NEW - 1):
+        logits, cache = decode_step(model, gen[:, i:i + 1], cache,
+                                    TP_PROMPT + i, cfg)
+        rows.append(gather_vocab(model, logits)[:, 0].cpu())
+        picks.append(greedy(model, logits)[:, 0].cpu())
+    return torch.stack(rows), torch.stack(picks, 1), \
+        {"prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1}
+
+
+def tp_reference(dev) -> dict:
+    """The unsharded side of the tp path, on the host: the seeded prompts;
+    phase A's f32 generate's tokens and, those fed, its logits; its bf16
+    generate's tokens; phase B's model (TP_B_DEPTH layers, f32): a batch
+    of one's generate, then one step's loss, grad norm and updated
+    parameters. The models freed."""
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    cfg, cfg32, cfg_b = tp_configs()
+    g = torch.Generator(dev).manual_seed(TP_SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_PROMPT),
+                           generator=g, device=dev)
+    out = {"prompt": prompt.cpu()}
+    with torch.inference_mode():
+        for tag, c in (("f32", cfg32), ("bf16", cfg)):
+            model = init_params(c, TP_SEED, dev)
+            gen = Engine(c, model, ServeConfig(max_new_tokens=TP_NEW))\
+                .generate({"tokens": prompt})
+            out[f"{tag}_gen"] = torch.from_numpy(gen)
+            if tag == "f32":
+                out["f32_logits"], _, _ = tp_forced(model, c, prompt,
+                                                    out["f32_gen"])
+            del model
+            torch.cuda.empty_cache()
+    model = init_params(cfg_b, TP_SEED, dev)
+    with torch.inference_mode():
+        out["b_gen"] = torch.from_numpy(Engine(
+            cfg_b, model, ServeConfig(max_new_tokens=TP_B_NEW)).generate(
+                {"tokens": prompt[:1]}))
+    model.requires_grad_()
+    ocfg, batch = tp_train_setup(cfg_b, dev)
+    state = init_state(dict(model.named_parameters()), ocfg)
+    _, state, m = make_train_step(cfg_b, ocfg, TrainConfig())(model, state,
+                                                             batch)
+    out["b_loss"], out["b_gnorm"] = float(m["loss"]), float(m["grad_norm"])
+    out["b_params"] = {n: p.detach().cpu() for n, p in
+                       model.named_parameters()}
+    del model, state, batch, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_census_bytes(cfg, mesh_shape) -> int:
+    """A rank's parameter bytes under the reference's specs on the mesh
+    ``mesh_shape`` ((sizes), (names)): the census's ``tree_bytes``."""
+    from repro_torch.distributed.sharding import MeshShape, param_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as S
+    mesh = MeshShape(mesh_shape[1], mesh_shape[0])
+    model = S.abstract_params(cfg)
+    return dryrun.tree_bytes(dict(model.named_parameters()),
+                             param_specs(model, mesh), mesh)
+
+
+def tp_rank(rank: int, init: str, tmp: str, src: str) -> None:
+    """One gloo rank of the tp path (started by ``tp_spawn``; waits for
+    ``tmp/tp_go``): phase A on (data 1, model 4), the seeded model placed
+    (its bytes against the census's), f32 ``tp_forced`` with the unsharded
+    run's tokens, then bf16 ``Engine.generate`` under ``CollectiveTimer``
+    (layer 0's attention call kept); phase B on (data 2, model 2) at
+    TP_B_DEPTH layers, f32: a batch of one's generate, then one train
+    step under ``CollectiveTimer`` and the updated parameters gathered
+    whole (rank 0 keeps them). Launches counted from 0 over all of it.
+    Saves it all to ``tmp/tp<rank>.pt``."""
+    sys.path.insert(0, src)
+    import datetime
+
+    import torch._dynamo  # noqa: F401  (see DP_WAIT_S)
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
+    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.models.moe import block_specs
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    deadline = time.monotonic() + DP_WAIT_S
+    while not Path(tmp, "tp_go").exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"tp rank {rank}: no go in {DP_WAIT_S} s")
+        time.sleep(0.05)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    compat.init_ranks("gloo", init, rank, TP_RANKS,
+                      timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+    try:
+        ref = torch.load(f"{tmp}/tp_in.pt")
+        cfg, cfg32, cfg_b = tp_configs()
+        rep, launches = {"rank": rank}, {}
+
+        def part(fn):
+            ops.reset_launch_counts()
+            try:
+                return fn()
+            finally:
+                for k, c in ops.launch_counts().items():
+                    launches[k] = launches.get(k, 0) + c
+
+        def placed(tag, c, mesh, shape):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with mesh_context(mesh):
+                model = init_params(c, TP_SEED, dev)
+            torch.cuda.synchronize()
+            rep[f"{tag}_init_s"] = time.perf_counter() - t0
+            rep[f"{tag}_bytes"] = placed_bytes_check(
+                f"tp {tag} parameters", list(model.parameters()),
+                torch.cuda.memory_allocated() - before,
+                tp_census_bytes(c, shape))
+            rep[f"{tag}_blocks"] = len(block_specs(model))
+            return model
+
+        # phase A: (data 1, model 4), every layer
+        mesh = pm.make_mesh(*TP_MESHES["A"])
+        prompt = ref["prompt"].to(dev)
+        model = placed("A_f32", cfg32, mesh, TP_MESHES["A"])
+        rep["A_heads"] = (model.blocks[0].attn.wq.shape[1],
+                          model.blocks[0].attn.wk.shape[1],
+                          model.blocks[0].mlp.w_gate.shape[1],
+                          model.tok_embed.shape[0])
+        with mesh_context(mesh, batch=TP_BATCH), torch.inference_mode():
+            dist.barrier()
+            rep["A_f32_logits"], rep["A_f32_picks"], rep["A_f32_walls"] = \
+                part(lambda: tp_forced(model, cfg32, prompt,
+                                       ref["f32_gen"]))
+        del model
+        torch.cuda.empty_cache()
+        model = placed("A_bf16", cfg, mesh, TP_MESHES["A"])
+        cap = Capture(ops, "flash_attention", lambda a, kw: True)
+        with mesh_context(mesh, batch=TP_BATCH), torch.inference_mode():
+            engine = Engine(cfg, model, ServeConfig(max_new_tokens=TP_NEW))
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            t0 = time.perf_counter()
+            with cap, CollectiveTimer() as timer:
+                rep["A_bf16_gen"] = torch.from_numpy(part(
+                    lambda: engine.generate({"tokens": prompt})))
+            rep["A_bf16_wall_s"] = time.perf_counter() - t0
+            rep["A_bf16_timing"] = dict(engine.timing)
+            rep["A_bf16_collectives"] = timer.record()
+            rep["A_bf16_peak_gib"] = torch.cuda.max_memory_allocated() \
+                / 2 ** 30
+        (q, k, v), kw = cap.args
+        rep["A_call"] = ((q.cpu(), k.cpu(), v.cpu()), kw)
+        del model, engine, cap
+        torch.cuda.empty_cache()
+
+        # phase B: (data 2, model 2), TP_B_DEPTH layers, f32
+        mesh = pm.make_mesh(*TP_MESHES["B"])
+        rep["B_coords"] = mesh.coords
+        model = placed("B", cfg_b, mesh, TP_MESHES["B"])
+        with mesh_context(mesh, batch=1), torch.inference_mode():
+            cache = init_cache(cfg_b, 1, TP_PROMPT + TP_B_NEW, device=dev)
+            rep["B_cache"] = {"first_slot": cache.first_slot,
+                              "seq_axes": list(cache.seq_axes),
+                              "k": list(cache["k"].shape)}
+            del cache
+            engine = Engine(cfg_b, model, ServeConfig(
+                max_new_tokens=TP_B_NEW))
+            dist.barrier()
+            with CollectiveTimer() as timer:
+                rep["B_gen"] = torch.from_numpy(part(
+                    lambda: engine.generate({"tokens": prompt[:1]})))
+            rep["B_gen_timing"] = dict(engine.timing)
+            rep["B_gen_collectives"] = timer.record()
+        model.requires_grad_()
+        specs = block_specs(model)
+        ocfg, batch = tp_train_setup(cfg_b, dev)
+        state = init_state(dict(model.named_parameters()), ocfg, mesh, specs)
+        step = make_train_step(cfg_b, ocfg, TrainConfig())
+        block = {key: shd.local_block(v, shd.batch_spec(
+            TP_BATCH, mesh, extra_dims=v.dim() - 1), mesh)
+            for key, v in batch.items()}
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with CollectiveTimer() as timer, \
+                mesh_context(mesh, batch=TP_BATCH):
+            _, state, m = part(lambda: step(model, state, block))
+        torch.cuda.synchronize()
+        rep["B_step_s"] = time.perf_counter() - t0
+        rep["B_step_collectives"] = timer.record()
+        rep["B_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rep["B_loss"], rep["B_gnorm"] = float(m["loss"]), \
+            float(m["grad_norm"])
+        whole = {n: shd.whole_tensor(p.detach(), specs[n], mesh)
+                 if n in specs else p.detach()
+                 for n, p in model.named_parameters()}
+        if rank == 0:
+            rep["B_params"] = {n: t.cpu() for n, t in whole.items()}
+        del model, state, step, batch, block, whole, m
+        rep["launches"] = launches
+        torch.save(rep, f"{tmp}/tp{rank}.pt")
+    finally:
+        compat.shutdown()
+
+
+def tp(ref: dict, spawned: dict) -> dict:
+    """The tp path: the ranks ``tp_spawn`` started, given the unsharded
+    side's prompts and f32 tokens (``tp_reference``) and then the go;
+    joined. A rank that raises fails the path."""
+    tmp = spawned["tmp"]
+    torch.save({"prompt": ref["prompt"], "f32_gen": ref["f32_gen"]},
+               f"{tmp}/tp_in.pt")
+    t0 = time.perf_counter()
+    Path(tmp, "tp_go").touch()
+    while not spawned["ctx"].join():
+        pass
+    return {"ranks_s": time.perf_counter() - t0,
+            "waited_s": t0 - spawned["t0"],
+            "ranks": [torch.load(f"{tmp}/tp{i}.pt")
+                      for i in range(TP_RANKS)]}
+
+
+def check_tp(r: dict, ref: dict) -> dict:
+    """The tp path's gates. A, f32: every rank's logits bit for bit the
+    same and, at the prefill's last position and each decode step, within
+    TP_LOGITS_RTOL of the row's largest |logit| of the unsharded model's;
+    the ranks' greedy choices (the vocab-parallel argmax) the unsharded
+    run's tokens. A, bf16: the ranks' tokens the same (their agreement
+    with the unsharded bf16 tokens reported). B: the ranks' tokens of the
+    batch of one the unsharded run's, the cache's slots split over data;
+    the step's loss and grad norm on every rank within TP_LOSS_RTOL and
+    TP_GNORM_RTOL of the unsharded step's, its updated parameters
+    gathered whole within TP_PARAM_TOL but for TP_PARAM_OUTLIERS of their
+    elements, each within 3 lr. Launches: exactly one ``flash_attention``
+    a layer and prefill (two in a train step's forward, remat) and one
+    ``flash_attention_bwd`` a layer, on every rank. The parameter bytes
+    were held to the census's on the ranks."""
+    ranks, cfg = r["ranks"], tp_configs()[0]
+    out, bad = {}, []
+    logits = ranks[0]["A_f32_logits"]
+    out["A_f32_logits_identical_on_ranks"] = all(
+        torch.equal(x["A_f32_logits"], logits) for x in ranks)
+    want = ref["f32_logits"]
+    rel = ((logits - want).abs().amax(-1)
+           / want.abs().amax(-1)).amax(-1)           # [TP_NEW]
+    out["A_f32_logits_rel"] = [float(x) for x in rel]
+    out["A_f32_picks_equal_unsharded"] = all(
+        torch.equal(x["A_f32_picks"], ref["f32_gen"]) for x in ranks)
+    out["unsharded_f32_forced_reproduces_its_tokens"] = bool(
+        (want[..., :cfg.vocab_size].argmax(-1).T
+         == ref["f32_gen"]).all())
+    gen = ranks[0]["A_bf16_gen"]
+    out["A_bf16_tokens_identical_on_ranks"] = all(
+        torch.equal(x["A_bf16_gen"], gen) for x in ranks)
+    out["A_bf16_generated_equal_unsharded"] = int(
+        (gen == ref["bf16_gen"]).sum())
+    out["A_bf16_generated_of"] = int(gen.numel())
+    out["A_bf16_first_token_equal_unsharded"] = int(
+        (gen[:, 0] == ref["bf16_gen"][:, 0]).sum())
+    out["A_heads_a_rank"] = ranks[0]["A_heads"]
+    out["B_cache"] = ranks[0]["B_cache"]
+    out["B_tokens_equal_unsharded"] = all(
+        torch.equal(x["B_gen"], ref["b_gen"]) for x in ranks)
+    out["B_loss"] = [x["B_loss"] for x in ranks]
+    out["B_loss_unsharded"] = ref["b_loss"]
+    out["B_gnorm"] = [x["B_gnorm"] for x in ranks]
+    out["B_gnorm_unsharded"] = ref["b_gnorm"]
+    errs, beyond, elems, worst = {}, 0, 0, 0.0
+    for n, w in ref["b_params"].items():
+        g = ranks[0]["B_params"][n]
+        err = (g.float() - w.float()).abs()
+        tol = TP_PARAM_TOL["atol"] + TP_PARAM_TOL["rtol"] * w.float().abs()
+        beyond += int((err > tol).sum())
+        elems += err.numel()
+        worst = max(worst, float(err.max()))
+        errs[n] = float(err.max())
+    out["B_params_beyond_tol"], out["B_params_of"] = beyond, elems
+    out["B_params_max_abs"] = worst
+    launches = {"flash_attention": 2 * cfg.n_layers + TP_B_DEPTH
+                + 2 * TP_B_DEPTH, "flash_attention_bwd": TP_B_DEPTH}
+    out["launches_a_rank"] = [{k: x["launches"].get(k, 0) for k in launches}
+                              for x in ranks]
+    out["launches_want"] = launches
+    print(f"tp checks: {json.dumps(out)}", flush=True)
+    if not out["A_f32_logits_identical_on_ranks"]:
+        bad.append("A: ranks' f32 logits differ")
+    if max(out["A_f32_logits_rel"]) > TP_LOGITS_RTOL:
+        bad.append("A: f32 logits off the unsharded model's")
+    if not out["A_f32_picks_equal_unsharded"] \
+            or not out["unsharded_f32_forced_reproduces_its_tokens"]:
+        bad.append("A: f32 greedy tokens differ from the unsharded run's")
+    if not out["A_bf16_tokens_identical_on_ranks"]:
+        bad.append("A: ranks generated different bf16 tokens")
+    if not out["B_tokens_equal_unsharded"] \
+            or out["B_cache"]["seq_axes"] != ["data"]:
+        bad.append(f"B: decode of one sequence ({out['B_cache']})")
+    for x in ranks:
+        if abs(x["B_loss"] - ref["b_loss"]) > TP_LOSS_RTOL * abs(
+                ref["b_loss"]) or abs(x["B_gnorm"] - ref["b_gnorm"]) \
+                > TP_GNORM_RTOL * ref["b_gnorm"]:
+            bad.append(f"B: rank {x['rank']} loss or grad norm")
+        if any(x["launches"].get(k, 0) != n for k, n in launches.items()):
+            bad.append(f"rank {x['rank']} launches {x['launches']}")
+    if beyond > TP_PARAM_OUTLIERS * elems or worst > 3 * TRAIN_LR:
+        bad.append("B: updated parameters off the unsharded step's")
+    if bad:
+        raise AssertionError(f"tp: {bad}")
+    return out
+
+
+def report_tp(r: dict, checks: dict, card: str) -> None:
+    """The tp path's numbers, each on its own line, then one JSON line:
+    per rank and phase the walls, the collectives' seconds by kind (timed
+    with the card synchronised around each: the rest of the wall is
+    compute and the host's launches), peaks and parameter bytes."""
+    per_rank = []
+    for x in r["ranks"]:
+        a, b, bg = (x["A_bf16_collectives"], x["B_step_collectives"],
+                    x["B_gen_collectives"])
+        row = {"rank": x["rank"], "A_f32_walls": x["A_f32_walls"],
+               "A_bf16_wall_s": x["A_bf16_wall_s"],
+               "A_bf16_timing": x["A_bf16_timing"],
+               "A_bf16_collectives": a, "A_bf16_peak_gib":
+               x["A_bf16_peak_gib"], "B_gen_timing": x["B_gen_timing"],
+               "B_gen_collectives": bg, "B_step_s": x["B_step_s"],
+               "B_step_collectives": b, "B_peak_gib": x["B_peak_gib"],
+               **{f"{t}_init_s": x[f"{t}_init_s"]
+                  for t in ("A_f32", "A_bf16", "B")},
+               **{f"{t}_bytes": x[f"{t}_bytes"]
+                  for t in ("A_f32", "A_bf16", "B")}}
+        per_rank.append(row)
+        print(f"tp rank {x['rank']}: A f32 prefill "
+              f"{x['A_f32_walls']['prefill_s']:.3f} s, {TP_NEW - 1} decode "
+              f"steps {x['A_f32_walls']['decode_s']:.3f} s; A bf16 generate "
+              f"{x['A_bf16_wall_s']:.3f} s (prefill "
+              f"{x['A_bf16_timing']['prefill_s']:.3f}), collectives "
+              f"{a['total_s']:.3f} s in {sum(a['calls'].values())} calls; B "
+              f"generate {sum(x['B_gen_timing'].values()):.3f} s, "
+              f"collectives {bg['total_s']:.3f} s; B step "
+              f"{x['B_step_s']:.3f} s, collectives {b['total_s']:.3f} s "
+              f"({json.dumps(b['seconds'])}); peaks A "
+              f"{x['A_bf16_peak_gib']:.2f} / B {x['B_peak_gib']:.2f} GiB; "
+              f"parameter bytes A {x['A_bf16_bytes']['census_bytes']} "
+              f"(census) ({card})")
+    rep = {"card": card, "backend": "gloo", "ranks_on_one_card": TP_RANKS,
+           "meshes": TP_MESHES, "batch": TP_BATCH, "prompt": TP_PROMPT,
+           "new": TP_NEW, "B": {"depth": TP_B_DEPTH, "new": TP_B_NEW,
+                                "reduced": {"n_layers": [22, TP_B_DEPTH]}},
+           "per_rank": per_rank, "ranks_s": r["ranks_s"],
+           "ranks_started_s_before": r["waited_s"], **checks}
+    print(f"tp report: {json.dumps(rep)}", flush=True)
 
 
 def placed_bytes_check(what: str, tensors, allocated: int,
@@ -3955,9 +4406,11 @@ def census_long(dev, arch: str) -> dict:
         c.normal_(0.0, 0.1 if key == "h" else 1.0, generator=g)
     tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
                            generator=g, device=dev, dtype=torch.int32)
+    cur_pos = torch.tensor(shape.seq_len - 1, dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
     r = {"arch": arch, "memory": placed_bytes_check(
-        f"{arch} long_500k", [*model.parameters(), *cache.values(), tokens],
+        f"{arch} long_500k", [*model.parameters(), *cache.values(), tokens,
+                              cur_pos],
         torch.cuda.memory_allocated() - before, rec["port_argument_bytes"]),
         "census": {k: rec[k] for k in ("memory", "port_argument_bytes",
                                        "cost")}}
@@ -4000,7 +4453,7 @@ def census_long(dev, arch: str) -> dict:
     r.update(cache_gib=cache_bytes / 2 ** 30, param_gib=param_bytes / 2 ** 30,
              bound_ms=(cache_bytes + param_bytes) / HBM_BYTES_PER_S * 1e3,
              slots=cache["k"].shape[2] if "k" in cache else 0)
-    del model, m32, cache, first, want
+    del model, m32, cache, first, want, cur_pos
     torch.cuda.empty_cache()
     return r
 
@@ -4078,11 +4531,8 @@ def check_ep(r: dict, ref: dict, cfg) -> dict:
     RAG_LOGITS_ATOL of the unsharded model's on the sequences whose routes
     at that position agree at every layer (as the moe path holds them),
     at least one a step; the first MoE layer in f32 within EP_LAYER_RTOL
-    of max |out| of the unsharded layer on the same input. B: the two
-    ranks of a data line bit for bit the same, and each line's logits
-    within RAG_LOGITS_ATOL of the unsharded prefill of its block (at the
-    block's capacity) on the agreeing prompts. Launches: exactly one
-    ``flash_attention`` a layer and prefill on every rank."""
+    of max |out| of the unsharded layer on the same input. Launches:
+    exactly one ``flash_attention`` a layer and prefill on every rank."""
     ranks, n_layers = r["ranks"], cfg.n_layers
     out = {}
     gen = ranks[0]["A_gen"].numpy()
@@ -4126,28 +4576,8 @@ def check_ep(r: dict, ref: dict, cfg) -> dict:
     out["A_layer_f32_identical_on_ranks"] = all(
         torch.equal(x["A_layer_f32"], ranks[0]["A_layer_f32"])
         for x in ranks)
-    half = MOE_BATCH // 2
-    lines = {}
-    for x in ranks:
-        lines.setdefault(x["B_coords"][0], []).append(x)
-    out["B_lines"] = []
-    for j, line in sorted(lines.items()):
-        block = ref["blocks"][j]
-        rule = pooled_route_rule([(line[0]["B_routes"], block["routes"])],
-                                 cfg.n_experts)
-        agree = rule["agree"][0].view(half, MOE_PROMPT)[:, -1]
-        diff = (line[0]["B_logits"] - block["logits"]).abs()
-        out["B_lines"].append({
-            "data": j, "ranks": [x["rank"] for x in line],
-            "identical": all(torch.equal(x["B_logits"], line[0]["B_logits"])
-                             for x in line),
-            "route_agreement": rule["agreement"],
-            "logits_max_abs": float(diff[agree].max()) if agree.any()
-            else 0.0,
-            "logits_max_abs_all_prompts": float(diff.max()),
-            "prompts_compared": int(agree.sum())})
-    # A's cold, warm and fed prefills, then B's at its depth
-    launches = 3 * n_layers + EP_B_DEPTH
+    # the cold, warm and fed prefills
+    launches = 3 * n_layers
     out["launches_a_rank"] = [x["launches"]["flash_attention"]
                               for x in ranks]
     print(f"ep checks: {json.dumps(out)}", flush=True)
@@ -4168,11 +4598,6 @@ def check_ep(r: dict, ref: dict, cfg) -> dict:
         bad.append("A: prefill or decode logits off the unsharded model's")
     if out["A_layer_f32_max_abs"] > out["A_layer_f32_bound"]:
         bad.append("A: the f32 layer off the unsharded layer")
-    for line in out["B_lines"]:
-        if not line["identical"] or line["logits_max_abs"] > RAG_LOGITS_ATOL:
-            bad.append(f"B: data line {line['data']}")
-    if len(lines) != 2 or any(len(v) != 2 for v in lines.values()):
-        bad.append(f"B: data lines {sorted(lines)}")
     for x in ranks:
         if x["launches"]["flash_attention"] != launches \
                 or any(c for k, c in x["launches"].items()
@@ -4186,31 +4611,24 @@ def check_ep(r: dict, ref: dict, cfg) -> dict:
 def report_ep(r: dict, checks: dict, cfg, published_layers: int,
               card: str) -> None:
     """The ep path's numbers, each on its own line, then one JSON line:
-    per rank its phase times, peaks and the bytes moved a layer (a
-    partial sum sends the rank's [T, d] and receives the other ranks' of
-    its line; an FSDP gather sends the rank's block of the three expert
-    weights and receives the other data rank's)."""
+    per rank its times, peak and the bytes moved a layer (a partial sum
+    sends the rank's [T, d] and receives the other ranks' of its
+    line)."""
     ranks = r["ranks"]
     d, el = cfg.d_model, torch.finfo(getattr(torch, cfg.dtype)).bits // 8
     t_prefill = MOE_BATCH * MOE_PROMPT
-    mp_a = EP_MESHES["A"][0][1]
-    block_bytes = 3 * (cfg.n_experts // EP_MESHES["B"][0][1]) \
-        * (d // EP_MESHES["B"][0][0]) * cfg.d_ff * el
+    mp_a = EP_MESH[0][1]
     moved = {"A_partial_prefill_sent": t_prefill * d * el,
              "A_partial_prefill_received": (mp_a - 1) * t_prefill * d * el,
-             "A_partial_decode_sent": MOE_BATCH * d * el,
-             "B_fsdp_sent": block_bytes, "B_fsdp_received": block_bytes}
+             "A_partial_decode_sent": MOE_BATCH * d * el}
     keys = ("A_init_s", "A_dispatch_prefill_ms", "A_products_prefill_ms",
             "A_dispatch_decode_ms", "A_products_decode_ms",
             "A_partial_sum_prefill_ms", "A_partial_sum_decode_ms",
-            "A_peak_gib", "B_init_s", "B_prefill_s", "B_fsdp_gather_s",
-            "B_peak_gib", "A_capacity_prefill", "A_capacity_decode")
+            "A_peak_gib", "A_capacity_prefill", "A_capacity_decode")
     per_rank = []
     for x in ranks:
         row = {k: x[k] for k in keys}
-        row.update({"rank": x["rank"], "B_coords": x["B_coords"],
-                    "B_expert_block": x["B_expert_block"],
-                    "launches": x["launches"],
+        row.update({"rank": x["rank"], "launches": x["launches"],
                     "A_prefill_s": x["A_warm"]["prefill_s"],
                     "A_decode_step_s": x["A_warm"]["decode_s"]
                     / (MOE_NEW - 1), "A_cold": x["A_cold"]})
@@ -4222,15 +4640,12 @@ def report_ep(r: dict, checks: dict, cfg, published_layers: int,
               f"{x['A_products_prefill_ms']:.3f}) prefill, "
               f"{x['A_dispatch_decode_ms']:.3f} ms decode; partial sum "
               f"{x['A_partial_sum_prefill_ms']:.3f} / "
-              f"{x['A_partial_sum_decode_ms']:.3f} ms; B prefill "
-              f"{x['B_prefill_s']:.4f} s, FSDP gather "
-              f"{x['B_fsdp_gather_s']:.4f} s a layer; peak "
-              f"{x['A_peak_gib']:.3f} / {x['B_peak_gib']:.3f} GiB ({card})")
+              f"{x['A_partial_sum_decode_ms']:.3f} ms; peak "
+              f"{x['A_peak_gib']:.3f} GiB ({card})")
     print(f"ep bytes moved a layer and rank: {json.dumps(moved)}")
     rep = {"card": card, "arch": MOE_ARCHS[0][0],
-           "reduced": {"n_layers": [published_layers, cfg.n_layers],
-                       "B_n_layers": [published_layers, EP_B_DEPTH]},
-           "meshes": EP_MESHES, "backend": "gloo",
+           "reduced": {"n_layers": [published_layers, cfg.n_layers]},
+           "mesh": EP_MESH, "backend": "gloo",
            "ranks_on_one_card": EP_RANKS, "batch": MOE_BATCH,
            "prompt_len": MOE_PROMPT, "new_tokens": MOE_NEW,
            "bytes_moved_a_layer": moved, "per_rank": per_rank,
@@ -4686,6 +5101,14 @@ def time_kernels(caps, counts) -> list:
                 f"both phases (a rank and step: T1 4 forward and 2 "
                 f"backward, 2 layers with remat; T2 2 and 1)")]))
 
+    # the tp path's layer 0 on a rank of phase A (bf16): TinyLlama-1.1B's
+    # heads split over 4 ranks, 4 x 512, 8 query heads and 1 kv head
+    rows.append(flash_row(caps["tp"], counts["tp"]["flash_attention"],
+                          "tp phase A layer 0 a rank, 4 x 512, 8 / 1 heads"))
+    rows[-1]["path"] = "tp"
+    rows[-1]["note"] = ("launches: the tp path's over its 4 ranks (a rank: "
+                        "22 a prefill in A's f32 and bf16 runs, 2 in B's "
+                        "decode, 4 in B's train step, remat)")
     rows += pod_kernel_rows(counts["pod"], caps["l2_topk"].args[0][0]
                             .device)
     return rows
@@ -4966,8 +5389,9 @@ def main() -> int:
         del run
         torch.cuda.empty_cache()
 
-    # the dp_train path's ranks start now and wait (DP_WAIT_S)
+    # the dp_train and tp paths' ranks start now and wait (DP_WAIT_S)
     dp_ranks = dp_spawn()
+    tp_ranks = tp_spawn()
 
     # four gloo ranks share the card; each counts its own launches from 0
     # around its steps, and the path's counts are their sum
@@ -4989,7 +5413,7 @@ def main() -> int:
     # each counts its own launches from 0 over its generates and
     # prefills, and the path's counts are their sum
     with phase("ep: 4 gloo ranks on one card, mesh (data 1, model 4) "
-               "generate, then (data 2, model 2) prefill"):
+               "generate"):
         ep_run = ep(ep_ref)
     counts["ep"] = {k: sum(x["launches"].get(k, 0) for x in ep_run["ranks"])
                     for k in counts["pod"]}
@@ -5029,6 +5453,35 @@ def main() -> int:
         caps[f"dp_train:{tag}"] = types.SimpleNamespace(
             args=(tuple(t.to(dev) for t in (q, k, v)), kw))
     del dp_run, dp_ref
+    torch.cuda.empty_cache()
+
+    # TinyLlama-1.1B with every weight and the decode cache placed by the
+    # reference's specs: four gloo ranks on the card (started with
+    # dp_train's); each counts its own launches from 0 over the path, and
+    # the path's counts are their sum
+    with phase("tp: one process unsharded (TinyLlama-1.1B f32 and bf16 "
+               "generates, 2 layers f32: a generate and a train step)"):
+        tp_ref = tp_reference(dev)
+    with phase("tp: 4 gloo ranks on one card, A (data 1, model 4) f32 and "
+               "bf16, then B (data 2, model 2) decode and train step"):
+        tp_run = tp(tp_ref, tp_ranks)
+    counts["tp"] = {k: sum(x["launches"].get(k, 0) for x in tp_run["ranks"])
+                    for k in counts["pod"]}
+    print(f"[launches] tp: {json.dumps(counts['tp'])}", flush=True)
+    missing = [k for k in ("flash_attention", "flash_attention_bwd")
+               if counts["tp"][k] == 0]
+    if missing:
+        raise AssertionError(f"tp: not launched: {missing}")
+    with phase("tp: checks (ranks agree, f32 logits and greedy tokens vs "
+               "the unsharded model, the decode of one sequence, the train "
+               "step)"):
+        tp_checks = check_tp(tp_run, tp_ref)
+    print(card)
+    report_tp(tp_run, tp_checks, card)
+    (q, k, v), kw = tp_run["ranks"][0]["A_call"]
+    caps["tp"] = types.SimpleNamespace(
+        args=(tuple(t.to(dev) for t in (q, k, v)), kw))
+    del tp_run, tp_ref
     torch.cuda.empty_cache()
 
     # the census grid in process, then one rank's share of the two 1B rows
@@ -5078,7 +5531,7 @@ def main() -> int:
                      "audio": counts["audio"], "vlm": counts["vlm"],
                      **{tag: counts[tag] for tag in MODAL_TRAIN_PATHS},
                      "pod": counts["pod"], "dp_train": counts["dp_train"],
-                     **moe_launches}
+                     "tp": counts["tp"], **moe_launches}
         rows = time_kernels(caps, by_kernel) + census_rows
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}

@@ -25,11 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pag import PAG
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.context import mesh_context
-from repro_torch.distributed.sharding import (
-    DistConfig,
-    local_block,
-    spec_for_leaf,
-)
+from repro_torch.distributed.sharding import local_block, stat_spec
 from repro_torch.models.model import LM
 from repro_torch.models.moe import block_specs
 from repro_torch.storage.simulator import ObjectStore, StorageConfig
@@ -99,10 +95,11 @@ def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
     float32 for the SSD's ``A_log``, ``D`` and ``dt_bias``, as in the
     reference). With ``mesh`` (and ``dist``, a
     ``distributed.sharding.DistConfig``) the model is this rank's, built
-    under that mesh context: the parameters it holds as blocks (the
-    experts of an expert-parallel MoE layer) get this rank's block of the
-    whole weight by their layer's specs (``MoE.specs``); run it under the
-    same context.
+    under that mesh context: the parameters it holds as blocks (every
+    weight ``sharding.placed_specs`` splits, in the dense, moe and vlm
+    families, and the experts of an expert-parallel MoE layer) get this
+    rank's block of the whole weight (``moe.block_specs``); run it under
+    the same context.
     Raises unless every parameter of the model is given exactly once,
     with its shape."""
     if mesh is None:
@@ -156,8 +153,8 @@ def opt_state_from_arrays(cfg: ModelConfig, state: Dict[str, Any],
     builds it there: for a parameter it holds as a block
     (``moe.block_specs``), its block of ``m`` and of a plain ``v`` by the
     parameter's spec, and of a factored ``v``'s ``row`` and ``col`` by
-    the specs ``sharding`` derives for them (the parameter's rule without
-    the reduced dim).
+    ``sharding.stat_spec`` (the parameter's spec without the reduced
+    dim).
     Raises unless ``m`` names every parameter of ``cfg``'s model."""
     dev = resolve_device(device)
     if mesh is None:
@@ -178,16 +175,11 @@ def opt_state_from_arrays(cfg: ModelConfig, state: Dict[str, Any],
             col[name] = np.broadcast_to(np.asarray(col[name]),
                                         (len(r),) + np.shape(col[name]))
     plain, row, col = (_per_layer(t) for t in (plain, row, col))
-    dist = dist or (DistConfig() if mesh is not None else None)
 
     def block(name, t, stat=None):
         if name not in specs:
             return t.to(dev)
-        spec = specs[name]
-        if stat is not None:   # the statistic's own leaf under the layer's
-            path = ("moe", name.rpartition(".")[2], stat)
-            spec = spec_for_leaf(path, tuple(t.shape), mesh, dist,
-                                 stacked=False)
+        spec = specs[name] if stat is None else stat_spec(specs[name], stat)
         return local_block(t, spec, mesh).clone().to(dev)
     v = {n: block(n, t) for n, t in plain.items()}
     v.update({n: {"row": block(n, row[n], "row"),

@@ -16,7 +16,7 @@ import json
 import os
 import shutil
 import tempfile
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,19 +85,25 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+Cut = Optional[Callable[[str, torch.Tensor], torch.Tensor]]
+
+
 def _restore(like: Mapping[str, Any], flat: Dict[str, Any],
-             prefix: str = "") -> Dict[str, Any]:
+             prefix: str = "", cut: Cut = None) -> Dict[str, Any]:
     """``like``'s nesting filled from ``flat``; a tensor leaf of ``like``
-    gives its device (and dtype, which the stored one must equal)."""
+    gives its device (and dtype, which the stored one must equal);
+    ``cut(key, stored)``: the part of the stored tensor the leaf holds."""
     out = {}
     for key, ref in like.items():
         name = prefix + str(key)
         if isinstance(ref, Mapping):
-            out[key] = _restore(ref, flat, name + "/")
+            out[key] = _restore(ref, flat, name + "/", cut)
             continue
         val = flat[name]
         if isinstance(ref, torch.Tensor):
             val = torch.as_tensor(val)
+            if cut is not None:
+                val = cut(name, val)
             if val.dtype != ref.dtype or val.shape != ref.shape:
                 raise ValueError(f"checkpoint {name}: {val.dtype} "
                                  f"{tuple(val.shape)}, the tree holds "
@@ -108,13 +114,14 @@ def _restore(like: Mapping[str, Any], flat: Dict[str, Any],
 
 
 def load_checkpoint(directory: str, step: Optional[int] = None,
-                    like: Optional[Mapping[str, Any]] = None
+                    like: Optional[Mapping[str, Any]] = None, cut: Cut = None
                     ) -> Tuple[int, Dict[str, Any], Dict[str, Any]]:
     """Returns (step, tree, extra); the latest step by default. Without
     ``like`` the tree is the flat ``{key: array}`` dict (bf16 entries as
     ``torch.bfloat16`` tensors); with it, a dict nested as ``like`` whose
-    tensor leaves come back as tensors on ``like``'s devices. Raises if
-    the keys differ from ``like``'s."""
+    tensor leaves come back as tensors on ``like``'s devices, each
+    ``cut(key, stored)`` where given (a rank's block of a whole tensor,
+    keys joined with ``/``). Raises if the keys differ from ``like``'s."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -130,4 +137,4 @@ def load_checkpoint(directory: str, step: Optional[int] = None,
     want = set(_flatten(like))
     if want != set(flat):
         raise ValueError(f"checkpoint/tree mismatch: {sorted(want ^ set(flat))}")
-    return manifest["step"], _restore(like, flat), manifest["extra"]
+    return manifest["step"], _restore(like, flat, cut=cut), manifest["extra"]

@@ -168,6 +168,17 @@ def psum(mesh: Mesh, axes: Sequence[str], t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def max_over(mesh: Mesh, axes: Sequence[str], t: torch.Tensor
+             ) -> torch.Tensor:
+    """``jax.lax.pmax(t, axes)``, no gradient: the elementwise max of the
+    ranks' ``t`` over each axis in turn (an all-gather, n x ``t``'s
+    bytes)."""
+    t = t.detach()
+    for a in axes:
+        t = _gather(mesh, a, t[None], 0).amax(0)
+    return t
+
+
 class _Gather(torch.autograd.Function):
     """The gather forward; backward, each rank keeps its own block of the
     gathered gradient summed over the axis (a reduce-scatter, made of a

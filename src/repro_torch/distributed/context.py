@@ -19,7 +19,8 @@ context (``batch``) and the code that needs it reads it
 The reference's ``constrain_tokens`` / ``constrain_heads`` /
 ``constrain_ff`` are not ported: they tell XLA's partitioner where
 activations should live and change no value. The port has no
-partitioner; each rank computes on the blocks it holds.
+partitioner; each rank computes on the blocks it holds, laid out as
+those hints say (``models/model.py``).
 """
 from __future__ import annotations
 

@@ -22,19 +22,25 @@ The reference stacks each per-layer leaf ``[L, ...]`` under ``blocks``,
 gives a layer's parameter the reference's spec without that ``None``.
 
 ``local_block`` cuts this rank's block of a whole tensor by its spec: the
-port's counterpart of placing an array under a ``NamedSharding``. The
-reference's ``constrain`` (``with_sharding_constraint``) is not ported:
-it is a hint to XLA's partitioner, which the port does not have, and
-changes no value.
+port's counterpart of placing an array under a ``NamedSharding``;
+``placed_specs`` names the parameters a model of the families in
+``PLACED_FAMILIES`` holds as blocks (``models/model.py:place``),
+``stat_spec`` the blocks of their factored optimizer statistics,
+``gather_data`` the FSDP gather before use and ``whole_tensor`` the
+whole tensor again (a checkpoint). The reference's ``constrain``
+(``with_sharding_constraint``) is not ported: it is a hint to XLA's
+partitioner, which the port does not have, and changes no value; the
+port's layers lay their tensors out the way the hints say.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from repro_torch.core.distributed import gather_axis
 from repro_torch.launch.mesh import data_axes
 from repro_torch.training.optimizer import STACKS
 
@@ -52,6 +58,11 @@ class MeshShape:
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.axis_sizes))
+
+    def axis_index(self, axis: str) -> int:
+        """The first rank's coordinate: blocks of the same shapes as every
+        rank's, for counting bytes."""
+        return 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +208,84 @@ def param_specs(model: nn.Module, mesh,
     return out
 
 
+# the families whose every parameter a model built under a mesh holds as
+# its ``param_specs`` block; the ssm, hybrid and audio families keep theirs
+# whole (their concatenated projections, replicated heads and encoder are
+# not placed yet)
+PLACED_FAMILIES = ("dense", "moe", "vlm")
+
+
+def placed_specs(named_shapes: Mapping[str, Tuple[int, ...]], mesh,
+                 dist: Optional[DistConfig] = None) -> Dict[str, Spec]:
+    """{name: spec} of the parameters (port names and whole shapes) whose
+    ``param_specs`` spec splits a dim on ``mesh``: those a rank holds as a
+    block (``local_block``). The others it holds whole."""
+    dist = dist or DistConfig()
+    out = {}
+    for name, shape in named_shapes.items():
+        path, _ = reference_path(name)
+        spec = spec_for_leaf(path, tuple(shape), mesh, dist, stacked=False)
+        if any(entry is not None for entry in spec):
+            out[name] = spec
+    return out
+
+
+def block_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's block of a whole tensor of ``shape``."""
+    return tuple(n // group_size(mesh, entry)
+                 for n, entry in zip(shape, spec))
+
+
+def stat_spec(spec: Spec, stat: str) -> Spec:
+    """The spec of a factored second moment's ``row`` (the parameter's
+    mean over its last dim) or ``col`` (over its second-to-last) of a
+    parameter placed by ``spec``: the rank's block of the statistic is the
+    statistic of its block, its mean completed over the reduced dim's
+    axes. Wherever a statistic factors in the placed families this is the
+    reference's ``_leaf_rule`` spec of it (``tests/test_torch_census.py``
+    holds the bytes equal)."""
+    return spec[:-1] if stat == "row" else spec[:-2] + spec[-1:]
+
+
+def whole_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of the whole tensor of which a block of ``shape`` is a
+    rank's under ``spec``."""
+    return tuple(n * group_size(mesh, entry)
+                 for n, entry in zip(shape, spec))
+
+
+def block_index(mesh, entry: Entry) -> int:
+    """This rank's block index along a dim split by ``entry``: its
+    coordinates row-major over the entry's axes (the first major)."""
+    index = 0
+    for a in entry_axes(entry):
+        index = index * mesh.shape[a] + mesh.axis_index(a)
+    return index
+
+
+def gather_data(mesh, spec: Spec, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a block under ``spec``) with every dim split over the data
+    axes all-gathered (FSDP: the parameter whole along them, still split
+    over ``model``). Its gradient is the reduce-scatter: each rank keeps
+    its block of the gradient summed over those axes."""
+    daxes = data_axes(mesh)
+    for dim, entry in enumerate(spec):
+        for a in reversed([a for a in entry_axes(entry) if a in daxes]):
+            t = gather_axis(mesh, a, t, dim=dim)
+    return t
+
+
+def whole_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's block under
+    ``spec``: every split dim all-gathered over its axes, the minor axis
+    first (a collective: every rank of the mesh calls it)."""
+    with torch.no_grad():
+        for dim, entry in enumerate(spec):
+            for a in reversed(entry_axes(entry)):
+                t = gather_axis(mesh, a, t, dim=dim)
+    return t
+
+
 def _group(mesh, axes: Sequence[str]) -> int:
     g = 1
     for a in axes:
@@ -231,11 +320,8 @@ def local_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
         if t.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
                              f"over {axes} ({n})")
-        index = 0
-        for a in axes:
-            index = index * mesh.shape[a] + mesh.axis_index(a)
         size = t.shape[dim] // n
-        t = t.narrow(dim, index * size, size)
+        t = t.narrow(dim, block_index(mesh, entry) * size, size)
     return t
 
 

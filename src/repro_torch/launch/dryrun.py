@@ -16,15 +16,22 @@ holds:
   its outputs, each leaf's local block under its spec. XLA's compiled
   argument size is that sum; its output size adds 8 bytes a leaf of the
   output tuple.
-* ``port_argument_bytes``: what the port places on a rank today: dense
-  and attention weights whole on every rank, the experts of an
-  expert-parallel MoE layer in blocks (``models/moe.py``), their
-  optimizer state, the rank's block of the batch, and a decode cache for
-  its rows with every head and slot.
-* ``cost``: the matmul-class FLOPs of the port's own step on the rank,
-  by part (projections, feed-forwards, experts at their capacity and the
-  router, the SSD's products, attention, the LM head); a train step
-  counts the forward, remat's recompute of every block and the backward
+* ``port_argument_bytes``: what the port places on a rank: in the dense,
+  moe and vlm families every parameter's ``param_specs`` block
+  (``models/model.py:place``; equal to the argument size, which
+  ``tests/test_torch_census.py`` holds on both meshes), in the ssm,
+  hybrid and audio families the weights whole on every rank and the
+  experts of an expert-parallel MoE layer in blocks; their optimizer
+  state, the rank's block of the batch, the decode cache the rank's
+  ``init_cache`` holds under the mesh (its ``cache_spec`` block in the
+  placed families, every head and slot of its rows in the others) and
+  ``cur_pos``.
+* ``cost``: the matmul-class FLOPs of the port's own step on the rank
+  (its heads, ``d_ff`` columns and vocabulary block where they are
+  placed; a decode step's slots), by part (projections, feed-forwards,
+  experts at their capacity and the router, the SSD's products,
+  attention, the LM head); a train step counts the forward, remat's
+  recompute of every block and the backward
   (twice a product's forward; attention 10·D a pair against the
   forward's 4·D) over its microbatches. ``flops`` counts the pairs the
   ``flash_attention`` kernel computes (its mask's visible pairs: causal
@@ -38,7 +45,11 @@ holds:
   ``_reduce_scatter``: n x the gathered gradient): the ANNS merges, the
   gradient sums over the data axes, the loss's sums, the MoE layer's
   partial sums and copies over ``model``, its statistics over the data
-  axes, and the FSDP gathers of the experts and their reduce-scatters.
+  axes, the FSDP gathers of the placed weights and of the experts and
+  their reduce-scatters, the row-parallel products' sums over ``model``
+  and their inputs' copies, the vocab-parallel embedding's sum and
+  loss's max and sums, and a decode step's query gather and partial
+  softmax merges over a cache whose slots are split.
 
 This replaces the reference's ``launch/hlo_costs.py`` too, which parses
 XLA's HLO text and has no torch input: the counts come from the port's
@@ -83,8 +94,21 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import data_axes
-from repro_torch.models.model import global_flags, init_cache
-from repro_torch.models.moe import MoE, block_specs, capacity, expert_parallel
+from repro_torch.distributed.context import mesh_context
+from repro_torch.models.model import (
+    MLP,
+    Attention,
+    MoEBlock,
+    global_flags,
+    init_cache,
+)
+from repro_torch.models.moe import (
+    EXPERT_WEIGHTS,
+    MoE,
+    block_specs,
+    capacity,
+    expert_parallel,
+)
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.train_step import TrainConfig
 
@@ -243,32 +267,61 @@ class Flops:
                             "attention": float(vis)}}
 
 
-def _attn_proj(f: Flops, cfg: ModelConfig, tq: int, tkv: int,
+class Share:
+    """A rank's share of the placed products (``models/model.py``): the
+    query heads it projects and attends with, the k/v heads it projects,
+    its ``d_ff`` columns, the shared experts' and its vocabulary block;
+    the config's whole widths where nothing is placed."""
+
+    def __init__(self, cfg: ModelConfig, model=None):
+        self.heads, self.kv_heads = cfg.n_heads, cfg.n_kv_heads
+        self.ff, self.vocab = cfg.d_ff, cfg.vocab_padded
+        self.shared_ff = cfg.d_ff * cfg.n_shared_experts
+        if model is None or not block_specs(model):
+            return
+        attn = next((m for m in model.modules() if isinstance(m, Attention)),
+                    None)
+        if attn is not None:
+            self.heads, self.kv_heads = attn.wq.shape[1], attn.wk.shape[1]
+        mlp = next((m for m in model.modules() if isinstance(m, MLP)), None)
+        if mlp is not None:
+            self.ff = mlp.w_gate.shape[1]
+        layer = next((m for m in model.modules() if isinstance(m, MoE)),
+                     None)
+        if layer is not None and cfg.n_shared_experts:
+            self.shared_ff = layer.shared_gate.shape[1]
+        self.vocab = model.tok_embed.shape[0]
+
+
+def _attn_proj(f: Flops, cfg: ModelConfig, sh: Share, tq: int, tkv: int,
                part: str = "attention projections") -> None:
     """q and o over ``tq`` tokens, k and v over ``tkv``."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    f.add(part, 2 * d * hd * (2 * cfg.n_heads * tq + 2 * cfg.n_kv_heads * tkv))
+    f.add(part, 2 * d * hd * (2 * sh.heads * tq + 2 * sh.kv_heads * tkv))
 
 
-def _attention(f: Flops, cfg: ModelConfig, b: int, sq: int, sk: int,
-               causal: bool, window: int = 0, meta_tokens: int = 0) -> None:
-    unit = 2 * b * cfg.n_heads * cfg.resolved_head_dim   # q.k or p.v
+def _attention(f: Flops, cfg: ModelConfig, sh: Share, b: int, sq: int,
+               sk: int, causal: bool, window: int = 0,
+               meta_tokens: int = 0) -> None:
+    unit = 2 * b * sh.heads * cfg.resolved_head_dim   # q.k or p.v
     f.attention(2 * unit * visible_pairs(sq, sk, causal, window,
                                          meta_tokens),
                 2 * unit * sq * sk)
 
 
-def _decode_attention(f: Flops, cfg: ModelConfig, b: int, slots: int):
-    """``decode_attention``: every slot, plain products either way."""
-    n = 4 * b * cfg.n_heads * cfg.resolved_head_dim * slots
+def _decode_attention(f: Flops, cfg: ModelConfig, b: int, slots: int,
+                      heads: int):
+    """``decode_attention``: every slot (the rank's), plain products
+    either way, for ``heads`` query heads."""
+    n = 4 * b * heads * cfg.resolved_head_dim * slots
     f.attention(n, n)
 
 
-def _ffn(f: Flops, cfg: ModelConfig, t: int) -> None:
+def _ffn(f: Flops, cfg: ModelConfig, sh: Share, t: int) -> None:
     """SwiGLU (3 products) or the audio family's GELU MLP (2), the last
     of its block."""
     n = 2 if cfg.family == "audio" else 3
-    one = 2 * t * cfg.d_model * cfg.d_ff
+    one = 2 * t * cfg.d_model * sh.ff
     f.add("feed-forward", (n - 1) * one)
     f.add("feed-forward", one, tail=True)
 
@@ -306,8 +359,9 @@ class MoeRank:
     their capacity, as ``moe_forward`` picks them."""
 
     def __init__(self, cfg: ModelConfig, mesh, whole: int, b_loc: int,
-                 s: int):
+                 s: int, shared_ff: Optional[int] = None):
         self.t = b_loc * s
+        self.shared_ff = shared_ff or cfg.d_ff * cfg.n_shared_experts
         self.parallel = expert_parallel(cfg, mesh)
         if self.parallel:
             dp = data_ranks(mesh)
@@ -326,13 +380,13 @@ class MoeRank:
               * cfg.n_experts)
         f.add("experts", 3 * 2 * self.experts * self.cap * d * ff)
         if cfg.n_shared_experts:   # the block's last product
-            one = 2 * self.t * d * ff * cfg.n_shared_experts
+            one = 2 * self.t * d * self.shared_ff
             f.add("feed-forward", 2 * one)
             f.add("feed-forward", one, tail=True)
 
 
-def _layers_forward(cfg: ModelConfig, b: int, s: int, moe: Optional[MoeRank],
-                    with_aux: bool) -> Flops:
+def _layers_forward(cfg: ModelConfig, sh: Share, b: int, s: int,
+                    moe: Optional[MoeRank], with_aux: bool) -> Flops:
     """Every block's full-sequence forward (the encoder's included) on
     ``b`` rows of ``s`` tokens (plus the hybrid family's meta tokens)."""
     f = Flops()
@@ -340,99 +394,126 @@ def _layers_forward(cfg: ModelConfig, b: int, s: int, moe: Optional[MoeRank],
     s2 = s + cfg.meta_tokens
     t = b * s2
     for _ in range(cfg.n_dense_layers):
-        _attn_proj(f, cfg, t, t)
-        _attention(f, cfg, b, s2, s2, True)
-        _ffn(f, cfg, t)
+        _attn_proj(f, cfg, sh, t, t)
+        _attention(f, cfg, sh, b, s2, s2, True)
+        _ffn(f, cfg, sh, t)
     if cfg.family == "ssm":
         for _ in range(n_main):
             _ssd(f, cfg, b, s2, last=True)
     elif cfg.family == "hybrid":
         for is_global in global_flags(cfg, n_main):
-            _attn_proj(f, cfg, t, t)
-            _attention(f, cfg, b, s2, s2, True,
+            _attn_proj(f, cfg, sh, t, t)
+            _attention(f, cfg, sh, b, s2, s2, True,
                        0 if is_global else cfg.attn_window, cfg.meta_tokens)
             _ssd(f, cfg, b, s2, last=False)
-            _ffn(f, cfg, t)
+            _ffn(f, cfg, sh, t)
     else:
         for _ in range(n_main):
-            _attn_proj(f, cfg, t, t)
-            _attention(f, cfg, b, s2, s2, True)
+            _attn_proj(f, cfg, sh, t, t)
+            _attention(f, cfg, sh, b, s2, s2, True)
             if cfg.family == "moe":
                 moe.flops(f, cfg, with_aux)
             else:
-                _ffn(f, cfg, t)
+                _ffn(f, cfg, sh, t)
             if cfg.enc_layers:   # cross-attention over the encoder's frames
-                _attn_proj(f, cfg, t, b * cfg.enc_frames,
+                _attn_proj(f, cfg, sh, t, b * cfg.enc_frames,
                            "cross-attention projections")
-                _attention(f, cfg, b, s2, cfg.enc_frames, False)
+                _attention(f, cfg, sh, b, s2, cfg.enc_frames, False)
     te = b * cfg.enc_frames
     for _ in range(cfg.enc_layers):
-        _attn_proj(f, cfg, te, te)
-        _attention(f, cfg, b, cfg.enc_frames, cfg.enc_frames, False)
-        _ffn(f, cfg, te)
+        _attn_proj(f, cfg, sh, te, te)
+        _attention(f, cfg, sh, b, cfg.enc_frames, cfg.enc_frames, False)
+        _ffn(f, cfg, sh, te)
     return f
 
 
-def _layers_decode(cfg: ModelConfig, b: int, slots: int,
-                   moe: Optional[MoeRank]) -> Flops:
+def _layers_decode(cfg: ModelConfig, sh: Share, b: int, slots: int,
+                   moe: Optional[MoeRank], heads: int) -> Flops:
     """Every block's decode step on ``b`` rows over a cache of ``slots``
-    k/v slots."""
+    k/v slots (the rank's), ``heads`` query heads reading each."""
     f = Flops()
     n_main = cfg.n_layers - cfg.n_dense_layers
     for _ in range(cfg.n_dense_layers):
-        _attn_proj(f, cfg, b, b)
-        _decode_attention(f, cfg, b, slots)
-        _ffn(f, cfg, b)
+        _attn_proj(f, cfg, sh, b, b)
+        _decode_attention(f, cfg, b, slots, heads)
+        _ffn(f, cfg, sh, b)
     for _ in range(n_main):
         if cfg.family == "ssm":
             _ssd_decode(f, cfg, b)
             continue
-        _attn_proj(f, cfg, b, b)
-        _decode_attention(f, cfg, b, slots)
+        _attn_proj(f, cfg, sh, b, b)
+        _decode_attention(f, cfg, b, slots, heads)
         if cfg.family == "hybrid":
             _ssd_decode(f, cfg, b)
         if cfg.family == "moe":
             moe.flops(f, cfg, with_aux=False)
         else:
-            _ffn(f, cfg, b)
+            _ffn(f, cfg, sh, b)
         if cfg.enc_layers:   # q and o only: xk and xv are cached
-            _attn_proj(f, cfg, b, 0, "cross-attention projections")
-            _decode_attention(f, cfg, b, cfg.enc_frames)
+            _attn_proj(f, cfg, sh, b, 0, "cross-attention projections")
+            _decode_attention(f, cfg, b, cfg.enc_frames, sh.heads)
     return f
 
 
-def _head(cfg: ModelConfig, t: int) -> Flops:
+def _head(cfg: ModelConfig, sh: Share, t: int) -> Flops:
     f = Flops()
-    f.add("lm head", 2 * t * cfg.d_model * cfg.vocab_padded)
+    f.add("lm head", 2 * t * cfg.d_model * sh.vocab)
     return f
 
 
-def _moe(cfg, mesh, whole, b_loc, s) -> Optional[MoeRank]:
-    return MoeRank(cfg, mesh, whole, b_loc, s) if cfg.family == "moe" \
-        else None
+def _moe(cfg, mesh, whole, b_loc, s, shared_ff: Optional[int] = None
+         ) -> Optional[MoeRank]:
+    return MoeRank(cfg, mesh, whole, b_loc, s, shared_ff) \
+        if cfg.family == "moe" else None
+
+
+def decode_cache(cfg: ModelConfig, big: int, slots: int, mesh,
+                 dist: Optional[DistConfig] = None):
+    """The rank's decode cache (on the meta device) of a batch of ``big``
+    rows and ``slots`` positions, as ``init_cache`` lays it out."""
+    with mesh_context(mesh, dist):
+        return init_cache(cfg, big, slots, device=S.META)
+
+
+def _decode_heads(cfg: ModelConfig, share: Share, cache) -> int:
+    """The query heads that read the rank's slots in a decode step: all of
+    them where ``model`` splits the slots (the query gathered over it),
+    else the rank's."""
+    return cfg.n_heads if "model" in getattr(cache, "seq_axes", ()) \
+        else share.heads
 
 
 def step_flops(cfg: ModelConfig, shape: ShapeConfig, mesh,
-               tcfg: Optional[TrainConfig] = None) -> Flops:
-    """The port's step on one rank of ``mesh``."""
+               tcfg: Optional[TrainConfig] = None, model=None,
+               dist: Optional[DistConfig] = None) -> Flops:
+    """The port's step on one rank of ``mesh``; ``model``: the rank's
+    placed (abstract) model, default ``abstract_params(cfg, mesh)``."""
     big, s = shape.global_batch, shape.seq_len
+    model = model if model is not None else S.abstract_params(cfg, mesh,
+                                                              dist)
+    sh = Share(cfg, model)
     if shape.kind == "decode":
         b = rank_rows(big, mesh)
-        f = _layers_decode(cfg, b, s + cfg.meta_tokens,
-                           _moe(cfg, mesh, big, b, 1))
-        f += _head(cfg, b)
+        cache = decode_cache(cfg, big, s, mesh, dist)
+        slots = cache["k"].shape[2] if "k" in cache else 0
+        f = _layers_decode(cfg, sh, b, slots,
+                           _moe(cfg, mesh, big, b, 1, sh.shared_ff),
+                           _decode_heads(cfg, sh, cache))
+        f += _head(cfg, sh, b)
         return f
     if shape.kind == "prefill":
         b = rank_rows(big, mesh)
-        f = _layers_forward(cfg, b, s, _moe(cfg, mesh, big, b, s), False)
-        f += _head(cfg, b * s)
+        f = _layers_forward(cfg, sh, b, s,
+                            _moe(cfg, mesh, big, b, s, sh.shared_ff), False)
+        f += _head(cfg, sh, b * s)
         return f
     n = tcfg.microbatches
     size = big // n
     b = rank_rows(size, mesh)
-    layers = _layers_forward(cfg, b, s, _moe(cfg, mesh, size, b, s), True)
+    layers = _layers_forward(cfg, sh, b, s,
+                             _moe(cfg, mesh, size, b, s, sh.shared_ff), True)
     f = layers.train(cfg.remat)
-    f += _head(cfg, b * s).train(remat=False)
+    f += _head(cfg, sh, b * s).train(remat=False)
     return f.times(n)
 
 
@@ -480,8 +561,8 @@ def _moe_traffic(tr: Traffic, cfg: ModelConfig, model, mesh, moe: MoeRank,
     dp = data_ranks(mesh)
     if moe.parallel:
         layer = next(m for m in model.modules() if isinstance(m, MoE))
-        for name, spec in layer.specs.items():
-            w = getattr(layer, name)
+        for name in EXPERT_WEIGHTS:
+            w, spec = getattr(layer, name), layer.specs[name]
             dim = 2 if name == "w_down" else 1
             nbytes, steps = w.numel() * w.element_size(), []
             for ax in reversed(entry_axes(spec[dim])):
@@ -513,6 +594,99 @@ def _moe_traffic(tr: Traffic, cfg: ModelConfig, model, mesh, moe: MoeRank,
             tr.psum(mesh, daxes, e * 4)
 
 
+def _gathers(tr: Traffic, mesh, mod, names, times: int,
+             backward: bool) -> None:
+    """``Placed.weight``'s FSDP gathers of ``mod``'s blocks ``names``,
+    ``times`` forwards, and with ``backward`` their reduce-scatters."""
+    daxes = data_axes(mesh)
+    for name in names:
+        spec = mod.specs.get(name)
+        if spec is None:
+            continue
+        p = getattr(mod, name)
+        nbytes, steps = p.numel() * p.element_size(), []
+        for entry in spec:
+            for ax in reversed([a for a in entry_axes(entry) if a in daxes]):
+                steps.append((ax, nbytes))
+                nbytes *= mesh.shape[ax]
+        for _ in range(times):
+            for ax, block in steps:
+                tr.gather(mesh, ax, block)
+        if backward:
+            for ax, block in reversed(steps):
+                tr.reduce_scatter(mesh, ax, mesh.shape[ax] * block)
+
+
+ATTN_WEIGHTS = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
+MODEL = ("model",)
+
+
+def _block_traffic(tr: Traffic, cfg: ModelConfig, blk, mesh, b: int,
+                   s: int, *, forwards: int, backward: bool,
+                   cache=None) -> None:
+    """A dense or MoE block's collectives of the placed weights (the
+    experts' are ``_moe_traffic``'s) on ``b`` rows x ``s`` positions:
+    the FSDP gathers (recomputed under remat), the sums over ``model`` of
+    the row-parallel products (the feed-forward's, its block's last,
+    once), their inputs' copies in the backward and, with a decode
+    ``cache`` whose slots are split, the query's gather and the partial
+    softmaxes' merges."""
+    dtb = getattr(torch, cfg.dtype).itemsize
+    act = b * s * cfg.d_model * dtb
+    attn = blk.attn
+    _gathers(tr, mesh, attn, ATTN_WEIGHTS, forwards, backward)
+    if cache is not None and cache.seq_axes:
+        hd = cfg.resolved_head_dim
+        heads = attn.wq.shape[1]
+        if attn.tp and "model" in cache.seq_axes:
+            tr.gather(mesh, "model", b * heads * hd * dtb)
+            heads = cfg.n_heads
+        for a in cache.seq_axes:
+            tr.gather(mesh, a, b * heads * (hd + 2) * 4)
+    if attn.tp:
+        for _ in range(forwards):
+            tr.psum(mesh, MODEL, act)
+        if backward:
+            tr.psum(mesh, MODEL, act)
+            if not attn.split("wk", 1):   # k's and v's copies
+                for _ in range(2):
+                    tr.psum(mesh, MODEL, b * s * cfg.n_kv_heads
+                            * cfg.resolved_head_dim * dtb)
+    ffn, names, split = (blk.moe, ("shared_gate", "shared_up",
+                                   "shared_down"), "shared_gate") \
+        if isinstance(blk, MoEBlock) else (blk.mlp, ("w_gate", "w_up",
+                                                     "w_down"), "w_gate")
+    _gathers(tr, mesh, ffn, names, forwards, backward)
+    if ffn.split(split, 1):
+        tr.psum(mesh, MODEL, act)
+        if backward:
+            tr.psum(mesh, MODEL, act)
+
+
+def _embed_head_traffic(tr: Traffic, cfg: ModelConfig, model, mesh,
+                        b: int, s: int, t_head: int, *, backward: bool,
+                        loss: bool) -> None:
+    """The embedding's and the LM head's collectives (``t_head`` tokens
+    through the head) and, with ``loss``, the vocab-parallel loss's: the
+    embedding's gathers and its sum over ``model`` where the vocabulary
+    is split, the head's gathers (the embedding's again when tied) and
+    its input's copy in the backward, the max and the two sums of the
+    loss over ``model``."""
+    dtb = getattr(torch, cfg.dtype).itemsize
+    _gathers(tr, mesh, model, ("tok_embed",), 1, backward)
+    _gathers(tr, mesh, model, ("tok_embed",) if cfg.tie_embeddings
+             else ("lm_head",), 1, backward)
+    if not model.split("tok_embed", 0):
+        return
+    tr.psum(mesh, MODEL, b * s * cfg.d_model * dtb)
+    if backward:
+        tr.psum(mesh, MODEL, t_head * cfg.d_model * dtb)
+    if loss:
+        tr.gather(mesh, "model", t_head * 4)
+        for _ in range(2):
+            tr.psum(mesh, MODEL, t_head * 4)
+
+
 def _optimizer_traffic(tr: Traffic, model, state, mesh) -> None:
     """``apply_updates`` on a rank holding blocks: the global norm's sums
     over each group of axes, and a factored block's statistics averaged
@@ -541,7 +715,8 @@ def _optimizer_traffic(tr: Traffic, model, state, mesh) -> None:
 
 def step_traffic(cfg: ModelConfig, shape: ShapeConfig, mesh, model,
                  state=None, batch=None,
-                 tcfg: Optional[TrainConfig] = None) -> Traffic:
+                 tcfg: Optional[TrainConfig] = None,
+                 dist: Optional[DistConfig] = None) -> Traffic:
     """The collectives of the port's step on one rank of ``mesh``;
     ``model`` (and for a train step ``state`` and ``batch``): the rank's
     abstract model as the port places it, its optimizer state and the
@@ -551,10 +726,21 @@ def step_traffic(cfg: ModelConfig, shape: ShapeConfig, mesh, model,
         return tr
     big, s = shape.global_batch, shape.seq_len
     n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.family == "moe" else 0
+    placed = bool(block_specs(model)) \
+        and cfg.family in ("dense", "moe", "vlm")
     if shape.kind != "train":
         b = rank_rows(big, mesh)
         s_call = 1 if shape.kind == "decode" else s
         moe = _moe(cfg, mesh, big, b, s_call)
+        cache = decode_cache(cfg, big, s, mesh, dist) \
+            if shape.kind == "decode" else None
+        if placed:
+            _embed_head_traffic(tr, cfg, model, mesh, b, s_call,
+                                b if shape.kind == "decode" else b * s,
+                                backward=False, loss=False)
+            for blk in model.layers():
+                _block_traffic(tr, cfg, blk, mesh, b, s_call, forwards=1,
+                               backward=False, cache=cache)
         for _ in range(n_moe):
             _moe_traffic(tr, cfg, model, mesh, moe, big, b, forwards=1,
                          backward=False, with_aux=False)
@@ -572,13 +758,19 @@ def step_traffic(cfg: ModelConfig, shape: ShapeConfig, mesh, model,
                     nbytes = tr.gather(mesh, a, nbytes)
     shared = dp > 1 and size % dp == 0
     moe = _moe(cfg, mesh, size, b, s)
+    forwards = 2 if cfg.remat else 1
     for _ in range(n):
         if shared:   # the loss's sums
             tr.psum(mesh, daxes, 3 * 4)
+        if placed:
+            _embed_head_traffic(tr, cfg, model, mesh, b, s, b * s,
+                                backward=True, loss=True)
+            for blk in model.layers():
+                _block_traffic(tr, cfg, blk, mesh, b, s, forwards=forwards,
+                               backward=True)
         for _ in range(n_moe):
             _moe_traffic(tr, cfg, model, mesh, moe, size, b,
-                         forwards=2 if cfg.remat else 1, backward=True,
-                         with_aux=True)
+                         forwards=forwards, backward=True, with_aux=True)
     if dp > 1:   # each gradient over the data axes its spec leaves whole
         specs = block_specs(model)
         acc = getattr(torch, tcfg.grad_accum_dtype)
@@ -622,7 +814,6 @@ def lm_record(cfg: ModelConfig, shape: ShapeConfig, mesh,
     args = tree_bytes(read, pspecs, mesh)
     port = whole_bytes(placed_params.values())
     big = shape.global_batch
-    b_loc = rank_rows(big, mesh)
     if shape.kind == "train":
         rec["microbatches"] = tcfg.microbatches
         state = S.abstract_opt_state(cfg, ocfg, model)
@@ -636,7 +827,7 @@ def lm_record(cfg: ModelConfig, shape: ShapeConfig, mesh,
         args += state_bytes + batch_bytes
         port += whole_bytes(_opt_leaves(placed_state)) + batch_bytes
         traffic = step_traffic(cfg, shape, mesh, placed, placed_state, batch,
-                               tcfg)
+                               tcfg, dist)
     else:
         if shape.kind == "prefill":
             batch = S.prefill_inputs(cfg, shape)
@@ -651,8 +842,9 @@ def lm_record(cfg: ModelConfig, shape: ShapeConfig, mesh,
             logits = (big, 1)
             extra = S.block_bytes(tokens, batch_spec(big, mesh, dist, 1),
                                   mesh)
-            args += extra + S.block_bytes(cur_pos, (), mesh)
-            own = init_cache(cfg, b_loc, shape.seq_len, device=S.META)
+            extra += S.block_bytes(cur_pos, (), mesh)
+            args += extra
+            own = decode_cache(cfg, big, shape.seq_len, mesh, dist)
             port += extra + whole_bytes(own.values())
         cspecs = S.cache_shardings(cfg, cache, big, mesh, dist)
         cache_bytes = tree_bytes(cache, cspecs, mesh)
@@ -660,11 +852,11 @@ def lm_record(cfg: ModelConfig, shape: ShapeConfig, mesh,
             args += cache_bytes
         out = cache_bytes + math.prod(logits) * cfg.vocab_padded * 4 \
             // group_size(mesh, batch_spec(big, mesh, dist)[0])
-        traffic = step_traffic(cfg, shape, mesh, placed)
+        traffic = step_traffic(cfg, shape, mesh, placed, dist=dist)
     rec["memory"] = {"argument_size_in_bytes": int(args),
                      "output_size_in_bytes": int(out)}
     rec["port_argument_bytes"] = int(port)
-    rec["cost"] = step_flops(cfg, shape, mesh, tcfg).record()
+    rec["cost"] = step_flops(cfg, shape, mesh, tcfg, placed, dist).record()
     rec["collectives"] = traffic.record()
     return rec
 

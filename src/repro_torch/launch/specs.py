@@ -45,8 +45,10 @@ META = torch.device("meta")
 def abstract_params(cfg: ModelConfig, mesh=None,
                     dist: Optional[DistConfig] = None) -> LM:
     """The model on the meta device. Under ``mesh`` (a ``MeshShape`` will
-    do) it is one rank's, as the port places it: each expert-parallel MoE
-    layer holds its blocks of the experts, every other weight whole."""
+    do) it is one rank's, as the port places it: in the dense, moe and vlm
+    families every parameter its ``param_specs`` block (the experts as
+    their expert-parallel layer takes them), in the others every weight
+    whole."""
     if mesh is None:
         return LM(cfg, device=META)
     with mesh_context(mesh, dist):
@@ -58,7 +60,7 @@ def abstract_opt_state(cfg: ModelConfig, ocfg: OptimizerConfig,
                        ) -> Dict[str, Any]:
     """``init_state`` of the (meta) parameters of ``model`` (default:
     ``abstract_params(cfg)``); ``mesh``: the one ``model`` was built
-    under, whose expert blocks factor by their whole shapes."""
+    under, whose blocks factor by their whole shapes."""
     model = model if model is not None else abstract_params(cfg)
     params = dict(model.named_parameters())
     return init_state(params, ocfg, mesh, block_specs(model))

@@ -24,17 +24,20 @@ torchrun's ``env://`` variables, which ``main`` joins: gloo on the CPU,
 nccl with one card a rank), ``setup`` does what the reference's ``main``
 does with ``make_local_mesh()`` and ``mesh_context``: it lays the ranks
 out as a (data, model) mesh (``--model-axis`` ranks a model line), builds
-the model under it (an expert-parallel MoE layer holds this rank's
-blocks of its experts) and returns a step that takes ``batch_at``'s
-whole batch, keeps this rank's ``batch_spec`` block and runs the train
-step under ``mesh_context(mesh, batch=B)`` (``training/train_step.py``).
-Only rank 0 prints.
+the model under it (the rank holds its blocks of the weights by the
+reference's specs, in the dense, moe and vlm families, and of an
+expert-parallel MoE layer's experts) and returns a step that takes
+``batch_at``'s whole batch, keeps this rank's ``batch_spec`` block and
+runs the train step under ``mesh_context(mesh, batch=B)``
+(``training/train_step.py``). Only rank 0 prints.
 
 With ``--ckpt-dir``, parameters (``<dir>/p``) and optimizer state
 (``<dir>/o``) are saved every ``--ckpt-every`` steps, and a run resumes
-from the latest step found there. On a mesh rank 0 writes them, which
-needs every parameter whole on every rank: a model holding blocks
-raises (sharded checkpoints are not ported).
+from the latest step found there. On a mesh the blocks are gathered
+whole (``sharding.whole_tensor``; every rank takes part) and rank 0
+writes them, in the layout of a run on one device; at resume every
+rank reads the whole tensors and keeps its blocks, so a checkpoint
+moves between meshes and to one device.
 """
 from __future__ import annotations
 
@@ -58,6 +61,8 @@ from repro_torch.distributed.sharding import (
     DistConfig,
     batch_spec,
     local_block,
+    stat_spec,
+    whole_tensor,
 )
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import init_params
@@ -155,9 +160,7 @@ def train(args: argparse.Namespace) -> Dict[str, float]:
     cfg, dcfg, model, opt, step_fn = setup(args)
     dev = model.device
     lead = not dist.is_initialized() or dist.get_rank() == 0
-    if args.ckpt_dir and dist.is_initialized() and block_specs(model):
-        raise ValueError("checkpoints of a model holding blocks of its "
-                         "parameters (expert parallelism) are not ported")
+    mesh, specs = model.mesh, block_specs(model)
     n = sum(p.numel() for p in model.parameters())
     if lead:
         where = f"a rank of {dist.get_world_size()}" \
@@ -166,12 +169,14 @@ def train(args: argparse.Namespace) -> Dict[str, float]:
 
     params = dict(model.named_parameters())
     start = 0
+    cut = _cut(specs, mesh) if specs else None
     if args.ckpt_dir and latest_step(args.ckpt_dir + "/p") is not None:
-        start, saved, _ = load_checkpoint(args.ckpt_dir + "/p", like=params)
+        start, saved, _ = load_checkpoint(args.ckpt_dir + "/p", like=params,
+                                          cut=cut)
         with torch.no_grad():
             for name, p in params.items():
                 p.copy_(saved[name])
-        _, opt, _ = load_checkpoint(args.ckpt_dir + "/o", like=opt)
+        _, opt, _ = load_checkpoint(args.ckpt_dir + "/o", like=opt, cut=cut)
         if lead:
             print(f"resumed at step {start}")
 
@@ -187,12 +192,50 @@ def train(args: argparse.Namespace) -> Dict[str, float]:
                       f"({(s - start + 1) / max(time.time() - t0, 1e-9):.1f}"
                       " steps/s)")
         if args.ckpt_dir and (s + 1) % args.ckpt_every == 0:
+            p_out, o_out = (params, opt) if not specs else \
+                whole_state(params, opt, specs, mesh)
             if lead:
-                save_checkpoint(args.ckpt_dir + "/p", s + 1, params)
-                save_checkpoint(args.ckpt_dir + "/o", s + 1, opt)
+                save_checkpoint(args.ckpt_dir + "/p", s + 1, p_out)
+                save_checkpoint(args.ckpt_dir + "/o", s + 1, o_out)
             if dist.is_initialized():
                 dist.barrier()
     return out
+
+
+def _spec_of(key: str, specs):
+    """The spec of a checkpoint key: a parameter (``<name>``), a moment
+    (``m/<name>``, ``v/<name>``) or a factored statistic
+    (``v/<name>/row``, ``.../col``); None where it is whole."""
+    parts = key.split("/")
+    if parts[0] in ("m", "v") and len(parts) > 1:
+        spec = specs.get(parts[1])
+        if spec is not None and len(parts) == 3:
+            return stat_spec(spec, parts[2])
+        return spec
+    return specs.get(key)
+
+
+def _cut(specs, mesh):
+    def cut(key, t):
+        spec = _spec_of(key, specs)
+        return t if spec is None else local_block(t, spec, mesh)
+    return cut
+
+
+def whole_state(params, opt, specs, mesh):
+    """(parameters, optimizer state) with every block gathered whole
+    (a collective: every rank of the mesh calls it)."""
+    def whole(key, t):
+        spec = _spec_of(key, specs)
+        return t if spec is None else whole_tensor(t, spec, mesh)
+    p_out = {n: whole(n, p.detach()) for n, p in params.items()}
+    o_out = {"step": opt["step"], "m": {}, "v": {}}
+    for n, t in opt["m"].items():
+        o_out["m"][n] = whole(f"m/{n}", t)
+    for n, t in opt["v"].items():
+        o_out["v"][n] = {k: whole(f"v/{n}/{k}", u) for k, u in t.items()} \
+            if isinstance(t, dict) else whole(f"v/{n}", t)
+    return p_out, o_out
 
 
 if __name__ == "__main__":

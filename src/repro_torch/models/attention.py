@@ -9,7 +9,9 @@ differentiable: when an input requires grad it runs through
 scores recomputed per tile from q, k, v, the output and its
 log-sum-exp). Decode is one
 query token against the KV cache and stays plain PyTorch: it has no
-Pallas counterpart.
+Pallas counterpart. Over a cache whose slots a mesh splits
+(``models/model.py:init_cache``), each rank attends to its slots and the
+partial softmaxes merge across the ranks (``decode_attention_merged``).
 
 The hybrid family's mask is the reference's ``_mask_block``: with
 ``window > 0`` a key is visible when it is causal and inside the window,
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.distributed import gather_axis
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
     NEG_INF,
@@ -48,6 +51,48 @@ def attention_reference(q, k, v, *, causal=True, window=0, meta_tokens=0,
                                  meta_tokens=meta_tokens)
 
 
+def _hidden_slots(k_pos, cur_pos, window, meta_tokens, disable_window):
+    hidden = k_pos > cur_pos
+    if window > 0 and not disable_window:
+        hidden |= (k_pos <= cur_pos - window) & (k_pos >= meta_tokens)
+    return hidden
+
+
+def decode_attention_merged(q, k_cache, v_cache, mesh, axes, *, k_pos,
+                            cur_pos, window=0, meta_tokens=0,
+                            disable_window=False):
+    """``decode_attention`` over a cache whose slots the mesh ``axes``
+    split: this rank's caches [B, n, KVH, D] hold the slots at positions
+    ``k_pos`` [n]. Each rank takes the partial softmax over its slots
+    (the max m, the sum l of exp(s - m), the unnormalised output o), and
+    the partials merge over each axis in turn, in rank order (a
+    flash-decoding merge: m = max m_r, l = sum exp(m_r - m) l_r, o the
+    same over o_r), then o / l: the values of one rank holding every
+    slot, the same bits on every rank of the axes. A rank with no
+    visible slot adds nothing (its m is -1e30 below a visible one)."""
+    b, _, h, d = q.shape
+    n_kv = k_cache.shape[2]
+    qg = (q.float() * (1.0 / d ** 0.5)).reshape(b, n_kv, h // n_kv, d)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    hidden = _hidden_slots(k_pos, cur_pos, window, meta_tokens,
+                           disable_window)
+    s = s.masked_fill(hidden[None, None, None, :], NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    part = torch.cat([m[..., None], p.sum(-1)[..., None], o], -1)
+    for a in axes:
+        parts = gather_axis(mesh, a, part[None], dim=0)
+        m = parts[..., 0].amax(0)
+        w = torch.exp(parts[..., 0] - m)
+        acc = parts[0, ..., 1:] * w[0, ..., None]
+        for r in range(1, parts.shape[0]):
+            acc = acc + parts[r, ..., 1:] * w[r, ..., None]
+        part = torch.cat([m[..., None], acc], -1)
+    out = part[..., 2:] / part[..., 1:2]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, *, k_pos, cur_pos, window=0,
                      meta_tokens=0, disable_window=False):
     """One-token decode: q [B, 1, H, D]; caches [B, Smax, KVH, D].
@@ -60,9 +105,8 @@ def decode_attention(q, k_cache, v_cache, *, k_pos, cur_pos, window=0,
     n_kv = k_cache.shape[2]
     qg = (q.float() * (1.0 / d ** 0.5)).reshape(b, n_kv, h // n_kv, d)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
-    hidden = k_pos > cur_pos
-    if window > 0 and not disable_window:
-        hidden |= (k_pos <= cur_pos - window) & (k_pos >= meta_tokens)
+    hidden = _hidden_slots(k_pos, cur_pos, window, meta_tokens,
+                           disable_window)
     s = s.masked_fill(hidden[None, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())

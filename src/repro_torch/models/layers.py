@@ -1,5 +1,6 @@
 """Shared layer primitives: RMS and layer norms, rotary and sinusoidal
-position embeddings, the f32 softmax, init helpers.
+position embeddings, the f32 softmax, init helpers, and ``Placed``, the
+base of a module whose weights a rank may hold as blocks.
 
 Ports of ``repro/models/layers.py``. Norms and rotary embeddings compute
 in float32 and cast back to the input's dtype, as the reference does.
@@ -9,10 +10,13 @@ across (``repro_torch.carry.lm_params_from_arrays``) instead.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
+
+from repro_torch.distributed import sharding
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -96,3 +100,42 @@ def embed_init(gen: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     return (torch.randn(tuple(shape), generator=gen, device=gen.device)
             * 0.02).to(dtype)
+
+
+class Placed(nn.Module):
+    """A module whose parameters a model built under a mesh may hold as
+    blocks: ``specs`` names them ({name: spec}, ``distributed.sharding``'s
+    tuples; empty: every parameter whole) and ``mesh`` is that mesh."""
+    specs: Dict[str, sharding.Spec] = {}
+    mesh = None
+
+    def weight(self, name: str) -> torch.Tensor:
+        """The parameter ``name`` with every dim the data axes split
+        gathered (FSDP; its gradient reduce-scattered back), still split
+        over ``model`` where its spec says so."""
+        p = getattr(self, name)
+        spec = self.specs.get(name)
+        return p if spec is None else sharding.gather_data(self.mesh, spec,
+                                                           p)
+
+    def split(self, name: str, dim: int) -> bool:
+        """Whether the ``model`` axis splits ``dim`` of ``name``."""
+        spec = self.specs.get(name)
+        return spec is not None and "model" in sharding.entry_axes(spec[dim])
+
+    def model_index(self) -> int:
+        return self.mesh.axis_index("model")
+
+    @torch.no_grad()
+    def fill(self, name: str,
+             draw: Callable[[Tuple[int, ...]], torch.Tensor]) -> None:
+        """Write ``draw(whole shape)`` into the parameter ``name``: its
+        block of it where the rank holds a block, so a placed model holds
+        the unsharded model's weights for the same draws."""
+        p = getattr(self, name)
+        spec = self.specs.get(name)
+        if spec is None:
+            p.copy_(draw(tuple(p.shape)))
+            return
+        whole = draw(sharding.whole_shape(p.shape, spec, self.mesh))
+        p.copy_(sharding.local_block(whole, spec, self.mesh))

@@ -59,13 +59,33 @@ layer.
 Under an ambient mesh (``repro_torch.distributed.context.mesh_context``)
 the model is one rank's: its inputs are the rank's block of the batch
 (``sharding.batch_spec``), whose whole size the context is given
-(``mesh_context(..., batch=B)``) where the data axes are above 1, and a
-model built and seeded there holds, in
-each expert-parallel MoE layer, only the rank's blocks of the experts
-(``models/moe.py``), the same weights as the unsharded model of the same
-seed. Every other weight stays whole on every rank. The reference's
-sharding hints (``constrain_*``) place values and change none: the port
-has no partitioner to give them to.
+(``mesh_context(..., batch=B)``) where the data axes are above 1. In the
+dense, moe and vlm families (``sharding.PLACED_FAMILIES``) a model built
+there holds every parameter as the block ``sharding.param_specs`` gives
+the rank (``place``; an expert-parallel MoE layer's experts as
+``models/moe.py`` takes them), and seeded there it holds the unsharded
+model's weights for the same seed (each drawn whole and cut). The
+products follow the reference's activation specs (``constrain_*``),
+which the port does not port but lays its tensors out by: between
+blocks ``[B, S, d]`` is the rank's rows, whole across ``model``; inside
+a block the heads and ``d_ff`` are split over ``model`` where they divide
+it: ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` column-parallel, ``wo``
+and ``w_down`` row-parallel and summed over ``model`` (``sum_over``),
+their input read through ``copy_over`` (its gradient summed); where the
+heads do not divide ``model`` the rank computes the whole attention,
+where the kv heads do not it computes every kv head and takes those of
+its query heads. The dims the specs split over the data axes are
+all-gathered before use (FSDP, ``Placed.weight``; reduce-scattered in the
+backward). The embedding and the LM head are vocab-parallel: each rank
+looks up its vocabulary block (the rows summed over ``model``) and gives
+the logits of its block (``gather_vocab`` makes them whole; the train
+step's loss and the engine's greedy choice never do). The decode cache
+is the rank's ``sharding.cache_spec`` block (``init_cache``): where it
+splits the slots, a decode step merges the ranks' partial softmaxes
+(``models/attention.py:decode_attention_merged``). The ssm, hybrid and
+audio families keep every weight whole on every rank (their
+concatenated projections, replicated heads and encoder are not placed
+yet).
 """
 from __future__ import annotations
 
@@ -76,11 +96,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, check_family
+from repro_torch.core.distributed import copy_over, gather_axis, sum_over
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.distributed.context import get_mesh, whole_batch
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.attention import (
+    attention,
+    decode_attention,
+    decode_attention_merged,
+)
 from repro_torch.models.layers import (
+    Placed,
     apply_rope,
     dense_init,
     embed_init,
@@ -89,7 +117,25 @@ from repro_torch.models.layers import (
     sinusoidal_embedding,
 )
 
-Cache = Dict[str, torch.Tensor]
+MODEL = ("model",)
+
+
+class Cache(dict):
+    """The decode cache: its tensors by name. Under a mesh that splits its
+    sequence dim (``sharding.cache_spec``), this rank holds the slots
+    ``[first_slot, first_slot + n)`` of every row it holds, and
+    ``seq_axes`` names the axes of ``mesh`` the slots are split over
+    (major first); on one device, every slot."""
+    first_slot: int = 0
+    seq_axes: Tuple[str, ...] = ()
+    mesh = None
+
+    def layer(self, i: int) -> "Cache":
+        """Layer ``i``'s views, with this cache's slot layout."""
+        out = Cache({key: c[i] for key, c in self.items()})
+        out.first_slot, out.seq_axes = self.first_slot, self.seq_axes
+        out.mesh = self.mesh
+        return out
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -101,11 +147,19 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-class Attention(nn.Module):
+class Attention(Placed):
+    """GQA projections. Placed under a mesh (``LM``), the rank holds its
+    block of each weight: ``wq`` column-parallel over its heads (``wk``/
+    ``wv`` too where the kv heads divide ``model``, else whole), ``wo``
+    row-parallel, and ``d`` split over the data axes where it divides
+    (gathered before use, ``Placed.weight``). Where the heads do not divide
+    ``model`` every rank computes the whole attention."""
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         d, h, kvh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
         hd = cfg.resolved_head_dim
+        self.n_heads, self.n_kv_heads = h, kvh
         self.wq = _param((d, h, hd), dtype, device)
         self.wk = _param((d, kvh, hd), dtype, device)
         self.wv = _param((d, kvh, hd), dtype, device)
@@ -115,13 +169,23 @@ class Attention(nn.Module):
             self.bk = _param((kvh, hd), dtype, device)
             self.bv = _param((kvh, hd), dtype, device)
 
+    @property
+    def tp(self) -> bool:
+        """Whether the rank holds a block of the heads (over ``model``)."""
+        return self.split("wq", 1)
+
+    def _kv_whole(self) -> bool:
+        """Heads split while the kv heads are whole on every rank."""
+        return self.tp and not self.split("wk", 1)
+
     def _proj(self, x, name: str):
         """x [B, S, d] through ``w<name>`` [d, n, hd] -> [B, S, n, hd], plus
-        ``b<name>`` where the config has qkv biases."""
-        w = getattr(self, "w" + name)
+        ``b<name>`` where the config has qkv biases (this rank's heads)."""
+        w = self.weight("w" + name)
         y = (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:2], *w.shape[1:])
-        bias = getattr(self, "b" + name, None)
-        return y if bias is None else y + bias
+        if "b" + name not in self._parameters:
+            return y
+        return y + self.weight("b" + name)
 
     def query(self, x):
         """x [B, S, d] -> q [B, S, H, hd], no rotary embedding."""
@@ -129,8 +193,22 @@ class Attention(nn.Module):
 
     def qkv(self, x, kv):
         """q [B, S, H, hd] from x, k and v [B, Skv, KVH, hd] from kv, no
-        rotary embedding (cross-attention's projections)."""
-        return self._proj(x, "q"), self._proj(kv, "k"), self._proj(kv, "v")
+        rotary embedding (cross-attention's projections). With the heads
+        split, x enters through ``copy_over(model)`` (each rank's heads
+        add their part of its gradient); where the kv heads are whole on
+        every rank, k and v leave through it instead (each rank reads the
+        kv heads of its own query heads)."""
+        same = kv is x
+        if self.tp:
+            x = copy_over(self.mesh, MODEL, x)
+            if not self._kv_whole():
+                kv = x if same else copy_over(self.mesh, MODEL, kv)
+        q, k, v = self._proj(x, "q"), self._proj(kv, "k"), \
+            self._proj(kv, "v")
+        if self._kv_whole():
+            k, v = copy_over(self.mesh, MODEL, k), copy_over(self.mesh, MODEL,
+                                                             v)
+        return q, k, v
 
     def project(self, x, cos, sin):
         """x [B, S, d] -> q [B, S, H, hd], k and v [B, S, KVH, hd], with
@@ -138,13 +216,63 @@ class Attention(nn.Module):
         q, k, v = self.qkv(x, x)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
+    def kv_for_queries(self, t):
+        """k or v [B, S, KVH, hd] holding every kv head -> the kv heads of
+        this rank's query heads, in the grouping the kernel reads (query
+        head j of G = local heads / local kv heads to kv head j // G); the
+        whole ``t`` unless the heads are split and the kv heads not."""
+        if not self._kv_whole() or t.shape[2] != self.n_kv_heads:
+            return t
+        hl = self.wq.shape[1]
+        g = self.n_heads // self.n_kv_heads
+        h0 = self.model_index() * hl
+        idx = (h0 + torch.arange(hl)) // g
+        lo, n = int(idx[0]), int(idx[-1]) - int(idx[0]) + 1
+        if hl % n == 0 and torch.equal(idx,
+                                       lo + torch.arange(hl) // (hl // n)):
+            return t[:, :, lo:lo + n]
+        return t[:, :, idx.to(t.device)]
+
     def out(self, a):
-        """a [B, S, H, hd] -> [B, S, d]."""
+        """a [B, S, H, hd] -> [B, S, d]: with the heads split, this rank's
+        heads' part summed over ``model`` (``sum_over``: each rank
+        back-propagates its own part)."""
         b, s = a.shape[:2]
-        return a.reshape(b, s, -1) @ self.wo.reshape(-1, self.wo.shape[-1])
+        wo = self.weight("wo")
+        y = a.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+        return sum_over(self.mesh, MODEL, y) if self.tp else y
+
+    def attend_cache(self, q, cache: "Cache", pos: int, slot_pos, **mask):
+        """One token's attention over this layer's ``cache["k"]``,
+        ``cache["v"]`` [B, n, KVH, hd] (slot positions ``slot_pos``).
+        Where the cache's slots are split over mesh axes, each rank takes
+        the partial softmax over its slots and the partials merge over
+        those axes (``decode_attention_merged``); where they are split over
+        ``model`` while the heads are too, the query is gathered over
+        ``model`` first (every head reads every slot) and the rank keeps its
+        heads of the result."""
+        k, v = cache["k"], cache["v"]
+        if not cache.seq_axes:
+            return decode_attention(q, self.kv_for_queries(k),
+                                    self.kv_for_queries(v), k_pos=slot_pos,
+                                    cur_pos=pos, **mask)
+        gather = self.tp and "model" in cache.seq_axes
+        hl = q.shape[2]
+        if gather:
+            q = gather_axis(self.mesh, "model", q, dim=2)
+        else:
+            k, v = self.kv_for_queries(k), self.kv_for_queries(v)
+        a = decode_attention_merged(q, k, v, cache.mesh, cache.seq_axes,
+                                    k_pos=slot_pos, cur_pos=pos, **mask)
+        return a.narrow(2, self.model_index() * hl, hl) if gather else a
 
 
-class MLP(nn.Module):
+class MLP(Placed):
+    """SwiGLU. Placed under a mesh: ``w_gate``/``w_up`` column-parallel
+    and ``w_down`` row-parallel over ``model`` where ``d_ff`` divides it
+    (the input through ``copy_over``, the output summed over ``model``),
+    ``d`` over the data axes (gathered before use)."""
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
@@ -153,13 +281,17 @@ class MLP(nn.Module):
         self.w_down = _param((f, d), dtype, device)
 
     def forward(self, x):
-        g = x @ self.w_gate
-        u = x @ self.w_up
+        tp = self.split("w_gate", 1)
+        if tp:
+            x = copy_over(self.mesh, MODEL, x)
+        g = x @ self.weight("w_gate")
+        u = x @ self.weight("w_up")
         h = nn.functional.silu(g.float()).to(x.dtype) * u
-        return h @ self.w_down
+        y = h @ self.weight("w_down")
+        return sum_over(self.mesh, MODEL, y) if tp else y
 
 
-class GeluMLP(nn.Module):
+class GeluMLP(Placed):
     """The audio family's feed-forward (Whisper's): fc, GELU, fc, with
     biases. The GELU is the tanh approximation, ``jax.nn.gelu``'s default
     (torch's default, the erf form, is another function)."""
@@ -199,11 +331,13 @@ class DenseBlock(nn.Module):
         return self.mlp(h), None
 
     def self_attn(self, x, cos, sin):
-        """x plus its attention over the whole sequence -> (x, k, v)."""
+        """x plus its attention over the whole sequence -> (x, k, v): the
+        rank's kv heads as its decode cache holds them."""
         q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
                                     cos, sin)
-        return x + self.attn.out(attention(q, k, v, causal=self.causal)), \
-            k, v
+        a = attention(q, self.attn.kv_for_queries(k),
+                      self.attn.kv_for_queries(v), causal=self.causal)
+        return x + self.attn.out(a), k, v
 
     def forward(self, x, cos, sin, with_aux: bool = False,
                 collect: bool = False):
@@ -217,14 +351,16 @@ class DenseBlock(nn.Module):
     def self_attn_step(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
         """x plus one token's attention over the cache, its k/v written
         into slot ``pos`` of this layer's caches ``cache["k"]``,
-        ``cache["v"]`` [B, Smax, KVH, hd] in place."""
+        ``cache["v"]`` [B, Smax, KVH, hd] in place (by the rank holding
+        that slot, where the slots are split)."""
         q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
                                     cos, sin)
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
-        a = decode_attention(q, cache["k"], cache["v"], k_pos=slot_pos,
-                             cur_pos=pos)
-        return x + self.attn.out(a)
+        slot = pos - cache.first_slot
+        if 0 <= slot < cache["k"].shape[1]:
+            cache["k"][:, slot] = k[:, 0]
+            cache["v"][:, slot] = v[:, 0]
+        return x + self.attn.out(self.attn.attend_cache(q, cache, pos,
+                                                        slot_pos))
 
     def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
         """One token in cache slot ``pos`` (``self_attn_step``), then the
@@ -392,13 +528,19 @@ def global_flags(cfg: ModelConfig, n: int) -> List[bool]:
     return flags
 
 
-class LM(nn.Module):
+class LM(Placed):
     """Embedding, ``n_dense_layers`` dense blocks (``dense_blocks``; none
     outside the moe family), the family's ``n_layers - n_dense_layers``
     blocks (``blocks``), the hybrid family's ``meta_tokens`` rows
     ``[meta_tokens, d]``, the audio family's ``enc_layers`` encoder blocks
     (``encoder``; none elsewhere) and ``enc_norm``, final norm, LM head
-    (the transposed embedding when ``tie_embeddings``)."""
+    (the transposed embedding when ``tie_embeddings``).
+
+    Built under an ambient mesh, the model is one rank's (``mesh``,
+    ``dist``). In the families of ``sharding.PLACED_FAMILIES`` every
+    parameter whose ``param_specs`` spec splits a dim is held as the
+    rank's block (``place``); the modules are made on the meta device
+    first, so no whole weight is ever allocated."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
@@ -406,30 +548,42 @@ class LM(nn.Module):
         dev = resolve_device(device)
         dtype = _dtype(cfg)
         self.cfg = cfg
-        self.tok_embed = _param((cfg.vocab_padded, cfg.d_model), dtype, dev)
+        mesh, dist = get_mesh()
+        self.mesh, self.dist = mesh, dist
+        placing = mesh is not None and cfg.family in sharding.PLACED_FAMILIES
+        if placing and dist.shard_head_dim_fallback:
+            raise NotImplementedError("head_dim split over model "
+                                      "(shard_head_dim_fallback) is not "
+                                      "ported")
+        built = torch.device("meta") if placing else dev
+        self.tok_embed = _param((cfg.vocab_padded, cfg.d_model), dtype,
+                                built)
         n_main = cfg.n_layers - cfg.n_dense_layers
         self.dense_blocks = nn.ModuleList(
-            DenseBlock(cfg, dtype, dev) for _ in range(cfg.n_dense_layers))
+            DenseBlock(cfg, dtype, built) for _ in range(cfg.n_dense_layers))
         if cfg.family == "hybrid":
             self.blocks = nn.ModuleList(
-                HybridBlock(cfg, dtype, dev, is_global=flag)
+                HybridBlock(cfg, dtype, built, is_global=flag)
                 for flag in global_flags(cfg, n_main))
         else:
             block = {"moe": MoEBlock, "ssm": SSMBlock,
                      "audio": CrossBlock}.get(cfg.family, DenseBlock)
-            self.blocks = nn.ModuleList(block(cfg, dtype, dev)
+            self.blocks = nn.ModuleList(block(cfg, dtype, built)
                                         for _ in range(n_main))
         self.encoder = nn.ModuleList(
-            DenseBlock(cfg, dtype, dev, causal=False)
+            DenseBlock(cfg, dtype, built, causal=False)
             for _ in range(cfg.enc_layers))
         if cfg.enc_layers:
-            self.enc_norm = _param((cfg.d_model,), dtype, dev)
+            self.enc_norm = _param((cfg.d_model,), dtype, built)
         if cfg.meta_tokens:
             self.meta_tokens = _param((cfg.meta_tokens, cfg.d_model), dtype,
-                                      dev)
-        self.final_norm = _param((cfg.d_model,), dtype, dev)
+                                      built)
+        self.final_norm = _param((cfg.d_model,), dtype, built)
         if not cfg.tie_embeddings:
-            self.lm_head = _param((cfg.d_model, cfg.vocab_padded), dtype, dev)
+            self.lm_head = _param((cfg.d_model, cfg.vocab_padded), dtype,
+                                  built)
+        if placing:
+            place(self, dev)
 
     @property
     def device(self) -> torch.device:
@@ -439,12 +593,35 @@ class LM(nn.Module):
         """Every block in depth order: the dense prefix, then ``blocks``."""
         return [*self.dense_blocks, *self.blocks]
 
+    def vocab_block(self) -> Tuple[int, int]:
+        """(the first vocabulary id, the ids) of this rank's block of the
+        embedding and of the logits: the whole padded vocabulary unless
+        ``model`` splits it."""
+        n = self.tok_embed.shape[0]
+        return (self.model_index() * n if self.split("tok_embed", 0)
+                else 0), n
+
+    def embed_tokens(self, tokens):
+        """tokens [B, S] -> their embeddings [B, S, d]. Where ``model``
+        splits the vocabulary, each rank looks up the ids of its block,
+        zeros the others, and the ranks' rows are summed over ``model``
+        (one of them nonzero: the sum is the row, bit for bit)."""
+        table = self.weight("tok_embed")
+        if not self.split("tok_embed", 0):
+            return table[tokens]
+        v0, n = self.vocab_block()
+        local = tokens - v0
+        mine = (local >= 0) & (local < n)
+        rows = table[local.clamp(0, n - 1)]
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return sum_over(self.mesh, MODEL, rows)
+
     def embed(self, tokens, vision_embeds=None):
         """tokens [B, S] -> [B, meta_tokens + S, d]: the meta tokens' rows
         (if any) ahead of each sequence's embeddings. In the vlm family,
         ``vision_embeds`` [B, vision_tokens, d] (cast to the model's dtype)
         replace the first ``vision_tokens`` embeddings."""
-        x = self.tok_embed[tokens]
+        x = self.embed_tokens(tokens)
         if self.cfg.family == "vlm" and vision_embeds is not None:
             x = torch.cat([vision_embeds.to(x.dtype),
                            x[:, self.cfg.vision_tokens:]], dim=1)
@@ -474,12 +651,20 @@ class LM(nn.Module):
         return rms_norm(x, self.enc_norm, cfg.norm_eps)
 
     def logits(self, x):
+        """x [B, S, d] -> logits [B, S, n] f32 over this rank's vocabulary
+        block (``vocab_block``: all of it unless ``model`` splits it; the
+        normed x enters through ``copy_over(model)`` then), the padded
+        entries (global ids past ``vocab_size``) at -1e30."""
         cfg = self.cfg
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        head = self.tok_embed.T if cfg.tie_embeddings else self.lm_head
+        head = self.weight("tok_embed").T if cfg.tie_embeddings \
+            else self.weight("lm_head")
+        if self.split("tok_embed", 0):
+            x = copy_over(self.mesh, MODEL, x)
         logits = (x @ head).float()
-        if cfg.vocab_padded != cfg.vocab_size:  # mask padded vocab entries
-            logits[..., cfg.vocab_size:] = -1e30
+        v0, n = self.vocab_block()
+        if v0 + n > cfg.vocab_size:  # mask padded vocab entries
+            logits[..., max(cfg.vocab_size - v0, 0):] = -1e30
         return logits
 
 
@@ -488,19 +673,51 @@ class LM(nn.Module):
 # of its params pytree)
 # --------------------------------------------------------------------------
 
+def place(model: LM, device) -> None:
+    """Give every parameter of ``model`` (built on the meta device under
+    its mesh) its storage on ``device``: the rank's block where
+    ``sharding.placed_specs`` splits it, else the whole tensor. An MoE
+    layer's experts keep the blocks the layer took (``moe.MoE``: by the
+    same rules where it is expert-parallel, whole where it is not). Each
+    module holding blocks records their specs (``Placed.specs``)."""
+    mesh, dist = model.mesh, model.dist
+    experts = {f"{path}.{name}" for path, mod in model.named_modules()
+               if isinstance(mod, moe_lib.MoE)
+               for name in moe_lib.EXPERT_WEIGHTS}
+    specs = sharding.placed_specs(
+        {n: tuple(p.shape) for n, p in model.named_parameters()
+         if n not in experts}, mesh, dist)
+    for path, mod in model.named_modules():
+        for name, p in list(mod.named_parameters(recurse=False)):
+            spec = specs.get(f"{path}.{name}" if path else name)
+            shape = sharding.block_shape(p.shape, spec, mesh) if spec \
+                else p.shape
+            mod._parameters[name] = nn.Parameter(
+                torch.zeros(shape, dtype=p.dtype, device=device),
+                requires_grad=False)
+            if spec is not None:
+                mod.specs = {**mod.specs, name: spec}
+                mod.mesh = mesh
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> LM:
     """A model with the reference's initialisation (zero norms and
     biases, fan-in normal projections and experts, 0.02-normal
     embeddings and meta tokens, the SSD's as ``ssm.init_ssm``), drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
-    CUDA card unless ``device="cpu"``). Under an ambient mesh each MoE
-    layer draws every expert whole and keeps this rank's blocks."""
+    CUDA card unless ``device="cpu"``). Under an ambient mesh each weight
+    the rank holds as a block is drawn whole and cut (``Placed.fill``),
+    and each MoE layer draws every expert whole and keeps this rank's
+    blocks: the unsharded model's weights for the same seed."""
     model = LM(cfg, device)
     gen = torch.Generator(model.device).manual_seed(seed)
     dtype = _dtype(cfg)
+
+    def dense(in_axis):
+        return lambda shape: dense_init(gen, shape, in_axis, dtype)
     with torch.no_grad():
-        model.tok_embed.copy_(embed_init(gen, model.tok_embed.shape, dtype))
+        model.fill("tok_embed", lambda shape: embed_init(gen, shape, dtype))
         if cfg.meta_tokens:
             model.meta_tokens.copy_(embed_init(gen, model.meta_tokens.shape,
                                                dtype))
@@ -512,19 +729,45 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             attns = [blk.attn, blk.xattn] if isinstance(blk, CrossBlock) \
                 else [blk.attn]
             for a in attns:
-                for w in (a.wq, a.wk, a.wv):
-                    w.copy_(dense_init(gen, w.shape, 0, dtype))
-                a.wo.copy_(dense_init(gen, a.wo.shape, (0, 1), dtype))
+                for name in ("wq", "wk", "wv"):
+                    a.fill(name, dense(0))
+                a.fill("wo", dense((0, 1)))
             if isinstance(blk, MoEBlock):
                 moe_lib.init_moe(blk.moe, gen)
                 continue
-            for name, w in blk.mlp.named_parameters():
+            for name, _ in list(blk.mlp.named_parameters()):
                 if name.startswith("w_"):   # the biases stay zero
-                    w.copy_(dense_init(gen, w.shape, 0, dtype))
+                    blk.mlp.fill(name, dense(0))
         if not cfg.tie_embeddings:
-            model.lm_head.copy_(dense_init(gen, model.lm_head.shape, 0,
-                                           dtype))
+            model.fill("lm_head", dense(0))
     return model
+
+
+def gather_vocab(model: LM, logits: torch.Tensor) -> torch.Tensor:
+    """Logits over the rank's vocabulary block -> over the whole padded
+    vocabulary (all-gathered over ``model`` where it splits them)."""
+    if not model.split("tok_embed", 0):
+        return logits
+    return gather_axis(model.mesh, "model", logits, dim=-1)
+
+
+def greedy(model: LM, logits: torch.Tensor) -> torch.Tensor:
+    """logits [..., n] over the rank's vocabulary block -> the argmax over
+    the whole real vocabulary [...] (int64), the same on every rank: each
+    rank's max and its lowest id, then the max over ``model`` with the
+    lowest global id among equals, as ``argmax`` over the whole row picks
+    (a lower rank holds lower ids)."""
+    vocab = model.cfg.vocab_size
+    v0, n = model.vocab_block()
+    local = logits[..., :max(min(vocab - v0, n), 1)]
+    if not model.split("tok_embed", 0):
+        return local.argmax(-1)
+    idx = local.argmax(-1)
+    val = local.gather(-1, idx[..., None])[..., 0]
+    best = torch.stack([val.double(), (idx + v0).double()], -1)
+    parts = gather_axis(model.mesh, "model", best[None], dim=0)
+    pick = parts[..., 0].argmax(0)     # the first rank among equal maxima
+    return parts[..., 1].gather(0, pick[None])[0].long()
 
 
 def _rope(model: LM, positions: torch.Tensor):
@@ -552,8 +795,14 @@ def forward(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     B, H, P, N]`` f32 and ``[L, B, K - 1, di + 2 N]``) where they run the
     SSD, ``{"xk", "xv"}`` ``[L, B, F, KVH, hd]`` where they attend to the
     encoder's output. With ``return_aux``, also the load-balance aux loss summed over
-    the MoE layers, an f32 scalar (zero for the other families)."""
+    the MoE layers, an f32 scalar (zero for the other families).
+
+    A model built under a mesh runs under the same mesh context, on the
+    rank's block of the batch; its logits are over its vocabulary block
+    (``LM.vocab_block``; ``gather_vocab`` makes them whole), its cache
+    entries hold its kv heads."""
     check_family(cfg)
+    _check_mesh(model)
     x = model.embed(batch["tokens"], batch.get("vision_embeds"))
     cos, sin = _rope(model, torch.arange(x.shape[1], device=x.device))
     remat = cfg.remat and not collect_cache and torch.is_grad_enabled() \
@@ -583,6 +832,12 @@ def forward(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     return out if len(out) > 1 else out[0]
 
 
+def _check_mesh(model: LM) -> None:
+    if model.mesh is not None and model.mesh is not get_mesh()[0]:
+        raise RuntimeError("a model runs under the mesh context it was "
+                           "built under")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = None) -> Cache:
@@ -591,25 +846,45 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     (slot i holds position i, the meta tokens first); the SSD's ``h``
     ``[L, B, H, P, N]`` f32 and ``conv`` ``[L, B, K - 1, di + 2 N]``
     where they run it; the cross-attention's ``xk``, ``xv`` ``[L, B,
-    enc_frames, KVH, hd]`` where the layers attend to an encoder."""
+    enc_frames, KVH, hd]`` where the layers attend to an encoder.
+
+    Under an ambient mesh, ``batch`` is the whole batch's size and the
+    cache is this rank's: its rows (``sharding.batch_spec``) and, in the
+    families of ``sharding.PLACED_FAMILIES``, its block of k and v by
+    ``sharding.cache_spec``: its kv heads where ``model`` splits them, its
+    slots where the data axes (a batch they do not divide) or ``model``
+    (kv heads it does not divide) split the sequence (``Cache.first_slot``,
+    ``Cache.seq_axes``)."""
     check_family(cfg)
     dtype = dtype or _dtype(cfg)
     dev = resolve_device(device)
-    cache: Cache = {}
+    cache = Cache()
+    rows, slots, kvh = batch, max_len + cfg.meta_tokens, cfg.n_kv_heads
+    mesh, dist = get_mesh()
+    if mesh is not None:
+        rows = batch // sharding.group_size(
+            mesh, sharding.batch_spec(batch, mesh)[0])
+    if mesh is not None and cfg.family in sharding.PLACED_FAMILIES:
+        _, _, s_entry, kv_entry, _ = sharding.cache_spec(
+            cfg, batch, mesh, dist, seq_len=slots)["k"]
+        slots //= sharding.group_size(mesh, s_entry)
+        kvh //= sharding.group_size(mesh, kv_entry)
+        cache.first_slot = sharding.block_index(mesh, s_entry) * slots
+        cache.seq_axes = sharding.entry_axes(s_entry)
+        cache.mesh = mesh
     if not cfg.is_attention_free:
-        shape = (cfg.n_layers, batch, max_len + cfg.meta_tokens,
-                 cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (cfg.n_layers, rows, slots, kvh, cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["v"] = torch.zeros_like(cache["k"])
     if cfg.family in ("ssm", "hybrid"):
-        shapes = ssm_lib.ssm_cache_shapes(cfg, batch)
+        shapes = ssm_lib.ssm_cache_shapes(cfg, rows)
         cache["h"] = torch.zeros((cfg.n_layers,) + shapes["h"],
                                  dtype=torch.float32, device=dev)
         cache["conv"] = torch.zeros((cfg.n_layers,) + shapes["conv"],
                                     dtype=dtype, device=dev)
     if cfg.enc_layers:
         cache["xk"] = torch.zeros(
-            (cfg.n_layers, batch, cfg.enc_frames, cfg.n_kv_heads,
+            (cfg.n_layers, rows, cfg.enc_frames, cfg.n_kv_heads,
              cfg.resolved_head_dim), dtype=dtype, device=dev)
         cache["xv"] = torch.zeros_like(cache["xk"])
     return cache
@@ -620,13 +895,18 @@ def prefill(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Process a full prompt (``batch`` as ``forward``'s) -> (logits [B,
     S, Vpad], decode cache with slots [0, meta_tokens + S) filled, the SSD
     states after the prompt, and the cross-attention's keys and values
-    over the encoder's output)."""
+    over the encoder's output). Under a mesh, the rank's: its vocabulary
+    block of the logits, its block of the cache (``init_cache``; each rank
+    writes the slots it holds)."""
     b, s = batch["tokens"].shape
     logits, states = forward(model, batch, cfg, collect_cache=True)
-    cache = init_cache(cfg, b, max_len or s, device=model.device)
+    whole = b if model.mesh is None else whole_batch(model.mesh, b)[0]
+    cache = init_cache(cfg, whole, max_len or s, device=model.device)
     for key, val in states.items():
         if key in ("k", "v"):
-            cache[key][:, :, :s + cfg.meta_tokens] = val
+            first, n = cache.first_slot, cache[key].shape[2]
+            held = max(min(s + cfg.meta_tokens - first, n), 0)
+            cache[key][:, :, :held] = val[:, :, first:first + held]
         else:
             cache[key].copy_(val)
     return logits, cache
@@ -638,14 +918,16 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: Cache, cur_pos: int,
     slot and rotary position are ``cur_pos + meta_tokens``). Returns
     (logits [B, 1, Vpad], cache): the cache is the one passed in, its
     slot written and its SSD states updated in place (the reference
-    returns a new one)."""
+    returns a new one). Under a mesh, the rank's (as ``prefill``'s)."""
     check_family(cfg)
+    _check_mesh(model)
+    if not isinstance(cache, Cache):
+        cache = Cache(cache)
     pos = int(cur_pos) + cfg.meta_tokens
-    x = model.tok_embed[tokens]
+    x = model.embed_tokens(tokens)
     cos, sin = _rope(model, torch.tensor([pos], device=x.device))
-    slot_pos = torch.arange(cache["k"].shape[2], device=x.device) \
-        if "k" in cache else None
+    slot_pos = cache.first_slot + torch.arange(
+        cache["k"].shape[2], device=x.device) if "k" in cache else None
     for i, blk in enumerate(model.layers()):
-        x = blk.decode(x, cos, sin, {key: c[i] for key, c in cache.items()},
-                       pos, slot_pos)
+        x = blk.decode(x, cos, sin, cache.layer(i), pos, slot_pos)
     return model.logits(x), cache

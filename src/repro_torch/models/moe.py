@@ -34,15 +34,17 @@ own experts (``expert_offset``), and the ranks of a ``model`` line add
 their partial outputs in rank order in the model dtype
 (``core/distributed.py:psum``), so every rank of the line holds the same
 bits under gloo as under nccl. Shared experts run on the rank's own
-tokens.
+tokens: in a model that places its weights (``models/model.py``), as the
+dense MLP runs (``MoE.shared``: column- and row-parallel over ``model``,
+their rank's part summed over it).
 
 The backward across ranks is ``shard_map``'s transpose (the collectives
 of ``core/distributed.py``): the experts' side reads the tokens and the
 router through a copy whose gradient is summed over ``model`` (each rank
 back-propagates its own experts' part), the partial sum's gradient is
 the identity, and the FSDP gather's is a reduce-scatter over the data
-axes. What a rank computes whole (the aux loss, the shared experts) is
-not summed over ``model``. Each rank's gradients then cover its own
+axes. What a rank computes whole (the aux loss, unplaced shared
+experts) is not summed over ``model``. Each rank's gradients then cover its own
 tokens; the train step sums them over the data axes.
 
 Under data parallelism without expert parallelism (a ``model`` axis of
@@ -62,7 +64,7 @@ d]``.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,7 +75,7 @@ from repro_torch.core.distributed import copy_over, gather_axis, psum, sum_over
 from repro_torch.distributed import sharding
 from repro_torch.distributed.context import get_mesh, whole_batch
 from repro_torch.launch.mesh import data_axes
-from repro_torch.models.layers import dense_init, softmax_fp32
+from repro_torch.models.layers import Placed, dense_init, softmax_fp32
 
 Params = Mapping[str, torch.Tensor]
 
@@ -202,6 +204,14 @@ def shared_experts(params: Params, xf: torch.Tensor) -> torch.Tensor:
     return sh @ params["shared_down"]
 
 
+Shared = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _shared(params: Params, xf: torch.Tensor, shared: Shared
+            ) -> torch.Tensor:
+    return shared_experts(params, xf) if shared is None else shared(xf)
+
+
 def _queue_start(mesh, gate_e: torch.Tensor, n_experts: int
                  ) -> torch.Tensor:
     """[E]: the assignments to each expert on the data ranks before this
@@ -218,7 +228,7 @@ def _queue_start(mesh, gate_e: torch.Tensor, n_experts: int
 
 
 def _moe_local(params: Params, x: torch.Tensor, cfg: ModelConfig,
-               mesh=None) -> torch.Tensor:
+               mesh=None, shared: Shared = None) -> torch.Tensor:
     """Every expert local: the capacity follows from this call's B*S
     tokens, so a decode step (S = 1) has its own. Under ``mesh``, where
     the rank holds a block of the batch, it is the whole batch's, and
@@ -239,7 +249,7 @@ def _moe_local(params: Params, x: torch.Tensor, cfg: ModelConfig,
                            cap=capacity(cfg, n_tokens),
                            queue_start=queue_start)
     if cfg.n_shared_experts:
-        out = out + shared_experts(params, xf)
+        out = out + _shared(params, xf, shared)
     return out.view(b, s, d)
 
 
@@ -291,7 +301,8 @@ def sum_over_model(mesh, out: torch.Tensor) -> torch.Tensor:
 
 
 def moe_sharded(params: Params, x: torch.Tensor, cfg: ModelConfig, mesh,
-                dist: Optional[sharding.DistConfig] = None) -> torch.Tensor:
+                dist: Optional[sharding.DistConfig] = None,
+                shared: Shared = None) -> torch.Tensor:
     """The reference's ``_moe_sharded`` on this rank: x is its tokens
     [b, S, d] (its block of the batch by ``sharding.batch_spec``, the
     whole batch where the data axes do not divide it), ``params`` its
@@ -323,19 +334,21 @@ def moe_sharded(params: Params, x: torch.Tensor, cfg: ModelConfig, mesh,
                            expert_offset=mesh.axis_index("model") * e_local)
     out = sum_over_model(mesh, out)
     if cfg.n_shared_experts:
-        out = out + shared_experts(params, xf)
+        out = out + _shared(params, xf, shared)
     return out.view(b_loc, s, d)
 
 
-def moe_forward(params: Params, x: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
+def moe_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                shared: Shared = None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]: ``moe_sharded`` under an ambient mesh
     whose ``model`` axis divides the experts, else every expert local
-    (under a mesh, the reference's local path over the whole batch)."""
+    (under a mesh, the reference's local path over the whole batch).
+    ``shared``: the shared experts of the tokens [T, d] (default:
+    ``shared_experts`` of ``params``' whole weights)."""
     mesh, dist = get_mesh()
     if expert_parallel(cfg, mesh):
-        return moe_sharded(params, x, cfg, mesh, dist)
-    return _moe_local(params, x, cfg, mesh)
+        return moe_sharded(params, x, cfg, mesh, dist, shared)
+    return _moe_local(params, x, cfg, mesh, shared)
 
 
 def moe_aux_loss(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -363,13 +376,16 @@ def moe_aux_loss(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return cfg.n_experts * (frac_tokens * probs.mean(0)).sum()
 
 
-class MoE(nn.Module):
+class MoE(Placed):
     """One MoE layer's weights (``moe_param_shapes``, the reference's
     layouts) and its forward. Built under an ambient mesh where the layer
     is expert-parallel (``expert_parallel``), it holds this rank's blocks
     of the expert weights (``expert_specs``: ``w_gate [E/mp, d/dp, f]``)
-    and must run under that mesh; the router and shared experts stay
-    whole."""
+    and must run under that mesh; the router stays whole, and a model
+    that places its weights (``models.model.place``) holds the shared
+    experts as the dense MLP's blocks (``shared_gate``/``shared_up``
+    column-parallel, ``shared_down`` row-parallel over ``model``, ``d``
+    over the data axes)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
@@ -394,15 +410,29 @@ class MoE(nn.Module):
         params = dict(self.named_parameters())
         aux = moe_aux_loss(params, x, self.cfg, self.mesh) if with_aux \
             else None
-        return moe_forward(params, x, self.cfg), aux
+        return moe_forward(params, x, self.cfg, self.shared), aux
+
+    def shared(self, xf: torch.Tensor) -> torch.Tensor:
+        """The shared experts of the tokens xf [T, d] from this rank's
+        blocks: the FSDP dims gathered, and where ``model`` splits their
+        width the tokens through ``copy_over`` and the rank's part summed
+        over ``model``."""
+        params = {n: self.weight(n) for n in
+                  ("shared_gate", "shared_up", "shared_down")}
+        if not self.split("shared_gate", 1):
+            return shared_experts(params, xf)
+        out = shared_experts(params, copy_over(self.mesh, ("model",), xf))
+        return sum_over(self.mesh, ("model",), out)
 
 
 def block_specs(model: nn.Module) -> Dict[str, sharding.Spec]:
     """{parameter name: spec} of every parameter ``model`` holds as a block
-    of the whole weight: the experts of its expert-parallel MoE layers
-    (``MoE.specs``). Every other parameter is whole on every rank."""
-    return {f"{path}.{name}": spec for path, mod in model.named_modules()
-            if isinstance(mod, MoE) for name, spec in mod.specs.items()}
+    of the whole weight (``Placed.specs`` of each module: the placed
+    weights and the experts of its expert-parallel MoE layers). Every
+    other parameter is whole on every rank."""
+    return {f"{path}.{name}" if path else name: spec
+            for path, mod in model.named_modules()
+            for name, spec in getattr(mod, "specs", {}).items()}
 
 
 @torch.no_grad()
@@ -418,7 +448,8 @@ def init_moe(moe: MoE, gen: torch.Generator) -> None:
     shapes = moe_param_shapes(moe.cfg)
     for name, w in moe.named_parameters():
         if not name.startswith("w_"):
-            w.copy_(dense_init(gen, w.shape, 0, w.dtype))
+            moe.fill(name, lambda shape, dt=w.dtype: dense_init(gen, shape, 0,
+                                                               dt))
             continue
         spec = moe.specs.get(name)
         first = moe.mesh.axis_index("model") * w.shape[0] if spec else 0

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decode_step, prefill
+from repro_torch.models.model import gather_vocab, greedy
 from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.obs.metrics import COUNT_BUCKETS
 
@@ -28,7 +29,9 @@ class ServeConfig:
 
 class Engine:
     """Batched generation over one model (``models.init_params`` or
-    ``carry.lm_params_from_arrays``). Runs eagerly on the model's device;
+    ``carry.lm_params_from_arrays``; under a mesh, one rank's, called
+    under its ``mesh_context`` with the rank's block of the batch). Runs
+    eagerly on the model's device;
     the decode step writes the cache in place, slot by slot. After each
     ``generate``, ``timing`` holds ``prefill_s`` (prompt in to first
     tokens on the host) and ``decode_s`` (the rest), host wall seconds."""
@@ -81,12 +84,16 @@ class Engine:
         return gen
 
     def _sample(self, logits, generator):
-        """logits [B, 1, Vpad] -> tokens [B, 1] over the real vocab."""
-        logits = logits[:, :, : self.cfg.vocab_size]
+        """logits [B, 1, Vpad] -> tokens [B, 1] over the real vocab. Under
+        a mesh that splits the vocabulary, the logits are the rank's block
+        of it: greedy takes the argmax across the ranks' blocks
+        (``models.model.greedy``), and sampling gathers the whole row and
+        draws from ``generator``, which every rank seeds alike."""
         if self.scfg.temperature <= 0:
-            return logits.argmax(-1)
+            return greedy(self.model, logits)
         if generator is None:
             raise ValueError("temperature sampling needs a torch.Generator")
+        logits = gather_vocab(self.model, logits)[:, :, :self.cfg.vocab_size]
         probs = torch.softmax(logits[:, 0].float() / self.scfg.temperature,
                               dim=-1)
         return torch.multinomial(probs, 1, generator=generator)

@@ -31,15 +31,18 @@ them, and the port updates the layers of such a vector together
 tensor) and a copy of the shared column.
 
 Under a mesh (``apply_updates(..., mesh=, specs=)``) a parameter that a
-rank holds as a block (``specs``: the expert weights of an
-expert-parallel MoE layer, ``w_gate [E/mp, d/dp, f]``) updates as the
-reference's global array does: its squares enter the global norm summed
-over the mesh axes its spec shards it on (a whole parameter counts
-once), whether its second moment factors is decided on its global shape
-(``global_shape``), and a factored statistic that averages over a
-sharded dim is averaged over that dim's axes too: ``w_gate``'s and
-``w_up``'s column statistic and the row statistic's mean over ``d``,
-``w_down``'s row statistic. The moments are the rank's blocks.
+rank holds as a block (``specs``, ``moe.block_specs``: every weight a
+model of the dense, moe and vlm families places, ``wq [d/dp, H/mp, hd]``,
+``tok_embed [V/mp, d/dp]``, and the experts of an expert-parallel MoE
+layer, ``w_gate [E/mp, d/dp, f]``) updates as the reference's global
+array does: its squares enter the global norm summed over the mesh axes
+its spec shards it on (a whole parameter counts once), whether its
+second moment factors is decided on its global shape (``global_shape``),
+and a factored statistic that averages over a sharded dim is averaged
+over that dim's axes too (an expert's, ``wo``'s or ``lm_head``'s column
+statistic over ``d``'s axes, a row statistic's mean over the last dim's:
+``sharding.stat_spec`` gives their blocks). The moments are the rank's
+blocks.
 """
 from __future__ import annotations
 

@@ -27,6 +27,13 @@ reference's jitted step on the global arrays:
   ``model``; where the data axes do not divide the (micro)batch every
   rank computed the whole gradient, and the sum is divided by their
   size;
+* where the model holds its weights as blocks (``models/model.py``:
+  heads, ``d_ff`` and the vocabulary over ``model``, ``d`` over the data
+  axes) the loss is vocab-parallel (``cross_entropy``'s ``vocab``); a
+  block's gradient is the rank's own (the FSDP gathers' reduce-scatters
+  have summed it over the data axes its spec splits), and a weight whole
+  across ``model`` gets its whole gradient on every rank of the line
+  (the blocks read their inputs through ``copy_over``);
 * the update reads the specs of the blocks (``optimizer.apply_updates``).
 
 Under no mesh nothing of this applies.
@@ -34,12 +41,17 @@ Under no mesh nothing of this applies.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.distributed import gather_axis, psum, sum_over
+from repro_torch.core.distributed import (
+    gather_axis,
+    max_over,
+    psum,
+    sum_over,
+)
 from repro_torch.distributed.context import (
     get_mesh,
     mesh_context,
@@ -56,6 +68,8 @@ from repro_torch.models.moe import block_specs
 from repro_torch.training.optimizer import OptimizerConfig, apply_updates
 
 Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
+VocabSplit = Optional[Tuple[Any, int]]
+MODEL = ("model",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,16 +82,34 @@ class TrainConfig:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab_size: int, z_loss_weight: float = 0.0,
-                  reduce: Reduce = None) -> torch.Tensor:
+                  reduce: Reduce = None, vocab: VocabSplit = None
+                  ) -> torch.Tensor:
     """logits [B, S, Vpad] f32; labels [B, S] (-1 = ignore). Mean negative
     log-likelihood over the unmasked tokens, plus ``z_loss_weight`` times
     the mean squared log-partition over them. ``reduce`` maps the sums
     (a [3] tensor: nll, squared log-partition, mask) to the whole batch's
-    (a rank's block of it under a mesh)."""
+    (a rank's block of it under a mesh). ``vocab`` = (mesh, v0): the
+    logits are the columns [v0, v0 + n) of the vocabulary, which ``model``
+    splits (vocab-parallel: the max and the sum of exponentials over
+    ``model``, the label's logit from the rank holding it; the vocabulary
+    is never gathered)."""
     mask = (labels >= 0).float()
-    labels = labels.clamp(min=0)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    labels = labels.clamp(min=0).long()
+    if vocab is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        mesh, v0 = vocab
+        n = logits.shape[-1]
+        top = max_over(mesh, MODEL, logits.amax(-1))
+        sum_exp = sum_over(mesh, MODEL,
+                           torch.exp(logits - top[..., None]).sum(-1))
+        logz = top + torch.log(sum_exp)
+        local = labels - v0
+        mine = (local >= 0) & (local < n)
+        held = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+        gold = sum_over(mesh, MODEL, torch.where(
+            mine, held[..., 0], torch.zeros_like(held[..., 0])))
     nll = (logz - gold) * mask
     sums = torch.stack([nll.sum(), (logz.square() * mask).sum(),
                         mask.sum()])
@@ -92,10 +124,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             tcfg: TrainConfig, reduce: Reduce = None):
     """(total, {"loss", "aux_loss"}): total = loss + aux_loss_weight *
-    aux. ``reduce``: as ``cross_entropy`` takes it."""
+    aux. ``reduce``: as ``cross_entropy`` takes it; the loss is
+    vocab-parallel where the model's logits are a block of the
+    vocabulary."""
     logits, aux = forward(model, batch, cfg, return_aux=True)
+    vocab = (model.mesh, model.vocab_block()[0]) \
+        if model.split("tok_embed", 0) else None
     loss = cross_entropy(logits, batch["labels"], cfg.vocab_padded,
-                         tcfg.z_loss_weight, reduce)
+                         tcfg.z_loss_weight, reduce, vocab)
     total = loss + tcfg.aux_loss_weight * aux
     return total, {"loss": loss, "aux_loss": aux}
 

@@ -245,22 +245,59 @@ def test_specs_match_the_reference(arch, m, d):
 
 def test_the_port_places_expert_blocks_and_whole_dense_weights():
     """``abstract_params`` under a mesh holds each expert-parallel MoE
-    layer's blocks and every other weight whole; the census's
-    ``port_argument_bytes`` is that model, its state and the rank's
-    batch block."""
+    layer's blocks and every other weight as its ``param_specs`` block
+    (the dense, attention and embedding weights too; the norms and the
+    router whole); the census's ``port_argument_bytes`` is that model,
+    its state and the rank's batch block."""
     cfg = get_config("dbrx-132b")
     mesh = shd.MeshShape(("data", "model"), (16, 16))
     placed = dict(S.abstract_params(cfg, mesh).named_parameters())
-    whole = dict(S.abstract_params(cfg).named_parameters())
+    whole = S.abstract_params(cfg)
+    specs = shd.param_specs(whole, mesh)
+    whole = dict(whole.named_parameters())
     for name, p in placed.items():
+        want = shd.block_shape(whole[name].shape, specs[name], mesh)
+        assert tuple(p.shape) == want, name
         if ".moe.w_" in name:
             assert p.numel() * 256 == whole[name].numel(), name
-        else:
+        elif name.endswith("norm") or name.endswith("router"):
             assert p.shape == whole[name].shape, name
+        else:
+            assert p.numel() < whole[name].numel(), name
     rec = D.census_cell("dbrx-132b", "prefill_32k", False)
     tokens = 32 * 32768 * 4 // 16
     assert rec["port_argument_bytes"] == D.whole_bytes(placed.values()) \
         + tokens
+
+
+PLACED_ARCHS = [a for a in ARCHS if get_config(a).family
+                in shd.PLACED_FAMILIES]
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", PLACED_ARCHS)
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_the_port_places_what_the_reference_specs_place(grid, mesh, arch,
+                                                        shape):
+    """In the dense, moe and vlm families the port holds on a rank what
+    the reference's specs give it: parameters, optimizer state, batch and
+    decode cache, to the byte; the ssm, hybrid and audio families keep
+    their weights whole (more bytes than the specs')."""
+    rec = grid["recs"][(mesh, arch, shape)]
+    if rec["status"] != "OK":
+        assert rec["status"].startswith("SKIP")
+        return
+    assert rec["port_argument_bytes"] \
+        == rec["memory"]["argument_size_in_bytes"]
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS
+                                  if a not in PLACED_ARCHS])
+def test_unplaced_families_keep_their_weights_whole(grid, arch):
+    for (mesh, a, _), rec in grid["recs"].items():
+        if a == arch and rec["status"] == "OK":
+            assert rec["port_argument_bytes"] \
+                > rec["memory"]["argument_size_in_bytes"], (mesh, arch)
 
 
 # ------------------------------------------- the reference, compiled
@@ -630,8 +667,8 @@ for world in (4, 2):
                 with torch.no_grad(), mesh_context(mesh, dist_cfg, batch=b):
                     prefill(model, block, cfg)
         else:
-            cache = init_cache(cfg, block["tokens"].shape[0], s,
-                               device="cpu")
+            with mesh_context(mesh, dist_cfg):
+                cache = init_cache(cfg, b, s, device="cpu")
             def run():
                 with torch.no_grad(), mesh_context(mesh, dist_cfg, batch=b):
                     decode_step(model, block["tokens"][:, :1], cache, s - 1,

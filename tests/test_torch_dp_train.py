@@ -244,8 +244,9 @@ for name, (_, (shape, names), dist_kw, arch, changes, b, n, _) in \
             "--microbatches", str(n), "--device", "cpu",
             "--model-axis", str(shape[-1])])
         _, _, model, state, step_fn = trainer.setup(args, cfg=cfg)
-        carried = dict(lm_params_from_arrays(cfg, weights, "cpu")
-                       .named_parameters())
+        carried = dict(lm_params_from_arrays(
+            cfg, weights, "cpu", mesh=model.mesh, dist=model.dist)
+            .named_parameters())
         with torch.no_grad():
             for k, p in model.named_parameters():
                 p.copy_(carried[k])
@@ -337,12 +338,38 @@ def _rank_trees(port, case, i):
     return pick("p"), pick("m"), pick("v")
 
 
+def _assemble(ranks, meshes, whole, spec_of):
+    """Each tensor whole from the ranks' blocks ({name: [the rank's
+    array]}), the ranks that hold the same block holding the same bits;
+    ``spec_of(name)``: its spec (None: whole on every rank, taken from the
+    first rank)."""
+    out = {}
+    for name, w in whole.items():
+        spec = spec_of(name)
+        if spec is None:
+            out[name] = ranks[0][name]
+            continue
+        full = np.full(w.size, np.nan, np.float32)
+        index = torch.arange(w.size).view(w.shape)
+        for mesh, tree in zip(meshes, ranks):
+            at = shd.local_block(index, spec, mesh).reshape(-1).numpy()
+            got = tree[name].reshape(-1)
+            seen = ~np.isnan(full[at])
+            np.testing.assert_array_equal(full[at][seen], got[seen],
+                                          err_msg=name)
+            full[at] = got
+        out[name] = full.reshape(w.shape)
+    return out
+
+
 @pytest.mark.parametrize("i", range(STEPS))
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_step_on_ranks_matches_the_reference(runs, case, i):
-    """After step i, each rank's metrics, its blocks of the parameters
-    and of the moments are the reference's; the ranks hold the same bits
-    of every whole parameter."""
+    """After step i, each rank's metrics, and the parameters and moments
+    assembled from the ranks' blocks (the ranks holding a block holding
+    the same bits), are the reference's, the one-in-a-thousand rule over
+    each whole array; the ranks hold the same bits of every whole
+    parameter."""
     world, (shape, names), dist_kw, arch, changes, _, _, _ = CASES[case]
     cfg = _cfg(get_config, arch, changes)
     dist = shd.DistConfig(**dist_kw)
@@ -358,24 +385,32 @@ def test_step_on_ranks_matches_the_reference(runs, case, i):
                 rtol=base.LOSS_RTOL if "loss" in key else 1e-4,
                 atol=1e-7, err_msg=f"{case} rank {r} {key}")
         assert int(port[f"{case}/{i}/step"]) == i + 1
-        mesh = _fake_mesh(shape, names, r)
-        want = lm_params_from_arrays(cfg, want_p, "cpu", mesh=mesh,
-                                     dist=dist)
-        got_p, got_m, got_v = _rank_trees(port, case, i)
-        base._assert_trees(got_p, base._port_flat(dict(
-            want.named_parameters())), base.PARAM_TOL, f"{case} rank {r} p",
-            **base._param_outliers(i + 1))
-        st = opt_state_from_arrays(cfg, want_state, "cpu", mesh=mesh,
-                                   dist=dist)
-        base._assert_trees(got_m, base._port_flat(st["m"]), base.STEP_TOL,
-                           f"{case} rank {r} m", **base.MOMENT_OUTLIERS)
-        base._assert_trees(got_v, base._port_flat(st["v"]), base.STEP_TOL,
-                           f"{case} rank {r} v", **base.MOMENT_OUTLIERS)
-        blocks = moe.block_specs(want)
+    meshes = [_fake_mesh(shape, names, r) for r in range(world)]
+    blocks = moe.block_specs(lm_params_from_arrays(
+        cfg, want_p, "cpu", mesh=meshes[0], dist=dist))
+    want = base._port_flat(dict(lm_params_from_arrays(
+        cfg, want_p, "cpu").named_parameters()))
+    st = opt_state_from_arrays(cfg, want_state, "cpu")
+
+    def spec_of(name):
+        stem, _, sub = name.rpartition(".")
+        if sub in ("row", "col") and stem in blocks:
+            return shd.stat_spec(blocks[stem], sub)
+        return blocks.get(name)
+    trees = [_rank_trees(port, case, i) for port in ranks]
+    for j, (what, whole, tol, kw) in enumerate((
+            ("p", want, base.PARAM_TOL, base._param_outliers(i + 1)),
+            ("m", base._port_flat(st["m"]), base.STEP_TOL,
+             base.MOMENT_OUTLIERS),
+            ("v", base._port_flat(st["v"]), base.STEP_TOL,
+             base.MOMENT_OUTLIERS))):
+        got = _assemble([t[j] for t in trees], meshes, whole, spec_of)
+        base._assert_trees(got, whole, tol, f"{case} {what}", **kw)
+    for r, (got_p, _, _) in enumerate(trees):
         for k, v in got_p.items():
             if k not in blocks:
                 np.testing.assert_array_equal(
-                    v, ranks[0][f"{case}/{i}/p/{k}"], err_msg=k)
+                    v, ranks[0][f"{case}/{i}/p/{k}"], err_msg=(r, k))
 
 
 def test_the_expert_blocks_factor_where_the_global_weight_does(runs):
@@ -409,18 +444,20 @@ def test_opt_state_from_arrays_gives_each_rank_its_blocks():
              for m in meshes]
     specs = moe.block_specs(lm_params_from_arrays(
         cfg, jax.tree.map(np.asarray, params), "cpu", mesh=meshes[0]))
-    assert specs and all(n.startswith("blocks.") for n in specs)
+    assert any(".moe.w_" in n for n in specs) and "tok_embed" in specs
     for name, spec in specs.items():
-        leaf = ("moe", name.rpartition(".")[2])
-        for what, sub, sp in (("m", None, spec),
-                              ("v", "row", shd.spec_for_leaf(
-                                  leaf + ("row",),
-                                  tuple(whole["v"][name]["row"].shape),
-                                  meshes[0], dist, stacked=False)),
-                              ("v", "col", shd.spec_for_leaf(
-                                  leaf + ("col",),
-                                  tuple(whole["v"][name]["col"].shape),
-                                  meshes[0], dist, stacked=False))):
+        if isinstance(whole["v"][name], dict):
+            # the reference's spec of each statistic is the block's
+            leaf = shd.reference_path(name)[0]
+            for sub in ("row", "col"):
+                assert shd.stat_spec(spec, sub) == shd.spec_for_leaf(
+                    leaf + (sub,), tuple(whole["v"][name][sub].shape),
+                    meshes[0], dist, stacked=False), (name, sub)
+            vs = [("v", sub, shd.stat_spec(spec, sub))
+                  for sub in ("row", "col")]
+        else:
+            vs = [("v", None, spec)]
+        for what, sub, sp in [("m", None, spec)] + vs:
             full = whole[what][name] if sub is None \
                 else whole[what][name][sub]
             # each rank's block goes where its spec places it

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and every module in it
 loads neither JAX nor any module of the reference package ``repro``, and
-no source line of the port or of ``chip_smoke.py`` imports them."""
+no source line of the port, of ``chip_smoke.py`` or of the scripts that
+run its paths imports them."""
 import os
 import re
 import subprocess
@@ -62,6 +63,18 @@ EP_MODULES = {"repro_torch.distributed.sharding",
 # the dry-run census: the shapes, the abstract inputs and specs, the census
 CENSUS_MODULES = {"repro_torch.configs.base", "repro_torch.launch.specs",
                   "repro_torch.launch.dryrun"}
+# the placement of every weight and of the decode cache by the specs: the
+# blocks and their collectives, the tensor-parallel layers, the
+# vocab-parallel greedy and loss, the optimizer over blocks, whole
+# checkpoints of a mesh
+TP_MODULES = {"repro_torch.distributed.sharding",
+              "repro_torch.distributed.context",
+              "repro_torch.core.distributed",
+              "repro_torch.models.layers", "repro_torch.models.model",
+              "repro_torch.models.attention", "repro_torch.models.moe",
+              "repro_torch.serving.engine", "repro_torch.training.train_step",
+              "repro_torch.training.optimizer", "repro_torch.carry",
+              "repro_torch.checkpoint.ckpt", "repro_torch.launch.train"}
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -78,6 +91,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert POD_MODULES <= loaded, POD_MODULES - loaded
     assert EP_MODULES <= loaded, EP_MODULES - loaded
     assert CENSUS_MODULES <= loaded, CENSUS_MODULES - loaded
+    assert TP_MODULES <= loaded, TP_MODULES - loaded
 
 
 FORBIDDEN = re.compile(
@@ -86,7 +100,8 @@ FORBIDDEN = re.compile(
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "scripts").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_line_imports_jax_or_the_reference(path):
     assert not FORBIDDEN.findall(path.read_text())

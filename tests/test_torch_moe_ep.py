@@ -186,6 +186,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.context import mesh_context
 from repro_torch.launch import mesh as pm
 from repro_torch.models import decode_step, moe, prefill
+from repro_torch.models.model import gather_vocab
 rank, out = int(sys.argv[1]), sys.argv[2]
 meshes, layer, batches = (eval(a) for a in sys.argv[3:6])
 x = dict(np.load(out + "/inputs.npz"))
@@ -238,6 +239,7 @@ for m, (mshape, names, dist_kw) in meshes.items():
             logits, cache = prefill(model, {"tokens": tok}, ccfg,
                                     max_len=s + 1)
             step, _ = decode_step(model, nxt, cache, s, ccfg)
+            logits, step = (gather_vocab(model, t) for t in (logits, step))
         res[f"{m}/{case}/prefill"] = logits.numpy()
         res[f"{m}/{case}/decode"] = step.numpy()
 compat.shutdown()
