@@ -635,7 +635,7 @@ DP_PHASES = {"T1": dict(arch=TRAIN_ARCH, depth=2, changes={},
 DP_LAYER_RTOL = 1e-5
 # elements a parameter's bit fingerprint sums at a time
 FINGERPRINT_ROW = 4096
-# The dp_train ranks start before the pod path (dp_spawn): a fresh rank's
+# The dp_train ranks start before the pod path (spawn_ranks): a fresh rank's
 # Python start-up and the torch._dynamo import that its first checkpointed
 # step makes (torch.utils.checkpoint's dynamo-disabling wrapper; on an
 # H100 host the first step took 15.3 s against 1.0 s for the next) then
@@ -670,6 +670,47 @@ TP_LOGITS_RTOL = 1e-4
 TP_LOSS_RTOL, TP_GNORM_RTOL = 1e-5, 1e-4
 TP_PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 TP_PARAM_OUTLIERS = 1e-3
+
+# The tp_families path: the ssm, hybrid and audio families at their
+# published widths with every weight and decode cache placed by the
+# reference's specs (models/model.py and models/ssm.py under
+# mesh_context), on 4 gloo ranks sharing the card (started with tp's,
+# each waiting for its go), each phase against the unsharded model of the
+# same seed. A: mamba2-370m on (data 1, model 4), all 48 layers (8 of 32
+# SSD heads, in_proj 512 + 512 + 32 + 32 + 8 columns a rank); B:
+# hymba-1.5b on (1, 4) cut to TPF_B_DEPTH layers (its global layer 0 and
+# windowed ones; all 128 meta tokens; attention replicated, the slots
+# over model, the SSD's 50 heads whole and its conv's channels split:
+# case 2); C: whisper-small on (1, 4), uncut (3 heads and 768 d_ff a
+# rank), 4 clips of 1500 frames. Each: a prefill of TPF_BATCH prompts and
+# TPF_NEW - 1 greedy decode steps in f32 with the unsharded run's tokens
+# fed (logits and greedy choices gated) and in bf16 through
+# Engine.generate. D: on (data 2, model 2), hymba-1.5b cut to TPF_D_DEPTH
+# layers decodes a batch of one (its slots split over data), then one
+# AdamW step each of mamba2-370m and hymba-1.5b at TPF_D_DEPTH layers on
+# TP_BATCH x TP_PROMPT (tp's gates)
+TPF_PHASES = {
+    "A": dict(arch="mamba2-370m", depth=None, prompt=512,
+              mesh=((1, 4), ("data", "model"))),
+    "B": dict(arch="hymba-1.5b", depth=4, prompt=512,
+              mesh=((1, 4), ("data", "model"))),
+    "C": dict(arch="whisper-small", depth=None, prompt=64,
+              mesh=((1, 4), ("data", "model")))}
+TPF_BATCH, TPF_NEW = 4, 9
+TPF_D_MESH = ((2, 2), ("data", "model"))
+TPF_D_ARCHS, TPF_D_DEPTH, TPF_D_NEW = ("mamba2-370m", "hymba-1.5b"), 2, 4
+TPF_D_DECODE = "hymba-1.5b"
+TPF_SEED = 0
+# the first block's placed widths each phase reports
+TPF_WIDTHS = ("in_proj", "conv_w", "out_proj", "wq", "wk", "w_fc",
+              "w_gate")
+# the attention calls kept for the kernel rows: hymba's first windowed
+# layer (layer 1: whole heads, window 1024, 128 meta tokens), whisper's
+# first encoder layer (3 heads a rank)
+TPF_CAPTURE = {
+    "A": lambda a, kw: False,
+    "B": lambda a, kw: kw.get("window", 0) > 0,
+    "C": lambda a, kw: not kw["causal"] and a[0].shape[1] == a[1].shape[1]}
 
 # The reference's chunked attention pads K and V with zero keys to a
 # multiple of this chunk (when longer) that only a causal mask hides, so
@@ -3645,11 +3686,11 @@ def dp_rank(rank: int, init: str, tmp: str, src: str) -> None:
         compat.shutdown()
 
 
-def dp_spawn() -> dict:
-    """Start the dp_train path's DP_RANKS gloo ranks (spawned, daemonic,
-    ``file://`` rendezvous in a fresh directory, removed at exit); each
-    imports what its steps need and waits for ``dp_train``. Returns the
-    handle ``dp_train`` takes."""
+def spawn_ranks(fn, n: int) -> dict:
+    """Start ``n`` gloo ranks running ``fn(rank, init, tmp, src)``
+    (spawned, daemonic, ``file://`` rendezvous in a fresh directory
+    ``tmp``, removed at exit); each imports what its steps need and waits
+    for its path's go file (``join_ranks``). Returns the handle."""
     import atexit
     import shutil
     import tempfile
@@ -3657,45 +3698,35 @@ def dp_spawn() -> dict:
     import torch.multiprocessing as mp
     tmp = tempfile.mkdtemp()
     atexit.register(shutil.rmtree, tmp, True)
-    ctx = mp.start_processes(dp_rank, args=(f"file://{tmp}/rendezvous", tmp,
-                                            str(ROOT / "src")),
-                             nprocs=DP_RANKS, join=False, daemon=True,
+    ctx = mp.start_processes(fn, args=(f"file://{tmp}/rendezvous", tmp,
+                                       str(ROOT / "src")),
+                             nprocs=n, join=False, daemon=True,
                              start_method="spawn")
-    return {"ctx": ctx, "tmp": tmp, "t0": time.perf_counter()}
+    return {"ctx": ctx, "tmp": tmp, "t0": time.perf_counter(), "n": n}
 
 
-def tp_spawn() -> dict:
-    """Start the tp path's TP_RANKS gloo ranks as ``dp_spawn`` starts
-    dp_train's; each waits for ``tp``'s go."""
-    import atexit
-    import shutil
-    import tempfile
-
-    import torch.multiprocessing as mp
-    tmp = tempfile.mkdtemp()
-    atexit.register(shutil.rmtree, tmp, True)
-    ctx = mp.start_processes(tp_rank, args=(f"file://{tmp}/rendezvous", tmp,
-                                            str(ROOT / "src")),
-                             nprocs=TP_RANKS, join=False, daemon=True,
-                             start_method="spawn")
-    return {"ctx": ctx, "tmp": tmp, "t0": time.perf_counter()}
-
-
-def dp_train(ref: dict, spawned: dict) -> dict:
-    """The dp_train path: the ranks ``dp_spawn`` started, given the
-    one-process side's T2 layer input (``dp_reference``) and then the go;
-    joined. A rank that raises fails the path."""
+def join_ranks(spawned: dict, go: str, out: str) -> dict:
+    """Touch the ranks' go file ``go`` and join them (a rank that raises
+    fails the path): the seconds they ran, how long they had waited
+    since ``spawn_ranks``, and each rank's ``<out><rank>.pt``."""
     tmp = spawned["tmp"]
-    for i, layer in enumerate(ref["T2_layer"]):
-        torch.save(layer, f"{tmp}/dp_layer{i}.pt")
     t0 = time.perf_counter()
-    Path(tmp, "go").touch()
+    Path(tmp, go).touch()
     while not spawned["ctx"].join():
         pass
     return {"ranks_s": time.perf_counter() - t0,
             "waited_s": t0 - spawned["t0"],
-            "ranks": [torch.load(f"{tmp}/dp{i}.pt")
-                      for i in range(DP_RANKS)]}
+            "ranks": [torch.load(f"{tmp}/{out}{i}.pt")
+                      for i in range(spawned["n"])]}
+
+
+def dp_train(ref: dict, spawned: dict) -> dict:
+    """The dp_train path: the ranks ``spawn_ranks`` started, given the
+    one-process side's T2 layer input (``dp_reference``) and then the go;
+    joined. A rank that raises fails the path."""
+    for i, layer in enumerate(ref["T2_layer"]):
+        torch.save(layer, f"{spawned['tmp']}/dp_layer{i}.pt")
+    return join_ranks(spawned, "go", "dp")
 
 
 def check_dp_train(r: dict, ref: dict) -> dict:
@@ -3850,30 +3881,6 @@ def tp_train_setup(cfg, dev):
     return ocfg, batch_at(dcfg, cfg, 0, device=dev)
 
 
-def tp_forced(model, cfg, prompt, gen) -> tuple:
-    """The prefill of ``prompt`` and TP_NEW - 1 decode steps fed the tokens
-    ``gen`` [B, TP_NEW]: (the last-position logits of each, whole over the
-    vocabulary, [TP_NEW, B, V] on the host; the model's greedy choice at
-    each, [B, TP_NEW]; the walls)."""
-    from repro_torch.models.model import (decode_step, gather_vocab, greedy,
-                                          prefill)
-    gen = gen.to(prompt.device).long()
-    t0 = time.perf_counter()
-    logits, cache = prefill(model, {"tokens": prompt}, cfg,
-                            max_len=TP_PROMPT + TP_NEW)
-    logits = logits[:, -1:]
-    rows, picks = [gather_vocab(model, logits)[:, 0].cpu()], \
-        [greedy(model, logits)[:, 0].cpu()]
-    t1 = time.perf_counter()
-    for i in range(TP_NEW - 1):
-        logits, cache = decode_step(model, gen[:, i:i + 1], cache,
-                                    TP_PROMPT + i, cfg)
-        rows.append(gather_vocab(model, logits)[:, 0].cpu())
-        picks.append(greedy(model, logits)[:, 0].cpu())
-    return torch.stack(rows), torch.stack(picks, 1), \
-        {"prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1}
-
-
 def tp_reference(dev) -> dict:
     """The unsharded side of the tp path, on the host: the seeded prompts;
     phase A's f32 generate's tokens and, those fed, its logits; its bf16
@@ -3896,8 +3903,8 @@ def tp_reference(dev) -> dict:
                 .generate({"tokens": prompt})
             out[f"{tag}_gen"] = torch.from_numpy(gen)
             if tag == "f32":
-                out["f32_logits"], _, _ = tp_forced(model, c, prompt,
-                                                    out["f32_gen"])
+                out["f32_logits"], _, _ = forced_run(
+                    model, c, {"tokens": prompt}, out["f32_gen"], TP_NEW)
             del model
             torch.cuda.empty_cache()
     model = init_params(cfg_b, TP_SEED, dev)
@@ -3931,9 +3938,9 @@ def tp_census_bytes(cfg, mesh_shape) -> int:
 
 
 def tp_rank(rank: int, init: str, tmp: str, src: str) -> None:
-    """One gloo rank of the tp path (started by ``tp_spawn``; waits for
+    """One gloo rank of the tp path (started by ``spawn_ranks``; waits for
     ``tmp/tp_go``): phase A on (data 1, model 4), the seeded model placed
-    (its bytes against the census's), f32 ``tp_forced`` with the unsharded
+    (its bytes against the census's), f32 ``forced_run`` with the unsharded
     run's tokens, then bf16 ``Engine.generate`` under ``CollectiveTimer``
     (layer 0's attention call kept); phase B on (data 2, model 2) at
     TP_B_DEPTH layers, f32: a batch of one's generate, then one train
@@ -4004,8 +4011,8 @@ def tp_rank(rank: int, init: str, tmp: str, src: str) -> None:
         with mesh_context(mesh, batch=TP_BATCH), torch.inference_mode():
             dist.barrier()
             rep["A_f32_logits"], rep["A_f32_picks"], rep["A_f32_walls"] = \
-                part(lambda: tp_forced(model, cfg32, prompt,
-                                       ref["f32_gen"]))
+                part(lambda: forced_run(model, cfg32, {"tokens": prompt},
+                                        ref["f32_gen"], TP_NEW))
         del model
         torch.cuda.empty_cache()
         model = placed("A_bf16", cfg, mesh, TP_MESHES["A"])
@@ -4079,20 +4086,12 @@ def tp_rank(rank: int, init: str, tmp: str, src: str) -> None:
 
 
 def tp(ref: dict, spawned: dict) -> dict:
-    """The tp path: the ranks ``tp_spawn`` started, given the unsharded
-    side's prompts and f32 tokens (``tp_reference``) and then the go;
-    joined. A rank that raises fails the path."""
-    tmp = spawned["tmp"]
+    """The tp path: the ranks ``spawn_ranks(tp_rank, TP_RANKS)`` started,
+    given the unsharded side's prompts and f32 tokens (``tp_reference``)
+    and then the go; joined."""
     torch.save({"prompt": ref["prompt"], "f32_gen": ref["f32_gen"]},
-               f"{tmp}/tp_in.pt")
-    t0 = time.perf_counter()
-    Path(tmp, "tp_go").touch()
-    while not spawned["ctx"].join():
-        pass
-    return {"ranks_s": time.perf_counter() - t0,
-            "waited_s": t0 - spawned["t0"],
-            "ranks": [torch.load(f"{tmp}/tp{i}.pt")
-                      for i in range(TP_RANKS)]}
+               f"{spawned['tmp']}/tp_in.pt")
+    return join_ranks(spawned, "tp_go", "tp")
 
 
 def check_tp(r: dict, ref: dict) -> dict:
@@ -4225,6 +4224,476 @@ def report_tp(r: dict, checks: dict, card: str) -> None:
            "ranks_started_s_before": r["waited_s"], **checks}
     print(f"tp report: {json.dumps(rep)}", flush=True)
 
+
+def tpf_cut(arch: str, depth, dtype: str = "bfloat16"):
+    """``arch``'s published config in ``dtype``, cut to ``depth`` layers
+    (None: uncut; the hybrid family keeps the global layers below it)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth, global_layers=tuple(
+            i for i in cfg.global_layers if i < depth))
+    return cfg
+
+
+def tpf_configs() -> dict:
+    """Each serve phase's configs: {phase: (bf16 config, f32 config)} at
+    published widths, cut to the phase's depth (TPF_PHASES)."""
+    return {tag: tuple(tpf_cut(ph["arch"], ph["depth"], dt)
+                       for dt in ("bfloat16", "float32"))
+            for tag, ph in TPF_PHASES.items()}
+
+
+def tpf_batch(tag: str, cfg, prompt) -> dict:
+    """A phase's batch: the seeded prompt, and whisper's seeded frames."""
+    batch = {"tokens": prompt}
+    if cfg.enc_layers:
+        batch["frames"] = seeded_batch(cfg, prompt, prompt.device,
+                                       TPF_SEED)["frames"]
+    return batch
+
+
+def forced_run(model, cfg, batch, gen, new: int) -> tuple:
+    """The prefill of ``batch`` (its prompts, and whisper's frames) and
+    ``new`` - 1 decode steps fed the tokens ``gen`` [B, new]: (the
+    last-position logits of each, whole over the vocabulary, [new, B, V]
+    on the host; the model's greedy choice at each, [B, new]; the
+    walls)."""
+    from repro_torch.models.model import (decode_step, gather_vocab, greedy,
+                                          prefill)
+    s = batch["tokens"].shape[1]
+    gen = gen.to(batch["tokens"].device).long()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, batch, cfg, max_len=s + new)
+    logits = logits[:, -1:]
+    rows, picks = [gather_vocab(model, logits)[:, 0].cpu()], \
+        [greedy(model, logits)[:, 0].cpu()]
+    t1 = time.perf_counter()
+    for i in range(new - 1):
+        logits, cache = decode_step(model, gen[:, i:i + 1], cache, s + i,
+                                    cfg)
+        rows.append(gather_vocab(model, logits)[:, 0].cpu())
+        picks.append(greedy(model, logits)[:, 0].cpu())
+    return torch.stack(rows), torch.stack(picks, 1), \
+        {"prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1}
+
+
+def tpf_reference(dev) -> dict:
+    """The unsharded side of the tp_families path, on the host: each
+    serve phase's seeded prompts, its f32 generate's tokens and, those
+    fed, its logits, and its bf16 generate's tokens; phase D's 2-layer
+    f32 mamba2-370m and hymba-1.5b: a train step's loss, grad norm and
+    updated parameters, and hymba's generate of a batch of one first. The
+    models freed."""
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    out = {}
+    for tag, (cfg, cfg32) in tpf_configs().items():
+        g = torch.Generator(dev).manual_seed(TPF_SEED)
+        prompt = torch.randint(0, cfg.vocab_size,
+                               (TPF_BATCH, TPF_PHASES[tag]["prompt"]),
+                               generator=g, device=dev)
+        batch = tpf_batch(tag, cfg, prompt)
+        out[f"{tag}_prompt"] = prompt.cpu()
+        with torch.inference_mode():
+            for kind, c in (("f32", cfg32), ("bf16", cfg)):
+                model = init_params(c, TPF_SEED, dev)
+                gen = Engine(c, model, ServeConfig(
+                    max_new_tokens=TPF_NEW)).generate(batch)
+                out[f"{tag}_{kind}_gen"] = torch.from_numpy(gen)
+                if kind == "f32":
+                    out[f"{tag}_f32_logits"], _, _ = forced_run(
+                        model, c, batch, out[f"{tag}_f32_gen"], TPF_NEW)
+                del model
+                torch.cuda.empty_cache()
+    for arch in TPF_D_ARCHS:
+        c = tpf_cut(arch, TPF_D_DEPTH, "float32")
+        model = init_params(c, TPF_SEED, dev)
+        if arch == TPF_D_DECODE:
+            g = torch.Generator(dev).manual_seed(TPF_SEED)
+            out["D_prompt"] = torch.randint(0, c.vocab_size, (1, TP_PROMPT),
+                                            generator=g, device=dev).cpu()
+            with torch.inference_mode():
+                out["D_gen"] = torch.from_numpy(Engine(c, model, ServeConfig(
+                    max_new_tokens=TPF_D_NEW)).generate(
+                        {"tokens": out["D_prompt"].to(dev)}))
+        model.requires_grad_()
+        ocfg, batch = tp_train_setup(c, dev)
+        state = init_state(dict(model.named_parameters()), ocfg)
+        _, state, m = make_train_step(c, ocfg, TrainConfig())(model, state,
+                                                             batch)
+        out[f"D_{arch}_loss"] = float(m["loss"])
+        out[f"D_{arch}_gnorm"] = float(m["grad_norm"])
+        out[f"D_{arch}_params"] = {n: p.detach().cpu() for n, p in
+                                   model.named_parameters()}
+        del model, state, batch, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def tpf_rank(rank: int, init: str, tmp: str, src: str) -> None:
+    """One gloo rank of the tp_families path (started by ``spawn_ranks``;
+    waits for ``tmp/tpf_go``). Phases A-C on (data 1, model 4), each: the
+    seeded f32 model placed (its bytes against the census's),
+    ``forced_run`` with the unsharded run's tokens, then the bf16 model's
+    ``Engine.generate`` under ``CollectiveTimer`` (hymba's first windowed
+    and whisper's first encoder attention call kept). Phase D on (data 2,
+    model 2): hymba's generate of a batch of one (the cache's slots split
+    over data), then a train step of each 2-layer model under
+    ``CollectiveTimer``, its updated parameters gathered whole (rank 0
+    keeps them). Launches counted from 0 over all of it. Saves it all to
+    ``tmp/tpf<rank>.pt``."""
+    sys.path.insert(0, src)
+    import datetime
+
+    import torch._dynamo  # noqa: F401  (see DP_WAIT_S)
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
+    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.models.moe import block_specs
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    deadline = time.monotonic() + DP_WAIT_S
+    while not Path(tmp, "tpf_go").exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"tp_families rank {rank}: no go in "
+                               f"{DP_WAIT_S} s")
+        time.sleep(0.05)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    compat.init_ranks("gloo", init, rank, TP_RANKS,
+                      timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+    try:
+        ref = torch.load(f"{tmp}/tpf_in.pt")
+        rep, launches = {"rank": rank}, {}
+
+        def part(fn):
+            ops.reset_launch_counts()
+            try:
+                return fn()
+            finally:
+                for k, c in ops.launch_counts().items():
+                    launches[k] = launches.get(k, 0) + c
+
+        def placed(tag, c, mesh, shape):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            with mesh_context(mesh):
+                model = init_params(c, TPF_SEED, dev)
+            torch.cuda.synchronize()
+            rep[f"{tag}_bytes"] = placed_bytes_check(
+                f"tp_families {tag} parameters", list(model.parameters()),
+                torch.cuda.memory_allocated() - before,
+                tp_census_bytes(c, shape))
+            return model
+
+        for tag, (cfg, cfg32) in tpf_configs().items():
+            shape = TPF_PHASES[tag]["mesh"]
+            mesh = pm.make_mesh(*shape)
+            batch = tpf_batch(tag, cfg, ref[f"{tag}_prompt"].to(dev))
+            model = placed(f"{tag}_f32", cfg32, mesh, shape)
+            blk = model.blocks[0]
+            rep[f"{tag}_widths"] = {
+                n: tuple(p.shape) for n, p in blk.named_parameters()
+                if n.split(".")[-1] in TPF_WIDTHS}
+            with mesh_context(mesh, batch=TPF_BATCH), \
+                    torch.inference_mode():
+                dist.barrier()
+                with CollectiveTimer() as timer:
+                    out = part(lambda: forced_run(model, cfg32, batch,
+                                                  ref[f"{tag}_f32_gen"],
+                                                  TPF_NEW))
+                rep[f"{tag}_f32_logits"], rep[f"{tag}_f32_picks"], \
+                    rep[f"{tag}_f32_walls"] = out
+                rep[f"{tag}_f32_collectives"] = timer.record()
+                cache = init_cache(cfg32, TPF_BATCH, 8, device=dev)
+                rep[f"{tag}_cache"] = {
+                    k: list(t.shape) for k, t in cache.items()}
+                del cache
+            del model
+            torch.cuda.empty_cache()
+            model = placed(f"{tag}_bf16", cfg, mesh, shape)
+            cap = Capture(ops, "flash_attention", TPF_CAPTURE[tag])
+            with mesh_context(mesh, batch=TPF_BATCH), \
+                    torch.inference_mode():
+                engine = Engine(cfg, model, ServeConfig(
+                    max_new_tokens=TPF_NEW))
+                torch.cuda.reset_peak_memory_stats()
+                dist.barrier()
+                t0 = time.perf_counter()
+                with cap, CollectiveTimer() as timer:
+                    rep[f"{tag}_bf16_gen"] = torch.from_numpy(part(
+                        lambda: engine.generate(batch)))
+                rep[f"{tag}_bf16_wall_s"] = time.perf_counter() - t0
+                rep[f"{tag}_bf16_timing"] = dict(engine.timing)
+                rep[f"{tag}_bf16_collectives"] = timer.record()
+                rep[f"{tag}_bf16_peak_gib"] = \
+                    torch.cuda.max_memory_allocated() / 2 ** 30
+            if cap.args is not None:
+                (q, k, v), kw = cap.args
+                rep[f"{tag}_call"] = ((q.cpu(), k.cpu(), v.cpu()), kw)
+            del model, engine, cap, batch
+            torch.cuda.empty_cache()
+
+        # phase D: (data 2, model 2), TPF_D_DEPTH layers, f32
+        mesh = pm.make_mesh(*TPF_D_MESH)
+        for arch in TPF_D_ARCHS:
+            c = tpf_cut(arch, TPF_D_DEPTH, "float32")
+            model = placed(f"D_{arch}", c, mesh, TPF_D_MESH)
+            if arch == TPF_D_DECODE:
+                with mesh_context(mesh, batch=1), torch.inference_mode():
+                    cache = init_cache(c, 1, TP_PROMPT + TPF_D_NEW,
+                                       device=dev)
+                    rep["D_cache"] = {"first_slot": cache.first_slot,
+                                      "seq_axes": list(cache.seq_axes),
+                                      "k": list(cache["k"].shape)}
+                    del cache
+                    engine = Engine(c, model, ServeConfig(
+                        max_new_tokens=TPF_D_NEW))
+                    dist.barrier()
+                    with CollectiveTimer() as timer:
+                        rep["D_gen"] = torch.from_numpy(part(
+                            lambda: engine.generate(
+                                {"tokens": ref["D_prompt"].to(dev)})))
+                    rep["D_gen_timing"] = dict(engine.timing)
+                    rep["D_gen_collectives"] = timer.record()
+                    del engine
+            model.requires_grad_()
+            specs = block_specs(model)
+            ocfg, batch = tp_train_setup(c, dev)
+            state = init_state(dict(model.named_parameters()), ocfg, mesh,
+                               specs)
+            step = make_train_step(c, ocfg, TrainConfig())
+            block = {key: shd.local_block(v, shd.batch_spec(
+                TP_BATCH, mesh, extra_dims=v.dim() - 1), mesh)
+                for key, v in batch.items()}
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            t0 = time.perf_counter()
+            with CollectiveTimer() as timer, \
+                    mesh_context(mesh, batch=TP_BATCH):
+                _, state, m = part(lambda: step(model, state, block))
+            torch.cuda.synchronize()
+            rep[f"D_{arch}_step_s"] = time.perf_counter() - t0
+            rep[f"D_{arch}_collectives"] = timer.record()
+            rep[f"D_{arch}_peak_gib"] = torch.cuda.max_memory_allocated() \
+                / 2 ** 30
+            rep[f"D_{arch}_loss"] = float(m["loss"])
+            rep[f"D_{arch}_gnorm"] = float(m["grad_norm"])
+            whole = {n: shd.whole_tensor(p.detach(), specs[n], mesh)
+                     if n in specs else p.detach()
+                     for n, p in model.named_parameters()}
+            if rank == 0:
+                rep[f"D_{arch}_params"] = {n: t.cpu()
+                                           for n, t in whole.items()}
+            del model, state, step, batch, block, whole, m
+            torch.cuda.empty_cache()
+        rep["launches"] = launches
+        torch.save(rep, f"{tmp}/tpf{rank}.pt")
+    finally:
+        compat.shutdown()
+
+
+def tp_families(ref: dict, spawned: dict) -> dict:
+    """The tp_families path: the ranks ``spawn_ranks(tpf_rank,
+    TP_RANKS)`` started, given the unsharded side's prompts and f32 tokens
+    (``tpf_reference``) and then the go; joined."""
+    torch.save({k: v for k, v in ref.items()
+                if k.endswith("_prompt") or k.endswith("_f32_gen")},
+               f"{spawned['tmp']}/tpf_in.pt")
+    return join_ranks(spawned, "tpf_go", "tpf")
+
+
+def tpf_launches_want(configs) -> dict:
+    """A rank's launches over the path: a phase's prefill launches in each
+    of its f32 and bf16 runs (hymba one a layer, whisper its encoder's,
+    self- and cross-attention's), phase D's hymba generate's prefill and
+    its train step (each layer forward twice, remat, and backward once)."""
+    fwd = sum(2 * prefill_launches(cfg) for cfg, _ in configs.values()
+              if not cfg.is_attention_free)
+    return {"flash_attention": fwd + 3 * TPF_D_DEPTH,
+            "flash_attention_bwd": TPF_D_DEPTH}
+
+
+def check_tp_families(r: dict, ref: dict) -> dict:
+    """The tp_families path's gates. A-C, f32: every rank's logits bit for
+    bit the same and, at the prefill's last position and each decode
+    step, within TP_LOGITS_RTOL of the row's largest |logit| of the
+    unsharded model's; the ranks' greedy choices the unsharded run's
+    tokens (both over the real vocabulary, the padded entries left
+    out). A-C, bf16: the ranks' tokens the same (their agreement with
+    the unsharded bf16 tokens reported). D: hymba's tokens of the batch
+    of one the unsharded run's, its cache's slots split over data; each
+    train step's loss and grad norm on every rank within TP_LOSS_RTOL and
+    TP_GNORM_RTOL of the unsharded step's, its updated parameters
+    gathered whole within TP_PARAM_TOL but for TP_PARAM_OUTLIERS of their
+    elements, each within 3 lr. Launches as ``tpf_launches_want`` on every
+    rank. The parameter bytes were held to the census's on the ranks."""
+    ranks, configs = r["ranks"], tpf_configs()
+    out, bad = {}, []
+    for tag, (cfg, _) in configs.items():
+        logits = ranks[0][f"{tag}_f32_logits"]
+        same = all(torch.equal(x[f"{tag}_f32_logits"], logits)
+                   for x in ranks)
+        # the real vocabulary: the padded entries are -1e30 on both sides
+        want = ref[f"{tag}_f32_logits"][..., :cfg.vocab_size]
+        logits = logits[..., :cfg.vocab_size]
+        rel = ((logits - want).abs().amax(-1)
+               / want.abs().amax(-1)).amax(-1)
+        picks = all(torch.equal(x[f"{tag}_f32_picks"], ref[f"{tag}_f32_gen"])
+                    for x in ranks)
+        own = bool((want.argmax(-1).T == ref[f"{tag}_f32_gen"]).all())
+        gen = ranks[0][f"{tag}_bf16_gen"]
+        out[tag] = {
+            "arch": cfg.arch_id, "layers": cfg.n_layers,
+            "f32_logits_identical_on_ranks": same,
+            "f32_logits_rel": [float(x) for x in rel],
+            "f32_picks_equal_unsharded": picks,
+            "unsharded_f32_forced_reproduces_its_tokens": own,
+            "bf16_tokens_identical_on_ranks": all(
+                torch.equal(x[f"{tag}_bf16_gen"], gen) for x in ranks),
+            "bf16_generated_equal_unsharded": int(
+                (gen == ref[f"{tag}_bf16_gen"]).sum()),
+            "bf16_generated_of": int(gen.numel()),
+            "widths_a_rank": ranks[0][f"{tag}_widths"],
+            "cache_a_rank": ranks[0][f"{tag}_cache"]}
+        if not same:
+            bad.append(f"{tag}: ranks' f32 logits differ")
+        if max(out[tag]["f32_logits_rel"]) > TP_LOGITS_RTOL:
+            bad.append(f"{tag}: f32 logits off the unsharded model's")
+        if not picks or not own:
+            bad.append(f"{tag}: f32 greedy tokens differ from the unsharded "
+                       f"run's")
+        if not out[tag]["bf16_tokens_identical_on_ranks"]:
+            bad.append(f"{tag}: ranks generated different bf16 tokens")
+    d = {"cache": ranks[0]["D_cache"], "tokens_equal_unsharded": all(
+        torch.equal(x["D_gen"], ref["D_gen"]) for x in ranks)}
+    if not d["tokens_equal_unsharded"] \
+            or "data" not in d["cache"]["seq_axes"]:
+        bad.append(f"D: decode of one sequence ({d['cache']})")
+    for arch in TPF_D_ARCHS:
+        loss, gnorm = ref[f"D_{arch}_loss"], ref[f"D_{arch}_gnorm"]
+        d[arch] = {"loss": [x[f"D_{arch}_loss"] for x in ranks],
+                   "loss_unsharded": loss,
+                   "gnorm": [x[f"D_{arch}_gnorm"] for x in ranks],
+                   "gnorm_unsharded": gnorm}
+        for x in ranks:
+            if abs(x[f"D_{arch}_loss"] - loss) > TP_LOSS_RTOL * abs(loss) \
+                    or abs(x[f"D_{arch}_gnorm"] - gnorm) \
+                    > TP_GNORM_RTOL * gnorm:
+                bad.append(f"D {arch}: rank {x['rank']} loss or grad norm")
+        beyond, elems, worst = 0, 0, 0.0
+        for n, w in ref[f"D_{arch}_params"].items():
+            g = ranks[0][f"D_{arch}_params"][n]
+            err = (g.float() - w.float()).abs()
+            tol = TP_PARAM_TOL["atol"] \
+                + TP_PARAM_TOL["rtol"] * w.float().abs()
+            beyond += int((err > tol).sum())
+            elems += err.numel()
+            worst = max(worst, float(err.max()))
+        d[arch].update(params_beyond_tol=beyond, params_of=elems,
+                       params_max_abs=worst)
+        if beyond > TP_PARAM_OUTLIERS * elems or worst > 3 * TRAIN_LR:
+            bad.append(f"D {arch}: updated parameters off the unsharded "
+                       f"step's")
+    out["D"] = d
+    want = tpf_launches_want(configs)
+    out["launches_a_rank"] = [{k: x["launches"].get(k, 0) for k in want}
+                              for x in ranks]
+    out["launches_want"] = want
+    for x in ranks:
+        if any(x["launches"].get(k, 0) != n for k, n in want.items()):
+            bad.append(f"rank {x['rank']} launches {x['launches']}")
+    print(f"tp_families checks: {json.dumps(out)}", flush=True)
+    if bad:
+        raise AssertionError(f"tp_families: {bad}")
+    return out
+
+
+def report_tp_families(r: dict, checks: dict, card: str) -> None:
+    """The tp_families path's numbers, each on its own line, then one JSON
+    line: per rank and phase the walls, the collectives' seconds and share
+    of the wall (timed with the card synchronised around each: the rest
+    of the wall is compute and the host's launches), peaks and parameter
+    bytes."""
+    per_rank = []
+    for x in r["ranks"]:
+        row = {"rank": x["rank"]}
+        line = []
+        for tag in TPF_PHASES:
+            f32, bf = x[f"{tag}_f32_collectives"], \
+                x[f"{tag}_bf16_collectives"]
+            f32_wall = sum(x[f"{tag}_f32_walls"].values())
+            row[tag] = {
+                "f32_walls": x[f"{tag}_f32_walls"], "f32_collectives": f32,
+                "f32_collectives_share": f32["total_s"] / f32_wall,
+                "bf16_wall_s": x[f"{tag}_bf16_wall_s"],
+                "bf16_timing": x[f"{tag}_bf16_timing"],
+                "bf16_collectives": bf,
+                "bf16_collectives_share": bf["total_s"]
+                / x[f"{tag}_bf16_wall_s"],
+                "bf16_peak_gib": x[f"{tag}_bf16_peak_gib"],
+                "bytes": x[f"{tag}_bf16_bytes"]}
+            line.append(
+                f"{tag} f32 prefill {x[f'{tag}_f32_walls']['prefill_s']:.3f}"
+                f" s + {TPF_NEW - 1} steps "
+                f"{x[f'{tag}_f32_walls']['decode_s']:.3f} s (collectives "
+                f"{f32['total_s']:.3f} s), bf16 generate "
+                f"{x[f'{tag}_bf16_wall_s']:.3f} s (collectives "
+                f"{bf['total_s']:.3f} s in {sum(bf['calls'].values())} "
+                f"calls)")
+        row["D"] = {"gen_timing": x["D_gen_timing"],
+                    "gen_collectives": x["D_gen_collectives"],
+                    **{arch: {"step_s": x[f"D_{arch}_step_s"],
+                              "collectives": x[f"D_{arch}_collectives"],
+                              "peak_gib": x[f"D_{arch}_peak_gib"]}
+                       for arch in TPF_D_ARCHS}}
+        line.append("D steps " + ", ".join(
+            f"{arch} {x[f'D_{arch}_step_s']:.3f} s (collectives "
+            f"{x[f'D_{arch}_collectives']['total_s']:.3f} s)"
+            for arch in TPF_D_ARCHS))
+        per_rank.append(row)
+        print(f"tp_families rank {x['rank']}: {'; '.join(line)} ({card})",
+              flush=True)
+    rep = {"card": card, "backend": "gloo", "ranks_on_one_card": TP_RANKS,
+           "phases": TPF_PHASES, "batch": TPF_BATCH, "new": TPF_NEW,
+           "D_setup": {"mesh": TPF_D_MESH, "archs": TPF_D_ARCHS,
+                 "depth": TPF_D_DEPTH, "new": TPF_D_NEW,
+                 "batch": TP_BATCH, "prompt": TP_PROMPT},
+           "per_rank": per_rank, "ranks_s": r["ranks_s"],
+           "ranks_started_s_before": r["waited_s"], **checks}
+    print(f"tp_families report: {json.dumps(rep, default=str)}", flush=True)
+
+
+def tpf_kernel_rows(r: dict, dev) -> list:
+    """``flash_attention``'s rows at the tp_families path's two new shapes
+    on a rank: hymba-1.5b's windowed layer (phase B, every head, window
+    1024, 128 meta tokens) and whisper-small's encoder layer (phase C, 3
+    heads a rank); launches: the path's over its 4 ranks."""
+    launches = sum(x["launches"].get("flash_attention", 0)
+                   for x in r["ranks"])
+    rows = []
+    for tag, what in (("B", "hymba-1.5b windowed layer a rank, 4 x 640"),
+                      ("C", "whisper-small encoder layer a rank, 4 x 1500, "
+                            "3 heads")):
+        (q, k, v), kw = r["ranks"][0][f"{tag}_call"]
+        cap = types.SimpleNamespace(
+            args=(tuple(t.to(dev) for t in (q, k, v)), kw))
+        rows.append(flash_row(cap, launches, f"tp_families {what}"))
+        rows[-1]["path"] = "tp_families"
+        rows[-1]["note"] = "; ".join(filter(None, [rows[-1].get("note"), (
+            "launches: the tp_families path's over its 4 ranks (a rank: "
+            "the prefills of phase B's and C's f32 and bf16 runs, phase D's "
+            "hymba generate and train step)")]))
+    return rows
 
 def placed_bytes_check(what: str, tensors, allocated: int,
                        census: int) -> dict:
@@ -4388,8 +4857,9 @@ def census_long(dev, arch: str) -> dict:
     a seed, a seeded cache of 524,288 slots (and the meta tokens') at
     B 1, a warm ``decode_step`` at position 524,287 and
     CENSUS_LONG_STEPS timed ones; the placed bytes against the census's
-    ``port_argument_bytes``; the warm step's logits against the same step
-    in f32 (the parameters cast, the cache cast a layer at a time)."""
+    ``port_argument_bytes`` and the parameters a decode never reads; the
+    warm step's logits against the same step in f32 (the parameters cast,
+    the cache cast a layer at a time)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.distributed.sharding import MeshShape
     from repro_torch.launch import dryrun
@@ -4407,11 +4877,17 @@ def census_long(dev, arch: str) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
                            generator=g, device=dev, dtype=torch.int32)
     cur_pos = torch.tensor(shape.seq_len - 1, dtype=torch.int32, device=dev)
+    # the census counts the parameters a decode reads (hymba's meta
+    # tokens are a prefill's); the model holds them all
+    unread = sum(p.numel() * p.element_size()
+                 for n, p in model.named_parameters()
+                 if dryrun.unread_in_decode(n))
     torch.cuda.synchronize()
     r = {"arch": arch, "memory": placed_bytes_check(
         f"{arch} long_500k", [*model.parameters(), *cache.values(), tokens,
                               cur_pos],
-        torch.cuda.memory_allocated() - before, rec["port_argument_bytes"]),
+        torch.cuda.memory_allocated() - before,
+        rec["port_argument_bytes"] + unread),
         "census": {k: rec[k] for k in ("memory", "port_argument_bytes",
                                        "cost")}}
     state = {k: cache[k].clone() for k in ("h", "conv") if k in cache}
@@ -5389,9 +5865,11 @@ def main() -> int:
         del run
         torch.cuda.empty_cache()
 
-    # the dp_train and tp paths' ranks start now and wait (DP_WAIT_S)
-    dp_ranks = dp_spawn()
-    tp_ranks = tp_spawn()
+    # the dp_train, tp and tp_families paths' ranks start now and wait
+    # (DP_WAIT_S)
+    dp_ranks = spawn_ranks(dp_rank, DP_RANKS)
+    tp_ranks = spawn_ranks(tp_rank, TP_RANKS)
+    tpf_ranks = spawn_ranks(tpf_rank, TP_RANKS)
 
     # four gloo ranks share the card; each counts its own launches from 0
     # around its steps, and the path's counts are their sum
@@ -5484,6 +5962,38 @@ def main() -> int:
     del tp_run, tp_ref
     torch.cuda.empty_cache()
 
+    # the ssm, hybrid and audio families placed by the reference's specs:
+    # four gloo ranks on the card (started with tp's); each counts its own
+    # launches from 0 over the path, and the path's counts are their sum
+    with phase("tp_families: one process unsharded (mamba2-370m, "
+               "hymba-1.5b and whisper-small f32 and bf16 generates; "
+               "2-layer train steps and a decode of one)"):
+        tpf_ref = tpf_reference(dev)
+    with phase("tp_families: 4 gloo ranks on one card, A-C (data 1, model "
+               "4) f32 and bf16, then D (data 2, model 2) decode and train "
+               "steps"):
+        tpf_run = tp_families(tpf_ref, tpf_ranks)
+    counts["tp_families"] = {
+        k: sum(x["launches"].get(k, 0) for x in tpf_run["ranks"])
+        for k in counts["pod"]}
+    print(f"[launches] tp_families: {json.dumps(counts['tp_families'])}",
+          flush=True)
+    missing = [k for k in ("flash_attention", "flash_attention_bwd")
+               if counts["tp_families"][k] == 0]
+    if missing:
+        raise AssertionError(f"tp_families: not launched: {missing}")
+    with phase("tp_families: checks (ranks agree, f32 logits and greedy "
+               "tokens vs the unsharded models, the decode of one sequence, "
+               "the train steps)"):
+        tpf_checks = check_tp_families(tpf_run, tpf_ref)
+    print(card)
+    report_tp_families(tpf_run, tpf_checks, card)
+    tpf_calls = {"ranks": [{k: x[k] for k in ("B_call", "C_call",
+                                              "launches")}
+                           for x in tpf_run["ranks"]]}
+    del tpf_run, tpf_ref
+    torch.cuda.empty_cache()
+
     # the census grid in process, then one rank's share of the two 1B rows
     # (each share's scans counted from 0, their launches gated there) and
     # the long_500k decodes, which launch no kernel
@@ -5532,7 +6042,8 @@ def main() -> int:
                      **{tag: counts[tag] for tag in MODAL_TRAIN_PATHS},
                      "pod": counts["pod"], "dp_train": counts["dp_train"],
                      "tp": counts["tp"], **moe_launches}
-        rows = time_kernels(caps, by_kernel) + census_rows
+        rows = time_kernels(caps, by_kernel) \
+            + tpf_kernel_rows(tpf_calls, dev) + census_rows
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}
     print(card)

@@ -4,7 +4,7 @@
     python3 scripts/dp_train_path.py
 
 Builds the two attention kernels, starts the path's 2 gloo ranks
-(``dp_spawn``), takes its one-process steps (``dp_reference``) while
+(``spawn_ranks``), takes its one-process steps (``dp_reference``) while
 they start, runs them (``dp_train``), its checks and
 report, then times both kernels at the layer-0 shapes of a rank (the
 rows ``time_kernels`` adds). Prints the card's name and power limit and,
@@ -36,7 +36,7 @@ if __name__ == "__main__":
         check=True).stdout.strip()
     print(card, torch.__version__, torch.version.cuda, flush=True)
     dev = torch.device("cuda", 0)
-    ranks = cs.dp_spawn()
+    ranks = cs.spawn_ranks(cs.dp_rank, cs.DP_RANKS)
     with cs.phase("dp_train reference"):
         ref = cs.dp_reference(dev)
     with cs.phase("dp_train"):

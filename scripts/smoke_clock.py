@@ -20,7 +20,7 @@ COLUMNS = (
     ("long_train", ("long_train",)),
     ("audio/vlm_train", ("audio_train", "vlm_train")),
     ("pod", ("pod",)), ("ep", ("ep:",)), ("dp_train", ("dp_train",)),
-    ("tp", ("tp:",)),
+    ("tp", ("tp:",)), ("tp_families", ("tp_families",)),
     ("census", ("census",)), ("main", ("main",)),
     ("compare", ("compare", "cmp")), ("kernel rows", ("kernel timing",)))
 PHASE = re.compile(r"^\[phase\] (.*): ([0-9.]+) s$")

@@ -4,7 +4,7 @@
     python3 scripts/tp_path.py
 
 Builds the two attention kernels, starts the path's 4 gloo ranks
-(``tp_spawn``), takes its unsharded side (``tp_reference``) while they
+(``spawn_ranks``), takes its unsharded side (``tp_reference``) while they
 start, runs them (``tp``), its checks and report, then times
 ``flash_attention`` at phase A's layer-0 shape of a rank (the row
 ``time_kernels`` adds). Prints the card's name and power limit and, last,
@@ -36,7 +36,7 @@ if __name__ == "__main__":
         check=True).stdout.strip()
     print(card, torch.__version__, torch.version.cuda, flush=True)
     dev = torch.device("cuda", 0)
-    ranks = cs.tp_spawn()
+    ranks = cs.spawn_ranks(cs.tp_rank, cs.TP_RANKS)
     with cs.phase("tp: reference"):
         ref = cs.tp_reference(dev)
     with cs.phase("tp: ranks"):

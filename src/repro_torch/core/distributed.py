@@ -195,6 +195,24 @@ class _Gather(torch.autograd.Function):
             None
 
 
+class _GatherOwn(torch.autograd.Function):
+    """The gather forward; backward, each rank keeps its own block of the
+    gathered gradient, unsummed: for a gathered tensor that every rank
+    then consumes whole and alike, so that the gradient reaching it is
+    the same on every rank (a sum would count it n times)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _gather(mesh, axis, t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        size = g.shape[ctx.dim] // ctx.mesh.shape[ctx.axis]
+        start = ctx.mesh.axis_index(ctx.axis) * size
+        return g.narrow(ctx.dim, start, size), None, None, None
+
+
 class _Sum(torch.autograd.Function):
     """``psum`` forward, the identity backward: for a sum that every rank
     consumes whole, so that each rank back-propagates only its own
@@ -233,6 +251,14 @@ def gather_axis(mesh: Mesh, axis: str, t: torch.Tensor,
     reduce-scatter: each rank gets its block of the gathered gradient
     summed over the axis."""
     return _Gather.apply(t, mesh, axis, dim)
+
+
+def gather_own(mesh: Mesh, axis: str, t: torch.Tensor,
+               dim: int = 1) -> torch.Tensor:
+    """``gather_axis``'s forward, whose gradient is this rank's block of
+    the gathered gradient alone (no collective): for a gather whose whole
+    result every rank of ``axis`` uses alike."""
+    return _GatherOwn.apply(t, mesh, axis, dim)
 
 
 def sum_over(mesh: Mesh, axes: Sequence[str], t: torch.Tensor

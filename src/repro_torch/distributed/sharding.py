@@ -23,14 +23,25 @@ gives a layer's parameter the reference's spec without that ``None``.
 
 ``local_block`` cuts this rank's block of a whole tensor by its spec: the
 port's counterpart of placing an array under a ``NamedSharding``;
-``placed_specs`` names the parameters a model of the families in
-``PLACED_FAMILIES`` holds as blocks (``models/model.py:place``),
-``stat_spec`` the blocks of their factored optimizer statistics,
-``gather_data`` the FSDP gather before use and ``whole_tensor`` the
-whole tensor again (a checkpoint). The reference's ``constrain``
-(``with_sharding_constraint``) is not ported: it is a hint to XLA's
-partitioner, which the port does not have, and changes no value; the
-port's layers lay their tensors out the way the hints say.
+``placed_specs`` names the parameters a model built under a mesh holds as
+blocks (``models/model.py:place``; every family), ``stat_spec`` the
+blocks of their factored optimizer statistics, ``gather_data`` the FSDP
+gather before use and ``whole_tensor`` the whole tensor again (a
+checkpoint).
+
+A concatenated leaf is cut per part. The SSD's ``in_proj [d, 2 di + 2 N +
+H]`` holds z, x, B, C and dt side by side, and ``conv_w``, ``conv_b`` and
+the ``conv`` cache hold x, B and C (``LEAF_PARTS``). The reference's
+block of such a leaf is a contiguous run of columns, which on mamba2-370m
+over 4 ranks would straddle z and x; the port's block is the rank's share
+of each part, in part order (``PartSpec``): the same bytes in another
+order. ``local_block``, ``whole_tensor`` and ``stat_spec`` cut and join
+by it; checkpoints are written whole, so they do not see it.
+
+The reference's ``constrain`` (``with_sharding_constraint``) is not
+ported: it is a hint to XLA's partitioner, which the port does not have,
+and changes no value; the port's layers lay their tensors out the way
+the hints say.
 """
 from __future__ import annotations
 
@@ -126,6 +137,73 @@ _RULES: Dict[str, Tuple[Sequence[str], ...]] = {
 }
 
 
+def _xbc(cfg) -> Tuple[int, ...]:
+    return cfg.d_inner, cfg.ssm_state, cfg.ssm_state
+
+
+# the parts of a concatenated leaf along its last dim, by leaf name: the
+# SSD's input projection (z, x, B, C, dt) and its conv's weight, bias and
+# cache window (x, B, C)
+LEAF_PARTS = {
+    "in_proj": lambda cfg: (cfg.d_inner, *_xbc(cfg), cfg.ssm_heads),
+    "conv_w": _xbc, "conv_b": _xbc, "conv": _xbc,
+}
+
+
+class PartSpec(tuple):
+    """A spec (equal to the plain tuple) of a leaf whose last dim
+    concatenates parts of the widths ``parts``: a rank's block of that dim
+    is its block of each part, in part order."""
+    parts: Tuple[int, ...]
+
+    def __new__(cls, spec: Sequence[Entry], parts: Sequence[int]):
+        self = super().__new__(cls, spec)
+        self.parts = tuple(parts)
+        return self
+
+    def __getnewargs__(self):
+        return tuple(self), self.parts
+
+
+def with_parts(name: str, spec: Spec, mesh, cfg) -> Spec:
+    """``spec`` as a ``PartSpec`` where the leaf ``name`` (a port name;
+    its last component is the leaf's) concatenates parts and its spec
+    splits the last dim; else ``spec``. Raises ``NotImplementedError``
+    naming the leaf where the dim splits but a part does not."""
+    leaf = name.split(".")[-1]
+    if leaf not in LEAF_PARTS or spec[-1] is None:
+        return spec
+    parts = LEAF_PARTS[leaf](cfg)
+    n = group_size(mesh, spec[-1])
+    if any(w % n for w in parts):
+        raise NotImplementedError(
+            f"{name}: its parts {parts} do not each split over "
+            f"{entry_axes(spec[-1])} ({n}), though the whole leaf does")
+    return PartSpec(spec, parts)
+
+
+def cut_parts(t: torch.Tensor, dim: int, parts: Sequence[int], n: int,
+              index: int) -> torch.Tensor:
+    """Block ``index`` of ``n`` of each part of ``t`` along ``dim`` (the
+    parts' widths ``parts``), concatenated in part order."""
+    out, start = [], 0
+    for w in parts:
+        size = w // n
+        out.append(t.narrow(dim, start + index * size, size))
+        start += w
+    return torch.cat(out, dim)
+
+
+def join_parts(t: torch.Tensor, dim: int, parts: Sequence[int], n: int
+               ) -> torch.Tensor:
+    """The whole tensor of which ``t`` holds the ``n`` ranks' per-part
+    blocks (``cut_parts``) concatenated on ``dim`` in rank order."""
+    blocks = [b.split([w // n for w in parts], dim)
+              for b in t.chunk(n, dim)]
+    return torch.cat([blocks[r][j] for j in range(len(parts))
+                      for r in range(n)], dim)
+
+
 def _leaf_rule(path: Tuple[str, ...]
                ) -> Optional[Tuple[Sequence[str], ...]]:
     name = path[-1]
@@ -208,25 +286,19 @@ def param_specs(model: nn.Module, mesh,
     return out
 
 
-# the families whose every parameter a model built under a mesh holds as
-# its ``param_specs`` block; the ssm, hybrid and audio families keep theirs
-# whole (their concatenated projections, replicated heads and encoder are
-# not placed yet)
-PLACED_FAMILIES = ("dense", "moe", "vlm")
-
-
 def placed_specs(named_shapes: Mapping[str, Tuple[int, ...]], mesh,
-                 dist: Optional[DistConfig] = None) -> Dict[str, Spec]:
-    """{name: spec} of the parameters (port names and whole shapes) whose
-    ``param_specs`` spec splits a dim on ``mesh``: those a rank holds as a
-    block (``local_block``). The others it holds whole."""
+                 dist: Optional[DistConfig], cfg) -> Dict[str, Spec]:
+    """{name: spec} of the parameters (port names and whole shapes) of a
+    model of ``cfg`` whose ``param_specs`` spec splits a dim on ``mesh``:
+    those a rank holds as a block (``local_block``; a concatenated leaf's
+    spec a ``PartSpec``). The others it holds whole."""
     dist = dist or DistConfig()
     out = {}
     for name, shape in named_shapes.items():
         path, _ = reference_path(name)
         spec = spec_for_leaf(path, tuple(shape), mesh, dist, stacked=False)
         if any(entry is not None for entry in spec):
-            out[name] = spec
+            out[name] = with_parts(name, spec, mesh, cfg)
     return out
 
 
@@ -243,8 +315,12 @@ def stat_spec(spec: Spec, stat: str) -> Spec:
     statistic of its block, its mean completed over the reduced dim's
     axes. Wherever a statistic factors in the placed families this is the
     reference's ``_leaf_rule`` spec of it (``tests/test_torch_census.py``
-    holds the bytes equal)."""
-    return spec[:-1] if stat == "row" else spec[:-2] + spec[-1:]
+    holds the bytes equal). A ``col`` keeps a ``PartSpec``'s parts (it
+    keeps the last dim)."""
+    if stat == "row":
+        return spec[:-1]
+    col = spec[:-2] + spec[-1:]
+    return PartSpec(col, spec.parts) if isinstance(spec, PartSpec) else col
 
 
 def whole_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
@@ -278,11 +354,15 @@ def gather_data(mesh, spec: Spec, t: torch.Tensor) -> torch.Tensor:
 def whole_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """The whole tensor of which ``t`` is this rank's block under
     ``spec``: every split dim all-gathered over its axes, the minor axis
-    first (a collective: every rank of the mesh calls it)."""
+    first, a ``PartSpec``'s last dim joined part by part (a collective:
+    every rank of the mesh calls it)."""
     with torch.no_grad():
         for dim, entry in enumerate(spec):
             for a in reversed(entry_axes(entry)):
                 t = gather_axis(mesh, a, t, dim=dim)
+        if isinstance(spec, PartSpec):
+            t = join_parts(t, t.dim() - 1, spec.parts,
+                           group_size(mesh, spec[-1]))
     return t
 
 
@@ -309,7 +389,8 @@ def local_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's block of the whole tensor ``t`` under ``spec``: each
     sharded dim split into even blocks, the block index row-major over the
     entry's axes (the first major), as jax lays out a ``NamedSharding``.
-    ``mesh`` gives this rank's coordinates (``axis_index``)."""
+    ``mesh`` gives this rank's coordinates (``axis_index``). A
+    ``PartSpec``'s last dim is cut part by part (``cut_parts``)."""
     if len(spec) != t.dim():
         raise ValueError(f"spec {spec} for a tensor of {t.dim()} dims")
     for dim, entry in enumerate(spec):
@@ -320,6 +401,9 @@ def local_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
         if t.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
                              f"over {axes} ({n})")
+        if isinstance(spec, PartSpec) and dim == t.dim() - 1:
+            t = cut_parts(t, dim, spec.parts, n, block_index(mesh, entry))
+            continue
         size = t.shape[dim] // n
         t = t.narrow(dim, block_index(mesh, entry) * size, size)
     return t

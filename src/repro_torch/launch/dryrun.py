@@ -16,16 +16,15 @@ holds:
   its outputs, each leaf's local block under its spec. XLA's compiled
   argument size is that sum; its output size adds 8 bytes a leaf of the
   output tuple.
-* ``port_argument_bytes``: what the port places on a rank: in the dense,
-  moe and vlm families every parameter's ``param_specs`` block
-  (``models/model.py:place``; equal to the argument size, which
-  ``tests/test_torch_census.py`` holds on both meshes), in the ssm,
-  hybrid and audio families the weights whole on every rank and the
-  experts of an expert-parallel MoE layer in blocks; their optimizer
-  state, the rank's block of the batch, the decode cache the rank's
-  ``init_cache`` holds under the mesh (its ``cache_spec`` block in the
-  placed families, every head and slot of its rows in the others) and
-  ``cur_pos``.
+* ``port_argument_bytes``: what the port places on a rank: every
+  parameter's ``param_specs`` block (``models/model.py:place``; an
+  expert-parallel MoE layer's experts in its blocks, a concatenated SSD
+  leaf per part; a decode counts the parameters it reads, as the
+  argument size does), their optimizer state, the rank's block of the
+  batch, the decode cache the rank's ``init_cache`` holds under the mesh
+  (its ``cache_spec`` block) and ``cur_pos``: equal to the argument size
+  in every cell, which ``tests/test_torch_census.py`` holds on both
+  meshes.
 * ``cost``: the matmul-class FLOPs of the port's own step on the rank
   (its heads, ``d_ff`` columns and vocabulary block where they are
   placed; a decode step's slots), by part (projections, feed-forwards,
@@ -72,7 +71,7 @@ import math
 import os
 import time
 import traceback
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,10 +97,15 @@ from repro_torch.distributed.context import mesh_context
 from repro_torch.models.model import (
     MLP,
     Attention,
+    CrossBlock,
+    GeluMLP,
+    HybridBlock,
     MoEBlock,
+    SSMBlock,
     global_flags,
     init_cache,
 )
+from repro_torch.models.ssm import SSM
 from repro_torch.models.moe import (
     EXPERT_WEIGHTS,
     MoE,
@@ -270,22 +274,35 @@ class Flops:
 class Share:
     """A rank's share of the placed products (``models/model.py``): the
     query heads it projects and attends with, the k/v heads it projects,
-    its ``d_ff`` columns, the shared experts' and its vocabulary block;
-    the config's whole widths where nothing is placed."""
+    its ``d_ff`` columns, the shared experts' and its vocabulary block,
+    and the SSD's ``in_proj`` columns, its heads (``ssd_heads``: the
+    rank's in case 1, all in case 2) and its ``out_proj`` rows; the
+    config's whole widths where nothing is placed."""
 
     def __init__(self, cfg: ModelConfig, model=None):
         self.heads, self.kv_heads = cfg.n_heads, cfg.n_kv_heads
         self.ff, self.vocab = cfg.d_ff, cfg.vocab_padded
         self.shared_ff = cfg.d_ff * cfg.n_shared_experts
+        di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        self.ssd_in, self.ssd_heads, self.ssd_rows = 2 * di + 2 * n + nh, \
+            nh, di
         if model is None or not block_specs(model):
             return
         attn = next((m for m in model.modules() if isinstance(m, Attention)),
                     None)
         if attn is not None:
             self.heads, self.kv_heads = attn.wq.shape[1], attn.wk.shape[1]
-        mlp = next((m for m in model.modules() if isinstance(m, MLP)), None)
+        mlp = next((m for m in model.modules()
+                    if isinstance(m, (MLP, GeluMLP))), None)
         if mlp is not None:
-            self.ff = mlp.w_gate.shape[1]
+            self.ff = (mlp.w_gate if isinstance(mlp, MLP)
+                       else mlp.w_fc).shape[1]
+        ssm = next((m for m in model.modules() if isinstance(m, SSM)), None)
+        if ssm is not None:
+            self.ssd_in, self.ssd_rows = ssm.in_proj.shape[1], \
+                ssm.out_proj.shape[0]
+            sp = ssm.split_of()
+            self.ssd_heads = sp.local(nh) if sp else nh
         layer = next((m for m in model.modules() if isinstance(m, MoE)),
                      None)
         if layer is not None and cfg.n_shared_experts:
@@ -326,14 +343,15 @@ def _ffn(f: Flops, cfg: ModelConfig, sh: Share, t: int) -> None:
     f.add("feed-forward", one, tail=True)
 
 
-def _ssd(f: Flops, cfg: ModelConfig, b: int, s0: int, last: bool) -> None:
-    """``ssd_forward``: the projections and the chunked products; ``last``:
-    its out projection is its block's last product."""
-    d, di, n, nh, p = cfg.d_model, cfg.d_inner, cfg.ssm_state, \
-        cfg.ssm_heads, cfg.ssm_head_dim
+def _ssd(f: Flops, cfg: ModelConfig, sh: Share, b: int, s0: int,
+         last: bool) -> None:
+    """``ssd_forward`` on the rank's share: the projections and the
+    chunked products (C.B^T over the whole state); ``last``: its out
+    projection is its block's last product."""
+    d, n, nh, p = cfg.d_model, cfg.ssm_state, sh.ssd_heads, cfg.ssm_head_dim
     q = min(cfg.ssm_chunk, s0)
     nc = -(-s0 // q)
-    f.add("ssd projections", 2 * b * s0 * d * (2 * di + 2 * n + nh))
+    f.add("ssd projections", 2 * b * s0 * d * sh.ssd_in)
     # C.B^T; the decay-weighted product with x
     f.add("ssd products", 2 * b * nc * q * q * n + 2 * b * nc * nh * q * q * p)
     # the chunk states and their contribution through C: over one chunk
@@ -342,15 +360,14 @@ def _ssd(f: Flops, cfg: ModelConfig, b: int, s0: int, last: bool) -> None:
     states = 2 * b * nc * nh * p * q * n
     f.add("ssd products", states, backward=2 if nc > 1 else 0)
     f.add("ssd products", states, backward=2 if nc > 1 else 1)
-    f.add("ssd projections", 2 * b * s0 * di * d, tail=last)
+    f.add("ssd projections", 2 * b * s0 * sh.ssd_rows * d, tail=last)
 
 
-def _ssd_decode(f: Flops, cfg: ModelConfig, b: int) -> None:
-    d, di, n, nh, p = cfg.d_model, cfg.d_inner, cfg.ssm_state, \
-        cfg.ssm_heads, cfg.ssm_head_dim
-    f.add("ssd projections", 2 * b * d * (2 * di + 2 * n + nh)
-          + 2 * b * di * d)
-    f.add("ssd products", 2 * b * nh * p * n)
+def _ssd_decode(f: Flops, cfg: ModelConfig, sh: Share, b: int) -> None:
+    d, n, p = cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim
+    f.add("ssd projections", 2 * b * d * sh.ssd_in
+          + 2 * b * sh.ssd_rows * d)
+    f.add("ssd products", 2 * b * sh.ssd_heads * p * n)
 
 
 class MoeRank:
@@ -399,13 +416,13 @@ def _layers_forward(cfg: ModelConfig, sh: Share, b: int, s: int,
         _ffn(f, cfg, sh, t)
     if cfg.family == "ssm":
         for _ in range(n_main):
-            _ssd(f, cfg, b, s2, last=True)
+            _ssd(f, cfg, sh, b, s2, last=True)
     elif cfg.family == "hybrid":
         for is_global in global_flags(cfg, n_main):
             _attn_proj(f, cfg, sh, t, t)
             _attention(f, cfg, sh, b, s2, s2, True,
                        0 if is_global else cfg.attn_window, cfg.meta_tokens)
-            _ssd(f, cfg, b, s2, last=False)
+            _ssd(f, cfg, sh, b, s2, last=False)
             _ffn(f, cfg, sh, t)
     else:
         for _ in range(n_main):
@@ -428,9 +445,11 @@ def _layers_forward(cfg: ModelConfig, sh: Share, b: int, s: int,
 
 
 def _layers_decode(cfg: ModelConfig, sh: Share, b: int, slots: int,
-                   moe: Optional[MoeRank], heads: int) -> Flops:
+                   moe: Optional[MoeRank], heads: int,
+                   cross: Tuple[int, int] = (0, 0)) -> Flops:
     """Every block's decode step on ``b`` rows over a cache of ``slots``
-    k/v slots (the rank's), ``heads`` query heads reading each."""
+    k/v slots (the rank's), ``heads`` query heads reading each; ``cross``:
+    the same of the cross-attention's ``xk``/``xv``."""
     f = Flops()
     n_main = cfg.n_layers - cfg.n_dense_layers
     for _ in range(cfg.n_dense_layers):
@@ -439,19 +458,19 @@ def _layers_decode(cfg: ModelConfig, sh: Share, b: int, slots: int,
         _ffn(f, cfg, sh, b)
     for _ in range(n_main):
         if cfg.family == "ssm":
-            _ssd_decode(f, cfg, b)
+            _ssd_decode(f, cfg, sh, b)
             continue
         _attn_proj(f, cfg, sh, b, b)
         _decode_attention(f, cfg, b, slots, heads)
         if cfg.family == "hybrid":
-            _ssd_decode(f, cfg, b)
+            _ssd_decode(f, cfg, sh, b)
         if cfg.family == "moe":
             moe.flops(f, cfg, with_aux=False)
         else:
             _ffn(f, cfg, sh, b)
         if cfg.enc_layers:   # q and o only: xk and xv are cached
             _attn_proj(f, cfg, sh, b, 0, "cross-attention projections")
-            _decode_attention(f, cfg, b, cfg.enc_frames, sh.heads)
+            _decode_attention(f, cfg, b, *cross)
     return f
 
 
@@ -475,12 +494,13 @@ def decode_cache(cfg: ModelConfig, big: int, slots: int, mesh,
         return init_cache(cfg, big, slots, device=S.META)
 
 
-def _decode_heads(cfg: ModelConfig, share: Share, cache) -> int:
-    """The query heads that read the rank's slots in a decode step: all of
-    them where ``model`` splits the slots (the query gathered over it),
-    else the rank's."""
-    return cfg.n_heads if "model" in getattr(cache, "seq_axes", ()) \
-        else share.heads
+def _decode_heads(cfg: ModelConfig, share: Share, cache,
+                  cross: bool = False) -> int:
+    """The query heads that read the rank's slots (``cross``: of
+    ``xk``/``xv``) in a decode step: all of them where ``model`` splits
+    the slots (the query gathered over it), else the rank's."""
+    axes = getattr(cache, "x_seq_axes" if cross else "seq_axes", ())
+    return cfg.n_heads if "model" in axes else share.heads
 
 
 def step_flops(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -496,9 +516,11 @@ def step_flops(cfg: ModelConfig, shape: ShapeConfig, mesh,
         b = rank_rows(big, mesh)
         cache = decode_cache(cfg, big, s, mesh, dist)
         slots = cache["k"].shape[2] if "k" in cache else 0
+        cross = (cache["xk"].shape[2], _decode_heads(cfg, sh, cache, True)) \
+            if "xk" in cache else (0, 0)
         f = _layers_decode(cfg, sh, b, slots,
                            _moe(cfg, mesh, big, b, 1, sh.shared_ff),
-                           _decode_heads(cfg, sh, cache))
+                           _decode_heads(cfg, sh, cache), cross)
         f += _head(cfg, sh, b)
         return f
     if shape.kind == "prefill":
@@ -618,49 +640,138 @@ def _gathers(tr: Traffic, mesh, mod, names, times: int,
 
 
 ATTN_WEIGHTS = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
+SSM_WEIGHTS = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+               "ssm_norm", "out_proj")
 MODEL = ("model",)
 
 
-def _block_traffic(tr: Traffic, cfg: ModelConfig, blk, mesh, b: int,
-                   s: int, *, forwards: int, backward: bool,
-                   cache=None) -> None:
-    """A dense or MoE block's collectives of the placed weights (the
-    experts' are ``_moe_traffic``'s) on ``b`` rows x ``s`` positions:
-    the FSDP gathers (recomputed under remat), the sums over ``model`` of
-    the row-parallel products (the feed-forward's, its block's last,
-    once), their inputs' copies in the backward and, with a decode
-    ``cache`` whose slots are split, the query's gather and the partial
-    softmaxes' merges."""
+def _attn_traffic(tr: Traffic, cfg: ModelConfig, attn, mesh, b: int,
+                  s: int, *, forwards: int, backward: bool, cache=None,
+                  kv_len: Optional[int] = None,
+                  names=ATTN_WEIGHTS) -> None:
+    """An attention's collectives on ``b`` rows x ``s`` positions (its
+    keys and values over ``kv_len`` positions of another input, a
+    cross-attention's): the FSDP gathers of ``names``, with a decode
+    ``cache`` whose slots are split the query's gather and the partial
+    softmaxes' merges, the out projection's sum over ``model`` and, in the
+    backward, its inputs' copies (k's and v's where the kv heads are
+    whole)."""
     dtb = getattr(torch, cfg.dtype).itemsize
-    act = b * s * cfg.d_model * dtb
-    attn = blk.attn
-    _gathers(tr, mesh, attn, ATTN_WEIGHTS, forwards, backward)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    _gathers(tr, mesh, attn, names, forwards, backward)
     if cache is not None and cache.seq_axes:
-        hd = cfg.resolved_head_dim
         heads = attn.wq.shape[1]
         if attn.tp and "model" in cache.seq_axes:
             tr.gather(mesh, "model", b * heads * hd * dtb)
             heads = cfg.n_heads
         for a in cache.seq_axes:
             tr.gather(mesh, a, b * heads * (hd + 2) * 4)
-    if attn.tp:
-        for _ in range(forwards):
-            tr.psum(mesh, MODEL, act)
-        if backward:
-            tr.psum(mesh, MODEL, act)
-            if not attn.split("wk", 1):   # k's and v's copies
-                for _ in range(2):
-                    tr.psum(mesh, MODEL, b * s * cfg.n_kv_heads
-                            * cfg.resolved_head_dim * dtb)
-    ffn, names, split = (blk.moe, ("shared_gate", "shared_up",
-                                   "shared_down"), "shared_gate") \
-        if isinstance(blk, MoEBlock) else (blk.mlp, ("w_gate", "w_up",
-                                                     "w_down"), "w_gate")
+    if not attn.tp:
+        return
+    for _ in range(forwards):
+        tr.psum(mesh, MODEL, b * s * d * dtb)
+    if not backward:
+        return
+    tr.psum(mesh, MODEL, b * s * d * dtb)
+    kv = b * (s if kv_len is None else kv_len)
+    if not attn.split("wk", 1):   # k's and v's copies
+        for _ in range(2):
+            tr.psum(mesh, MODEL, kv * cfg.n_kv_heads * hd * dtb)
+    elif kv_len is not None:      # the other input's copy
+        tr.psum(mesh, MODEL, kv * d * dtb)
+
+
+def _ffn_traffic(tr: Traffic, cfg: ModelConfig, blk, mesh, b: int, s: int,
+                 *, forwards: int, backward: bool) -> None:
+    """A block's feed-forward (the MoE's shared experts in an MoE block;
+    the experts' are ``_moe_traffic``'s): its FSDP gathers, its sum over
+    ``model`` (its block's last product: once under remat) and its
+    input's copy in the backward."""
+    act = b * s * cfg.d_model * getattr(torch, cfg.dtype).itemsize
+    if isinstance(blk, MoEBlock):
+        ffn, names = blk.moe, ("shared_gate", "shared_up", "shared_down")
+    elif isinstance(blk.mlp, GeluMLP):
+        ffn, names = blk.mlp, ("w_fc", "b_fc", "w_out")
+    else:
+        ffn, names = blk.mlp, ("w_gate", "w_up", "w_down")
     _gathers(tr, mesh, ffn, names, forwards, backward)
-    if ffn.split(split, 1):
+    if ffn.split(names[0], 1):
         tr.psum(mesh, MODEL, act)
         if backward:
             tr.psum(mesh, MODEL, act)
+
+
+def _ssm_traffic(tr: Traffic, cfg: ModelConfig, ssm, mesh, b: int, s: int,
+                 *, forwards: int, backward: bool, last: bool,
+                 decode: bool = False) -> None:
+    """An SSD's collectives (``models/ssm.py``'s cases): the FSDP
+    gathers; case 1 the B/C gather (reduce-scattered back), the norm's sum
+    of squares and, in the backward, the copies of the input, of
+    ``A_log``, ``D`` and ``dt_bias`` and of the norm's sum; case 2 the
+    conv output's gather (``gather_own``: no backward traffic) and, in
+    the backward, the copies of the conv's input and of the normed output;
+    the out projection's sum over ``model`` (once under remat where it is
+    the block's last product). A decode step's conv output is f32."""
+    _gathers(tr, mesh, ssm, SSM_WEIGHTS, forwards, backward)
+    sp = ssm.split_of()
+    if sp is None:
+        return
+    dtb = getattr(torch, cfg.dtype).itemsize
+    cb = 4 if decode else dtb
+    t, m = b * s, sp.m
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    for _ in range(forwards):
+        if sp.heads:
+            tr.gather(mesh, "model", t * 2 * n // m * cb)
+            tr.psum(mesh, MODEL, t * 4)
+        elif sp.channels:
+            tr.gather(mesh, "model", t * (di + 2 * n) // m * cb)
+    if sp.rows:
+        for _ in range(1 if last else forwards):
+            tr.psum(mesh, MODEL, t * d * dtb)
+    if not backward:
+        return
+    if sp.heads:
+        tr.psum(mesh, MODEL, t * d * dtb)
+        tr.reduce_scatter(mesh, "model", t * 2 * n * dtb)
+        for _ in range(3):
+            tr.psum(mesh, MODEL, cfg.ssm_heads * 4)
+        tr.psum(mesh, MODEL, t * 4)
+        return
+    if sp.channels:
+        tr.psum(mesh, MODEL, t * (di + 2 * n) * dtb)
+    if sp.rows:
+        tr.psum(mesh, MODEL, t * di * 4)
+
+
+def _block_traffic(tr: Traffic, cfg: ModelConfig, blk, mesh, b: int,
+                   s: int, *, forwards: int, backward: bool,
+                   cache=None) -> None:
+    """A block's collectives of the placed weights (the experts' are
+    ``_moe_traffic``'s) on ``b`` rows x ``s`` positions: its attention's
+    (and a decoder layer's cross-attention's over the encoder's frames,
+    whose decode reads its cached ``xk``/``xv``: only ``wq``, ``bq`` and
+    ``wo`` are gathered), its SSD's and its feed-forward's; with
+    ``forwards`` 2 the block recomputed under remat. ``cache``: a decode
+    step's (the rank's layout)."""
+    decode = cache is not None
+    if isinstance(blk, SSMBlock):
+        _ssm_traffic(tr, cfg, blk.ssm, mesh, b, s, forwards=forwards,
+                     backward=backward, last=True, decode=decode)
+        return
+    _attn_traffic(tr, cfg, blk.attn, mesh, b, s, forwards=forwards,
+                  backward=backward, cache=cache)
+    if isinstance(blk, HybridBlock):
+        _ssm_traffic(tr, cfg, blk.ssm, mesh, b, s, forwards=forwards,
+                     backward=backward, last=False, decode=decode)
+    if isinstance(blk, CrossBlock):
+        _attn_traffic(tr, cfg, blk.xattn, mesh, b, s, forwards=forwards,
+                      backward=backward,
+                      cache=cache.cross() if decode else None,
+                      kv_len=cfg.enc_frames,
+                      names=("wq", "bq", "wo") if decode else ATTN_WEIGHTS)
+    _ffn_traffic(tr, cfg, blk, mesh, b, s, forwards=forwards,
+                 backward=backward)
 
 
 def _embed_head_traffic(tr: Traffic, cfg: ModelConfig, model, mesh,
@@ -726,8 +837,7 @@ def step_traffic(cfg: ModelConfig, shape: ShapeConfig, mesh, model,
         return tr
     big, s = shape.global_batch, shape.seq_len
     n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.family == "moe" else 0
-    placed = bool(block_specs(model)) \
-        and cfg.family in ("dense", "moe", "vlm")
+    placed = bool(block_specs(model))
     if shape.kind != "train":
         b = rank_rows(big, mesh)
         s_call = 1 if shape.kind == "decode" else s
@@ -738,9 +848,16 @@ def step_traffic(cfg: ModelConfig, shape: ShapeConfig, mesh, model,
             _embed_head_traffic(tr, cfg, model, mesh, b, s_call,
                                 b if shape.kind == "decode" else b * s,
                                 backward=False, loss=False)
-            for blk in model.layers():
-                _block_traffic(tr, cfg, blk, mesh, b, s_call, forwards=1,
-                               backward=False, cache=cache)
+            if cache is None:   # the prefill runs the encoder
+                for blk in model.encoder:
+                    _block_traffic(tr, cfg, blk, mesh, b, cfg.enc_frames,
+                                   forwards=1, backward=False)
+            for i, blk in enumerate(model.layers()):
+                _block_traffic(tr, cfg, blk, mesh, b,
+                               s_call + cfg.meta_tokens * (cache is None),
+                               forwards=1, backward=False,
+                               cache=None if cache is None
+                               else cache.layer(i))
         for _ in range(n_moe):
             _moe_traffic(tr, cfg, model, mesh, moe, big, b, forwards=1,
                          backward=False, with_aux=False)
@@ -765,9 +882,12 @@ def step_traffic(cfg: ModelConfig, shape: ShapeConfig, mesh, model,
         if placed:
             _embed_head_traffic(tr, cfg, model, mesh, b, s, b * s,
                                 backward=True, loss=True)
+            for blk in model.encoder:
+                _block_traffic(tr, cfg, blk, mesh, b, cfg.enc_frames,
+                               forwards=forwards, backward=True)
             for blk in model.layers():
-                _block_traffic(tr, cfg, blk, mesh, b, s, forwards=forwards,
-                               backward=True)
+                _block_traffic(tr, cfg, blk, mesh, b, s + cfg.meta_tokens,
+                               forwards=forwards, backward=True)
         for _ in range(n_moe):
             _moe_traffic(tr, cfg, model, mesh, moe, size, b,
                          forwards=forwards, backward=True, with_aux=True)
@@ -812,7 +932,7 @@ def lm_record(cfg: ModelConfig, shape: ShapeConfig, mesh,
     read = params if shape.kind != "decode" else {
         k: p for k, p in params.items() if not unread_in_decode(k)}
     args = tree_bytes(read, pspecs, mesh)
-    port = whole_bytes(placed_params.values())
+    port = whole_bytes(p for k, p in placed_params.items() if k in read)
     big = shape.global_batch
     if shape.kind == "train":
         rec["microbatches"] = tcfg.microbatches

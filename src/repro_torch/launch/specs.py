@@ -45,10 +45,10 @@ META = torch.device("meta")
 def abstract_params(cfg: ModelConfig, mesh=None,
                     dist: Optional[DistConfig] = None) -> LM:
     """The model on the meta device. Under ``mesh`` (a ``MeshShape`` will
-    do) it is one rank's, as the port places it: in the dense, moe and vlm
-    families every parameter its ``param_specs`` block (the experts as
-    their expert-parallel layer takes them), in the others every weight
-    whole."""
+    do) it is one rank's, as the port places it: every parameter its
+    ``param_specs`` block (the experts as their expert-parallel layer
+    takes them; the SSD's concatenated leaves per part, the same
+    bytes)."""
     if mesh is None:
         return LM(cfg, device=META)
     with mesh_context(mesh, dist):

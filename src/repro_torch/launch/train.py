@@ -25,7 +25,7 @@ nccl with one card a rank), ``setup`` does what the reference's ``main``
 does with ``make_local_mesh()`` and ``mesh_context``: it lays the ranks
 out as a (data, model) mesh (``--model-axis`` ranks a model line), builds
 the model under it (the rank holds its blocks of the weights by the
-reference's specs, in the dense, moe and vlm families, and of an
+reference's specs, the SSD's concatenated leaves per part, and of an
 expert-parallel MoE layer's experts) and returns a step that takes
 ``batch_at``'s whole batch, keeps this rank's ``batch_spec`` block and
 runs the train step under ``mesh_context(mesh, batch=B)``
@@ -34,8 +34,9 @@ runs the train step under ``mesh_context(mesh, batch=B)``
 With ``--ckpt-dir``, parameters (``<dir>/p``) and optimizer state
 (``<dir>/o``) are saved every ``--ckpt-every`` steps, and a run resumes
 from the latest step found there. On a mesh the blocks are gathered
-whole (``sharding.whole_tensor``; every rank takes part) and rank 0
-writes them, in the layout of a run on one device; at resume every
+whole (``sharding.whole_tensor``; every rank takes part; a per-part
+leaf joined part by part) and rank 0 writes them, in the layout of a
+run on one device; at resume every
 rank reads the whole tensors and keeps its blocks, so a checkpoint
 moves between meshes and to one device.
 """
@@ -223,8 +224,9 @@ def _cut(specs, mesh):
 
 
 def whole_state(params, opt, specs, mesh):
-    """(parameters, optimizer state) with every block gathered whole
-    (a collective: every rank of the mesh calls it)."""
+    """(parameters, optimizer state) with every block gathered whole, a
+    per-part leaf (``sharding.PartSpec``) and its moments joined part by
+    part (a collective: every rank of the mesh calls it)."""
     def whole(key, t):
         spec = _spec_of(key, specs)
         return t if spec is None else whole_tensor(t, spec, mesh)

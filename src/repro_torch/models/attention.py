@@ -10,8 +10,10 @@ scores recomputed per tile from q, k, v, the output and its
 log-sum-exp). Decode is one
 query token against the KV cache and stays plain PyTorch: it has no
 Pallas counterpart. Over a cache whose slots a mesh splits
-(``models/model.py:init_cache``), each rank attends to its slots and the
-partial softmaxes merge across the ranks (``decode_attention_merged``).
+(``models/model.py:init_cache``: the self-attention's slots, meta tokens
+included, or the cross-attention's frames), each rank attends to its
+slots and the partial softmaxes merge across the ranks
+(``decode_attention_merged``).
 
 The hybrid family's mask is the reference's ``_mask_block``: with
 ``window > 0`` a key is visible when it is causal and inside the window,
@@ -69,7 +71,10 @@ def decode_attention_merged(q, k_cache, v_cache, mesh, axes, *, k_pos,
     flash-decoding merge: m = max m_r, l = sum exp(m_r - m) l_r, o the
     same over o_r), then o / l: the values of one rank holding every
     slot, the same bits on every rank of the axes. A rank with no
-    visible slot adds nothing (its m is -1e30 below a visible one)."""
+    visible slot adds nothing (its m is -1e30 below a visible one).
+    ``k_pos`` are global slot positions, so the hybrid family's window
+    and meta tokens (the first ``meta_tokens`` slots, on the rank holding
+    the first slots) mask as over the whole cache."""
     b, _, h, d = q.shape
     n_kv = k_cache.shape[2]
     qg = (q.float() * (1.0 / d ** 0.5)).reshape(b, n_kv, h // n_kv, d)

@@ -10,21 +10,35 @@ across (``repro_torch.carry.lm_params_from_arrays``) instead.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple, Union
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.distributed import copy_over, sum_over
 from repro_torch.distributed import sharding
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
-    """``x / rms(x) * (1 + scale)``: the scale is stored around zero."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+             split: Optional[Tuple[object, Sequence[str]]] = None
+             ) -> torch.Tensor:
+    """``x / rms(x) * (1 + scale)``: the scale is stored around zero.
+
+    ``split`` = (mesh, axes): ``x`` and ``scale`` hold this rank's block of
+    the normed (last) dim, split over ``axes``; the sum of squares is
+    summed over them (``sum_over``) and, since each rank scales its own
+    block by the total, its gradient too (``copy_over``)."""
     dtype = x.dtype
     x = x.float()
-    var = x.square().mean(-1, keepdim=True)
+    if split is None:
+        var = x.square().mean(-1, keepdim=True)
+    else:
+        mesh, axes = split
+        n = x.shape[-1] * math.prod(mesh.shape[a] for a in axes)
+        ss = x.square().sum(-1, keepdim=True)
+        var = copy_over(mesh, axes, sum_over(mesh, axes, ss)) / n
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dtype)
 

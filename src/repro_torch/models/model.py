@@ -59,33 +59,36 @@ layer.
 Under an ambient mesh (``repro_torch.distributed.context.mesh_context``)
 the model is one rank's: its inputs are the rank's block of the batch
 (``sharding.batch_spec``), whose whole size the context is given
-(``mesh_context(..., batch=B)``) where the data axes are above 1. In the
-dense, moe and vlm families (``sharding.PLACED_FAMILIES``) a model built
-there holds every parameter as the block ``sharding.param_specs`` gives
-the rank (``place``; an expert-parallel MoE layer's experts as
-``models/moe.py`` takes them), and seeded there it holds the unsharded
+(``mesh_context(..., batch=B)``) where the data axes are above 1. A model
+built there holds every parameter as the block ``sharding.param_specs``
+gives the rank (``place``; an expert-parallel MoE layer's experts as
+``models/moe.py`` takes them; the SSD's concatenated ``in_proj`` and conv
+per part, ``sharding.PartSpec``), and seeded there it holds the unsharded
 model's weights for the same seed (each drawn whole and cut). The
 products follow the reference's activation specs (``constrain_*``),
 which the port does not port but lays its tensors out by: between
 blocks ``[B, S, d]`` is the rank's rows, whole across ``model``; inside
-a block the heads and ``d_ff`` are split over ``model`` where they divide
-it: ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` column-parallel, ``wo``
-and ``w_down`` row-parallel and summed over ``model`` (``sum_over``),
-their input read through ``copy_over`` (its gradient summed); where the
-heads do not divide ``model`` the rank computes the whole attention,
-where the kv heads do not it computes every kv head and takes those of
-its query heads. The dims the specs split over the data axes are
-all-gathered before use (FSDP, ``Placed.weight``; reduce-scattered in the
-backward). The embedding and the LM head are vocab-parallel: each rank
-looks up its vocabulary block (the rows summed over ``model``) and gives
-the logits of its block (``gather_vocab`` makes them whole; the train
-step's loss and the engine's greedy choice never do). The decode cache
-is the rank's ``sharding.cache_spec`` block (``init_cache``): where it
-splits the slots, a decode step merges the ranks' partial softmaxes
-(``models/attention.py:decode_attention_merged``). The ssm, hybrid and
-audio families keep every weight whole on every rank (their
-concatenated projections, replicated heads and encoder are not placed
-yet).
+a block the heads, ``d_inner`` channels and ``d_ff`` are split over
+``model`` where they divide it: ``wq``/``wk``/``wv``, ``w_gate``/``w_up``
+and ``w_fc`` column-parallel, ``wo``, ``w_down`` and ``w_out``
+row-parallel and summed over ``model`` (``sum_over``; ``b_out`` added
+once after the sum), their input read through ``copy_over`` (its
+gradient summed); where the heads do not divide ``model`` the rank
+computes the whole attention, where the kv heads do not it computes
+every kv head and takes those of its query heads. The SSD's three cases
+(its heads split, its heads whole with its channels split, the gated
+norm over split channels) are ``models/ssm.py``'s. The dims the specs
+split over the data axes are all-gathered before use (FSDP,
+``Placed.weight``; reduce-scattered in the backward). The embedding and
+the LM head are vocab-parallel: each rank looks up its vocabulary block
+(the rows summed over ``model``) and gives the logits of its block
+(``gather_vocab`` makes them whole; the train step's loss and the
+engine's greedy choice never do). The meta tokens, the norms and the
+encoder's input are whole. The decode cache is the rank's
+``sharding.cache_spec`` block (``init_cache``), the cross-attention's
+``xk``/``xv`` by their own spec at the encoder's length: where it splits
+the slots, a decode step merges the ranks' partial softmaxes
+(``models/attention.py:decode_attention_merged``).
 """
 from __future__ import annotations
 
@@ -125,17 +128,40 @@ class Cache(dict):
     sequence dim (``sharding.cache_spec``), this rank holds the slots
     ``[first_slot, first_slot + n)`` of every row it holds, and
     ``seq_axes`` names the axes of ``mesh`` the slots are split over
-    (major first); on one device, every slot."""
+    (major first); on one device, every slot. ``x_first_slot`` and
+    ``x_seq_axes`` are the same for the cross-attention's ``xk``/``xv``
+    (the encoder's frames)."""
     first_slot: int = 0
     seq_axes: Tuple[str, ...] = ()
+    x_first_slot: int = 0
+    x_seq_axes: Tuple[str, ...] = ()
     mesh = None
+    LAYOUT = ("first_slot", "seq_axes", "x_first_slot", "x_seq_axes", "mesh")
 
     def layer(self, i: int) -> "Cache":
         """Layer ``i``'s views, with this cache's slot layout."""
         out = Cache({key: c[i] for key, c in self.items()})
-        out.first_slot, out.seq_axes = self.first_slot, self.seq_axes
+        for attr in self.LAYOUT:
+            setattr(out, attr, getattr(self, attr))
+        return out
+
+    def cross(self) -> "Cache":
+        """This layer's ``xk``/``xv`` as the k/v of a cache of their own
+        slot layout."""
+        out = Cache({"k": self["xk"], "v": self["xv"]})
+        out.first_slot, out.seq_axes = self.x_first_slot, self.x_seq_axes
         out.mesh = self.mesh
         return out
+
+
+def write_slot(cache: Cache, pos: int, k, v) -> None:
+    """Write one token's k and v [B, 1, KVH, hd] into slot ``pos`` of a
+    layer's ``cache["k"]``, ``cache["v"]``, in place, on the rank holding
+    that slot (where the slots are split; elsewhere nothing)."""
+    slot = pos - cache.first_slot
+    if 0 <= slot < cache["k"].shape[1]:
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -294,7 +320,11 @@ class MLP(Placed):
 class GeluMLP(Placed):
     """The audio family's feed-forward (Whisper's): fc, GELU, fc, with
     biases. The GELU is the tanh approximation, ``jax.nn.gelu``'s default
-    (torch's default, the erf form, is another function)."""
+    (torch's default, the erf form, is another function). Placed under a
+    mesh: ``w_fc`` and ``b_fc`` column-parallel and ``w_out`` row-parallel
+    over ``model`` where ``d_ff`` divides it (the input through
+    ``copy_over``, the output summed over ``model``, then ``b_out`` added
+    once)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -305,9 +335,15 @@ class GeluMLP(Placed):
         self.b_out = _param((d,), dtype, device)
 
     def forward(self, x):
-        h = x @ self.w_fc + self.b_fc
+        tp = self.split("w_fc", 1)
+        if tp:
+            x = copy_over(self.mesh, MODEL, x)
+        h = x @ self.weight("w_fc") + self.weight("b_fc")
         h = nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
-        return h @ self.w_out + self.b_out
+        y = h @ self.weight("w_out")
+        if tp:
+            y = sum_over(self.mesh, MODEL, y)
+        return y + self.b_out
 
 
 class DenseBlock(nn.Module):
@@ -355,10 +391,7 @@ class DenseBlock(nn.Module):
         that slot, where the slots are split)."""
         q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
                                     cos, sin)
-        slot = pos - cache.first_slot
-        if 0 <= slot < cache["k"].shape[1]:
-            cache["k"][:, slot] = k[:, 0]
-            cache["v"][:, slot] = v[:, 0]
+        write_slot(cache, pos, k, v)
         return x + self.attn.out(self.attn.attend_cache(q, cache, pos,
                                                         slot_pos))
 
@@ -377,6 +410,7 @@ class CrossBlock(DenseBlock):
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__(cfg, dtype, device)
+        self.enc_frames = cfg.enc_frames
         self.xattn_norm = _param((cfg.d_model,), dtype, device)
         self.xattn = Attention(cfg, dtype, device)
 
@@ -385,7 +419,9 @@ class CrossBlock(DenseBlock):
         xv), the keys and values [B, F, KVH, hd] the decode cache keeps."""
         q, xk, xv = self.xattn.qkv(rms_norm(x, self.xattn_norm, self.eps),
                                    enc_out)
-        return x + self.xattn.out(attention(q, xk, xv, causal=False)), xk, xv
+        a = attention(q, self.xattn.kv_for_queries(xk),
+                      self.xattn.kv_for_queries(xv), causal=False)
+        return x + self.xattn.out(a), xk, xv
 
     def forward(self, x, cos, sin, with_aux: bool = False,
                 collect: bool = False, enc_out=None):
@@ -400,13 +436,14 @@ class CrossBlock(DenseBlock):
 
     def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
         """One token: self-attention as the dense block's, then its
-        cross-attention over every slot of the layer's ``xk``/``xv``."""
+        cross-attention over every slot of the layer's ``xk``/``xv`` (the
+        rank's, merged over the axes splitting them)."""
         x = self.self_attn_step(x, cos, sin, cache, pos, slot_pos)
         q = self.xattn.query(rms_norm(x, self.xattn_norm, self.eps))
-        n = cache["xk"].shape[1]
-        a = decode_attention(q, cache["xk"], cache["xv"],
-                             k_pos=torch.arange(n, device=x.device),
-                             cur_pos=n)
+        xc = cache.cross()
+        frames = xc.first_slot + torch.arange(xc["k"].shape[1],
+                                              device=x.device)
+        a = self.xattn.attend_cache(q, xc, self.enc_frames, frames)
         x = x + self.xattn.out(a)
         return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps))
 
@@ -431,7 +468,8 @@ def _update_state(cache: Cache, new: Cache) -> None:
 
 
 class SSMBlock(nn.Module):
-    """The ssm family's layer: x + SSD(rms_norm(x))."""
+    """The ssm family's layer: x + SSD(rms_norm(x)) (the SSD placed as
+    ``models/ssm.py`` says)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -462,7 +500,9 @@ class HybridBlock(nn.Module):
     """The hybrid family's layer: attention (sliding window and meta
     tokens, or global) and the SSD on the same normed input, each output
     RMS-normed by its own scale, their mean added to x; then the SwiGLU
-    MLP as in the dense block."""
+    MLP as in the dense block. Placed, its attention, SSD and MLP are
+    their own; both branches' outputs are whole on every rank, so the
+    branch norms and the fuse are the unplaced ones."""
 
     def __init__(self, cfg: ModelConfig, dtype, device,
                  is_global: bool = False):
@@ -491,8 +531,9 @@ class HybridBlock(nn.Module):
         cfg = self.cfg
         h = rms_norm(x, self.attn_norm, self.eps)
         q, k, v = self.attn.project(h, cos, sin)
-        a = attention(q, k, v, causal=True, window=cfg.attn_window,
-                      meta_tokens=cfg.meta_tokens,
+        a = attention(q, self.attn.kv_for_queries(k),
+                      self.attn.kv_for_queries(v), causal=True,
+                      window=cfg.attn_window, meta_tokens=cfg.meta_tokens,
                       disable_window=self.is_global)
         if not collect:
             return self._fuse(x, self.attn.out(a), self.ssm(h)), None, None
@@ -502,17 +543,17 @@ class HybridBlock(nn.Module):
 
     def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
         """One token in cache slot ``pos`` (its position, meta tokens
-        counted): writes its k/v into slot ``pos`` and updates ``h`` and
-        ``conv``, all in place."""
+        counted): writes its k/v into slot ``pos`` (by the rank holding it,
+        where the slots are split) and updates ``h`` and ``conv``, all in
+        place."""
         cfg = self.cfg
         h = rms_norm(x, self.attn_norm, self.eps)
         q, k, v = self.attn.project(h, cos, sin)
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
-        a = decode_attention(q, cache["k"], cache["v"], k_pos=slot_pos,
-                             cur_pos=pos, window=cfg.attn_window,
-                             meta_tokens=cfg.meta_tokens,
-                             disable_window=self.is_global)
+        write_slot(cache, pos, k, v)
+        a = self.attn.attend_cache(q, cache, pos, slot_pos,
+                                   window=cfg.attn_window,
+                                   meta_tokens=cfg.meta_tokens,
+                                   disable_window=self.is_global)
         y, state = self.ssm.decode(h, cache)
         _update_state(cache, state)
         return self._fuse(x, self.attn.out(a), y)
@@ -537,10 +578,9 @@ class LM(Placed):
     (the transposed embedding when ``tie_embeddings``).
 
     Built under an ambient mesh, the model is one rank's (``mesh``,
-    ``dist``). In the families of ``sharding.PLACED_FAMILIES`` every
-    parameter whose ``param_specs`` spec splits a dim is held as the
-    rank's block (``place``); the modules are made on the meta device
-    first, so no whole weight is ever allocated."""
+    ``dist``): every parameter whose ``param_specs`` spec splits a dim is
+    held as the rank's block (``place``); the modules are made on the
+    meta device first, so no whole weight is ever allocated."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
@@ -550,7 +590,7 @@ class LM(Placed):
         self.cfg = cfg
         mesh, dist = get_mesh()
         self.mesh, self.dist = mesh, dist
-        placing = mesh is not None and cfg.family in sharding.PLACED_FAMILIES
+        placing = mesh is not None
         if placing and dist.shard_head_dim_fallback:
             raise NotImplementedError("head_dim split over model "
                                       "(shard_head_dim_fallback) is not "
@@ -631,10 +671,11 @@ class LM(Placed):
         return x
 
     def encode(self, frames, remat: bool = False):
-        """The audio encoder over frame embeddings [B, F, d]: the frames
-        and the sinusoidal table, each cast to the model's dtype, added;
-        the ``encoder`` blocks (full attention, rotary embeddings at the
-        frame positions; each recomputed in the backward when ``remat``);
+        """The audio encoder over frame embeddings [B, F, d] (under a mesh,
+        the rank's rows): the frames and the sinusoidal table, each cast to
+        the model's dtype, added; the ``encoder`` blocks (full attention,
+        rotary embeddings at the frame positions; each recomputed in the
+        backward when ``remat``; placed as the decoder's are);
         ``enc_norm``. Returns [B, F, d] in the model's dtype."""
         cfg, dtype = self.cfg, self.tok_embed.dtype
         f = frames.shape[1]
@@ -686,7 +727,7 @@ def place(model: LM, device) -> None:
                for name in moe_lib.EXPERT_WEIGHTS}
     specs = sharding.placed_specs(
         {n: tuple(p.shape) for n, p in model.named_parameters()
-         if n not in experts}, mesh, dist)
+         if n not in experts}, mesh, dist, model.cfg)
     for path, mod in model.named_modules():
         for name, p in list(mod.named_parameters(recurse=False)):
             spec = specs.get(f"{path}.{name}" if path else name)
@@ -849,45 +890,47 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     enc_frames, KVH, hd]`` where the layers attend to an encoder.
 
     Under an ambient mesh, ``batch`` is the whole batch's size and the
-    cache is this rank's: its rows (``sharding.batch_spec``) and, in the
-    families of ``sharding.PLACED_FAMILIES``, its block of k and v by
-    ``sharding.cache_spec``: its kv heads where ``model`` splits them, its
-    slots where the data axes (a batch they do not divide) or ``model``
-    (kv heads it does not divide) split the sequence (``Cache.first_slot``,
-    ``Cache.seq_axes``)."""
+    cache is this rank's ``sharding.cache_spec`` block of each entry: its
+    rows (the data axes, where they divide the batch), its kv heads where
+    ``model`` splits them, its slots where the data axes (a batch they do
+    not divide) or ``model`` (kv heads it does not divide) split the
+    sequence (``Cache.first_slot``, ``Cache.seq_axes``; ``xk``/``xv`` by
+    their own spec at ``enc_frames``, ``Cache.x_first_slot``,
+    ``Cache.x_seq_axes``), the SSD's heads of ``h`` and channels of
+    ``conv`` (per part) where they divide ``model``."""
     check_family(cfg)
     dtype = dtype or _dtype(cfg)
     dev = resolve_device(device)
-    cache = Cache()
-    rows, slots, kvh = batch, max_len + cfg.meta_tokens, cfg.n_kv_heads
-    mesh, dist = get_mesh()
-    if mesh is not None:
-        rows = batch // sharding.group_size(
-            mesh, sharding.batch_spec(batch, mesh)[0])
-    if mesh is not None and cfg.family in sharding.PLACED_FAMILIES:
-        _, _, s_entry, kv_entry, _ = sharding.cache_spec(
-            cfg, batch, mesh, dist, seq_len=slots)["k"]
-        slots //= sharding.group_size(mesh, s_entry)
-        kvh //= sharding.group_size(mesh, kv_entry)
-        cache.first_slot = sharding.block_index(mesh, s_entry) * slots
-        cache.seq_axes = sharding.entry_axes(s_entry)
-        cache.mesh = mesh
+    L, hd, kvh = cfg.n_layers, cfg.resolved_head_dim, cfg.n_kv_heads
+    shapes = {}
     if not cfg.is_attention_free:
-        shape = (cfg.n_layers, rows, slots, kvh, cfg.resolved_head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-        cache["v"] = torch.zeros_like(cache["k"])
+        shapes["k"] = shapes["v"] = (L, batch, max_len + cfg.meta_tokens,
+                                     kvh, hd)
     if cfg.family in ("ssm", "hybrid"):
-        shapes = ssm_lib.ssm_cache_shapes(cfg, rows)
-        cache["h"] = torch.zeros((cfg.n_layers,) + shapes["h"],
-                                 dtype=torch.float32, device=dev)
-        cache["conv"] = torch.zeros((cfg.n_layers,) + shapes["conv"],
-                                    dtype=dtype, device=dev)
+        for key, shape in ssm_lib.ssm_cache_shapes(cfg, batch).items():
+            shapes[key] = (L,) + shape
     if cfg.enc_layers:
-        cache["xk"] = torch.zeros(
-            (cfg.n_layers, rows, cfg.enc_frames, cfg.n_kv_heads,
-             cfg.resolved_head_dim), dtype=dtype, device=dev)
-        cache["xv"] = torch.zeros_like(cache["xk"])
+        shapes["xk"] = shapes["xv"] = (L, batch, cfg.enc_frames, kvh, hd)
+    cache = Cache()
+    mesh, dist = get_mesh()
+    for key, shape in shapes.items():
+        if mesh is not None:
+            spec = sharding.cache_spec(
+                cfg, batch, mesh, dist,
+                seq_len=shape[2] if key in KV_KEYS else None)[key]
+            shape = sharding.block_shape(shape, spec, mesh)
+            if key in ("k", "xk"):
+                x = "x_" if key == "xk" else ""
+                setattr(cache, f"{x}first_slot",
+                        sharding.block_index(mesh, spec[2]) * shape[2])
+                setattr(cache, f"{x}seq_axes", sharding.entry_axes(spec[2]))
+            cache.mesh = mesh
+        cache[key] = torch.zeros(shape, dtype=torch.float32 if key == "h"
+                                 else dtype, device=dev)
     return cache
+
+
+KV_KEYS = ("k", "v", "xk", "xv")
 
 
 def prefill(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -897,15 +940,18 @@ def prefill(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     states after the prompt, and the cross-attention's keys and values
     over the encoder's output). Under a mesh, the rank's: its vocabulary
     block of the logits, its block of the cache (``init_cache``; each rank
-    writes the slots it holds)."""
+    writes the slots and frames it holds, its heads of ``h`` and channels
+    of ``conv`` as the forward leaves them)."""
     b, s = batch["tokens"].shape
     logits, states = forward(model, batch, cfg, collect_cache=True)
     whole = b if model.mesh is None else whole_batch(model.mesh, b)[0]
     cache = init_cache(cfg, whole, max_len or s, device=model.device)
     for key, val in states.items():
-        if key in ("k", "v"):
-            first, n = cache.first_slot, cache[key].shape[2]
-            held = max(min(s + cfg.meta_tokens - first, n), 0)
+        if key in KV_KEYS:   # the slots this rank holds
+            first = cache.x_first_slot if key in ("xk", "xv") \
+                else cache.first_slot
+            n = cache[key].shape[2]
+            held = max(min(val.shape[2] - first, n), 0)
             cache[key][:, :, :held] = val[:, :, first:first + held]
         else:
             cache[key].copy_(val)

@@ -20,23 +20,88 @@ and its gradient 0, never inf times 0.
 Weights keep the reference's layouts (``in_proj [d, 2 di + 2 N + H]``
 holding z, x, B, C, dt; ``conv_w [K, di + 2 N]``; ``out_proj [di, d]``),
 so carrying them is a copy.
+
+Built under a mesh (``models/model.py:place``) the layer holds its
+``param_specs`` blocks, a concatenated leaf cut per part
+(``sharding.PartSpec``), and runs on them (``Split``). One rule sets every
+backward: a value every rank computes whole and alike has the same
+gradient on every rank, and the gradient is summed over ``model`` once,
+where the ranks' work first differs.
+
+1. The heads divide ``model`` (mamba2-370m: 32 heads): ``in_proj`` is
+   column-parallel per part, its input read through ``copy_over``; the
+   conv runs on the rank's channels; the one B/C group is all-gathered
+   over ``model`` after it (``gather_axis``: each rank's heads use B and
+   C, so the gradient is reduce-scattered); ``A_log``, ``D`` and
+   ``dt_bias`` (whole) are read through ``copy_over`` and sliced to the
+   rank's heads; the SSD runs on those heads; the gated RMS norm sums its
+   split sum of squares over ``model`` (``rms_norm(..., split=)``); the
+   row-parallel ``out_proj`` is summed over ``model``.
+2. The heads do not divide ``model`` and the channels do (hymba-1.5b: 50
+   heads, 3232 conv channels): ``in_proj`` is whole, so every rank holds
+   the whole z, x, B, C and dt; the conv runs on the rank's channels of
+   them (read through ``copy_over``: there the ranks' work first differs)
+   and its output is gathered whole (``gather_own``: every rank uses all
+   of it alike, so its gradient is only the rank's block); the SSD, the
+   gate and the norm's statistic run on every head alike; the ranks
+   differ again where each takes its ``d_inner`` rows of the normed
+   output (read through ``copy_over``) for the row-parallel ``out_proj``.
+3. The gated norm over a split ``d_inner`` (case 1) is ``rms_norm``'s
+   ``split``: each rank scales its channels by the total, so its
+   backward sums too.
+
+The decode cache follows ``sharding.cache_spec``: ``h`` holds the rank's
+heads where they divide ``model`` (else all of them, alike), ``conv`` the
+rank's channels per part where they divide.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.core.distributed import (
+    copy_over,
+    gather_axis,
+    gather_own,
+    sum_over,
+)
+from repro_torch.distributed.sharding import (
+    LEAF_PARTS,
+    cut_parts,
+    join_parts,
+)
+from repro_torch.models.layers import Placed, dense_init, rms_norm
 
 Params = Mapping[str, torch.Tensor]
 State = Dict[str, torch.Tensor]
 
 NEG_INF = -1e30
 F32_PARAMS = ("A_log", "D", "dt_bias")   # float32 in any model dtype
+MODEL = ("model",)
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a placed SSD layer's work is split over ``model`` (``m`` ranks,
+    this one ``index``): ``heads`` (case 1: ``in_proj`` per part, the
+    rank's heads and channels), ``channels`` (the conv's channels per
+    part) and ``rows`` (``ssm_norm`` and ``out_proj``'s ``d_inner``
+    rows)."""
+    mesh: object
+    m: int
+    index: int
+    heads: bool
+    channels: bool
+    rows: bool
+
+    def local(self, n: int) -> int:
+        """A width ``n`` split over ``model`` where the heads are."""
+        return n // self.m if self.heads else n
 
 
 def ssm_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -54,10 +119,47 @@ def ssm_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
-def _split_proj(proj: torch.Tensor, cfg: ModelConfig):
-    di, n = cfg.d_inner, cfg.ssm_state
+def _split_proj(proj: torch.Tensor, di: int, n: int):
+    """z, xBC and dt of ``in_proj``'s output (``di``, ``n``: the widths
+    of its x and of its B and C parts)."""
     return proj[..., :di], proj[..., di:2 * di + 2 * n], \
         proj[..., 2 * di + 2 * n:]
+
+
+def _mine(xbc: torch.Tensor, cfg: ModelConfig, sp: Optional[Split]):
+    """The rank's conv channels of the whole raw xBC (case 2: read through
+    ``copy_over``, since each rank's conv uses only its channels), else
+    ``xbc``."""
+    if sp is None or sp.heads or not sp.channels:
+        return xbc
+    return cut_parts(copy_over(sp.mesh, MODEL, xbc), -1,
+                     LEAF_PARTS["conv"](cfg), sp.m, sp.index)
+
+
+def _after_conv(xbc: torch.Tensor, cfg: ModelConfig, sp: Optional[Split]):
+    """The conv's output on the rank's channels -> (x of the rank's heads,
+    the whole B, the whole C): case 1 gathers B and C over ``model``
+    (reduce-scattered back), case 2 the whole output (``gather_own``)."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    if sp is not None and sp.heads:
+        dl = di // sp.m
+        bc = join_parts(gather_axis(sp.mesh, "model", xbc[..., dl:], -1),
+                        -1, (n, n), sp.m)
+        return xbc[..., :dl], bc[..., :n], bc[..., n:]
+    if sp is not None and sp.channels:
+        xbc = join_parts(gather_own(sp.mesh, "model", xbc, -1), -1,
+                         LEAF_PARTS["conv"](cfg), sp.m)
+    return xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
+
+
+def _heads(params: Params, name: str, sp: Optional[Split]) -> torch.Tensor:
+    """A whole per-head parameter; in case 1 read through ``copy_over``
+    (its gradient summed) and sliced to the rank's heads."""
+    t = params[name]
+    if sp is None or not sp.heads:
+        return t
+    n = t.shape[0] // sp.m
+    return copy_over(sp.mesh, MODEL, t).narrow(0, sp.index * n, n)
 
 
 def _causal_conv(xbc: torch.Tensor, conv_w: torch.Tensor,
@@ -74,50 +176,75 @@ def _causal_conv(xbc: torch.Tensor, conv_w: torch.Tensor,
     return F.silu(out + conv_b.float()).to(xbc.dtype)
 
 
-def _dt(dt_raw: torch.Tensor, params: Params) -> torch.Tensor:
+def _dt(dt_raw: torch.Tensor, params: Params,
+        sp: Optional[Split] = None) -> torch.Tensor:
     """softplus(dt_raw + dt_bias), f32."""
-    return F.softplus(dt_raw.float() + params["dt_bias"].float())
+    return F.softplus(dt_raw.float() + _heads(params, "dt_bias", sp).float())
 
 
 def _gate_out(y: torch.Tensor, z: torch.Tensor, params: Params,
-              cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
+              cfg: ModelConfig, dtype: torch.dtype,
+              sp: Optional[Split] = None) -> torch.Tensor:
     """y (f32) gated by SiLU(z), cast to ``dtype``, RMS-normed by
-    ``ssm_norm`` and projected out."""
-    y = y * F.silu(z.float())
-    return rms_norm(y.to(dtype), params["ssm_norm"], cfg.norm_eps) \
-        @ params["out_proj"]
+    ``ssm_norm`` and projected out. Case 1: y and z are the rank's
+    channels (the norm's statistic summed over ``model``); case 2: whole,
+    the rank's rows of the normed output taken; either way the
+    row-parallel product is summed over ``model``."""
+    y = (y * F.silu(z.float())).to(dtype)
+    if sp is None or not sp.rows:
+        return rms_norm(y, params["ssm_norm"], cfg.norm_eps) \
+            @ params["out_proj"]
+    if sp.heads:
+        y = rms_norm(y, params["ssm_norm"], cfg.norm_eps,
+                     split=(sp.mesh, MODEL))
+    else:
+        yf = y.float()
+        normed = yf * torch.rsqrt(yf.square().mean(-1, keepdim=True)
+                                  + cfg.norm_eps)
+        n = normed.shape[-1] // sp.m
+        normed = copy_over(sp.mesh, MODEL, normed).narrow(-1, sp.index * n,
+                                                          n)
+        y = (normed * (1.0 + params["ssm_norm"].float())).to(dtype)
+    return sum_over(sp.mesh, MODEL, y @ params["out_proj"])
 
 
 def ssd_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                return_state: bool = False):
+                return_state: bool = False, sp: Optional[Split] = None):
     """Full-sequence SSD. x [B, S, d] -> [B, S, d] in x's dtype.
 
     With ``return_state`` also returns {"h": the final recurrent state
     [B, H, P, N] f32, "conv": the last K - 1 raw (pre-conv) conv inputs
     [B, K - 1, di + 2 N], left-padded with zeros when S < K - 1}, from
-    which ``ssd_decode_step`` continues."""
+    which ``ssd_decode_step`` continues. With ``sp`` (a placed layer's
+    ``Split``), ``params`` are the rank's blocks and the state its
+    ``cache_spec`` block (the module docstring's cases)."""
     b, s0, _ = x.shape
-    di, n, nh, p_dim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
+    n, p_dim = cfg.ssm_state, cfg.ssm_head_dim
+    di = sp.local(cfg.d_inner) if sp else cfg.d_inner
+    nh = sp.local(cfg.ssm_heads) if sp else cfg.ssm_heads
     q = min(cfg.ssm_chunk, s0)
     pad = (-s0) % q
     s = s0 + pad
     nc = s // q
 
-    z, xbc_raw, dt_raw = _split_proj(x @ params["in_proj"], cfg)
-    xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
-    dt = _dt(dt_raw, params)                                   # [B,S0,H]
+    if sp is not None and sp.heads:
+        x = copy_over(sp.mesh, MODEL, x)
+    z, xbc_raw, dt_raw = _split_proj(
+        x @ params["in_proj"], di, sp.local(n) if sp else n)
+    xbc_raw = _mine(xbc_raw, cfg, sp)
+    xs, B, C = _after_conv(
+        _causal_conv(xbc_raw, params["conv_w"], params["conv_b"]), cfg, sp)
+    dt = _dt(dt_raw, params, sp)                               # [B,S0,H]
     if pad:  # pad the tail after the conv; dt is 0 there, so state and
         # outputs are unaffected
-        xbc = F.pad(xbc, (0, 0, 0, pad))
+        xs, B, C = (F.pad(t, (0, 0, 0, pad)) for t in (xs, B, C))
         dt = F.pad(dt, (0, 0, 0, pad))
-    A = -torch.exp(params["A_log"].float())                    # [H]
+    A = -torch.exp(_heads(params, "A_log", sp).float())        # [H]
 
     # chunk views, heads ahead of positions: [B, nc, H, Q(, P)]
-    xs = xbc[..., :di].float().reshape(b, nc, q, nh, p_dim) \
-        .permute(0, 1, 3, 2, 4)
-    B_c = xbc[..., di:di + n].float().reshape(b, nc, q, n)
-    C_c = xbc[..., di + n:].float().reshape(b, nc, q, n)
+    xs = xs.float().reshape(b, nc, q, nh, p_dim).permute(0, 1, 3, 2, 4)
+    B_c = B.float().reshape(b, nc, q, n)
+    C_c = C.float().reshape(b, nc, q, n)
     dt_c = dt.reshape(b, nc, q, nh).transpose(2, 3)            # [B,nc,H,Q]
     cum = torch.cumsum(dt_c * A[:, None], dim=-1)              # [B,nc,H,Q]
 
@@ -147,9 +274,9 @@ def ssd_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     y = y + (C_c[:, :, None] @ h_prev.transpose(-1, -2)) \
         * torch.exp(cum)[..., None]
-    y = y + params["D"].float()[:, None, None] * xs
+    y = y + _heads(params, "D", sp).float()[:, None, None] * xs
     y = y.permute(0, 1, 3, 2, 4).reshape(b, s, di)[:, :s0]
-    out = _gate_out(y, z, params, cfg, x.dtype)
+    out = _gate_out(y, z, params, cfg, x.dtype, sp)
     if not return_state:
         return out
     k = cfg.ssm_conv
@@ -168,39 +295,47 @@ def ssm_cache_shapes(cfg: ModelConfig, batch: int
 
 
 def ssd_decode_step(params: Params, x: torch.Tensor, cache: State,
-                    cfg: ModelConfig) -> Tuple[torch.Tensor, State]:
+                    cfg: ModelConfig, sp: Optional[Split] = None
+                    ) -> Tuple[torch.Tensor, State]:
     """One-token recurrent update. x [B, 1, d]; ``cache`` as
-    ``ssm_cache_shapes``. Returns (y [B, 1, d], the new cache: ``h`` in
-    the cache's dtype, ``conv`` in the conv cache's); the cache passed in
-    is not written."""
+    ``ssm_cache_shapes`` (with ``sp``, its ``cache_spec`` block). Returns
+    (y [B, 1, d], the new cache: ``h`` in the cache's dtype, ``conv`` in
+    the conv cache's); the cache passed in is not written."""
     b = x.shape[0]
-    di, n, nh, p_dim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
+    n, p_dim = cfg.ssm_state, cfg.ssm_head_dim
+    di = sp.local(cfg.d_inner) if sp else cfg.d_inner
+    nh = sp.local(cfg.ssm_heads) if sp else cfg.ssm_heads
 
-    z, xbc, dt_raw = _split_proj(x[:, 0] @ params["in_proj"], cfg)
+    if sp is not None and sp.heads:
+        x = copy_over(sp.mesh, MODEL, x)
+    z, xbc, dt_raw = _split_proj(x[:, 0] @ params["in_proj"], di,
+                                 sp.local(n) if sp else n)
     # the conv over the window [cache ; new row]
+    xbc = _mine(xbc, cfg, sp)
     win = torch.cat([cache["conv"], xbc[:, None, :].to(cache["conv"].dtype)],
                     dim=1)                                     # [B,K,C]
     conv = (win.float() * params["conv_w"].float()).sum(1)
     conv = F.silu(conv + params["conv_b"].float())
-    xs = conv[:, :di].reshape(b, nh, p_dim)
-    B = conv[:, di:di + n]
-    C = conv[:, di + n:]
+    xs, B, C = _after_conv(conv, cfg, sp)
+    xs = xs.reshape(b, nh, p_dim)
 
-    dt = _dt(dt_raw, params)                                   # [B,H]
-    decay = torch.exp(dt * -torch.exp(params["A_log"].float()))
+    dt = _dt(dt_raw, params, sp)                               # [B,H]
+    decay = torch.exp(dt * -torch.exp(_heads(params, "A_log", sp).float()))
     h = cache["h"].float() * decay[:, :, None, None] \
         + (dt[:, :, None] * xs)[..., None] * B[:, None, None, :]
     y = (h @ C[:, None, :, None])[..., 0] \
-        + params["D"].float()[None, :, None] * xs              # [B,H,P]
-    y = _gate_out(y.reshape(b, 1, di), z[:, None], params, cfg, x.dtype)
+        + _heads(params, "D", sp).float()[None, :, None] * xs  # [B,H,P]
+    y = _gate_out(y.reshape(b, 1, di), z[:, None], params, cfg, x.dtype, sp)
     return y, {"h": h.to(cache["h"].dtype), "conv": win[:, 1:]}
 
 
-class SSM(nn.Module):
+class SSM(Placed):
     """One SSD layer's weights (``ssm_param_shapes``; ``A_log``, ``D`` and
     ``dt_bias`` in float32, the rest in the model dtype), its
-    full-sequence forward and its decode step."""
+    full-sequence forward and its decode step. Placed under a mesh, the
+    rank's blocks (``in_proj``'s and the conv's per part), ``d`` over the
+    data axes gathered before use (``Placed.weight``), run as
+    ``split_of`` says."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
@@ -212,14 +347,34 @@ class SSM(nn.Module):
                             else dtype),
                 requires_grad=False))
 
+    def split_of(self) -> Optional[Split]:
+        """This layer's ``Split`` over ``model``, or None where nothing is
+        split over it. Raises where the heads split the decode state
+        (``cache_spec``) but not ``in_proj``, a layout not ported."""
+        heads, channels = self.split("in_proj", 1), self.split("conv_w", 1)
+        rows = self.split("ssm_norm", 0)
+        if not (heads or channels or rows):
+            return None
+        m = self.mesh.shape["model"]
+        if (self.cfg.ssm_heads % m == 0) != heads:
+            raise NotImplementedError(
+                f"ssm: {self.cfg.ssm_heads} heads over model {m} with "
+                f"in_proj {'split' if heads else 'whole'}")
+        return Split(self.mesh, m, self.model_index(), heads, channels,
+                     rows)
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {name: self.weight(name) for name, _ in
+                self.named_parameters()}
+
     def forward(self, x: torch.Tensor, return_state: bool = False):
-        return ssd_forward(dict(self.named_parameters()), x, self.cfg,
-                           return_state)
+        return ssd_forward(self.params(), x, self.cfg, return_state,
+                           self.split_of())
 
     def decode(self, x: torch.Tensor, cache: State
                ) -> Tuple[torch.Tensor, State]:
-        return ssd_decode_step(dict(self.named_parameters()), x, cache,
-                               self.cfg)
+        return ssd_decode_step(self.params(), x, cache, self.cfg,
+                               self.split_of())
 
 
 @torch.no_grad()
@@ -227,10 +382,12 @@ def init_ssm(ssm: SSM, gen: torch.Generator) -> None:
     """The reference's ``init_ssm``, drawn from ``gen``: A = exp(A_log)
     uniform in [1, 16); dt_bias the softplus inverse of a dt uniform in
     [1e-3, 1e-1]; D ones; ``conv_b`` and ``ssm_norm`` zeros; the
-    projections and the conv fan-in normal along their first axis."""
+    projections and the conv fan-in normal along their first axis, each
+    drawn whole (a placed layer keeps its block, ``Placed.fill``)."""
     def uniform(shape, lo, hi):
         return torch.rand(shape, generator=gen, device=gen.device) \
             * (hi - lo) + lo
+
     for name, w in ssm.named_parameters():
         if name == "A_log":
             w.copy_(torch.log(uniform(w.shape, 1.0, 16.0)))
@@ -242,4 +399,5 @@ def init_ssm(ssm: SSM, gen: torch.Generator) -> None:
         elif name in ("conv_b", "ssm_norm"):
             w.zero_()
         else:
-            w.copy_(dense_init(gen, w.shape, 0, w.dtype))
+            ssm.fill(name, lambda shape, dt=w.dtype: dense_init(gen, shape, 0,
+                                                               dt))

@@ -32,17 +32,21 @@ tensor) and a copy of the shared column.
 
 Under a mesh (``apply_updates(..., mesh=, specs=)``) a parameter that a
 rank holds as a block (``specs``, ``moe.block_specs``: every weight a
-model of the dense, moe and vlm families places, ``wq [d/dp, H/mp, hd]``,
-``tok_embed [V/mp, d/dp]``, and the experts of an expert-parallel MoE
-layer, ``w_gate [E/mp, d/dp, f]``) updates as the reference's global
-array does: its squares enter the global norm summed over the mesh axes
-its spec shards it on (a whole parameter counts once), whether its
+placed model splits, ``wq [d/dp, H/mp, hd]``, ``tok_embed [V/mp, d/dp]``,
+the SSD's ``in_proj [d/dp, (2 di + 2 N + H)/mp]`` per part, and the
+experts of an expert-parallel MoE layer, ``w_gate [E/mp, d/dp, f]``)
+updates as the reference's global array does: its squares enter the
+global norm summed over the mesh axes its spec shards it on (a whole
+parameter counts once), whether its
 second moment factors is decided on its global shape (``global_shape``),
 and a factored statistic that averages over a sharded dim is averaged
 over that dim's axes too (an expert's, ``wo``'s or ``lm_head``'s column
 statistic over ``d``'s axes, a row statistic's mean over the last dim's:
-``sharding.stat_spec`` gives their blocks). The moments are the rank's
-blocks.
+``sharding.stat_spec`` gives their blocks; a per-part leaf's column
+statistic keeps its parts). A per-layer vector held as a block (``b_fc``,
+``ssm_norm``, ``conv_b``) factors across the layers by its whole length,
+its row entries' means over ``d`` completed over ``d``'s axes. The
+moments are the rank's blocks.
 """
 from __future__ import annotations
 
@@ -127,23 +131,28 @@ def global_shape(p: torch.Tensor, spec, mesh) -> Tuple[int, ...]:
                  for i, n in enumerate(p.shape))
 
 
-def stacked_vectors(params: Tensors,
-                    cfg: OptimizerConfig) -> Dict[str, List[str]]:
+def stacked_vectors(params: Tensors, cfg: OptimizerConfig, mesh=None,
+                    specs: Optional[Mapping[str, Any]] = None
+                    ) -> Dict[str, List[str]]:
     """The per-layer vectors whose stacked ``[L, d]`` leaf the reference
     factors: ``{"<stack>.<name>": [the layers' names in layer order]}``
-    (none unless ``cfg.factored``)."""
+    (none unless ``cfg.factored``); under ``mesh``, by a block's whole
+    length (``specs``)."""
     if not cfg.factored:
         return {}
+    specs = specs or {}
     groups: Dict[str, list] = {}
     for name, p in params.items():
         stack, _, rest = name.partition(".")
         if stack in STACKS and p.dim() == 1:
             layer, _, leaf = rest.partition(".")
             groups.setdefault(f"{stack}.{leaf}", []).append((int(layer), name))
+
+    def length(name):
+        return global_shape(params[name], specs.get(name), mesh)[0]
     return {key: [n for _, n in sorted(members)]
             for key, members in groups.items()
-            if _factorable((len(members), params[members[0][1]].shape[0]),
-                           cfg)}
+            if _factorable((len(members), length(members[0][1])), cfg)}
 
 
 def _row_blocks(p: torch.Tensor) -> list:
@@ -196,7 +205,8 @@ def init_state(params: Tensors, cfg: OptimizerConfig, mesh=None,
     global shape and holds the statistics of its block."""
     dt = getattr(torch, cfg.state_dtype)
     specs = specs or {}
-    across = {n for names in stacked_vectors(params, cfg).values()
+    across = {n for names in stacked_vectors(params, cfg, mesh,
+                                             specs).values()
               for n in names}
 
     def init_v(name, p):
@@ -271,12 +281,14 @@ def apply_updates(params: Tensors, grads: Tensors, state: Dict[str, Any],
     # per-layer vectors factored as the reference's stacked [L, d]: the row
     # statistic of each layer, the column's over the layers
     v_across = {}
-    for names in stacked_vectors(params, cfg).values():
+    for names in stacked_vectors(params, cfg, mesh, specs).values():
         vs = [state["v"][n] for n in names]
         g2 = torch.stack([(grads[n].float() * scale).square()
                           for n in names]) + 1e-30
+        mean_last = _mean_over(mesh, _axes(specs.get(names[0]), 0))
         row = cfg.b2 * torch.stack([v["row"].float() for v in vs]) \
-            + (1 - cfg.b2) * g2.mean(-1)
+            + (1 - cfg.b2) * (g2.mean(-1) if mean_last is None
+                              else mean_last(g2.mean(-1)))
         col = cfg.b2 * vs[0]["col"].float() + (1 - cfg.b2) * g2.mean(-2)
         denom = torch.clamp(row.mean(-1, keepdim=True), min=1e-30)
         v_hat = (row / denom)[..., None] * col[..., None, :]

@@ -23,7 +23,9 @@
   ``core/distributed.py``'s ``_gather``, ``_sum_axis`` and
   ``_reduce_scatter`` in gloo CPU worlds of 4 and 2 ranks: the pod serve
   and assign steps, TinyLlama's and DBRX's REDUCED train steps, DBRX's
-  prefill and decode, with expert parallelism, FSDP and microbatches.
+  prefill and decode, with expert parallelism, FSDP and microbatches;
+  mamba2's train step (its SSD heads split), hymba's decode and
+  whisper's prefill (its encoder and cross-attention).
 * ``tests/test_dryrun_artifacts.py``'s three checks on records the
   census computes here (not read from disk), and the grid's time.
 """
@@ -270,34 +272,21 @@ def test_the_port_places_expert_blocks_and_whole_dense_weights():
         + tokens
 
 
-PLACED_ARCHS = [a for a in ARCHS if get_config(a).family
-                in shd.PLACED_FAMILIES]
-
-
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
-@pytest.mark.parametrize("arch", PLACED_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_the_port_places_what_the_reference_specs_place(grid, mesh, arch,
                                                         shape):
-    """In the dense, moe and vlm families the port holds on a rank what
-    the reference's specs give it: parameters, optimizer state, batch and
-    decode cache, to the byte; the ssm, hybrid and audio families keep
-    their weights whole (more bytes than the specs')."""
+    """In every family the port holds on a rank what the reference's
+    specs give it: parameters (a decode's, those it reads; the SSD's
+    concatenated leaves per part, the same bytes), optimizer state, batch
+    and decode cache, to the byte."""
     rec = grid["recs"][(mesh, arch, shape)]
     if rec["status"] != "OK":
         assert rec["status"].startswith("SKIP")
         return
     assert rec["port_argument_bytes"] \
         == rec["memory"]["argument_size_in_bytes"]
-
-
-@pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if a not in PLACED_ARCHS])
-def test_unplaced_families_keep_their_weights_whole(grid, arch):
-    for (mesh, a, _), rec in grid["recs"].items():
-        if a == arch and rec["status"] == "OK":
-            assert rec["port_argument_bytes"] \
-                > rec["memory"]["argument_size_in_bytes"], (mesh, arch)
 
 
 # ------------------------------------------- the reference, compiled
@@ -650,6 +639,9 @@ for world in (4, 2):
                                          generator=g, dtype=torch.int32),
                  "labels": torch.randint(0, cfg.vocab_size, (b, s),
                                          generator=g, dtype=torch.int32)}
+        if cfg.enc_layers:
+            batch["frames"] = torch.randn(b, cfg.enc_frames, cfg.d_model,
+                                          generator=g)
         block = {k: shd.local_block(v, shd.batch_spec(
             b, mesh, extra_dims=v.dim() - 1), mesh) for k, v in batch.items()}
         if kind == "train":
@@ -695,6 +687,11 @@ WORLD_CASES = {
     "dbrx decode, (1, 2)": (2, (1, 2), "decode", "dbrx-132b", 4, 16, 1),
     "kimi-k2 train, (1, 2): shared experts": (
         2, (1, 2), "train", "kimi-k2-1t-a32b", 4, 16, 1),
+    "mamba2 train, (2, 2): SSD heads split": (
+        4, (2, 2), "train", "mamba2-370m", 4, 16, 1),
+    "hymba decode, (1, 2)": (2, (1, 2), "decode", "hymba-1.5b", 4, 16, 1),
+    "whisper prefill, (1, 2): encoder and cross-attention": (
+        2, (1, 2), "prefill", "whisper-small", 4, 16, 1),
 }
 # anns-sift-10m's widths at a size the CPU scans at once (the assign step's
 # chunks 32 x 64)

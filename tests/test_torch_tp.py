@@ -1,5 +1,5 @@
-"""Tensor-parallel and FSDP placement of the dense, attention and
-embedding weights and of the decode cache (``models/model.py`` under
+"""Tensor-parallel and FSDP placement of every family's weights and of
+the decode cache (``models/model.py`` and ``models/ssm.py`` under
 ``mesh_context``) against the reference's jitted steps with its params
 under ``param_shardings``, on the same seeded numpy weights and inputs.
 
@@ -12,27 +12,48 @@ float32 REDUCED configs.
 
 Cases:
 (a) a model seeded under a mesh holds, for every parameter, the block
-    ``local_block`` cuts from the unsharded model of the same seed;
+    ``local_block`` cuts from the unsharded model of the same seed (the
+    SSD's ``in_proj`` and conv per part: mamba2, hymba and whisper
+    beside the dense, moe and vlm archs);
 (b) forward logits (gathered over the vocabulary blocks) within 1e-5 of
     the reference's: TinyLlama on (1, 2) and (2, 2); qwen1.5-4b (5
     heads) on (1, 2), attention replicated over ``model``; DBRX with its
     experts on (2, 2); InternVL2 with vision embeddings on (1, 2);
+    mamba2 on (1, 2) and (2, 2) (its 8 SSD heads split: case 1 of
+    ``models/ssm.py``); hymba on (1, 2); whisper on (1, 2) with frames
+    (the encoder and the cross-attention placed);
 (c) a prefill and 4 greedy decode steps: heads and kv heads split
     (TinyLlama (1, 2)), heads split while the slots go over ``model``
     (TinyLlama (1, 4): 2 kv heads), attention replicated with the slots
     over ``model`` (qwen (1, 2)), and the slots over the data axes (a
-    batch of one on (2, 1) and (2, 2)): ``Engine.generate``'s tokens
-    equal to the reference's greedy tokens, every step's logits (fed the
-    reference's tokens) within 1e-5;
+    batch of one on (2, 1) and (2, 2)); mamba2 on (1, 2) (the SSD state
+    by heads, the conv window by channels), hymba on (1, 4) (2 kv heads:
+    its slots and 8 meta tokens over ``model``), whisper on (1, 2)
+    (``xk``/``xv`` by their own spec) and hymba's batch of one on (2, 1):
+    ``Engine.generate``'s tokens equal to the reference's greedy tokens,
+    every step's logits (fed the reference's tokens) within 1e-5, the
+    cache in ``cache_spec``'s layout;
 (d) two train steps on (2, 2) (TinyLlama, a padded vocabulary of 500 in
-    512) and (1, 2) (qwen): loss and grad norm, and the parameters and
-    moments gathered whole, held as ``tests/test_torch_dp_train.py``
-    holds them;
+    512; mamba2) and (1, 2) (qwen; hymba): loss and grad norm, and the
+    parameters and moments gathered whole, held as
+    ``tests/test_torch_dp_train.py`` holds them;
 (e) the vocab-parallel loss and z-loss and their gradient against the
     whole-vocabulary ``cross_entropy``, padded vocabulary included;
 (f) ``launch/train.py --ckpt-dir`` on (2, 2): a run resumed from step 2
     takes the step the unbroken run took, and the checkpoint loads whole
-    into a model on one device.
+    into a model on one device;
+(g) the SSD's case 2 (its heads whole, its channels split): hymba with
+    ``d_model`` 48 and ``ssm_head_dim`` 32 (3 heads, an ``in_proj`` of
+    211 columns, 112 conv channels) on (1, 2), forward and two train
+    steps.
+
+Only the train cases tell the SSD's backward rules apart (the forward
+is the same either way): on a copy of the port, case (g)'s steps fail
+without the ``copy_over`` on the normed output or on the conv's input,
+or with the conv gather's gradient summed (``gather_axis`` for
+``gather_own``); mamba2's (2, 2) steps fail without the ``copy_over``
+of ``A_log``, ``D`` and ``dt_bias`` (case 1) or of the norm's sum of
+squares (case 3).
 """
 import dataclasses
 import math
@@ -73,6 +94,7 @@ SLOTS = S + NEW   # the cache's: 20 divide over 4 and 2 ranks
 STEPS = 2
 LOGITS_TOL = dict(rtol=1e-5, atol=1e-5)
 OCFG = dict(lr=base.LR, warmup_steps=1, total_steps=10)
+HEADS3 = {"d_model": 48, "ssm_head_dim": 32}
 # name: (kind, world, mesh shape (data, model), arch, config changes, B)
 CASES = {
     "fwd/tinyllama-1x2": ("forward", 2, (1, 2), "tinyllama-1.1b", {}, 2),
@@ -88,10 +110,38 @@ CASES = {
     "train/tinyllama-2x2-v500": ("train", 4, (2, 2), "tinyllama-1.1b",
                                  {"vocab_size": 500}, 4),
     "train/qwen-1x2": ("train", 2, (1, 2), "qwen1.5-4b", {}, 2),
+    # the ssm, hybrid and audio families: mamba2's 8 SSD heads split
+    # (case 1), hymba's 4 query and 2 kv heads, whisper's encoder and
+    # cross-attention
+    "fwd/mamba2-1x2": ("forward", 2, (1, 2), "mamba2-370m", {}, 2),
+    "fwd/mamba2-2x2": ("forward", 4, (2, 2), "mamba2-370m", {}, 4),
+    "fwd/hymba-1x2": ("forward", 2, (1, 2), "hymba-1.5b", {}, 2),
+    "fwd/whisper-1x2": ("forward", 2, (1, 2), "whisper-small", {}, 2),
+    "dec/mamba2-1x2": ("decode", 2, (1, 2), "mamba2-370m", {}, 2),
+    "dec/hymba-1x4": ("decode", 4, (1, 4), "hymba-1.5b", {}, 2),
+    "dec/whisper-1x2": ("decode", 2, (1, 2), "whisper-small", {}, 2),
+    "dec/hymba-2x1-b1": ("decode", 2, (2, 1), "hymba-1.5b", {}, 1),
+    "train/mamba2-2x2": ("train", 4, (2, 2), "mamba2-370m", {}, 4),
+    "train/hymba-1x2": ("train", 2, (1, 2), "hymba-1.5b", {}, 2),
+    # case 2 on the CPU: 3 SSD heads (d_inner 96 of ssm_head_dim 32) do
+    # not divide model 2, nor does in_proj (211 columns); the conv's 112
+    # channels (96 + 8 + 8) and d_inner do
+    "fwd/hymba-3heads-1x2": ("forward", 2, (1, 2), "hymba-1.5b",
+                             HEADS3, 2),
+    "train/hymba-3heads-1x2": ("train", 2, (1, 2), "hymba-1.5b", HEADS3,
+                               2),
+    # the factored second moment at REDUCED sizes: in_proj's column
+    # statistic per part, and the stacked [L, d] vectors whose d the mesh
+    # splits (conv_b per part, ssm_norm) factored across the layers
+    "train/mamba2-2x2-factored": ("train", 4, (2, 2), "mamba2-370m", {}, 4),
 }
+# optimizer config changes of a case
+OPT_CHANGES = {"train/mamba2-2x2-factored": {"factored": True,
+                                             "min_dim_size_to_factor": 2}}
 # (a): the archs seeded on every mesh of the port's worlds
 SEEDED = ("tinyllama-1.1b", "qwen1.5-4b", "dbrx-132b", "kimi-k2-1t-a32b",
-          "internvl2-76b", "command-r-plus-104b")
+          "internvl2-76b", "command-r-plus-104b", "mamba2-370m",
+          "hymba-1.5b", "whisper-small")
 METRICS = ("loss", "grad_norm", "total_loss")
 
 
@@ -151,7 +201,7 @@ from repro.training.optimizer import OptimizerConfig, init_state
 from repro.training.train_step import TrainConfig, make_train_step
 cases, ocfg, steps, new, out = eval(sys.argv[1]), eval(sys.argv[2]), \
     int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
-S = int(sys.argv[6])
+S, opt_changes = int(sys.argv[6]), eval(sys.argv[7])
 x = dict(np.load(out + "/inputs.npz"))
 
 def unflatten(prefix):
@@ -210,7 +260,7 @@ for name, (kind, _, shape, arch, changes, b) in cases.items():
                 [np.asarray(t) for t in toks], 1)
             res[f"{name}/step_logits"] = np.stack(outs)
         else:
-            oc = OptimizerConfig(**ocfg)
+            oc = OptimizerConfig(**ocfg, **opt_changes.get(name, {}))
             state = init_state(params, oc)
             step = jax.jit(make_train_step(cfg, oc, TrainConfig()))
             for i in range(steps):
@@ -243,7 +293,7 @@ from repro_torch.training.train_step import (TrainConfig, cross_entropy,
 torch.set_num_threads(1)
 rank, out = int(sys.argv[1]), sys.argv[2]
 cases, ocfg, steps, new, seeded = (eval(a) for a in sys.argv[3:8])
-S = int(sys.argv[8])
+S, opt_changes = int(sys.argv[8]), eval(sys.argv[9])
 x = dict(np.load(out + "/inputs.npz"))
 
 def unflatten(prefix):
@@ -302,14 +352,20 @@ for world in (4, 2):
                             model, ref_tokens[:, i:i + 1], cache, S + i, cfg)
                         outs.append(gather_vocab(model, logits).numpy())
                 res[f"{name}/step_logits"] = np.stack(outs)
-                res[f"{name}/cache"] = np.array(
-                    [cache.first_slot, cache["k"].shape[2],
-                     cache["k"].shape[3]])
-                res[f"{name}/seq_axes"] = np.array(
-                    ",".join(cache.seq_axes))
+                for key, first, axes in (
+                        ("k", cache.first_slot, cache.seq_axes),
+                        ("xk", cache.x_first_slot, cache.x_seq_axes)):
+                    if key in cache:
+                        res[f"{name}/cache/{key}"] = np.array(
+                            [first, *cache[key].shape[2:4]])
+                        res[f"{name}/seq_axes/{key}"] = np.array(
+                            ",".join(axes))
+                if "h" in cache:
+                    res[f"{name}/cache/ssm"] = np.array(
+                        [cache["h"].shape[2], cache["conv"].shape[3]])
         else:
             model.requires_grad_()
-            oc = OptimizerConfig(**ocfg)
+            oc = OptimizerConfig(**ocfg, **opt_changes.get(name, {}))
             specs = block_specs(model)
             state = init_state(dict(model.named_parameters()), oc, mesh,
                                specs)
@@ -390,7 +446,8 @@ def runs(tmp_path_factory):
     (out / "port.py").write_text(_PORT)
     ref = subprocess.run(
         [sys.executable, str(out / "reference.py"), repr(CASES), repr(OCFG),
-         str(STEPS), str(NEW), str(out), str(S)], env=env,
+         str(STEPS), str(NEW), str(out), str(S), repr(OPT_CHANGES)],
+        env=env,
         capture_output=True,
         text=True, timeout=300)
     assert ref.returncode == 0, ref.stdout + ref.stderr
@@ -402,8 +459,8 @@ def runs(tmp_path_factory):
     procs = [subprocess.Popen(
         [sys.executable, str(out / "port.py"), str(r), str(out),
          repr(CASES), repr(OCFG), str(STEPS), str(NEW), repr(SEEDED),
-         str(S)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for r in range(4)]
+         str(S), repr(OPT_CHANGES)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(4)]
     for p in procs:
         so, se = p.communicate(timeout=300)
         assert p.returncode == 0, so + se
@@ -445,13 +502,24 @@ def test_forward_matches_the_reference_sharded(runs, name):
                                    err_msg=f"rank {r}")
 
 
-# the decode cases' cache layouts (``cache_spec``): (slots a rank, kv
-# heads a rank, the axes splitting the slots)
-LAYOUTS = {"dec/tinyllama-1x2": (SLOTS, 1, ""),
-           "dec/tinyllama-1x4": (SLOTS // 4, 2, "model"),
-           "dec/qwen-1x2": (SLOTS // 2, 5, "model"),
-           "dec/tinyllama-2x1-b1": (SLOTS // 2, 2, "data"),
-           "dec/tinyllama-2x2-b1": (SLOTS // 2, 1, "data")}
+# the decode cases' cache layouts (``cache_spec``): {"k" or "xk": (slots
+# in all, slots a rank, kv heads a rank, the axes splitting the slots),
+# "ssm": (the SSD state's heads a rank, the conv window's channels a
+# rank)}; hymba's 8 meta tokens take slots ahead of the tokens', and its
+# conv's 144 channels are 128 + 8 + 8
+META = 8
+LAYOUTS = {"dec/tinyllama-1x2": {"k": (SLOTS, SLOTS, 1, "")},
+           "dec/tinyllama-1x4": {"k": (SLOTS, SLOTS // 4, 2, "model")},
+           "dec/qwen-1x2": {"k": (SLOTS, SLOTS // 2, 5, "model")},
+           "dec/tinyllama-2x1-b1": {"k": (SLOTS, SLOTS // 2, 2, "data")},
+           "dec/tinyllama-2x2-b1": {"k": (SLOTS, SLOTS // 2, 1, "data")},
+           "dec/mamba2-1x2": {"ssm": (4, 80)},
+           "dec/hymba-1x4": {"k": (SLOTS + META, (SLOTS + META) // 4, 2,
+                                   "model"), "ssm": (2, 36)},
+           "dec/whisper-1x2": {"k": (SLOTS, SLOTS, 2, ""),
+                               "xk": (30, 30, 2, "")},
+           "dec/hymba-2x1-b1": {"k": (SLOTS + META, (SLOTS + META) // 2, 2,
+                                      "data"), "ssm": (8, 144)}}
 
 
 @pytest.mark.parametrize("name", [n for n in CASES if n.startswith("dec/")])
@@ -471,12 +539,18 @@ def test_greedy_decode_matches_the_reference_sharded(runs, name):
             np.stack([_rows(s, b, shape, r)
                       for s in ref[f"{name}/step_logits"]]),
             **LOGITS_TOL, err_msg=f"rank {r}")
-    slots, heads, axes = LAYOUTS[name]
     port = _ranks(runs, name)
-    assert str(port[0][f"{name}/seq_axes"]) == axes
-    assert tuple(port[0][f"{name}/cache"][1:]) == (slots, heads)
-    firsts = sorted({int(p[f"{name}/cache"][0]) for p in port})
-    assert firsts == list(range(0, SLOTS, slots))
+    for key, layout in LAYOUTS[name].items():
+        if key == "ssm":
+            assert tuple(port[0][f"{name}/cache/ssm"]) == layout
+            continue
+        total, slots, heads, axes = layout
+        assert str(port[0][f"{name}/seq_axes/{key}"]) == axes
+        assert tuple(port[0][f"{name}/cache/{key}"][1:]) == (slots, heads)
+        firsts = sorted({int(p[f"{name}/cache/{key}"][0]) for p in port})
+        assert firsts == list(range(0, total, slots))
+    assert {f"{name}/cache/{key}" for key in LAYOUTS[name]} == {
+        k for k in port[0] if k.startswith(f"{name}/cache/")}
 
 
 @pytest.mark.parametrize("i", range(STEPS))
