@@ -198,6 +198,18 @@ paths, each with its kernel launches counted from zero and checked:
   TP_PARAM_TOL but for TP_PARAM_OUTLIERS of them (each within 3 lr),
   and exact launches a rank. Prints each rank's walls, its collectives'
   seconds against them, peaks and parameter bytes.
+* tp_families: the ssm, hybrid and audio families placed the same way
+  on the same 4 ranks (TPF_PHASES: A mamba2-370m, B hymba-1.5b, C
+  whisper-small on (1, 4); D: hymba's decode of one and 2-layer train
+  steps on (2, 2)), under tp's gates; then phase E, hymba-1.5b under
+  ``DistConfig(shard_head_dim_fallback=True)``: its 25 heads do not
+  divide model, so every rank holds 16 of 64 columns of every head of
+  ``wq``/``wk``/``wv``/``wo`` on (1, 4), 32 on (2, 2), and of the decode
+  cache; the blocks are gathered over model and rotated whole, so the
+  ``flash_attention`` kernel (and ``flash_attention_bwd``) runs over
+  every head on every rank. E runs B's prompts (f32 forced run, bf16
+  generate) and D's hymba decode of one and train step, held to B's and
+  D's unsharded runs under the same gates, its launches gated apart.
 * census: ``launch/dryrun.py``'s whole grid in this process (10 archs
   x 4 shapes x 2 meshes, and the ANNS cells: 3 x 2 kinds x 2 meshes; no
   cell may FAIL), then one rank's share of anns-bigann-1b (d 128) and
@@ -246,13 +258,15 @@ those two timed within the census path while its inputs are on the
 card; the pod path's inputs drawn again from the seed as its rank 0 drew
 them;
 ``pq_adc_rows`` on the first full DiskANN wave; ``flash_attention``
-thirteen times: rag's first prefill layer, the moe path's two, hymba's first
+at each of these: rag's first prefill layer, the moe path's two, hymba's first
 windowed and first global layer, whisper's encoder layer and
 cross-attention, internvl2's first layer, the two train layers
 audio_train and vlm_train add, whisper's encoder at B=16 and
 internvl2's at 4 x 1024, dp_train's layer 0 of a rank, TinyLlama's
-at 4 x 2048 and DBRX's at 4 x 512, and tp's layer 0 of a rank in phase
-A (4 x 512, 8 / 1 heads, bf16); ``flash_attention_bwd`` seven times:
+at 4 x 2048 and DBRX's at 4 x 512, tp's layer 0 of a rank in phase
+A (4 x 512, 8 / 1 heads, bf16), and a rank's hymba-1.5b windowed layer
+in tp_families' phases B and E and whisper-small's encoder layer in its
+phase C; ``flash_attention_bwd`` seven times:
 the train path's layer 0, long_train's hymba layer 1, windowed,
 whisper's encoder layer and cross-attention, internvl2's layer 0 and
 dp_train's two layers, each under its own mask, two calls
@@ -688,7 +702,14 @@ TP_PARAM_OUTLIERS = 1e-3
 # Engine.generate. D: on (data 2, model 2), hymba-1.5b cut to TPF_D_DEPTH
 # layers decodes a batch of one (its slots split over data), then one
 # AdamW step each of mamba2-370m and hymba-1.5b at TPF_D_DEPTH layers on
-# TP_BATCH x TP_PROMPT (tp's gates)
+# TP_BATCH x TP_PROMPT (tp's gates). E: hymba-1.5b placed under
+# DistConfig(shard_head_dim_fallback=True) (its 25 heads do not divide
+# model, so wq, wk, wv and wo are split over the head dim: 16 of 64 columns
+# of every head a rank on (1, 4), 32 on (2, 2); the decode cache too), held
+# to the unsharded runs B and D already took: on (1, 4) at B's depth, B's
+# prompts, f32 forced run and bf16 Engine.generate; on (2, 2) at
+# TPF_D_DEPTH, D's decode of one (its slots over data) and D's hymba train
+# step
 TPF_PHASES = {
     "A": dict(arch="mamba2-370m", depth=None, prompt=512,
               mesh=((1, 4), ("data", "model"))),
@@ -700,9 +721,10 @@ TPF_BATCH, TPF_NEW = 4, 9
 TPF_D_MESH = ((2, 2), ("data", "model"))
 TPF_D_ARCHS, TPF_D_DEPTH, TPF_D_NEW = ("mamba2-370m", "hymba-1.5b"), 2, 4
 TPF_D_DECODE = "hymba-1.5b"
+TPF_E_MESH = ((1, 4), ("data", "model"))
 TPF_SEED = 0
 # the first block's placed widths each phase reports
-TPF_WIDTHS = ("in_proj", "conv_w", "out_proj", "wq", "wk", "w_fc",
+TPF_WIDTHS = ("in_proj", "conv_w", "out_proj", "wq", "wk", "wo", "w_fc",
               "w_gate")
 # the attention calls kept for the kernel rows: hymba's first windowed
 # layer (layer 1: whole heads, window 1024, 128 meta tokens), whisper's
@@ -710,6 +732,7 @@ TPF_WIDTHS = ("in_proj", "conv_w", "out_proj", "wq", "wk", "w_fc",
 TPF_CAPTURE = {
     "A": lambda a, kw: False,
     "B": lambda a, kw: kw.get("window", 0) > 0,
+    "E": lambda a, kw: kw.get("window", 0) > 0,
     "C": lambda a, kw: not kw["causal"] and a[0].shape[1] == a[1].shape[1]}
 
 # The reference's chunked attention pads K and V with zero keys to a
@@ -3925,16 +3948,17 @@ def tp_reference(dev) -> dict:
     return out
 
 
-def tp_census_bytes(cfg, mesh_shape) -> int:
+def tp_census_bytes(cfg, mesh_shape, dist=None) -> int:
     """A rank's parameter bytes under the reference's specs on the mesh
-    ``mesh_shape`` ((sizes), (names)): the census's ``tree_bytes``."""
+    ``mesh_shape`` ((sizes), (names)) and ``dist`` (a ``DistConfig``;
+    None: the default): the census's ``tree_bytes``."""
     from repro_torch.distributed.sharding import MeshShape, param_specs
     from repro_torch.launch import dryrun
     from repro_torch.launch import specs as S
     mesh = MeshShape(mesh_shape[1], mesh_shape[0])
     model = S.abstract_params(cfg)
     return dryrun.tree_bytes(dict(model.named_parameters()),
-                             param_specs(model, mesh), mesh)
+                             param_specs(model, mesh, dist), mesh)
 
 
 def tp_rank(rank: int, init: str, tmp: str, src: str) -> None:
@@ -4343,8 +4367,11 @@ def tpf_rank(rank: int, init: str, tmp: str, src: str) -> None:
     model 2): hymba's generate of a batch of one (the cache's slots split
     over data), then a train step of each 2-layer model under
     ``CollectiveTimer``, its updated parameters gathered whole (rank 0
-    keeps them). Launches counted from 0 over all of it. Saves it all to
-    ``tmp/tpf<rank>.pt``."""
+    keeps them). Phase E: B's serve run on (1, 4) and D's hymba decode
+    and train step on (2, 2) again, under ``DistConfig(
+    shard_head_dim_fallback=True)`` (its launches also counted apart, as
+    ``launches_E``). Launches counted from 0 over all of it. Saves it all
+    to ``tmp/tpf<rank>.pt``."""
     sys.path.insert(0, src)
     import datetime
 
@@ -4373,56 +4400,60 @@ def tpf_rank(rank: int, init: str, tmp: str, src: str) -> None:
                       timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
     try:
         ref = torch.load(f"{tmp}/tpf_in.pt")
-        rep, launches = {"rank": rank}, {}
+        rep, launches, launches_e = {"rank": rank}, {}, {}
+        head_dim = shd.DistConfig(shard_head_dim_fallback=True)
 
-        def part(fn):
+        def part(fn, *also):
             ops.reset_launch_counts()
             try:
                 return fn()
             finally:
                 for k, c in ops.launch_counts().items():
-                    launches[k] = launches.get(k, 0) + c
+                    for into in (launches, *also):
+                        into[k] = into.get(k, 0) + c
 
-        def placed(tag, c, mesh, shape):
+        def placed(tag, c, mesh, shape, dist_cfg=None):
             torch.cuda.synchronize()
             before = torch.cuda.memory_allocated()
-            with mesh_context(mesh):
+            with mesh_context(mesh, dist_cfg):
                 model = init_params(c, TPF_SEED, dev)
             torch.cuda.synchronize()
             rep[f"{tag}_bytes"] = placed_bytes_check(
                 f"tp_families {tag} parameters", list(model.parameters()),
                 torch.cuda.memory_allocated() - before,
-                tp_census_bytes(c, shape))
+                tp_census_bytes(c, shape, dist_cfg))
             return model
 
-        for tag, (cfg, cfg32) in tpf_configs().items():
-            shape = TPF_PHASES[tag]["mesh"]
+        def serve(tag, held_to, cfg, cfg32, shape, dist_cfg=None, *also):
+            """A serve phase on ``shape``: the f32 forced run fed the
+            tokens of ``held_to``'s unsharded run, then bf16 generate."""
             mesh = pm.make_mesh(*shape)
-            batch = tpf_batch(tag, cfg, ref[f"{tag}_prompt"].to(dev))
-            model = placed(f"{tag}_f32", cfg32, mesh, shape)
+            batch = tpf_batch(held_to, cfg, ref[f"{held_to}_prompt"].to(dev))
+            model = placed(f"{tag}_f32", cfg32, mesh, shape, dist_cfg)
             blk = model.blocks[0]
             rep[f"{tag}_widths"] = {
                 n: tuple(p.shape) for n, p in blk.named_parameters()
                 if n.split(".")[-1] in TPF_WIDTHS}
-            with mesh_context(mesh, batch=TPF_BATCH), \
+            with mesh_context(mesh, dist_cfg, batch=TPF_BATCH), \
                     torch.inference_mode():
                 dist.barrier()
                 with CollectiveTimer() as timer:
                     out = part(lambda: forced_run(model, cfg32, batch,
-                                                  ref[f"{tag}_f32_gen"],
-                                                  TPF_NEW))
+                                                  ref[f"{held_to}_f32_gen"],
+                                                  TPF_NEW), *also)
                 rep[f"{tag}_f32_logits"], rep[f"{tag}_f32_picks"], \
                     rep[f"{tag}_f32_walls"] = out
                 rep[f"{tag}_f32_collectives"] = timer.record()
                 cache = init_cache(cfg32, TPF_BATCH, 8, device=dev)
                 rep[f"{tag}_cache"] = {
                     k: list(t.shape) for k, t in cache.items()}
+                rep[f"{tag}_cache"]["seq_axes"] = list(cache.seq_axes)
                 del cache
             del model
             torch.cuda.empty_cache()
-            model = placed(f"{tag}_bf16", cfg, mesh, shape)
+            model = placed(f"{tag}_bf16", cfg, mesh, shape, dist_cfg)
             cap = Capture(ops, "flash_attention", TPF_CAPTURE[tag])
-            with mesh_context(mesh, batch=TPF_BATCH), \
+            with mesh_context(mesh, dist_cfg, batch=TPF_BATCH), \
                     torch.inference_mode():
                 engine = Engine(cfg, model, ServeConfig(
                     max_new_tokens=TPF_NEW))
@@ -4431,7 +4462,7 @@ def tpf_rank(rank: int, init: str, tmp: str, src: str) -> None:
                 t0 = time.perf_counter()
                 with cap, CollectiveTimer() as timer:
                     rep[f"{tag}_bf16_gen"] = torch.from_numpy(part(
-                        lambda: engine.generate(batch)))
+                        lambda: engine.generate(batch), *also))
                 rep[f"{tag}_bf16_wall_s"] = time.perf_counter() - t0
                 rep[f"{tag}_bf16_timing"] = dict(engine.timing)
                 rep[f"{tag}_bf16_collectives"] = timer.record()
@@ -4443,28 +4474,29 @@ def tpf_rank(rank: int, init: str, tmp: str, src: str) -> None:
             del model, engine, cap, batch
             torch.cuda.empty_cache()
 
-        # phase D: (data 2, model 2), TPF_D_DEPTH layers, f32
-        mesh = pm.make_mesh(*TPF_D_MESH)
-        for arch in TPF_D_ARCHS:
+        def steps(tag, arch, mesh, dist_cfg=None, *also):
+            """Phase D's runs of ``arch`` on ``mesh`` (D's hymba decode of
+            one, then a train step), under the keys ``tag``_..."""
             c = tpf_cut(arch, TPF_D_DEPTH, "float32")
-            model = placed(f"D_{arch}", c, mesh, TPF_D_MESH)
+            model = placed(f"{tag}_{arch}", c, mesh, TPF_D_MESH, dist_cfg)
             if arch == TPF_D_DECODE:
-                with mesh_context(mesh, batch=1), torch.inference_mode():
+                with mesh_context(mesh, dist_cfg, batch=1), \
+                        torch.inference_mode():
                     cache = init_cache(c, 1, TP_PROMPT + TPF_D_NEW,
                                        device=dev)
-                    rep["D_cache"] = {"first_slot": cache.first_slot,
-                                      "seq_axes": list(cache.seq_axes),
-                                      "k": list(cache["k"].shape)}
+                    rep[f"{tag}_cache"] = {"first_slot": cache.first_slot,
+                                           "seq_axes": list(cache.seq_axes),
+                                           "k": list(cache["k"].shape)}
                     del cache
                     engine = Engine(c, model, ServeConfig(
                         max_new_tokens=TPF_D_NEW))
                     dist.barrier()
                     with CollectiveTimer() as timer:
-                        rep["D_gen"] = torch.from_numpy(part(
+                        rep[f"{tag}_gen"] = torch.from_numpy(part(
                             lambda: engine.generate(
-                                {"tokens": ref["D_prompt"].to(dev)})))
-                    rep["D_gen_timing"] = dict(engine.timing)
-                    rep["D_gen_collectives"] = timer.record()
+                                {"tokens": ref["D_prompt"].to(dev)}), *also))
+                    rep[f"{tag}_gen_timing"] = dict(engine.timing)
+                    rep[f"{tag}_gen_collectives"] = timer.record()
                     del engine
             model.requires_grad_()
             specs = block_specs(model)
@@ -4479,24 +4511,39 @@ def tpf_rank(rank: int, init: str, tmp: str, src: str) -> None:
             dist.barrier()
             t0 = time.perf_counter()
             with CollectiveTimer() as timer, \
-                    mesh_context(mesh, batch=TP_BATCH):
-                _, state, m = part(lambda: step(model, state, block))
+                    mesh_context(mesh, dist_cfg, batch=TP_BATCH):
+                _, state, m = part(lambda: step(model, state, block), *also)
             torch.cuda.synchronize()
-            rep[f"D_{arch}_step_s"] = time.perf_counter() - t0
-            rep[f"D_{arch}_collectives"] = timer.record()
-            rep[f"D_{arch}_peak_gib"] = torch.cuda.max_memory_allocated() \
+            rep[f"{tag}_{arch}_step_s"] = time.perf_counter() - t0
+            rep[f"{tag}_{arch}_collectives"] = timer.record()
+            rep[f"{tag}_{arch}_peak_gib"] = torch.cuda.max_memory_allocated() \
                 / 2 ** 30
-            rep[f"D_{arch}_loss"] = float(m["loss"])
-            rep[f"D_{arch}_gnorm"] = float(m["grad_norm"])
+            rep[f"{tag}_{arch}_loss"] = float(m["loss"])
+            rep[f"{tag}_{arch}_gnorm"] = float(m["grad_norm"])
             whole = {n: shd.whole_tensor(p.detach(), specs[n], mesh)
                      if n in specs else p.detach()
                      for n, p in model.named_parameters()}
             if rank == 0:
-                rep[f"D_{arch}_params"] = {n: t.cpu()
-                                           for n, t in whole.items()}
+                rep[f"{tag}_{arch}_params"] = {n: t.cpu()
+                                               for n, t in whole.items()}
             del model, state, step, batch, block, whole, m
             torch.cuda.empty_cache()
-        rep["launches"] = launches
+
+        configs = tpf_configs()
+        for tag, (cfg, cfg32) in configs.items():
+            serve(tag, tag, cfg, cfg32, TPF_PHASES[tag]["mesh"])
+        # phase D: (data 2, model 2), TPF_D_DEPTH layers, f32
+        mesh = pm.make_mesh(*TPF_D_MESH)
+        for arch in TPF_D_ARCHS:
+            steps("D", arch, mesh)
+        # phase E: hymba-1.5b with the head dim split over model, held to
+        # phase B's unsharded runs on (1, 4) and to D's on (2, 2)
+        dist.barrier()
+        t0 = time.perf_counter()
+        serve("E", "B", *configs["B"], TPF_E_MESH, head_dim, launches_e)
+        steps("E2", TPF_D_DECODE, mesh, head_dim, launches_e)
+        rep["E_s"] = time.perf_counter() - t0
+        rep["launches"], rep["launches_E"] = launches, launches_e
         torch.save(rep, f"{tmp}/tpf{rank}.pt")
     finally:
         compat.shutdown()
@@ -4516,11 +4563,21 @@ def tpf_launches_want(configs) -> dict:
     """A rank's launches over the path: a phase's prefill launches in each
     of its f32 and bf16 runs (hymba one a layer, whisper its encoder's,
     self- and cross-attention's), phase D's hymba generate's prefill and
-    its train step (each layer forward twice, remat, and backward once)."""
+    its train step (each layer forward twice, remat, and backward once),
+    and phase E's (``tpf_e_launches_want``)."""
     fwd = sum(2 * prefill_launches(cfg) for cfg, _ in configs.values()
               if not cfg.is_attention_free)
-    return {"flash_attention": fwd + 3 * TPF_D_DEPTH,
-            "flash_attention_bwd": TPF_D_DEPTH}
+    e = tpf_e_launches_want(configs)
+    return {"flash_attention": fwd + 3 * TPF_D_DEPTH
+            + e["flash_attention"],
+            "flash_attention_bwd": TPF_D_DEPTH + e["flash_attention_bwd"]}
+
+
+def tpf_e_launches_want(configs) -> dict:
+    """A rank's launches in phase E: B's prefill in its f32 and bf16 runs,
+    the (2, 2) decode's prefill and the train step's, as phase D's."""
+    return {"flash_attention": 2 * prefill_launches(configs["B"][0])
+            + 3 * TPF_D_DEPTH, "flash_attention_bwd": TPF_D_DEPTH}
 
 
 def check_tp_families(r: dict, ref: dict) -> dict:
@@ -4535,22 +4592,28 @@ def check_tp_families(r: dict, ref: dict) -> dict:
     train step's loss and grad norm on every rank within TP_LOSS_RTOL and
     TP_GNORM_RTOL of the unsharded step's, its updated parameters
     gathered whole within TP_PARAM_TOL but for TP_PARAM_OUTLIERS of their
-    elements, each within 3 lr. Launches as ``tpf_launches_want`` on every
-    rank. The parameter bytes were held to the census's on the ranks."""
+    elements, each within 3 lr. E, the head-dim placement: B's gates
+    against B's unsharded runs, with every attention weight and the cache
+    holding the rank's head-dim block, and D's hymba gates on (2, 2)
+    against D's unsharded runs, its cache's slots over data and its head
+    dim over model. Launches as ``tpf_launches_want`` on every rank,
+    phase E's as ``tpf_e_launches_want``. The parameter bytes were held
+    to the census's on the ranks (E's under the flag)."""
     ranks, configs = r["ranks"], tpf_configs()
     out, bad = {}, []
-    for tag, (cfg, _) in configs.items():
+    for tag, held_to in (*((t, t) for t in configs), ("E", "B")):
+        cfg = configs[held_to][0]
         logits = ranks[0][f"{tag}_f32_logits"]
         same = all(torch.equal(x[f"{tag}_f32_logits"], logits)
                    for x in ranks)
         # the real vocabulary: the padded entries are -1e30 on both sides
-        want = ref[f"{tag}_f32_logits"][..., :cfg.vocab_size]
+        want = ref[f"{held_to}_f32_logits"][..., :cfg.vocab_size]
         logits = logits[..., :cfg.vocab_size]
         rel = ((logits - want).abs().amax(-1)
                / want.abs().amax(-1)).amax(-1)
-        picks = all(torch.equal(x[f"{tag}_f32_picks"], ref[f"{tag}_f32_gen"])
-                    for x in ranks)
-        own = bool((want.argmax(-1).T == ref[f"{tag}_f32_gen"]).all())
+        picks = all(torch.equal(x[f"{tag}_f32_picks"],
+                                ref[f"{held_to}_f32_gen"]) for x in ranks)
+        own = bool((want.argmax(-1).T == ref[f"{held_to}_f32_gen"]).all())
         gen = ranks[0][f"{tag}_bf16_gen"]
         out[tag] = {
             "arch": cfg.arch_id, "layers": cfg.n_layers,
@@ -4561,7 +4624,7 @@ def check_tp_families(r: dict, ref: dict) -> dict:
             "bf16_tokens_identical_on_ranks": all(
                 torch.equal(x[f"{tag}_bf16_gen"], gen) for x in ranks),
             "bf16_generated_equal_unsharded": int(
-                (gen == ref[f"{tag}_bf16_gen"]).sum()),
+                (gen == ref[f"{held_to}_bf16_gen"]).sum()),
             "bf16_generated_of": int(gen.numel()),
             "widths_a_rank": ranks[0][f"{tag}_widths"],
             "cache_a_rank": ranks[0][f"{tag}_cache"]}
@@ -4574,25 +4637,58 @@ def check_tp_families(r: dict, ref: dict) -> dict:
                        f"run's")
         if not out[tag]["bf16_tokens_identical_on_ranks"]:
             bad.append(f"{tag}: ranks generated different bf16 tokens")
-    d = {"cache": ranks[0]["D_cache"], "tokens_equal_unsharded": all(
-        torch.equal(x["D_gen"], ref["D_gen"]) for x in ranks)}
+    hd = configs["B"][0].resolved_head_dim
+    cache = out["E"]["cache_a_rank"]
+    e_hd = {n: w for n, w in out["E"]["widths_a_rank"].items()
+            if n.split(".")[-1] in ("wq", "wk", "wo")}
+    out["E"]["head_dim_split"] = {
+        "weights": e_hd, "cache_k": cache["k"],
+        "cache_seq_axes": cache["seq_axes"]}
+    if cache["k"][-1] != hd // TPF_E_MESH[0][1] or cache["seq_axes"] \
+            or any(hd // TPF_E_MESH[0][1] not in w for w in e_hd.values()):
+        bad.append(f"E: not split over the head dim ({out['E']})")
+    out["D"] = tpf_check_steps("D", TPF_D_ARCHS, ranks, ref, bad)
+    out["E2"] = tpf_check_steps("E2", (TPF_D_DECODE,), ranks, ref, bad)
+    if out["E2"]["cache"]["k"][-1] != hd // TPF_D_MESH[0][1]:
+        bad.append(f"E2: cache not split over the head dim "
+                   f"({out['E2']['cache']})")
+    for key, want in (("launches", tpf_launches_want(configs)),
+                      ("launches_E", tpf_e_launches_want(configs))):
+        out[f"{key}_a_rank"] = [{k: x[key].get(k, 0) for k in want}
+                                for x in ranks]
+        out[f"{key}_want"] = want
+        for x in ranks:
+            if any(x[key].get(k, 0) != n for k, n in want.items()):
+                bad.append(f"rank {x['rank']} {key} {x[key]}")
+    print(f"tp_families checks: {json.dumps(out)}", flush=True)
+    if bad:
+        raise AssertionError(f"tp_families: {bad}")
+    return out
+
+
+def tpf_check_steps(tag: str, archs, ranks, ref, bad: list) -> dict:
+    """Phase D's gates on the ranks' runs under the keys ``tag``_...,
+    against D's unsharded runs; failures appended to ``bad``."""
+    d = {"cache": ranks[0][f"{tag}_cache"], "tokens_equal_unsharded": all(
+        torch.equal(x[f"{tag}_gen"], ref["D_gen"]) for x in ranks)}
     if not d["tokens_equal_unsharded"] \
             or "data" not in d["cache"]["seq_axes"]:
-        bad.append(f"D: decode of one sequence ({d['cache']})")
-    for arch in TPF_D_ARCHS:
+        bad.append(f"{tag}: decode of one sequence ({d['cache']})")
+    for arch in archs:
         loss, gnorm = ref[f"D_{arch}_loss"], ref[f"D_{arch}_gnorm"]
-        d[arch] = {"loss": [x[f"D_{arch}_loss"] for x in ranks],
+        d[arch] = {"loss": [x[f"{tag}_{arch}_loss"] for x in ranks],
                    "loss_unsharded": loss,
-                   "gnorm": [x[f"D_{arch}_gnorm"] for x in ranks],
+                   "gnorm": [x[f"{tag}_{arch}_gnorm"] for x in ranks],
                    "gnorm_unsharded": gnorm}
         for x in ranks:
-            if abs(x[f"D_{arch}_loss"] - loss) > TP_LOSS_RTOL * abs(loss) \
-                    or abs(x[f"D_{arch}_gnorm"] - gnorm) \
+            if abs(x[f"{tag}_{arch}_loss"] - loss) > TP_LOSS_RTOL * abs(loss) \
+                    or abs(x[f"{tag}_{arch}_gnorm"] - gnorm) \
                     > TP_GNORM_RTOL * gnorm:
-                bad.append(f"D {arch}: rank {x['rank']} loss or grad norm")
+                bad.append(f"{tag} {arch}: rank {x['rank']} loss or grad "
+                           f"norm")
         beyond, elems, worst = 0, 0, 0.0
         for n, w in ref[f"D_{arch}_params"].items():
-            g = ranks[0][f"D_{arch}_params"][n]
+            g = ranks[0][f"{tag}_{arch}_params"][n]
             err = (g.float() - w.float()).abs()
             tol = TP_PARAM_TOL["atol"] \
                 + TP_PARAM_TOL["rtol"] * w.float().abs()
@@ -4602,20 +4698,9 @@ def check_tp_families(r: dict, ref: dict) -> dict:
         d[arch].update(params_beyond_tol=beyond, params_of=elems,
                        params_max_abs=worst)
         if beyond > TP_PARAM_OUTLIERS * elems or worst > 3 * TRAIN_LR:
-            bad.append(f"D {arch}: updated parameters off the unsharded "
-                       f"step's")
-    out["D"] = d
-    want = tpf_launches_want(configs)
-    out["launches_a_rank"] = [{k: x["launches"].get(k, 0) for k in want}
-                              for x in ranks]
-    out["launches_want"] = want
-    for x in ranks:
-        if any(x["launches"].get(k, 0) != n for k, n in want.items()):
-            bad.append(f"rank {x['rank']} launches {x['launches']}")
-    print(f"tp_families checks: {json.dumps(out)}", flush=True)
-    if bad:
-        raise AssertionError(f"tp_families: {bad}")
-    return out
+            bad.append(f"{tag} {arch}: updated parameters off the "
+                       f"unsharded step's")
+    return d
 
 
 def report_tp_families(r: dict, checks: dict, card: str) -> None:
@@ -4623,12 +4708,12 @@ def report_tp_families(r: dict, checks: dict, card: str) -> None:
     line: per rank and phase the walls, the collectives' seconds and share
     of the wall (timed with the card synchronised around each: the rest
     of the wall is compute and the host's launches), peaks and parameter
-    bytes."""
+    bytes; phase E (the head-dim placement) beside B and D."""
     per_rank = []
     for x in r["ranks"]:
         row = {"rank": x["rank"]}
         line = []
-        for tag in TPF_PHASES:
+        for tag in (*TPF_PHASES, "E"):
             f32, bf = x[f"{tag}_f32_collectives"], \
                 x[f"{tag}_bf16_collectives"]
             f32_wall = sum(x[f"{tag}_f32_walls"].values())
@@ -4650,16 +4735,25 @@ def report_tp_families(r: dict, checks: dict, card: str) -> None:
                 f"{x[f'{tag}_bf16_wall_s']:.3f} s (collectives "
                 f"{bf['total_s']:.3f} s in {sum(bf['calls'].values())} "
                 f"calls)")
-        row["D"] = {"gen_timing": x["D_gen_timing"],
-                    "gen_collectives": x["D_gen_collectives"],
-                    **{arch: {"step_s": x[f"D_{arch}_step_s"],
-                              "collectives": x[f"D_{arch}_collectives"],
-                              "peak_gib": x[f"D_{arch}_peak_gib"]}
-                       for arch in TPF_D_ARCHS}}
-        line.append("D steps " + ", ".join(
-            f"{arch} {x[f'D_{arch}_step_s']:.3f} s (collectives "
-            f"{x[f'D_{arch}_collectives']['total_s']:.3f} s)"
-            for arch in TPF_D_ARCHS))
+        for tag, archs in (("D", TPF_D_ARCHS), ("E2", (TPF_D_DECODE,))):
+            row[tag] = {"gen_timing": x[f"{tag}_gen_timing"],
+                        "gen_collectives": x[f"{tag}_gen_collectives"],
+                        "gen_collectives_share": x[f"{tag}_gen_collectives"][
+                            "total_s"] / sum(x[f"{tag}_gen_timing"].values()),
+                        **{arch: {"step_s": x[f"{tag}_{arch}_step_s"],
+                                  "collectives":
+                                      x[f"{tag}_{arch}_collectives"],
+                                  "collectives_share":
+                                      x[f"{tag}_{arch}_collectives"]["total_s"]
+                                      / x[f"{tag}_{arch}_step_s"],
+                                  "peak_gib": x[f"{tag}_{arch}_peak_gib"]}
+                           for arch in archs}}
+            line.append(f"{tag} steps " + ", ".join(
+                f"{arch} {x[f'{tag}_{arch}_step_s']:.3f} s (collectives "
+                f"{x[f'{tag}_{arch}_collectives']['total_s']:.3f} s)"
+                for arch in archs))
+        row["E_s"] = x["E_s"]
+        line.append(f"phase E in all {x['E_s']:.3f} s")
         per_rank.append(row)
         print(f"tp_families rank {x['rank']}: {'; '.join(line)} ({card})",
               flush=True)
@@ -4668,31 +4762,42 @@ def report_tp_families(r: dict, checks: dict, card: str) -> None:
            "D_setup": {"mesh": TPF_D_MESH, "archs": TPF_D_ARCHS,
                  "depth": TPF_D_DEPTH, "new": TPF_D_NEW,
                  "batch": TP_BATCH, "prompt": TP_PROMPT},
+           "E_setup": {"dist": "DistConfig(shard_head_dim_fallback=True)",
+                       "mesh": TPF_E_MESH, "held_to": "B",
+                       "E2": {"mesh": TPF_D_MESH, "arch": TPF_D_DECODE,
+                              "held_to": "D"}},
            "per_rank": per_rank, "ranks_s": r["ranks_s"],
            "ranks_started_s_before": r["waited_s"], **checks}
     print(f"tp_families report: {json.dumps(rep, default=str)}", flush=True)
 
 
 def tpf_kernel_rows(r: dict, dev) -> list:
-    """``flash_attention``'s rows at the tp_families path's two new shapes
-    on a rank: hymba-1.5b's windowed layer (phase B, every head, window
-    1024, 128 meta tokens) and whisper-small's encoder layer (phase C, 3
-    heads a rank); launches: the path's over its 4 ranks."""
-    launches = sum(x["launches"].get("flash_attention", 0)
-                   for x in r["ranks"])
+    """``flash_attention``'s rows at the tp_families path's new shapes on
+    a rank: hymba-1.5b's windowed layer (phase B, every head, window
+    1024, 128 meta tokens), whisper-small's encoder layer (phase C, 3
+    heads a rank) and hymba-1.5b's windowed layer under the head-dim
+    placement (phase E: the blocks gathered, every head whole on every
+    rank); launches: the path's over its 4 ranks (E's row: phase E's)."""
     rows = []
-    for tag, what in (("B", "hymba-1.5b windowed layer a rank, 4 x 640"),
-                      ("C", "whisper-small encoder layer a rank, 4 x 1500, "
-                            "3 heads")):
+    for tag, what, key in (
+            ("B", "hymba-1.5b windowed layer a rank, 4 x 640", "launches"),
+            ("C", "whisper-small encoder layer a rank, 4 x 1500, 3 heads",
+             "launches"),
+            ("E", "hymba-1.5b windowed layer a rank, head dim split over "
+                  "model, the blocks gathered, 4 x 640", "launches_E")):
+        launches = sum(x[key].get("flash_attention", 0) for x in r["ranks"])
         (q, k, v), kw = r["ranks"][0][f"{tag}_call"]
         cap = types.SimpleNamespace(
             args=(tuple(t.to(dev) for t in (q, k, v)), kw))
         rows.append(flash_row(cap, launches, f"tp_families {what}"))
         rows[-1]["path"] = "tp_families"
         rows[-1]["note"] = "; ".join(filter(None, [rows[-1].get("note"), (
+            "launches: phase E's over the 4 ranks (a rank: the prefills of "
+            "its f32 and bf16 runs, its (2, 2) hymba generate and train "
+            "step)" if tag == "E" else
             "launches: the tp_families path's over its 4 ranks (a rank: "
-            "the prefills of phase B's and C's f32 and bf16 runs, phase D's "
-            "hymba generate and train step)")]))
+            "the prefills of phase B's, C's and E's f32 and bf16 runs, "
+            "phase D's and E's hymba generate and train step)")]))
     return rows
 
 def placed_bytes_check(what: str, tensors, allocated: int,
@@ -5971,15 +6076,23 @@ def main() -> int:
         tpf_ref = tpf_reference(dev)
     with phase("tp_families: 4 gloo ranks on one card, A-C (data 1, model "
                "4) f32 and bf16, then D (data 2, model 2) decode and train "
-               "steps"):
+               "steps, then E (hymba-1.5b, head dim split) on both"):
         tpf_run = tp_families(tpf_ref, tpf_ranks)
+    print(f"[phase] tp_families E (head dim split; rank 0, within the ranks' "
+          f"phase above): {tpf_run['ranks'][0]['E_s']:.3f} s", flush=True)
     counts["tp_families"] = {
         k: sum(x["launches"].get(k, 0) for x in tpf_run["ranks"])
         for k in counts["pod"]}
     print(f"[launches] tp_families: {json.dumps(counts['tp_families'])}",
           flush=True)
-    missing = [k for k in ("flash_attention", "flash_attention_bwd")
-               if counts["tp_families"][k] == 0]
+    counts["tp_families E"] = {
+        k: sum(x["launches_E"].get(k, 0) for x in tpf_run["ranks"])
+        for k in counts["pod"]}
+    print(f"[launches] tp_families E (head dim split): "
+          f"{json.dumps(counts['tp_families E'])}", flush=True)
+    missing = [(path, k) for path in ("tp_families", "tp_families E")
+               for k in ("flash_attention", "flash_attention_bwd")
+               if counts[path][k] == 0]
     if missing:
         raise AssertionError(f"tp_families: not launched: {missing}")
     with phase("tp_families: checks (ranks agree, f32 logits and greedy "
@@ -5988,8 +6101,8 @@ def main() -> int:
         tpf_checks = check_tp_families(tpf_run, tpf_ref)
     print(card)
     report_tp_families(tpf_run, tpf_checks, card)
-    tpf_calls = {"ranks": [{k: x[k] for k in ("B_call", "C_call",
-                                              "launches")}
+    tpf_calls = {"ranks": [{k: x[k] for k in ("B_call", "C_call", "E_call",
+                                              "launches", "launches_E")}
                            for x in tpf_run["ranks"]]}
     del tpf_run, tpf_ref
     torch.cuda.empty_cache()

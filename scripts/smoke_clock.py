@@ -6,7 +6,9 @@
 Prints one markdown row a log: the seconds of each path's phases (the
 columns of PERF.md's clock table), in the smoke's order. A phase belongs
 to the path its name starts with; ``device``, ``build``, the edge checks
-and the REDUCED prefills have columns of their own.
+and the REDUCED prefills have columns of their own. A phase timed
+inside another (``PARTS``: phase E of ``tp_families``, run in the ranks'
+phase) has a column of its own after the sum, and is not summed.
 """
 import re
 import sys
@@ -23,11 +25,13 @@ COLUMNS = (
     ("tp", ("tp:",)), ("tp_families", ("tp_families",)),
     ("census", ("census",)), ("main", ("main",)),
     ("compare", ("compare", "cmp")), ("kernel rows", ("kernel timing",)))
+# phases timed inside another path's phase: shown, not summed
+PARTS = (("of which tp_families E", ("tp_families E",)),)
 PHASE = re.compile(r"^\[phase\] (.*): ([0-9.]+) s$")
 
 
 def column(name: str) -> str:
-    for col, prefixes in COLUMNS:
+    for col, prefixes in PARTS + COLUMNS:
         if name.startswith(prefixes):
             return col
     return "other"
@@ -35,17 +39,20 @@ def column(name: str) -> str:
 
 def main() -> int:
     cols = [c for c, _ in COLUMNS] + ["other"]
-    print("| log | " + " | ".join(cols) + " | sum |")
-    print("| --- " * (len(cols) + 2) + "|")
+    parts = [c for c, _ in PARTS]
+    print("| log | " + " | ".join(cols) + " | sum | " + " | ".join(parts)
+          + " |")
+    print("| --- " * (len(cols) + len(parts) + 2) + "|")
     for path in sys.argv[1:]:
-        secs = dict.fromkeys(cols, 0.0)
+        secs = dict.fromkeys(cols + parts, 0.0)
         with open(path) as f:
             for line in f:
                 m = PHASE.match(line.strip())
                 if m:
                     secs[column(m.group(1))] += float(m.group(2))
         print(f"| {path} | " + " | ".join(f"{secs[c]:.1f}" for c in cols)
-              + f" | {sum(secs.values()):.1f} |")
+              + f" | {sum(secs[c] for c in cols):.1f} | "
+              + " | ".join(f"{secs[c]:.1f}" for c in parts) + " |")
     return 0
 
 

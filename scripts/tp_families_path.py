@@ -6,8 +6,9 @@
 Builds the two attention kernels, starts the path's 4 gloo ranks
 (``spawn_ranks``), takes its unsharded side (``tpf_reference``) while they
 start, runs them (``tp_families``), its checks and report, then times
-``flash_attention`` at a rank's hymba-1.5b windowed layer and whisper-small
-encoder layer (the rows ``time_kernels`` adds). Prints the card's name and
+``flash_attention`` at a rank's hymba-1.5b windowed layer, whisper-small
+encoder layer and hymba-1.5b windowed layer under the head-dim placement
+(phase E; the rows ``time_kernels`` adds). Prints the card's name and
 power limit and, last, ``TP FAMILIES PATH OK``; exits non-zero when a
 check fails or there is no CUDA card.
 """

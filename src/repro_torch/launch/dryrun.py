@@ -27,8 +27,12 @@ holds:
   meshes.
 * ``cost``: the matmul-class FLOPs of the port's own step on the rank
   (its heads, ``d_ff`` columns and vocabulary block where they are
-  placed; a decode step's slots), by part (projections, feed-forwards,
-  experts at their capacity and the router, the SSD's products,
+  placed; its head-dim block of every head in the projections where
+  ``--shard-hd-fallback`` splits the head dim, the attention then over
+  every head whole (case H) or its heads (case M), and a decode's
+  partial scores over its block; a decode step's slots), by part
+  (projections, feed-forwards, experts at their capacity and the
+  router, the SSD's products,
   attention, the LM head); a train step counts the forward, remat's
   recompute of every block and the backward
   (twice a product's forward; attention 10·D a pair against the
@@ -47,8 +51,11 @@ holds:
   axes, the FSDP gathers of the placed weights and of the experts and
   their reduce-scatters, the row-parallel products' sums over ``model``
   and their inputs' copies, the vocab-parallel embedding's sum and
-  loss's max and sums, and a decode step's query gather and partial
-  softmax merges over a cache whose slots are split.
+  loss's max and sums, a decode step's query gather and partial
+  softmax merges over a cache whose slots are split, and under
+  ``--shard-hd-fallback`` the head-dim blocks' gathers of q, k and v
+  (reduce-scattered in the backward), a decode's partial scores' sum
+  over ``model`` and, in case M, its query's and output's gathers.
 
 This replaces the reference's ``launch/hlo_costs.py`` too, which parses
 XLA's HLO text and has no torch input: the counts come from the port's
@@ -273,14 +280,17 @@ class Flops:
 
 class Share:
     """A rank's share of the placed products (``models/model.py``): the
-    query heads it projects and attends with, the k/v heads it projects,
-    its ``d_ff`` columns, the shared experts' and its vocabulary block,
+    query heads it attends with, the q and k/v columns it projects (its
+    heads' or, where ``model`` splits the head dim, every head's block of
+    it), its ``d_ff`` columns, the shared experts' and its vocabulary block,
     and the SSD's ``in_proj`` columns, its heads (``ssd_heads``: the
     rank's in case 1, all in case 2) and its ``out_proj`` rows; the
     config's whole widths where nothing is placed."""
 
     def __init__(self, cfg: ModelConfig, model=None):
-        self.heads, self.kv_heads = cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.resolved_head_dim
+        self.heads = cfg.n_heads
+        self.q_cols, self.kv_cols = cfg.n_heads * hd, cfg.n_kv_heads * hd
         self.ff, self.vocab = cfg.d_ff, cfg.vocab_padded
         self.shared_ff = cfg.d_ff * cfg.n_shared_experts
         di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -291,7 +301,9 @@ class Share:
         attn = next((m for m in model.modules() if isinstance(m, Attention)),
                     None)
         if attn is not None:
-            self.heads, self.kv_heads = attn.wq.shape[1], attn.wk.shape[1]
+            self.heads = attn.wq.shape[1]
+            self.q_cols = attn.wq.shape[1] * attn.wq.shape[2]
+            self.kv_cols = attn.wk.shape[1] * attn.wk.shape[2]
         mlp = next((m for m in model.modules()
                     if isinstance(m, (MLP, GeluMLP))), None)
         if mlp is not None:
@@ -313,8 +325,8 @@ class Share:
 def _attn_proj(f: Flops, cfg: ModelConfig, sh: Share, tq: int, tkv: int,
                part: str = "attention projections") -> None:
     """q and o over ``tq`` tokens, k and v over ``tkv``."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    f.add(part, 2 * d * hd * (2 * sh.heads * tq + 2 * sh.kv_heads * tkv))
+    f.add(part, 2 * cfg.d_model * (2 * sh.q_cols * tq + 2 * sh.kv_cols
+                                   * tkv))
 
 
 def _attention(f: Flops, cfg: ModelConfig, sh: Share, b: int, sq: int,
@@ -326,11 +338,11 @@ def _attention(f: Flops, cfg: ModelConfig, sh: Share, b: int, sq: int,
                 2 * unit * sq * sk)
 
 
-def _decode_attention(f: Flops, cfg: ModelConfig, b: int, slots: int,
-                      heads: int):
+def _decode_attention(f: Flops, b: int, slots: int, cols: int):
     """``decode_attention``: every slot (the rank's), plain products
-    either way, for ``heads`` query heads."""
-    n = 4 * b * heads * cfg.resolved_head_dim * slots
+    either way, over ``cols`` columns of the query heads (heads x the
+    head-dim columns the rank holds)."""
+    n = 4 * b * cols * slots
     f.attention(n, n)
 
 
@@ -445,23 +457,24 @@ def _layers_forward(cfg: ModelConfig, sh: Share, b: int, s: int,
 
 
 def _layers_decode(cfg: ModelConfig, sh: Share, b: int, slots: int,
-                   moe: Optional[MoeRank], heads: int,
+                   moe: Optional[MoeRank], cols: int,
                    cross: Tuple[int, int] = (0, 0)) -> Flops:
     """Every block's decode step on ``b`` rows over a cache of ``slots``
-    k/v slots (the rank's), ``heads`` query heads reading each; ``cross``:
-    the same of the cross-attention's ``xk``/``xv``."""
+    k/v slots (the rank's), ``cols`` query columns reading each
+    (``_decode_cols``); ``cross``: the same of the cross-attention's
+    ``xk``/``xv``."""
     f = Flops()
     n_main = cfg.n_layers - cfg.n_dense_layers
     for _ in range(cfg.n_dense_layers):
         _attn_proj(f, cfg, sh, b, b)
-        _decode_attention(f, cfg, b, slots, heads)
+        _decode_attention(f, b, slots, cols)
         _ffn(f, cfg, sh, b)
     for _ in range(n_main):
         if cfg.family == "ssm":
             _ssd_decode(f, cfg, sh, b)
             continue
         _attn_proj(f, cfg, sh, b, b)
-        _decode_attention(f, cfg, b, slots, heads)
+        _decode_attention(f, b, slots, cols)
         if cfg.family == "hybrid":
             _ssd_decode(f, cfg, sh, b)
         if cfg.family == "moe":
@@ -470,7 +483,7 @@ def _layers_decode(cfg: ModelConfig, sh: Share, b: int, slots: int,
             _ffn(f, cfg, sh, b)
         if cfg.enc_layers:   # q and o only: xk and xv are cached
             _attn_proj(f, cfg, sh, b, 0, "cross-attention projections")
-            _decode_attention(f, cfg, b, *cross)
+            _decode_attention(f, b, *cross)
     return f
 
 
@@ -494,13 +507,18 @@ def decode_cache(cfg: ModelConfig, big: int, slots: int, mesh,
         return init_cache(cfg, big, slots, device=S.META)
 
 
-def _decode_heads(cfg: ModelConfig, share: Share, cache,
-                  cross: bool = False) -> int:
-    """The query heads that read the rank's slots (``cross``: of
-    ``xk``/``xv``) in a decode step: all of them where ``model`` splits
-    the slots (the query gathered over it), else the rank's."""
+def _decode_cols(cfg: ModelConfig, share: Share, cache,
+                 cross: bool = False) -> int:
+    """The query columns that read the rank's slots (``cross``: of
+    ``xk``/``xv``) in a decode step: every head's where ``model`` splits
+    the slots (the query gathered over it), every head's block of the
+    head dim the cache holds where ``model`` splits that, else the rank's
+    heads'."""
     axes = getattr(cache, "x_seq_axes" if cross else "seq_axes", ())
-    return cfg.n_heads if "model" in axes else share.heads
+    width = cache["xk" if cross else "k"].shape[-1]
+    if "model" in axes or width < cfg.resolved_head_dim:
+        return cfg.n_heads * width
+    return share.heads * width
 
 
 def step_flops(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -516,11 +534,12 @@ def step_flops(cfg: ModelConfig, shape: ShapeConfig, mesh,
         b = rank_rows(big, mesh)
         cache = decode_cache(cfg, big, s, mesh, dist)
         slots = cache["k"].shape[2] if "k" in cache else 0
-        cross = (cache["xk"].shape[2], _decode_heads(cfg, sh, cache, True)) \
+        cross = (cache["xk"].shape[2], _decode_cols(cfg, sh, cache, True)) \
             if "xk" in cache else (0, 0)
         f = _layers_decode(cfg, sh, b, slots,
                            _moe(cfg, mesh, big, b, 1, sh.shared_ff),
-                           _decode_heads(cfg, sh, cache), cross)
+                           _decode_cols(cfg, sh, cache) if "k" in cache
+                           else 0, cross)
         f += _head(cfg, sh, b)
         return f
     if shape.kind == "prefill":
@@ -655,26 +674,56 @@ def _attn_traffic(tr: Traffic, cfg: ModelConfig, attn, mesh, b: int,
     ``cache`` whose slots are split the query's gather and the partial
     softmaxes' merges, the out projection's sum over ``model`` and, in the
     backward, its inputs' copies (k's and v's where the kv heads are
-    whole)."""
+    whole). Where ``model`` splits the head dim: the projections' gathers
+    over it (q's in case H; a cached cross-attention's decode gathers q
+    alone) and their reduce-scatters, and a decode's query gather over the
+    heads (case M), its partial scores' sum over ``model`` and its
+    output's gather over the head dim (case M)."""
     dtb = getattr(torch, cfg.dtype).itemsize
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
     _gathers(tr, mesh, attn, names, forwards, backward)
-    if cache is not None and cache.seq_axes:
+    q_hd = attn.split("wq", 2)
+    kv = b * (s if kv_len is None else kv_len)
+    cached_kv = cache is not None and kv_len is not None
+    if attn.hd:
+        m = mesh.shape["model"]
+        for _ in range(forwards):
+            if q_hd:
+                tr.gather(mesh, "model", b * s * h * hd // m * dtb)
+            if not cached_kv:
+                for _ in range(2):
+                    tr.gather(mesh, "model", kv * kvh * hd // m * dtb)
+        if cache is not None:
+            if attn.tp:
+                tr.gather(mesh, "model", b * attn.wq.shape[1] * hd * dtb)
+            tr.psum(mesh, MODEL, b * h * cache["k"].shape[1] * 4)
+            for a in cache.seq_axes:
+                tr.gather(mesh, a, b * h * (hd // m + 2) * 4)
+            if attn.tp:
+                tr.gather(mesh, "model", b * h * hd // m * dtb)
+    elif cache is not None and cache.seq_axes:
         heads = attn.wq.shape[1]
         if attn.tp and "model" in cache.seq_axes:
             tr.gather(mesh, "model", b * heads * hd * dtb)
             heads = cfg.n_heads
         for a in cache.seq_axes:
             tr.gather(mesh, a, b * heads * (hd + 2) * 4)
-    if not attn.tp:
+    if not (attn.tp or q_hd):
         return
     for _ in range(forwards):
         tr.psum(mesh, MODEL, b * s * d * dtb)
     if not backward:
         return
     tr.psum(mesh, MODEL, b * s * d * dtb)
-    kv = b * (s if kv_len is None else kv_len)
-    if not attn.split("wk", 1):   # k's and v's copies
+    if attn.hd:   # the gathers' reduce-scatters; the other input's copy
+        if q_hd:
+            tr.reduce_scatter(mesh, "model", b * s * h * hd * dtb)
+        for _ in range(2):
+            tr.reduce_scatter(mesh, "model", kv * kvh * hd * dtb)
+        if kv_len is not None:
+            tr.psum(mesh, MODEL, kv * d * dtb)
+    elif not attn.split("wk", 1):   # k's and v's copies
         for _ in range(2):
             tr.psum(mesh, MODEL, kv * cfg.n_kv_heads * hd * dtb)
     elif kv_len is not None:      # the other input's copy

@@ -29,7 +29,10 @@ reference's specs, the SSD's concatenated leaves per part, and of an
 expert-parallel MoE layer's experts) and returns a step that takes
 ``batch_at``'s whole batch, keeps this rank's ``batch_spec`` block and
 runs the train step under ``mesh_context(mesh, batch=B)``
-(``training/train_step.py``). Only rank 0 prints.
+(``training/train_step.py``). With ``--shard-hd-fallback`` the mesh
+places attention by ``DistConfig(shard_head_dim_fallback=True)``: the
+head dim split over ``model`` where the heads do not divide it
+(``models/model.py:Attention``). Only rank 0 prints.
 
 With ``--ckpt-dir``, parameters (``<dir>/p``) and optimizer state
 (``<dir>/o``) are saved every ``--ckpt-every`` steps, and a run resumes
@@ -89,6 +92,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--model-axis", type=int, default=1,
                     help="ranks a model line of the mesh, under a process "
                          "group")
+    ap.add_argument("--shard-hd-fallback", action="store_true",
+                    help="split the head dim over the model axis where "
+                         "the heads do not divide it (DistConfig's "
+                         "shard_head_dim_fallback)")
     return ap
 
 
@@ -109,7 +116,7 @@ def setup(args: argparse.Namespace, cfg: Optional[ModelConfig] = None,
     dcfg = DataConfig(seed=0, batch_size=args.batch, seq_len=args.seq)
     mesh = make_local_mesh(args.model_axis) if dist.is_initialized() \
         else None
-    dist_cfg = DistConfig()
+    dist_cfg = DistConfig(shard_head_dim_fallback=args.shard_hd_fallback)
     on_mesh = mesh_context(mesh, dist_cfg, batch=args.batch) if mesh \
         else contextlib.nullcontext()
     with on_mesh:

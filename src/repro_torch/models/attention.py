@@ -13,7 +13,11 @@ Pallas counterpart. Over a cache whose slots a mesh splits
 (``models/model.py:init_cache``: the self-attention's slots, meta tokens
 included, or the cross-attention's frames), each rank attends to its
 slots and the partial softmaxes merge across the ranks
-(``decode_attention_merged``).
+(``decode_attention_merged``). Over a cache whose head dim ``model``
+splits (``shard_head_dim_fallback``), each rank scores its block of
+every head's dims, the partial scores are summed over ``model``, and the
+rank reads its block of the values (``decode_attention_merged``'s
+``head_dim_axes``).
 
 The hybrid family's mask is the reference's ``_mask_block``: with
 ``window > 0`` a key is visible when it is causal and inside the window,
@@ -25,9 +29,11 @@ another); its backward is the kernel's, with the same mask.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.core.distributed import gather_axis
+from repro_torch.core.distributed import gather_axis, psum
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
     NEG_INF,
@@ -62,7 +68,7 @@ def _hidden_slots(k_pos, cur_pos, window, meta_tokens, disable_window):
 
 def decode_attention_merged(q, k_cache, v_cache, mesh, axes, *, k_pos,
                             cur_pos, window=0, meta_tokens=0,
-                            disable_window=False):
+                            disable_window=False, head_dim_axes=()):
     """``decode_attention`` over a cache whose slots the mesh ``axes``
     split: this rank's caches [B, n, KVH, D] hold the slots at positions
     ``k_pos`` [n]. Each rank takes the partial softmax over its slots
@@ -74,11 +80,19 @@ def decode_attention_merged(q, k_cache, v_cache, mesh, axes, *, k_pos,
     visible slot adds nothing (its m is -1e30 below a visible one).
     ``k_pos`` are global slot positions, so the hybrid family's window
     and meta tokens (the first ``meta_tokens`` slots, on the rank holding
-    the first slots) mask as over the whole cache."""
+    the first slots) mask as over the whole cache.
+
+    ``head_dim_axes``: q and the caches hold this rank's block of the head
+    dim, split over those axes; the scores are this rank's partial
+    products summed over them (``psum``, the same bits on every rank) and
+    the output is the rank's block of the head dim."""
     b, _, h, d = q.shape
     n_kv = k_cache.shape[2]
-    qg = (q.float() * (1.0 / d ** 0.5)).reshape(b, n_kv, h // n_kv, d)
+    whole_d = d * math.prod(mesh.shape[a] for a in head_dim_axes)
+    qg = (q.float() * (1.0 / whole_d ** 0.5)).reshape(b, n_kv, h // n_kv, d)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    if head_dim_axes:
+        s = psum(mesh, head_dim_axes, s)
     hidden = _hidden_slots(k_pos, cur_pos, window, meta_tokens,
                            disable_window)
     s = s.masked_fill(hidden[None, None, None, :], NEG_INF)

@@ -75,7 +75,10 @@ row-parallel and summed over ``model`` (``sum_over``; ``b_out`` added
 once after the sum), their input read through ``copy_over`` (its
 gradient summed); where the heads do not divide ``model`` the rank
 computes the whole attention, where the kv heads do not it computes
-every kv head and takes those of its query heads. The SSD's three cases
+every kv head and takes those of its query heads; under
+``DistConfig(shard_head_dim_fallback=True)`` ``model`` splits the head
+dim there instead (``Attention``: each rank projects its head-dim block,
+the blocks are gathered and rotated whole). The SSD's three cases
 (its heads split, its heads whole with its channels split, the gated
 norm over split channels) are ``models/ssm.py``'s. The dims the specs
 split over the data axes are all-gathered before use (FSDP,
@@ -179,7 +182,22 @@ class Attention(Placed):
     ``wv`` too where the kv heads divide ``model``, else whole), ``wo``
     row-parallel, and ``d`` split over the data axes where it divides
     (gathered before use, ``Placed.weight``). Where the heads do not divide
-    ``model`` every rank computes the whole attention."""
+    ``model`` every rank computes the whole attention.
+
+    Under ``DistConfig(shard_head_dim_fallback=True)`` ``model`` splits
+    the head dim where the heads do not divide it: of ``wk``/``wv`` (and
+    ``bk``/``bv``) where the kv heads do not (case M), and of ``wq``,
+    ``bq`` and ``wo`` too where the query heads do not either (case H).
+    The rank projects its head-dim block of each head; the rotary
+    embedding pairs column i with column i + hd/2, which another rank
+    holds, so the blocks are gathered over ``model`` (``gather_axis``: its
+    gradient the reduce-scatter) and rotated whole. Case H then runs the
+    whole attention on every rank, and its output's head-dim block goes
+    through the rank's ``wo`` block, summed over ``model``; case M's query
+    heads are split as without the flag, over every kv head. The decode
+    cache holds the rank's head-dim block of the rotated k and of v
+    (``cache_block``), and a decode step sums the partial scores over
+    ``model`` (``attend_cache``)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -201,17 +219,29 @@ class Attention(Placed):
         return self.split("wq", 1)
 
     def _kv_whole(self) -> bool:
-        """Heads split while the kv heads are whole on every rank."""
+        """Heads split while the kv heads are whole on every rank (after
+        the head-dim gather, in case M)."""
         return self.tp and not self.split("wk", 1)
+
+    @property
+    def hd(self) -> bool:
+        """Whether the rank projects a head-dim block of k and v (over
+        ``model``: ``shard_head_dim_fallback``, cases H and M)."""
+        return self.split("wk", 2)
 
     def _proj(self, x, name: str):
         """x [B, S, d] through ``w<name>`` [d, n, hd] -> [B, S, n, hd], plus
-        ``b<name>`` where the config has qkv biases (this rank's heads)."""
+        ``b<name>`` where the config has qkv biases (this rank's heads);
+        where ``model`` splits the weight's head dim, the ranks' blocks
+        gathered over it (``gather_axis``: its gradient the
+        reduce-scatter)."""
         w = self.weight("w" + name)
         y = (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:2], *w.shape[1:])
-        if "b" + name not in self._parameters:
-            return y
-        return y + self.weight("b" + name)
+        if "b" + name in self._parameters:
+            y = y + self.weight("b" + name)
+        if self.split("w" + name, 2):
+            y = gather_axis(self.mesh, "model", y, dim=3)
+        return y
 
     def query(self, x):
         """x [B, S, d] -> q [B, S, H, hd], no rotary embedding."""
@@ -223,15 +253,17 @@ class Attention(Placed):
         split, x enters through ``copy_over(model)`` (each rank's heads
         add their part of its gradient); where the kv heads are whole on
         every rank, k and v leave through it instead (each rank reads the
-        kv heads of its own query heads)."""
+        kv heads of its own query heads). Where ``model`` splits the head
+        dim, x and kv enter through ``copy_over`` and the blocks leave
+        through the head-dim gather (``_proj``)."""
         same = kv is x
-        if self.tp:
+        if self.tp or self.split("wq", 2):
             x = copy_over(self.mesh, MODEL, x)
-            if not self._kv_whole():
-                kv = x if same else copy_over(self.mesh, MODEL, kv)
+        if (self.tp and not self._kv_whole()) or self.hd:
+            kv = x if same else copy_over(self.mesh, MODEL, kv)
         q, k, v = self._proj(x, "q"), self._proj(kv, "k"), \
             self._proj(kv, "v")
-        if self._kv_whole():
+        if self._kv_whole() and not self.hd:
             k, v = copy_over(self.mesh, MODEL, k), copy_over(self.mesh, MODEL,
                                                              v)
         return q, k, v
@@ -259,14 +291,29 @@ class Attention(Placed):
             return t[:, :, lo:lo + n]
         return t[:, :, idx.to(t.device)]
 
+    def cache_block(self, t):
+        """k or v [B, S, KVH, hd] as every rank holds it -> as this rank's
+        decode cache holds it: its head-dim block where ``model`` splits
+        the head dim, else ``t``."""
+        if not self.hd:
+            return t
+        n = self.wk.shape[2]
+        return t.narrow(3, self.model_index() * n, n)
+
     def out(self, a):
         """a [B, S, H, hd] -> [B, S, d]: with the heads split, this rank's
         heads' part summed over ``model`` (``sum_over``: each rank
-        back-propagates its own part)."""
+        back-propagates its own part); with the head dim split (case H),
+        the part of this rank's head-dim block of a (or a itself, where it
+        holds just that block: ``attend_cache``), summed the same way."""
         b, s = a.shape[:2]
         wo = self.weight("wo")
+        hd_split = self.split("wo", 1)
+        if hd_split and a.shape[3] != wo.shape[1]:
+            n = wo.shape[1]
+            a = a.narrow(3, self.model_index() * n, n)
         y = a.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
-        return sum_over(self.mesh, MODEL, y) if self.tp else y
+        return sum_over(self.mesh, MODEL, y) if self.tp or hd_split else y
 
     def attend_cache(self, q, cache: "Cache", pos: int, slot_pos, **mask):
         """One token's attention over this layer's ``cache["k"]``,
@@ -276,8 +323,24 @@ class Attention(Placed):
         those axes (``decode_attention_merged``); where they are split over
         ``model`` while the heads are too, the query is gathered over
         ``model`` first (every head reads every slot) and the rank keeps its
-        heads of the result."""
+        heads of the result. Where ``model`` splits the head dim, the
+        cache holds the rank's block of it: the rank scores its block of
+        every head's q (in case M the query gathered over ``model``
+        first), the scores are summed over ``model``, and the rank reads
+        its block of v: the result in case H, which ``out`` takes so; in
+        case M gathered over the head dim, the rank keeping its heads."""
         k, v = cache["k"], cache["v"]
+        if self.hd:
+            i, n, hl = self.model_index(), k.shape[3], q.shape[2]
+            if self.tp:
+                q = gather_axis(self.mesh, "model", q, dim=2)
+            a = decode_attention_merged(
+                q.narrow(3, i * n, n), k, v, self.mesh, cache.seq_axes,
+                k_pos=slot_pos, cur_pos=pos, head_dim_axes=MODEL, **mask)
+            if not self.tp:
+                return a
+            a = gather_axis(self.mesh, "model", a, dim=3)
+            return a.narrow(2, i * hl, hl)
         if not cache.seq_axes:
             return decode_attention(q, self.kv_for_queries(k),
                                     self.kv_for_queries(v), k_pos=slot_pos,
@@ -373,7 +436,8 @@ class DenseBlock(nn.Module):
                                     cos, sin)
         a = attention(q, self.attn.kv_for_queries(k),
                       self.attn.kv_for_queries(v), causal=self.causal)
-        return x + self.attn.out(a), k, v
+        return x + self.attn.out(a), self.attn.cache_block(k), \
+            self.attn.cache_block(v)
 
     def forward(self, x, cos, sin, with_aux: bool = False,
                 collect: bool = False):
@@ -391,7 +455,8 @@ class DenseBlock(nn.Module):
         that slot, where the slots are split)."""
         q, k, v = self.attn.project(rms_norm(x, self.attn_norm, self.eps),
                                     cos, sin)
-        write_slot(cache, pos, k, v)
+        write_slot(cache, pos, self.attn.cache_block(k),
+                   self.attn.cache_block(v))
         return x + self.attn.out(self.attn.attend_cache(q, cache, pos,
                                                         slot_pos))
 
@@ -421,7 +486,8 @@ class CrossBlock(DenseBlock):
                                    enc_out)
         a = attention(q, self.xattn.kv_for_queries(xk),
                       self.xattn.kv_for_queries(xv), causal=False)
-        return x + self.xattn.out(a), xk, xv
+        return x + self.xattn.out(a), self.xattn.cache_block(xk), \
+            self.xattn.cache_block(xv)
 
     def forward(self, x, cos, sin, with_aux: bool = False,
                 collect: bool = False, enc_out=None):
@@ -539,7 +605,8 @@ class HybridBlock(nn.Module):
             return self._fuse(x, self.attn.out(a), self.ssm(h)), None, None
         y, state = self.ssm(h, return_state=True)
         return self._fuse(x, self.attn.out(a), y), \
-            {"k": k, "v": v, **state}, None
+            {"k": self.attn.cache_block(k), "v": self.attn.cache_block(v),
+             **state}, None
 
     def decode(self, x, cos, sin, cache: Cache, pos: int, slot_pos):
         """One token in cache slot ``pos`` (its position, meta tokens
@@ -549,7 +616,8 @@ class HybridBlock(nn.Module):
         cfg = self.cfg
         h = rms_norm(x, self.attn_norm, self.eps)
         q, k, v = self.attn.project(h, cos, sin)
-        write_slot(cache, pos, k, v)
+        write_slot(cache, pos, self.attn.cache_block(k),
+                   self.attn.cache_block(v))
         a = self.attn.attend_cache(q, cache, pos, slot_pos,
                                    window=cfg.attn_window,
                                    meta_tokens=cfg.meta_tokens,
@@ -591,10 +659,6 @@ class LM(Placed):
         mesh, dist = get_mesh()
         self.mesh, self.dist = mesh, dist
         placing = mesh is not None
-        if placing and dist.shard_head_dim_fallback:
-            raise NotImplementedError("head_dim split over model "
-                                      "(shard_head_dim_fallback) is not "
-                                      "ported")
         built = torch.device("meta") if placing else dev
         self.tok_embed = _param((cfg.vocab_padded, cfg.d_model), dtype,
                                 built)
@@ -892,9 +956,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     Under an ambient mesh, ``batch`` is the whole batch's size and the
     cache is this rank's ``sharding.cache_spec`` block of each entry: its
     rows (the data axes, where they divide the batch), its kv heads where
-    ``model`` splits them, its slots where the data axes (a batch they do
-    not divide) or ``model`` (kv heads it does not divide) split the
-    sequence (``Cache.first_slot``, ``Cache.seq_axes``; ``xk``/``xv`` by
+    ``model`` splits them, its block of the head dim where ``model``
+    splits that instead (``shard_head_dim_fallback``), its slots where
+    the data axes (a batch they do not divide) or ``model`` (kv heads it
+    does not divide) split the sequence (``Cache.first_slot``, ``Cache.seq_axes``; ``xk``/``xv`` by
     their own spec at ``enc_frames``, ``Cache.x_first_slot``,
     ``Cache.x_seq_axes``), the SSD's heads of ``h`` and channels of
     ``conv`` (per part) where they divide ``model``."""

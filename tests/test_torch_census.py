@@ -25,9 +25,14 @@
   and assign steps, TinyLlama's and DBRX's REDUCED train steps, DBRX's
   prefill and decode, with expert parallelism, FSDP and microbatches;
   mamba2's train step (its SSD heads split), hymba's decode and
-  whisper's prefill (its encoder and cross-attention).
+  whisper's prefill (its encoder and cross-attention); and under
+  ``DistConfig(shard_head_dim_fallback=True)`` qwen's and TinyLlama's
+  train steps, hymba's decode and qwen's decode of one on (2, 2), each
+  with ``FlopCounterMode`` over the step, its count the census's
+  ``cost.flops`` (with the materialised attention).
 * ``tests/test_dryrun_artifacts.py``'s three checks on records the
-  census computes here (not read from disk), and the grid's time.
+  census computes here (not read from disk), and the grid's time; the
+  grid under the head-dim placement (``--shard-hd-fallback``) too.
 """
 import dataclasses
 import functools
@@ -281,7 +286,21 @@ def test_the_port_places_what_the_reference_specs_place(grid, mesh, arch,
     specs give it: parameters (a decode's, those it reads; the SSD's
     concatenated leaves per part, the same bytes), optimizer state, batch
     and decode cache, to the byte."""
-    rec = grid["recs"][(mesh, arch, shape)]
+    _places_what_the_specs_place(grid["recs"][(mesh, arch, shape)])
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_the_port_places_what_the_specs_place_head_dim_split(grid, mesh,
+                                                             arch, shape):
+    """The same under ``DistConfig(shard_head_dim_fallback=True)``: the
+    attention weights' head-dim blocks and the cache's."""
+    _places_what_the_specs_place(
+        grid["head_dim_fallback"][(mesh, arch, shape)])
+
+
+def _places_what_the_specs_place(rec):
     if rec["status"] != "OK":
         assert rec["status"].startswith("SKIP")
         return
@@ -535,9 +554,7 @@ def test_flops_equal_the_flop_counter(arch, case):
             decode_step(model, x["tokens"][:, :1], cache, s - 1, cfg)
     cost = D.lm_record(cfg, ShapeConfig(kind, s, b, kind), ONE, None, ocfg,
                        TrainConfig(microbatches=n))["cost"]
-    want = cost["flops"] - cost["attention_flops"] \
-        + cost["attention_flops_materialised"]
-    assert counter.get_total_flops() == want
+    assert counter.get_total_flops() == _materialised(cost)
     assert sum(cost["by_part"].values()) == cost["flops"]
     if kind == "train" and cfg.family in ("dense", "vlm"):
         assert cost["attention_flops"] < cost["attention_flops_materialised"]
@@ -554,6 +571,13 @@ def test_visible_pairs_follow_the_kernel_mask():
         hidden = _hidden(sq, sk, "cpu", causal, window, meta)
         want = sq * sk - (0 if hidden is None else int(hidden.sum()))
         assert D.visible_pairs(sq, sk, causal, window, meta) == want
+
+
+def _materialised(cost):
+    """The census's FLOPs with every (query, key) pair of the attention,
+    as the plain version on the CPU computes them."""
+    return cost["flops"] - cost["attention_flops"] \
+        + cost["attention_flops_materialised"]
 
 
 # --------------------------------------------------------- collectives
@@ -575,9 +599,10 @@ from repro_torch.models.model import decode_step, init_cache, init_params, \
 from repro_torch.models.moe import block_specs
 from repro_torch.training.optimizer import init_state
 from repro_torch.training.train_step import TrainConfig, make_train_step
+from torch.utils.flop_counter import FlopCounterMode
 torch.set_num_threads(1)
-rank, out, cases, anns = int(sys.argv[1]), sys.argv[2], \
-    json.loads(sys.argv[3]), json.loads(sys.argv[4])
+rank, out, cases, anns, flagged = int(sys.argv[1]), sys.argv[2], \
+    json.loads(sys.argv[3]), json.loads(sys.argv[4]), json.loads(sys.argv[5])
 
 record = {"bytes": {}, "calls": 0, "dist_calls": 0}
 def add(kind, nbytes):
@@ -631,7 +656,7 @@ for world in (4, 2):
                 res[f"{name}/{rank}"] = measured(lambda: step(r, a))
             continue
         cfg = get_config(arch, reduced=True)
-        dist_cfg = shd.DistConfig()
+        dist_cfg = shd.DistConfig(shard_head_dim_fallback=name in flagged)
         with mesh_context(mesh, dist_cfg):
             model = init_params(cfg, 0, "cpu")
         spec = shd.batch_spec(b, mesh)
@@ -665,7 +690,10 @@ for world in (4, 2):
                 with torch.no_grad(), mesh_context(mesh, dist_cfg, batch=b):
                     decode_step(model, block["tokens"][:, :1], cache, s - 1,
                                 cfg)
-        res[f"{name}/{rank}"] = measured(run)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            res[f"{name}/{rank}"] = measured(run)
+        res[f"{name}/{rank}"]["flops"] = counter.get_total_flops()
     compat.shutdown()
 with open(f"{out}/world{rank}.json", "w") as f:
     json.dump(res, f)
@@ -692,7 +720,20 @@ WORLD_CASES = {
     "hymba decode, (1, 2)": (2, (1, 2), "decode", "hymba-1.5b", 4, 16, 1),
     "whisper prefill, (1, 2): encoder and cross-attention": (
         2, (1, 2), "prefill", "whisper-small", 4, 16, 1),
+    # under DistConfig(shard_head_dim_fallback=True) (FLAGGED): qwen's 5
+    # heads split their 12 dims (case H), TinyLlama's and hymba's 4 heads
+    # split while their 2 kv heads split their 16 dims (case M)
+    "qwen train, (1, 4): head dim split, case H": (
+        4, (1, 4), "train", "qwen1.5-4b", 4, 16, 1),
+    "tinyllama train, (1, 4): kv head dim split, case M": (
+        4, (1, 4), "train", "tinyllama-1.1b", 4, 16, 1),
+    "hymba decode, (1, 4): kv head dim split, case M": (
+        4, (1, 4), "decode", "hymba-1.5b", 4, 16, 1),
+    "qwen decode, (2, 2), batch of one: head dim split, case H": (
+        4, (2, 2), "decode", "qwen1.5-4b", 1, 16, 1),
 }
+FLAGGED = [name for name in WORLD_CASES if "head dim split" in name]
+HEAD_DIM = shd.DistConfig(shard_head_dim_fallback=True)
 # anns-sift-10m's widths at a size the CPU scans at once (the assign step's
 # chunks 32 x 64)
 ANNS_SMALL = dict(D.ANNS_CELLS["anns-sift-10m"], n=32768, d=16, q=16, k=8,
@@ -709,7 +750,8 @@ def worlds(tmp_path_factory):
                OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, str(out / "world.py"), str(r), str(out),
-         json.dumps(WORLD_CASES), json.dumps(ANNS_SMALL)], env=env,
+         json.dumps(WORLD_CASES), json.dumps(ANNS_SMALL),
+         json.dumps(FLAGGED)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(4)]
     for p in procs:
@@ -731,10 +773,7 @@ def test_collectives_equal_the_recorded_bytes(worlds, name):
     if arch == "anns":
         want = D.anns_record(ANNS_SMALL, mesh, kind, 32, 64)["collectives"]
     else:
-        want = D.lm_record(get_config(arch, reduced=True),
-                           ShapeConfig(kind, s, b, kind), mesh, None,
-                           D.arch_opt_config(arch),
-                           TrainConfig(microbatches=n))["collectives"]
+        want = _world_record(name)["collectives"]
     assert want["total"] > 0
     for rank in range(world):
         got = worlds[f"{name}/{rank}"]
@@ -744,16 +783,44 @@ def test_collectives_equal_the_recorded_bytes(worlds, name):
                 "total": float(total)} == want, rank
 
 
+def _world_record(name):
+    world, shape, kind, arch, b, s, n = WORLD_CASES[name]
+    return D.lm_record(get_config(arch, reduced=True),
+                       ShapeConfig(kind, s, b, kind),
+                       shd.MeshShape(("data", "model"), shape),
+                       HEAD_DIM if name in FLAGGED else None,
+                       D.arch_opt_config(arch), TrainConfig(microbatches=n))
+
+
+@pytest.mark.parametrize("name", FLAGGED)
+def test_flops_under_the_head_dim_placement_equal_the_flop_counter(worlds,
+                                                                  name):
+    """``FlopCounterMode`` over the port's step on each rank under the
+    head-dim placement counts the census's FLOPs for the rank: the
+    projections of its head-dim blocks, the whole attention over every
+    head (case H) or its heads (case M), and a decode's partial scores
+    over its block of the head dim."""
+    cost = _world_record(name)["cost"]
+    for rank in range(WORLD_CASES[name][0]):
+        assert worlds[f"{name}/{rank}"]["flops"] == _materialised(cost), \
+            rank
+
+
 # ------------------------------------------- the dry-run artifacts' checks
 
 @pytest.fixture(scope="module")
 def grid():
-    """Every cell of the LM grid and the ANNS cells, on both meshes,
+    """Every cell of the LM grid (by default, and under the head-dim
+    placement: ``head_dim_fallback``) and the ANNS cells, on both meshes,
     computed here, and the seconds it took."""
     t0 = time.perf_counter()
     recs = list(D.grid()) + list(D.grid(anns=True))
+    hd = list(D.grid(dist=HEAD_DIM))
     return {"seconds": time.perf_counter() - t0,
-            "recs": {(r["mesh"], r["arch"], r["shape"]): r for r in recs}}
+            "recs": {(r["mesh"], r["arch"], r["shape"]): r for r in recs},
+            "head_dim_fallback": {(r["mesh"], r["arch"], r["shape"]): r
+                                  for r in hd}}
+
 
 
 def test_the_grid_runs_in_a_minute(grid):
@@ -764,7 +831,19 @@ def test_the_grid_runs_in_a_minute(grid):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_cell_status(grid, mesh, arch, shape):
-    rec = grid["recs"][(mesh, arch, shape)]
+    _cell_status(grid["recs"][(mesh, arch, shape)], arch, shape)
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_cell_status_head_dim_split(grid, mesh, arch, shape):
+    """Every cell OK under ``--shard-hd-fallback``."""
+    _cell_status(grid["head_dim_fallback"][(mesh, arch, shape)], arch,
+                 shape)
+
+
+def _cell_status(rec, arch, shape):
     ok, reason = configs.cell_is_applicable(get_config(arch), SHAPES[shape])
     if not ok:
         assert rec["status"] == reason and reason.startswith("SKIP")
