@@ -160,10 +160,12 @@ paths, each with its kernel launches counted from zero and checked:
   2): 8 of 16 experts a rank, factored f32 AdamW, B=4 x S=512, 3 steps,
   the MoE layer's backward across the ranks (its experts' gradients
   summed over model into the tokens' and the router's). The ranks start
-  before the pod path and wait (DP_WAIT_S); before they get the go, one
-  process takes both steps unsharded on the whole batch (the
-  references, then freed). Gates: every parameter (T1), the
-  router and every dense weight (T2), bit for bit the same on both
+  while the ep path runs and wait (DP_WAIT_S); before they get the go,
+  one process takes both steps unsharded on the whole batch (the
+  references, then freed; with T2's, its MoE layer in f32 on rows 0 and
+  1, the tp path's T3 side). Gates: every
+  parameter (T1), the router and every dense weight (T2), bit for bit
+  the same on both
   ranks after every step (fingerprints of their bits); step 0's loss
   within TRAIN_LOSS_ATOL of the one-process step; T2's routes under the
   route rule; T2's layer in f32 on one input against the unsharded
@@ -178,9 +180,10 @@ paths, each with its kernel launches counted from zero and checked:
   under ``mesh_context``: column- and row-parallel products summed over
   model, the FSDP gathers over data, the vocab-parallel embedding,
   logits, greedy choice and loss, the sequence-split cache) on 4 gloo
-  ranks that share the card (started with dp_train's, each waiting for
-  its go). Phase A, (data 1, model 4), all 22 layers: 8 of 32 query
-  heads, 1 of 4 kv heads, 1408 of d_ff and 8000 vocabulary rows a rank;
+  ranks that share the card (started while dp_train's ranks run, each
+  waiting for its go). Phase A, (data 1, model 4), all 22 layers: 8
+  of 32 query heads, 1 of 4 kv heads, 1408 of d_ff and 8000 vocabulary
+  rows a rank;
   the seeded model's parameter bytes against the census's
   (``tree_bytes`` under the specs) and the allocator's; a prefill of 4 x
   512 seeded tokens and 16 decode steps in f32 with the unsharded f32
@@ -196,10 +199,23 @@ paths, each with its kernel launches counted from zero and checked:
   decode's, the step's loss and grad norm within TP_LOSS_RTOL and
   TP_GNORM_RTOL and its updated parameters gathered whole within
   TP_PARAM_TOL but for TP_PARAM_OUTLIERS of them (each within 3 lr),
-  and exact launches a rank. Prints each rank's walls, its collectives'
-  seconds against them, peaks and parameter bytes.
+  and exact launches a rank. Then phase T3 (DP_PHASES): DBRX-132B at its
+  published widths, 1 of 40 layers, through ``launch/train.py``'s setup
+  on the trainer's (data 2, model 2) mesh, one step of T2's batch (4 x
+  512, capacity 1.25, factored f32 AdamW): 8 of 16 experts a rank, each
+  with half its d (gathered over data before use, its gradient
+  reduce-scattered), 24 of 48 query heads, 4 of 8 kv heads and a quarter
+  of the embeddings and LM head. Against dp_train's one-process DBRX
+  step: the loss the same on the ranks and within TRAIN_LOSS_ATOL, the
+  routes under the route rule (the two data ranks' joined in batch
+  order, the kept flags under their capacity), the first MoE layer in
+  f32 (each data rank on its own row) within DP_LAYER_RTOL, the
+  parameter bytes the census's, exactly 2 ``flash_attention`` and 1
+  ``flash_attention_bwd`` launches a rank. Prints each rank's walls, its
+  collectives' seconds and bytes against them, peaks and parameter
+  bytes.
 * tp_families: the ssm, hybrid and audio families placed the same way
-  on the same 4 ranks (TPF_PHASES: A mamba2-370m, B hymba-1.5b, C
+  on 4 ranks (TPF_PHASES: A mamba2-370m, B hymba-1.5b, C
   whisper-small on (1, 4); D: hymba's decode of one and 2-layer train
   steps on (2, 2)), under tp's gates; then phase E, hymba-1.5b under
   ``DistConfig(shard_head_dim_fallback=True)``: its 25 heads do not
@@ -615,9 +631,10 @@ POD_TIMEOUT_S = 300   # a collective that waits longer fails the path
 # tokens whole on every rank, so the capacities are the unsharded model's;
 # Engine.generate cold and warm. Its phase B (mesh (data 2, model 2), the
 # experts' d over data, one prefill at 1 layer: 9.7 s and a 6.1 s gather
-# timed on an H100 host) was cut for the smoke's clock when the tp path
-# came, which runs (data 2, model 2) with FSDP; tests/test_torch_moe_ep.py
-# holds the experts' FSDP on the CPU
+# timed on an H100 host) was cut for the smoke's clock; the
+# experts' FSDP over data runs on the card in the tp path's phase T3 (a
+# DBRX-132B train step on (data 2, model 2)), and tests/test_torch_moe_ep.py
+# holds it on the CPU
 EP_RANKS = 4
 EP_MESH = ((1, 4), ("data", "model"))
 # the first MoE layer in f32, sharded against unsharded on the same input:
@@ -631,44 +648,60 @@ EP_LAYER_RTOL = 1e-5
 # and 3 timed ones on one repeated batch. T2: DBRX-132B at its published
 # widths cut to 1 of 40 layers, capacity 1.25 (its config's), (data 1,
 # model 2): 8 of 16 experts a rank, factored f32 AdamW (launch/dryrun.py's
-# policy for dbrx), B=4 x S=512, 3 steps. At full width with the
-# embeddings whole on every rank, a DBRX layer holds ~23 GB a rank at
-# (data 1, model 2); (data 2, model 2) needs four ranks of ~23 GB and
-# waits for the embeddings' placement (ROADMAP queue 1)
+# policy for dbrx), B=4 x S=512, 3 steps. T3, taken by the tp path's four
+# ranks after their phase B: T2's model, batch and settings on (data 2,
+# model 2), one step: 8 of 16 experts a rank with half of each expert's d
+# (FSDP over data), 24 of 48 query heads, 4 of 8 kv heads and a quarter of
+# the embeddings and LM head; its one-process side is T2's
 DP_RANKS = 2
 DP_PHASES = {"T1": dict(arch=TRAIN_ARCH, depth=2, changes={},
                         model_axis=1, batch=8, seq=2048, steps=4,
                         factored=False),
              "T2": dict(arch="dbrx-132b", depth=1,
                         changes={"capacity_factor": 1.25}, model_axis=2,
-                        batch=4, seq=512, steps=3, factored=True)}
-# T2's MoE layer in f32 on one input (the first row of the one-process
-# step's layer input) and a seeded cotangent, sharded against unsharded:
-# each gradient within this share of its largest magnitude (f32 sums of a
-# token's contributions grouped by rank, the experts' split over model)
+                        batch=4, seq=512, steps=3, factored=True),
+             "T3": dict(arch="dbrx-132b", depth=1,
+                        changes={"capacity_factor": 1.25}, model_axis=2,
+                        batch=4, seq=512, steps=1, factored=True)}
+DP_RANK_PHASES = ("T1", "T2")     # the dp_train ranks'; T3 is the tp ranks'
+# The MoE layer in f32, sharded against unsharded, with a seeded
+# cotangent: each gradient within this share of its largest magnitude (f32
+# sums of a token's contributions grouped by rank, the experts' split over
+# model). T2: on the first row of the one-process step's layer input. T3:
+# each data rank on its own row (rows 0 and 1: a row holds the capacity of
+# its own 512 tokens, as one process on that row alone does), the input's
+# gradient against its row's, the router's (summed over data, as the step
+# sums it) and the rank's d block of its first expert (summed over data
+# by the reduce-scatter) against the two rows' added
 DP_LAYER_RTOL = 1e-5
+T3_ROWS = 2
 # elements a parameter's bit fingerprint sums at a time
 FINGERPRINT_ROW = 4096
-# The dp_train ranks start before the pod path (spawn_ranks): a fresh rank's
+# The dp_train, tp and tp_families ranks each start (spawn_ranks) while
+# the rank path before theirs runs (ep, dp_train and tp): a fresh rank's
 # Python start-up and the torch._dynamo import that its first checkpointed
 # step makes (torch.utils.checkpoint's dynamo-disabling wrapper; on an
 # H100 host the first step took 15.3 s against 1.0 s for the next) then
-# overlap the paths before theirs; a rank waits for dp_train's "go" file,
-# at most this long, before it touches the card
+# overlap a path that waits on gloo. Started together before the pod
+# path, the ten processes' start-up took the host's cores from the pod
+# and ep paths (36-38 s slower on an H100 host); started beside their own
+# path's short one-process side, they held up the go (dp_train +15-20 s
+# on a slow host). A rank waits for its path's go file, at most this
+# long, before it touches the card
 DP_WAIT_S = 900
-# The tp path: TinyLlama-1.1B at its published widths with every weight
-# and the decode cache placed by the reference's specs (models/model.py
-# under mesh_context), on 4 gloo ranks that share the card (started with
-# dp_train's, each waiting for its go). Phase A, mesh (data 1, model 4), all
-# 22 layers: 8 of 32 query heads, 1 of 4 kv heads, 1408 of 5632 d_ff and
-# 8000 of 32,000 vocabulary rows a rank; a prefill of TP_BATCH x TP_PROMPT
-# seeded tokens and TP_NEW - 1 greedy decode steps, in f32 with the
-# unsharded f32 run's tokens fed (its logits and greedy choices gated) and
-# in bf16 through Engine.generate. Phase B, mesh (data 2, model 2), the
-# model cut to TP_B_DEPTH layers (each decode step gathers every weight's
-# data block through host memory), f32: a batch of one decoded, TP_B_NEW
-# tokens (its cache's slots split over data: TP_PROMPT + TP_B_NEW slots),
-# then one AdamW step on TP_BATCH x TP_PROMPT
+# The tp path: TinyLlama-1.1B at its published widths with every weight and the
+# decode cache placed by the reference's specs (models/model.py under
+# mesh_context), on 4 gloo ranks that share the card (started while dp_train's
+# run, each waiting for its go). Phase A, mesh (data 1, model 4), all 22
+# layers: 8 of 32 query heads, 1 of 4 kv heads, 1408 of 5632 d_ff and 8000 of
+# 32,000 vocabulary rows a rank; a prefill of TP_BATCH x TP_PROMPT seeded
+# tokens and TP_NEW - 1 greedy decode steps, in f32 with the unsharded f32
+# run's tokens fed (its logits and greedy choices gated) and in bf16 through
+# Engine.generate. Phase B, mesh (data 2, model 2), the model cut to TP_B_DEPTH
+# layers (each decode step gathers every weight's data block through host
+# memory), f32: a batch of one decoded, TP_B_NEW tokens (its cache's slots
+# split over data: TP_PROMPT + TP_B_NEW slots), then one AdamW step on TP_BATCH
+# x TP_PROMPT
 TP_RANKS = 4
 TP_MESHES = {"A": ((1, 4), ("data", "model")),
              "B": ((2, 2), ("data", "model"))}
@@ -688,8 +721,8 @@ TP_PARAM_OUTLIERS = 1e-3
 # The tp_families path: the ssm, hybrid and audio families at their
 # published widths with every weight and decode cache placed by the
 # reference's specs (models/model.py and models/ssm.py under
-# mesh_context), on 4 gloo ranks sharing the card (started with tp's,
-# each waiting for its go), each phase against the unsharded model of the
+# mesh_context), on 4 gloo ranks sharing the card (started while tp's
+# run, each waiting for its go), each phase against the unsharded model of the
 # same seed. A: mamba2-370m on (data 1, model 4), all 48 layers (8 of 32
 # SSD heads, in_proj 512 + 512 + 32 + 32 + 8 columns a rank); B:
 # hymba-1.5b on (1, 4) cut to TPF_B_DEPTH layers (its global layer 0 and
@@ -773,6 +806,12 @@ def phase(name: str):
     t0 = time.perf_counter()
     yield
     print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def hops() -> str:
+    """The graph phase's hop loop, named on the build phases' lines."""
+    from repro_torch.core.graph_search import HOP_BLOCK
+    return f"hops in blocks of {HOP_BLOCK}, CUDA graph replays"
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1594,7 +1633,7 @@ def index_and_serve(tag: str, n: int, n_queries: int, floor: float, dev,
     with phase(f"{tag}: make_dataset n={n}"):
         ds = make_dataset("clustered", n=n, d=D, n_queries=n_queries,
                           k_gt=K, seed=0, device=dev)
-    with phase(f"{tag}: build_pag"):
+    with phase(f"{tag}: build_pag ({hops()})"):
         pag = build_pag(ds.base, **PAG_ARGS, device=dev)
         nonempty = int((pag.pcount[:pag.n_parts] > 0).sum())
         print(f"{tag} partitions: {pag.n_parts} ({nonempty} nonempty, cap "
@@ -1846,7 +1885,9 @@ class RouteRecorder:
             gate_w, gate_e = self.orig(xf, router, top_k)
             keep = moe.capacity_keep(gate_e, cfg.n_experts,
                                      moe.capacity(cfg, xf.shape[0]))
-            probs = moe.softmax_fp32((xf @ router).float())
+            # detached: in a train step the probabilities' autograd graph
+            # would keep the step's activations and parameters alive
+            probs = moe.softmax_fp32((xf.detach() @ router.detach()).float())
             self.calls.append((gate_e, keep, probs))
             return gate_w, gate_e
         moe.route = wrapped
@@ -2856,7 +2897,7 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
         write_partitions(pag, ds.base, store, n_shards=N_SHARDS, device=dev)
         return store
 
-    with phase("compare: PAG build"):
+    with phase(f"compare: PAG build ({hops()})"):
         t0 = time.perf_counter()
         pag = build_pag(ds.base, **CMP_PAG_ARGS, device=dev)
         build_s["PAG"] = time.perf_counter() - t0
@@ -2884,7 +2925,7 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
         if not np.array_equal(ids, first_ids):
             raise AssertionError("the loaded index serves other ids")
 
-    with phase("compare: DiskANN build"):
+    with phase(f"compare: DiskANN build ({hops()})"):
         dk_store = ObjectStore(StorageConfig.preset("dfs"))
         t0 = time.perf_counter()
         dk = build_diskann(ds.base, dk_store, R=16, L=48, M=8, device=dev)
@@ -2908,7 +2949,7 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
                   f"waves)", flush=True)
     del dk, dk_store
 
-    with phase("compare: SPANN build"):
+    with phase(f"compare: SPANN build ({hops()})"):
         sp_store = ObjectStore(StorageConfig.preset("dfs"))
         t0 = time.perf_counter()
         sp = build_spann(ds.base, sp_store, points_per_part=16, device=dev)
@@ -2923,7 +2964,7 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
                 time.perf_counter() - t0)
     del sp, sp_store
 
-    with phase("compare: HNSW build"):
+    with phase(f"compare: HNSW build ({hops()})"):
         t0 = time.perf_counter()
         hn = build_hnsw(ds.base, R=16, L=48, device=dev)
         build_s["HNSW"] = time.perf_counter() - t0
@@ -2935,7 +2976,7 @@ def comparison(dev, n: int = CMP_N, n_queries: int = CMP_QUERIES,
                 time.perf_counter() - t0)
     del hn
 
-    with phase(f"compare: CIC build c=4 n={cic_n}"):
+    with phase(f"compare: CIC build c=4 n={cic_n} ({hops()})"):
         stats = {}
         x = ds.base[:cic_n]
         pg = cic_build(x, c=4, stats=stats, device=dev)
@@ -3515,15 +3556,17 @@ def fingerprint(t: torch.Tensor) -> torch.Tensor:
 
 
 def dp_reference(dev) -> dict:
-    """The one-process side of the dp_train path, on the whole batch:
-    each phase's step 0 loss and T2's routes; before T2's step, its MoE
-    layer in f32 on the first row of its layer-0 input (a forward with no
-    gradient) with a seeded cotangent: the input's, the router's and
-    experts 0 and E/2's gradients (each rank's first expert). Everything
-    kept on the host, the models freed."""
+    """The one-process side of the dp_train path (and of the tp path's
+    T3), on the whole batch: each phase's step 0 loss and T2's grad norm
+    and routes; before T2's step, its MoE layer in f32 (a forward with no
+    gradient for its input), with seeded cotangents, on the first row of
+    its layer-0 input (T2's ranks' check) and on the second (with the
+    first, T3's): the input's, the router's and experts 0 and E/2's
+    gradients (each model rank's first expert). Everything kept on the
+    host, the models freed."""
     from repro_torch.data.lm import batch_at
     out = {}
-    for tag in DP_PHASES:
+    for tag in DP_RANK_PHASES:
         cfg, dcfg, model, opt, step_fn = dp_setup(tag, dev, ranks=False)
         batch = batch_at(dcfg, cfg, 0, device=dev)
         if cfg.n_experts:
@@ -3531,24 +3574,26 @@ def dp_reference(dev) -> dict:
         with RouteRecorder(cfg) as rec:
             _, opt, m = step_fn(model, opt, batch)
         out[f"{tag}_loss"] = float(m["loss"])
+        out[f"{tag}_gnorm"] = float(m["grad_norm"])
         out[f"{tag}_routes"] = rec.host_calls()[:cfg.n_layers]
         del model, opt, m, rec, batch
         torch.cuda.empty_cache()
     return out
 
 
-def f32_layer_grads(model, batch, cfg, dev) -> dict:
-    """The first MoE layer of ``model`` in f32, unsharded, on the first row
-    of its input in ``model``'s forward of ``batch``, back-propagating a
-    seeded cotangent: for each model rank r, the input's gradient, the
-    router's and its first expert's three (expert r E / mp), on the
-    host."""
+def f32_layer_grads(model, batch, cfg, dev) -> list:
+    """The first MoE layer of ``model`` in f32, unsharded, back-propagating
+    a seeded cotangent, on each of the first T3_ROWS rows of its input in
+    ``model``'s forward of ``batch`` alone: for each row, the input, its
+    cotangent and gradient, the router's gradient and, for each model
+    rank r of T2's and T3's meshes, its first expert's three (expert r E /
+    mp), on the host. T2's ranks take row 0's; T3's both."""
     from repro_torch.models import forward, moe
     saved, first = moe.moe_forward, []
 
     def keep_input(params, x, cfg_, *shared):
         if not first:
-            first.append(x[:1].float())
+            first.append(x[:T3_ROWS].float())
         return saved(params, x, cfg_, *shared)
     moe.moe_forward = keep_input
     try:
@@ -3556,25 +3601,55 @@ def f32_layer_grads(model, batch, cfg, dev) -> dict:
             forward(model, batch, cfg)
     finally:
         moe.moe_forward = saved
-    x = first[0].requires_grad_()
-    gen = torch.Generator(dev).manual_seed(2)
-    cot = torch.randn(x.shape, generator=gen, device=dev)
-    params = {k: v.detach().float().requires_grad_()
-              for k, v in model.blocks[0].moe.named_parameters()}
     names = ("router",) + moe.EXPERT_WEIGHTS
-    grads = torch.autograd.grad(
-        (moe.moe_forward(params, x, cfg).float() * cot).sum(),
-        [x] + [params[k] for k in names])
     mp = DP_PHASES["T2"]["model_axis"]
     e_local = cfg.n_experts // mp
-    common = {"x": x.detach().cpu(), "cot": cot.cpu(),
-              "x_grad": grads[0].cpu(), "router_grad": grads[1].cpu()}
-    out = [{**common, "expert_id": r * e_local,
-            "expert": [g[r * e_local].cpu() for g in grads[2:]]}
-           for r in range(mp)]
-    del params, grads, x, first
-    torch.cuda.empty_cache()
+    out = []
+    for row in range(T3_ROWS):
+        x = first[0][row:row + 1].clone().requires_grad_()
+        gen = torch.Generator(dev).manual_seed(2 + row)
+        cot = torch.randn(x.shape, generator=gen, device=dev)
+        params = {k: v.detach().float().requires_grad_()
+                  for k, v in model.blocks[0].moe.named_parameters()}
+        grads = torch.autograd.grad(
+            (moe.moe_forward(params, x, cfg).float() * cot).sum(),
+            [x] + [params[k] for k in names])
+        out.append({"x": x.detach().cpu(), "cot": cot.cpu(),
+                    "x_grad": grads[0].cpu(), "router_grad": grads[1].cpu(),
+                    "experts": {r * e_local: [g[r * e_local].cpu()
+                                              for g in grads[2:]]
+                                for r in range(mp)}})
+        del params, grads, x
+        torch.cuda.empty_cache()
     return out
+
+
+def t3_side(dp_ref: dict) -> tuple:
+    """T3's one-process side from ``dp_reference``'s T2: (its step 0 loss,
+    grad norm and routes; ``t3_layer_inputs`` for each model index)."""
+    mp = DP_PHASES["T3"]["model_axis"]
+    e_local = t3_config().n_experts // mp
+    return ({k: dp_ref[k] for k in ("T2_loss", "T2_gnorm", "T2_routes")},
+            [t3_layer_inputs(dp_ref["T2_layer"], m, e_local)
+             for m in range(mp)])
+
+
+def t3_layer_inputs(rows: list, m: int, e_local: int) -> dict:
+    """What a T3 rank of model index ``m`` is held to (``f32_layer_grads``'
+    rows): each row's input, cotangent and input gradient (a data rank
+    takes its own), the router's gradients and its first expert's (expert
+    ``m e_local``) of the rows added in row order, as the sums over data
+    add them (each rank cuts its own d block)."""
+    e = m * e_local
+    router = rows[0]["router_grad"].clone()
+    expert = [g.clone() for g in rows[0]["experts"][e]]
+    for r in rows[1:]:
+        router += r["router_grad"]
+        for acc, g in zip(expert, r["experts"][e]):
+            acc += g
+    return {"x": [r["x"] for r in rows], "cot": [r["cot"] for r in rows],
+            "x_grad": [r["x_grad"] for r in rows], "router_grad": router,
+            "expert_id": e, "expert": expert}
 
 
 def dp_rank(rank: int, init: str, tmp: str, src: str) -> None:
@@ -3614,7 +3689,8 @@ def dp_rank(rank: int, init: str, tmp: str, src: str) -> None:
                       timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
     try:
         rep = {"rank": rank}
-        for tag, ph in DP_PHASES.items():
+        for tag in DP_RANK_PHASES:
+            ph = DP_PHASES[tag]
             t0 = time.perf_counter()
             cfg, dcfg, model, opt, step_fn = dp_setup(tag, dev, ranks=True)
             torch.cuda.synchronize()
@@ -3732,23 +3808,40 @@ def join_ranks(spawned: dict, go: str, out: str) -> dict:
     """Touch the ranks' go file ``go`` and join them (a rank that raises
     fails the path): the seconds they ran, how long they had waited
     since ``spawn_ranks``, and each rank's ``<out><rank>.pt``."""
+    import gc
     tmp = spawned["tmp"]
+    # the card is the ranks': this process keeps only what it holds
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "card_used_mib": int(subprocess.run(
+                ["nvidia-smi", "-i", "0", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True).stdout.strip())}
+    print(f"[ranks] {go}: before the go this process holds "
+          f"{held['allocated']} bytes ({held['reserved']} reserved), the "
+          f"card {held['card_used_mib']} MiB in use", flush=True)
     t0 = time.perf_counter()
     Path(tmp, go).touch()
     while not spawned["ctx"].join():
         pass
     return {"ranks_s": time.perf_counter() - t0,
-            "waited_s": t0 - spawned["t0"],
+            "waited_s": t0 - spawned["t0"], "held_before_go": held,
             "ranks": [torch.load(f"{tmp}/{out}{i}.pt")
                       for i in range(spawned["n"])]}
 
 
 def dp_train(ref: dict, spawned: dict) -> dict:
     """The dp_train path: the ranks ``spawn_ranks`` started, given the
-    one-process side's T2 layer input (``dp_reference``) and then the go;
-    joined. A rank that raises fails the path."""
-    for i, layer in enumerate(ref["T2_layer"]):
-        torch.save(layer, f"{spawned['tmp']}/dp_layer{i}.pt")
+    one-process side's T2 layer input (``dp_reference``: its first row)
+    and then the go; joined. A rank that raises fails the path."""
+    row = ref["T2_layer"][0]
+    for i, (e, expert) in enumerate(sorted(row["experts"].items())):
+        torch.save({**{k: row[k] for k in ("x", "cot", "x_grad",
+                                           "router_grad")},
+                    "expert_id": e, "expert": expert},
+                   f"{spawned['tmp']}/dp_layer{i}.pt")
     return join_ranks(spawned, "go", "dp")
 
 
@@ -3756,7 +3849,8 @@ def check_dp_train(r: dict, ref: dict) -> dict:
     """The dp_train path's gates (see the module docstring)."""
     ranks = r["ranks"]
     out, bad = {}, []
-    for tag, ph in DP_PHASES.items():
+    for tag in DP_RANK_PHASES:
+        ph = DP_PHASES[tag]
         losses = [x[f"{tag}_losses"] for x in ranks]
         same = all(all(torch.equal(a[n], b[n]) for n in a)
                    for x in ranks[1:]
@@ -3811,7 +3905,8 @@ def report_dp_train(r: dict, checks: dict, card: str) -> None:
     per_rank = []
     for x in r["ranks"]:
         row = {"rank": x["rank"]}
-        for tag, ph in DP_PHASES.items():
+        for tag in DP_RANK_PHASES:
+            ph = DP_PHASES[tag]
             walls = x[f"{tag}_walls"]
             timed = walls[1:] if tag == "T1" else walls
             row[tag] = {"coords": x[f"{tag}_coords"],
@@ -3843,7 +3938,8 @@ def report_dp_train(r: dict, checks: dict, card: str) -> None:
     rep = {"card": card, "backend": "gloo", "ranks_on_one_card": DP_RANKS,
            "phases": {tag: {**ph, "reduced": {"n_layers": [
                {"tinyllama-1.1b": 22, "dbrx-132b": 40}[ph["arch"]],
-               ph["depth"]]}} for tag, ph in DP_PHASES.items()},
+               ph["depth"]]}} for tag, ph in DP_PHASES.items()
+               if tag in DP_RANK_PHASES},
            "lr": TRAIN_LR, "per_rank": per_rank, "ranks_s": r["ranks_s"],
            "ranks_started_s_before": r["waited_s"],
            **checks}
@@ -3854,7 +3950,9 @@ class CollectiveTimer:
     """Times every collective of the port (``core/distributed.py``'s
     ``_gather``, ``_sum_axis`` and ``_reduce_scatter``, through which the
     census counts them all) on the host's clock, the card synchronised
-    before and after each, by kind: seconds and calls."""
+    before and after each, by kind: seconds, calls and the bytes a rank
+    receives by the census's count (n x the tensor's for a gather and a
+    reduce-scatter; an all-reduce's own bytes on two ranks, else n x)."""
     KINDS = {"_gather": "all-gather", "_sum_axis": "all-reduce",
              "_reduce_scatter": "reduce-scatter"}
 
@@ -3863,16 +3961,20 @@ class CollectiveTimer:
         self.pd, self.saved = pd, {}
         self.seconds = {k: 0.0 for k in self.KINDS.values()}
         self.calls = {k: 0 for k in self.KINDS.values()}
+        self.bytes = {k: 0 for k in self.KINDS.values()}
         for name, kind in self.KINDS.items():
             fn = self.saved[name] = getattr(pd, name)
 
-            def timed(*a, _fn=fn, _kind=kind, **kw):
+            def timed(mesh, axis, t, *a, _fn=fn, _kind=kind, **kw):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = _fn(*a, **kw)
+                out = _fn(mesh, axis, t, *a, **kw)
                 torch.cuda.synchronize()
                 self.seconds[_kind] += time.perf_counter() - t0
                 self.calls[_kind] += 1
+                n = mesh.shape[axis]
+                self.bytes[_kind] += t.numel() * t.element_size() * (
+                    1 if _kind == "all-reduce" and n == 2 else n)
                 return out
             setattr(pd, name, timed)
         return self
@@ -3883,6 +3985,7 @@ class CollectiveTimer:
 
     def record(self) -> dict:
         return {"seconds": dict(self.seconds), "calls": dict(self.calls),
+                "bytes": dict(self.bytes),
                 "total_s": sum(self.seconds.values())}
 
 
@@ -3969,8 +4072,9 @@ def tp_rank(rank: int, init: str, tmp: str, src: str) -> None:
     (layer 0's attention call kept); phase B on (data 2, model 2) at
     TP_B_DEPTH layers, f32: a batch of one's generate, then one train
     step under ``CollectiveTimer`` and the updated parameters gathered
-    whole (rank 0 keeps them). Launches counted from 0 over all of it.
-    Saves it all to ``tmp/tp<rank>.pt``."""
+    whole (rank 0 keeps them). Launches counted from 0 over all of A and
+    B; then phase T3 (``t3_rank``), its launches apart. Saves it all to
+    ``tmp/tp<rank>.pt``."""
     sys.path.insert(0, src)
     import datetime
 
@@ -4104,21 +4208,226 @@ def tp_rank(rank: int, init: str, tmp: str, src: str) -> None:
             rep["B_params"] = {n: t.cpu() for n, t in whole.items()}
         del model, state, step, batch, block, whole, m
         rep["launches"] = launches
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rep["T3"] = t3_rank(tmp, dev)
+        rep["T3_s"] = time.perf_counter() - t0
         torch.save(rep, f"{tmp}/tp{rank}.pt")
     finally:
         compat.shutdown()
 
 
-def tp(ref: dict, spawned: dict) -> dict:
+def t3_rank(tmp: str, dev) -> dict:
+    """Phase T3 on a tp rank (``tp_rank``, after phase B): DP_PHASES' T3
+    through ``dp_setup`` on the process group (``make_local_mesh(2)``:
+    (data 2, model 2)), its parameter bytes and blocks; one step on
+    ``batch_at``'s batch 0 from a barrier, its launches counted from 0,
+    its routes recorded and its collectives timed (``CollectiveTimer``),
+    the first attention call with gradients kept; the peaks after setup
+    and in the step, and what stays allocated after it. Then, the model
+    and optimizer freed, the MoE layer in f32 from its initial blocks (kept
+    on the host) on this data rank's row (``tmp/t3_in<model index>.pt``,
+    the one-process side's): its gradients against the one-process
+    side's."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import psum
+    from repro_torch.data.lm import batch_at
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
+    from repro_torch.models import moe
+
+    ph, rep = DP_PHASES["T3"], {}
+    # what phases A and B left allocated on this rank
+    rep["before_bytes"] = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    cfg, dcfg, model, opt, step_fn = dp_setup("T3", dev, ranks=True)
+    torch.cuda.synchronize()
+    rep["setup_s"] = time.perf_counter() - t0
+    rep["setup_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    mesh = pm.make_local_mesh(ph["model_axis"])
+    rep["coords"] = mesh.coords
+    rep["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in model.parameters())
+    rep["opt_bytes"] = sum(t.numel() * t.element_size()
+                           for t in opt_tensors(opt))
+    rep["n_params"] = sum(p.numel() for p in model.parameters())
+    layer, attn = model.blocks[0].moe, model.blocks[0].attn
+    rep["widths"] = {"w_gate": list(layer.w_gate.shape),
+                     "w_down": list(layer.w_down.shape),
+                     "wq": list(attn.wq.shape), "wk": list(attn.wk.shape),
+                     "tok_embed": list(model.tok_embed.shape),
+                     "lm_head": list(model.lm_head.shape)}
+    # the step updates the parameters in place
+    initial = {k: v.detach().to("cpu", copy=True)
+               for k, v in layer.named_parameters()}
+    batch = batch_at(dcfg, cfg, 0, device=dev)
+    cap = Capture(ops, "flash_attention", lambda a, kw: a[0].requires_grad)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with cap, RouteRecorder(cfg) as rec, CollectiveTimer() as timer:
+        dist.barrier()
+        t0 = time.perf_counter()
+        _, opt, m = step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        rep["step_s"] = time.perf_counter() - t0
+    rep["launches"] = ops.launch_counts()
+    rep["step_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rep["after_step_bytes"] = torch.cuda.memory_allocated()
+    rep["collectives"] = timer.record()
+    rep["loss"], rep["aux"], rep["gnorm"] = (float(m[k]) for k in (
+        "loss", "aux_loss", "grad_norm"))
+    rep["routes"] = rec.host_calls()[:cfg.n_layers]
+    (q, k, v), kw = cap.args
+    rep["call"] = ((q.cpu(), k.cpu(), v.cpu()), kw)
+    # the modules too: they hold the step's parameters
+    del model, layer, attn, opt, m, batch, cap, rec, q, k, v
+    torch.cuda.empty_cache()
+
+    row = mesh.coords[0]
+    ref = torch.load(f"{tmp}/t3_in{mesh.coords[-1]}.pt")
+    p32 = {k: v.to(dev).float().requires_grad_() for k, v in initial.items()}
+    x = ref["x"][row].to(dev).requires_grad_()
+    names = ("router",) + moe.EXPERT_WEIGHTS
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with mesh_context(mesh, batch=T3_ROWS):
+        grads = torch.autograd.grad(
+            (moe.moe_sharded(p32, x, cfg, mesh).float()
+             * ref["cot"][row].to(dev)).sum(),
+            [x] + [p32[k] for k in names])
+    router = psum(mesh, ("data",), grads[1])
+    torch.cuda.synchronize()
+    rep["layer_s"] = time.perf_counter() - t0
+    rep["layer_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    specs = moe.expert_specs(cfg, mesh)
+    got = {"x_grad": grads[0], "router_grad": router,
+           **{f"expert_{n}": g[0] for n, g in zip(moe.EXPERT_WEIGHTS,
+                                                   grads[2:])}}
+    want = {"x_grad": ref["x_grad"][row], "router_grad": ref["router_grad"],
+            **{f"expert_{n}": shd.local_block(w, specs[n][1:], mesh)
+               for n, w in zip(moe.EXPERT_WEIGHTS, ref["expert"])}}
+    rep["layer"] = {
+        k: {"max_abs": float((got[k].cpu() - w).abs().max()),
+            "bound": DP_LAYER_RTOL * float(w.abs().max())}
+        for k, w in want.items()}
+    rep["layer"]["expert"] = ref["expert_id"]
+    del p32, x, grads, got, router, ref
+    torch.cuda.empty_cache()
+    return rep
+
+
+def opt_tensors(state) -> list:
+    """Every tensor of an optimizer state (nested dicts, lists and
+    tuples)."""
+    if torch.is_tensor(state):
+        return [state]
+    if isinstance(state, dict):
+        state = list(state.values())
+    if isinstance(state, (list, tuple)):
+        return [t for x in state for t in opt_tensors(x)]
+    return []
+
+
+def tp(ref: dict, spawned: dict, t3_in: list) -> dict:
     """The tp path: the ranks ``spawn_ranks(tp_rank, TP_RANKS)`` started,
     given the unsharded side's prompts and f32 tokens (``tp_reference``)
-    and then the go; joined."""
+    and T3's layer inputs and gradients by model index
+    (``t3_layer_inputs``), and then the go; joined."""
     torch.save({"prompt": ref["prompt"], "f32_gen": ref["f32_gen"]},
                f"{spawned['tmp']}/tp_in.pt")
+    for m, layer in enumerate(t3_in):
+        torch.save(layer, f"{spawned['tmp']}/t3_in{m}.pt")
     return join_ranks(spawned, "tp_go", "tp")
 
 
-def check_tp(r: dict, ref: dict) -> dict:
+def t3_config():
+    """T3's config: DP_PHASES' T3 cut of its arch."""
+    from repro_torch.configs import get_config
+    ph = DP_PHASES["T3"]
+    return dataclasses.replace(get_config(ph["arch"]), n_layers=ph["depth"],
+                               **ph["changes"])
+
+
+def check_t3(ranks: list, ref: dict) -> tuple:
+    """Phase T3's gates against the one-process step (``dp_reference``'s
+    T2, whose arch, depth, seed, batch and capacity factor T3's are): the
+    loss the same on every rank and within TRAIN_LOSS_ATOL of the
+    one-process step's; the grad norm finite; the routes of the two data
+    ranks joined in batch order under the route rule against the
+    one-process routes, their kept flags recomputed under the ranks'
+    capacity (each data rank's own tokens, (B S) / dp); every rank's f32
+    layer gradients within DP_LAYER_RTOL of their largest; each rank's
+    parameter bytes the census's (``tp_census_bytes`` on (2, 2)); exactly
+    two ``flash_attention`` launches a rank (the forward and its remat)
+    and one ``flash_attention_bwd``. Returns (report, failures)."""
+    from repro_torch.models import moe
+    cfg = t3_config()
+    ph = DP_PHASES["T3"]
+    xs = [x["T3"] for x in ranks]
+    out, bad = {}, []
+    losses = [x["loss"] for x in xs]
+    out["loss"], out["loss_one_process"] = losses, ref["T2_loss"]
+    out["loss_vs_one_process_abs"] = abs(losses[0] - ref["T2_loss"])
+    out["gnorm"], out["gnorm_one_process"] = [x["gnorm"] for x in xs], \
+        ref["T2_gnorm"]
+    if any(v != losses[0] for v in losses):
+        bad.append("T3: losses differ between ranks")
+    if out["loss_vs_one_process_abs"] > TRAIN_LOSS_ATOL:
+        bad.append("T3: step 0 loss off the one-process step's")
+    if not np.isfinite(losses + out["gnorm"]).all():
+        bad.append("T3: loss or grad norm not finite")
+    # the model-index-0 rank of each data index, in data order
+    lead = sorted((x for x in xs if x["coords"][-1] == 0),
+                  key=lambda x: x["coords"][0])
+    t_rank = ph["batch"] * ph["seq"] // len(lead)
+    got = [tuple(torch.cat([x["routes"][i][j] for x in lead])
+                 for j in range(3)) for i in range(cfg.n_layers)]
+    want = []
+    for e, keep, probs in ref["T2_routes"]:
+        keep_ranks = torch.cat([moe.capacity_keep(
+            e[i:i + t_rank], cfg.n_experts, moe.capacity(cfg, t_rank))
+            for i in range(0, e.shape[0], t_rank)])
+        want.append((e, keep_ranks, probs))
+    routes, _ = route_rule(got, want, cfg.n_experts)
+    out["routes"] = {k: v for k, v in routes.items() if k != "by_layer"}
+    out["dropped_assignments"] = {
+        "ranks": int(sum((~k).sum() for _, k, _ in got)),
+        "one_process": int(sum((~k).sum() for _, k, _ in ref["T2_routes"])),
+        "one_process_under_the_ranks_capacity": int(
+            sum((~k).sum() for _, k, _ in want)),
+        "of": int(sum(k.numel() for _, k, _ in got))}
+    if routes["agreement"] < ROUTE_AGREEMENT[ph["arch"]] \
+            or routes["violations"]:
+        bad.append("T3: routes break the route rule")
+    out["layer_f32"] = [{"coords": x["coords"], **x["layer"]} for x in xs]
+    for x in xs:
+        for k, e in x["layer"].items():
+            if k != "expert" and e["max_abs"] > e["bound"]:
+                bad.append(f"T3: rank {x['coords']} f32 layer {k}")
+    census = tp_census_bytes(cfg, ((2, 2), ("data", "model")))
+    out["param_bytes"], out["census_bytes"] = [x["param_bytes"] for x in
+                                               xs], census
+    if any(x["param_bytes"] != census for x in xs):
+        bad.append(f"T3: parameter bytes {out['param_bytes']}, the census "
+                   f"says {census}")
+    want_launches = {"flash_attention": 2 * ph["depth"] * ph["steps"],
+                     "flash_attention_bwd": ph["depth"] * ph["steps"]}
+    out["launches_a_rank"] = [{k: x["launches"].get(k, 0)
+                               for k in want_launches} for x in xs]
+    out["launches_want"] = want_launches
+    if any(x["launches"].get(k, 0) != n for x in xs
+           for k, n in want_launches.items()):
+        bad.append(f"T3: launches {out['launches_a_rank']}")
+    out["widths_rank0"] = xs[0]["widths"]
+    return out, bad
+
+
+def check_tp(r: dict, ref: dict, t3_ref: dict) -> dict:
     """The tp path's gates. A, f32: every rank's logits bit for bit the
     same and, at the prefill's last position and each decode step, within
     TP_LOGITS_RTOL of the row's largest |logit| of the unsharded model's;
@@ -4201,6 +4510,9 @@ def check_tp(r: dict, ref: dict) -> dict:
             bad.append(f"rank {x['rank']} launches {x['launches']}")
     if beyond > TP_PARAM_OUTLIERS * elems or worst > 3 * TRAIN_LR:
         bad.append("B: updated parameters off the unsharded step's")
+    out["T3"], t3_bad = check_t3(ranks, t3_ref)
+    print(f"tp T3 checks: {json.dumps(out['T3'])}", flush=True)
+    bad += t3_bad
     if bad:
         raise AssertionError(f"tp: {bad}")
     return out
@@ -4240,13 +4552,62 @@ def report_tp(r: dict, checks: dict, card: str) -> None:
               f"{x['A_bf16_peak_gib']:.2f} / B {x['B_peak_gib']:.2f} GiB; "
               f"parameter bytes A {x['A_bf16_bytes']['census_bytes']} "
               f"(census) ({card})")
+    ph = DP_PHASES["T3"]
+    t3 = {"phase": {**ph, "mesh": [[2, 2], ["data", "model"]],
+                    "reduced": {"n_layers": [40, ph["depth"]]}},
+          "per_rank": [t3_report_row(x, card) for x in r["ranks"]]}
     rep = {"card": card, "backend": "gloo", "ranks_on_one_card": TP_RANKS,
            "meshes": TP_MESHES, "batch": TP_BATCH, "prompt": TP_PROMPT,
            "new": TP_NEW, "B": {"depth": TP_B_DEPTH, "new": TP_B_NEW,
                                 "reduced": {"n_layers": [22, TP_B_DEPTH]}},
            "per_rank": per_rank, "ranks_s": r["ranks_s"],
-           "ranks_started_s_before": r["waited_s"], **checks}
+           "ranks_started_s_before": r["waited_s"], **checks,
+           "T3": {**checks["T3"], **t3}}
     print(f"tp report: {json.dumps(rep)}", flush=True)
+
+
+def t3_report_row(x: dict, card: str) -> dict:
+    """A rank's T3 numbers (``t3_rank``), printed on a line of their own:
+    setup and step walls, the collectives by kind (seconds with the card
+    synchronised around each, bytes received by the census's count) and
+    their share of the step, tokens/s across the ranks, peaks, and what
+    the step left allocated beyond the parameters, the optimizer state and
+    what was allocated before T3's setup."""
+    t3, ph = x["T3"], DP_PHASES["T3"]
+    col = t3["collectives"]
+    row = {"rank": x["rank"], "coords": t3["coords"],
+           "phase_s": x["T3_s"], "setup_s": t3["setup_s"],
+           "step_s": t3["step_s"],
+           "tokens_per_s_all_ranks": ph["batch"] * ph["seq"] / t3["step_s"],
+           "collectives": col,
+           "collectives_share": col["total_s"] / t3["step_s"],
+           "setup_peak_gib": t3["setup_peak_gib"],
+           "step_peak_gib": t3["step_peak_gib"],
+           "before_bytes": t3["before_bytes"],
+           "after_step_beyond_state_bytes": t3["after_step_bytes"]
+           - t3["before_bytes"] - t3["param_bytes"] - t3["opt_bytes"],
+           "param_bytes": t3["param_bytes"], "n_params": t3["n_params"],
+           "f32_layer_s": t3["layer_s"],
+           "f32_layer_peak_gib": t3["layer_peak_gib"],
+           "aux_loss": t3["aux"], "grad_norm": t3["gnorm"]}
+    sec, byt = col["seconds"], col["bytes"]
+    print(f"tp T3 rank {x['rank']} {tuple(t3['coords'])}: setup "
+          f"{t3['setup_s']:.3f} s, step {t3['step_s']:.3f} s "
+          f"({row['tokens_per_s_all_ranks']:.1f} tokens/s across the "
+          f"ranks), collectives {col['total_s']:.3f} s "
+          f"({100 * row['collectives_share']:.1f}% of the step): all-gather "
+          f"{sec['all-gather']:.3f} s / {byt['all-gather'] / 1e9:.3f} GB, "
+          f"reduce-scatter {sec['reduce-scatter']:.3f} s / "
+          f"{byt['reduce-scatter'] / 1e9:.3f} GB, all-reduce "
+          f"{sec['all-reduce']:.3f} s / {byt['all-reduce'] / 1e9:.3f} GB; "
+          f"peaks setup {t3['setup_peak_gib']:.2f} / step "
+          f"{t3['step_peak_gib']:.2f} GiB, after the step "
+          f"{row['after_step_beyond_state_bytes']} bytes beyond the "
+          f"parameters, optimizer state and the {t3['before_bytes']} "
+          f"phases A and B left; f32 layer "
+          f"{t3['layer_s']:.3f} s, peak {t3['layer_peak_gib']:.2f} GiB; "
+          f"grad norm {t3['gnorm']:.6f} ({card})", flush=True)
+    return row
 
 
 def tpf_cut(arch: str, depth, dtype: str = "bfloat16"):
@@ -5689,7 +6050,19 @@ def time_kernels(caps, counts) -> list:
     rows[-1]["path"] = "tp"
     rows[-1]["note"] = ("launches: the tp path's over its 4 ranks (a rank: "
                         "22 a prefill in A's f32 and bf16 runs, 2 in B's "
-                        "decode, 4 in B's train step, remat)")
+                        "decode, 4 in B's train step and 2 in T3's, remat)")
+    # the tp path's T3 on a rank, step 0's layer 0: DBRX-132B, a data
+    # rank's 2 x 512 rows, 24 of 48 query heads and 4 of 8 kv heads
+    what = "tp T3 dbrx-132b layer 0 a rank, 2 x 512, 24 / 4 heads"
+    rows.append(flash_row(caps["tp T3"],
+                          counts["tp T3"]["flash_attention"], what))
+    rows.append(flash_bwd_row(caps["tp T3"].args,
+                              counts["tp T3"]["flash_attention_bwd"], what))
+    for r in rows[-2:]:
+        r["path"] = "tp"
+        r["note"] = "; ".join(filter(None, [r.get("note"), (
+            f"{what}; launches: T3's over the 4 ranks (a rank: 2 forward, "
+            f"the step's and its remat, and 1 backward)")]))
     rows += pod_kernel_rows(counts["pod"], caps["l2_topk"].args[0][0]
                             .device)
     return rows
@@ -5970,16 +6343,10 @@ def main() -> int:
         del run
         torch.cuda.empty_cache()
 
-    # the dp_train, tp and tp_families paths' ranks start now and wait
-    # (DP_WAIT_S)
-    dp_ranks = spawn_ranks(dp_rank, DP_RANKS)
-    tp_ranks = spawn_ranks(tp_rank, TP_RANKS)
-    tpf_ranks = spawn_ranks(tpf_rank, TP_RANKS)
-
     # four gloo ranks share the card; each counts its own launches from 0
     # around its steps, and the path's counts are their sum
-    with phase("pod: 4 gloo ranks on one card (serve and assign steps), "
-               "then 1 nccl rank"):
+    with phase("pod: 4 gloo ranks on one card (serve and assign steps; "
+               "no other path's ranks started yet), then 1 nccl rank"):
         pod_run = pod()
     counts["pod"] = {k: sum(x["launches"][k] for x in pod_run["ranks"])
                      for k in pod_run["ranks"][0]["launches"]}
@@ -5994,9 +6361,11 @@ def main() -> int:
 
     # DBRX-132B with expert parallelism: four gloo ranks share the card;
     # each counts its own launches from 0 over its generates and
-    # prefills, and the path's counts are their sum
-    with phase("ep: 4 gloo ranks on one card, mesh (data 1, model 4) "
-               "generate"):
+    # prefills, and the path's counts are their sum. The dp_train path's
+    # ranks start now and wait (DP_WAIT_S)
+    dp_ranks = spawn_ranks(dp_rank, DP_RANKS)
+    with phase("ep: 4 gloo ranks on one card (dp_train's 2 ranks starting "
+               "meanwhile), mesh (data 1, model 4) generate"):
         ep_run = ep(ep_ref)
     counts["ep"] = {k: sum(x["launches"].get(k, 0) for x in ep_run["ranks"])
                     for k in counts["pod"]}
@@ -6012,16 +6381,20 @@ def main() -> int:
 
     # two gloo ranks on the card train through launch/train.py's setup;
     # each counts its own launches from 0 around its steps, and the
-    # path's counts are their sum
+    # path's counts are their sum. The tp path's ranks start when they
+    # get their go
     with phase("dp_train: one process on the whole batch (TinyLlama-1.1B "
-               "2 layers, DBRX-132B 1 layer, the f32 layer)"):
+               "2 layers, DBRX-132B 1 layer, the f32 layer on rows 0 and "
+               "1)"):
         dp_ref = dp_reference(dev)
+    tp_ranks = spawn_ranks(tp_rank, TP_RANKS)
     with phase("dp_train: 2 gloo ranks on one card, T1 (data 2, model 1) "
-               "then T2 (data 1, model 2)"):
+               "then T2 (data 1, model 2) (tp's 4 ranks starting "
+               "meanwhile)"):
         dp_run = dp_train(dp_ref, dp_ranks)
     counts["dp_train"] = {k: sum(x[f"{tag}_launches"].get(k, 0)
                                  for x in dp_run["ranks"]
-                                 for tag in DP_PHASES)
+                                 for tag in DP_RANK_PHASES)
                           for k in counts["pod"]}
     print(f"[launches] dp_train: {json.dumps(counts['dp_train'])}",
           flush=True)
@@ -6031,45 +6404,66 @@ def main() -> int:
     print(card)
     report_dp_train(dp_run, dp_checks, card)
     # rank 0's layer-0 call of each phase, for the kernel rows
-    for tag in DP_PHASES:
+    for tag in DP_RANK_PHASES:
         (q, k, v), kw = dp_run["ranks"][0][f"{tag}_call"]
         caps[f"dp_train:{tag}"] = types.SimpleNamespace(
             args=(tuple(t.to(dev) for t in (q, k, v)), kw))
+    # T3's one-process side (the tp path's DBRX step on (2, 2)) is T2's
+    t3_ref, t3_in = t3_side(dp_ref)
     del dp_run, dp_ref
     torch.cuda.empty_cache()
 
     # TinyLlama-1.1B with every weight and the decode cache placed by the
-    # reference's specs: four gloo ranks on the card (started with
-    # dp_train's); each counts its own launches from 0 over the path, and
-    # the path's counts are their sum
+    # reference's specs, then DBRX-132B's train step on (2, 2) (T3): four
+    # gloo ranks on the card (started with dp_train's go); each counts its
+    # own launches from 0 over the path (T3's apart), and the path's
+    # counts are their sum. The tp_families path's ranks start when they
+    # get their go
     with phase("tp: one process unsharded (TinyLlama-1.1B f32 and bf16 "
                "generates, 2 layers f32: a generate and a train step)"):
         tp_ref = tp_reference(dev)
+    tpf_ranks = spawn_ranks(tpf_rank, TP_RANKS)
     with phase("tp: 4 gloo ranks on one card, A (data 1, model 4) f32 and "
-               "bf16, then B (data 2, model 2) decode and train step"):
-        tp_run = tp(tp_ref, tp_ranks)
+               "bf16, then B (data 2, model 2) decode and train step, then "
+               "T3 (DBRX-132B 1 layer on (2, 2): a train step and its f32 "
+               "layer) (tp_families' 4 ranks starting meanwhile)"):
+        tp_run = tp(tp_ref, tp_ranks, t3_in)
+    del t3_in
+    print(f"[phase] tp T3 (DBRX-132B train step on (data 2, model 2); rank "
+          f"0, within the ranks' phase above): "
+          f"{tp_run['ranks'][0]['T3_s']:.3f} s", flush=True)
+    counts["tp T3"] = {k: sum(x["T3"]["launches"].get(k, 0)
+                              for x in tp_run["ranks"])
+                       for k in counts["pod"]}
     counts["tp"] = {k: sum(x["launches"].get(k, 0) for x in tp_run["ranks"])
-                    for k in counts["pod"]}
+                    + counts["tp T3"][k] for k in counts["pod"]}
     print(f"[launches] tp: {json.dumps(counts['tp'])}", flush=True)
-    missing = [k for k in ("flash_attention", "flash_attention_bwd")
-               if counts["tp"][k] == 0]
+    print(f"[launches] tp T3 (DBRX-132B on (2, 2)): "
+          f"{json.dumps(counts['tp T3'])}", flush=True)
+    missing = [(p, k) for p in ("tp", "tp T3")
+               for k in ("flash_attention", "flash_attention_bwd")
+               if counts[p][k] == 0]
     if missing:
         raise AssertionError(f"tp: not launched: {missing}")
     with phase("tp: checks (ranks agree, f32 logits and greedy tokens vs "
                "the unsharded model, the decode of one sequence, the train "
-               "step)"):
-        tp_checks = check_tp(tp_run, tp_ref)
+               "steps, T3 vs the one-process DBRX step)"):
+        tp_checks = check_tp(tp_run, tp_ref, t3_ref)
     print(card)
     report_tp(tp_run, tp_checks, card)
     (q, k, v), kw = tp_run["ranks"][0]["A_call"]
     caps["tp"] = types.SimpleNamespace(
         args=(tuple(t.to(dev) for t in (q, k, v)), kw))
-    del tp_run, tp_ref
+    (q, k, v), kw = tp_run["ranks"][0]["T3"]["call"]
+    caps["tp T3"] = types.SimpleNamespace(
+        args=(tuple(t.to(dev) for t in (q, k, v)), kw))
+    del tp_run, tp_ref, t3_ref
     torch.cuda.empty_cache()
 
     # the ssm, hybrid and audio families placed by the reference's specs:
-    # four gloo ranks on the card (started with tp's); each counts its own
-    # launches from 0 over the path, and the path's counts are their sum
+    # four gloo ranks on the card (started with tp's go); each counts its
+    # own launches from 0 over the path, and the path's counts are their
+    # sum
     with phase("tp_families: one process unsharded (mamba2-370m, "
                "hymba-1.5b and whisper-small f32 and bf16 generates; "
                "2-layer train steps and a decode of one)"):
@@ -6154,7 +6548,8 @@ def main() -> int:
                      "audio": counts["audio"], "vlm": counts["vlm"],
                      **{tag: counts[tag] for tag in MODAL_TRAIN_PATHS},
                      "pod": counts["pod"], "dp_train": counts["dp_train"],
-                     "tp": counts["tp"], **moe_launches}
+                     "tp": counts["tp"], "tp T3": counts["tp T3"],
+                     **moe_launches}
         rows = time_kernels(caps, by_kernel) \
             + tpf_kernel_rows(tpf_calls, dev) + census_rows
     for r in rows:

@@ -45,11 +45,11 @@ if __name__ == "__main__":
         checks = cs.check_dp_train(run, ref)
     cs.report_dp_train(run, checks, card)
     launches = {k: sum(x[f"{t}_launches"][k] for x in run["ranks"]
-                       for t in cs.DP_PHASES)
+                       for t in cs.DP_RANK_PHASES)
                 for k in ("flash_attention", "flash_attention_bwd")}
     rows = []
     with cs.phase("dp_train kernel rows"):
-        for tag in cs.DP_PHASES:
+        for tag in cs.DP_RANK_PHASES:
             (q, k, v), kw = run["ranks"][0][f"{tag}_call"]
             cap = types.SimpleNamespace(
                 args=(tuple(t.to(dev) for t in (q, k, v)), kw))

@@ -4,12 +4,13 @@
     python3 scripts/tp_path.py
 
 Builds the two attention kernels, starts the path's 4 gloo ranks
-(``spawn_ranks``), takes its unsharded side (``tp_reference``) while they
-start, runs them (``tp``), its checks and report, then times
-``flash_attention`` at phase A's layer-0 shape of a rank (the row
-``time_kernels`` adds). Prints the card's name and power limit and, last,
-``TP PATH OK``; exits non-zero when a check fails or there is no CUDA
-card.
+(``spawn_ranks``), takes its unsharded sides while they start (T3's,
+``dp_reference``'s DBRX step, then ``tp_reference``), runs them (``tp``:
+phases A, B and T3), its checks and report, then times
+``flash_attention`` at phase A's layer-0 shape of a rank and both
+attention kernels at T3's (the rows ``time_kernels`` adds). Prints the
+card's name and power limit and, last, ``TP PATH OK``; exits non-zero
+when a check fails or there is no CUDA card.
 """
 import json
 import subprocess
@@ -37,20 +38,34 @@ if __name__ == "__main__":
     print(card, torch.__version__, torch.version.cuda, flush=True)
     dev = torch.device("cuda", 0)
     ranks = cs.spawn_ranks(cs.tp_rank, cs.TP_RANKS)
+    with cs.phase("tp: T3's one-process side (dp_train's reference)"):
+        t3_ref, t3_in = cs.t3_side(cs.dp_reference(dev))
     with cs.phase("tp: reference"):
         ref = cs.tp_reference(dev)
     with cs.phase("tp: ranks"):
-        run = cs.tp(ref, ranks)
+        run = cs.tp(ref, ranks, t3_in)
+    print(f"[phase] tp T3: {run['ranks'][0]['T3_s']:.3f} s", flush=True)
     with cs.phase("tp: checks"):
-        checks = cs.check_tp(run, ref)
+        checks = cs.check_tp(run, ref, t3_ref)
     cs.report_tp(run, checks, card)
-    launches = sum(x["launches"].get("flash_attention", 0)
-                   for x in run["ranks"])
-    with cs.phase("tp: kernel row"):
-        (q, k, v), kw = run["ranks"][0]["A_call"]
-        cap = types.SimpleNamespace(
+
+    def on_card(call):
+        (q, k, v), kw = call
+        return types.SimpleNamespace(
             args=(tuple(t.to(dev) for t in (q, k, v)), kw))
-        rows = [cs.flash_row(cap, launches, "tp phase A layer 0 a rank")]
+
+    x0 = run["ranks"][0]
+    a_launches = sum(x["launches"].get("flash_attention", 0)
+                     for x in run["ranks"])
+    t3 = {k: sum(x["T3"]["launches"].get(k, 0) for x in run["ranks"])
+          for k in ("flash_attention", "flash_attention_bwd")}
+    what = "tp T3 dbrx-132b layer 0 a rank"
+    with cs.phase("tp: kernel rows"):
+        cap = on_card(x0["T3"]["call"])
+        rows = [cs.flash_row(on_card(x0["A_call"]), a_launches,
+                             "tp phase A layer 0 a rank"),
+                cs.flash_row(cap, t3["flash_attention"], what),
+                cs.flash_bwd_row(cap.args, t3["flash_attention_bwd"], what)]
     print(card)
     print(json.dumps({"kernels": rows}))
     print("TP PATH OK")

@@ -105,20 +105,37 @@ class ShardedServing:
 # pod-scale data plane (torch.distributed over a launch.mesh.Mesh)
 # --------------------------------------------------------------------------
 
-def _exchange(mesh: Mesh, axis: str, t: torch.Tensor, dim: int
-              ) -> torch.Tensor:
-    """The ranks' ``t`` along ``axis`` (``all_gather``) concatenated on
-    ``dim`` in their order along it, on ``t``'s device. Every collective
-    of the port goes through one of ``_gather``, ``_sum_axis`` and
-    ``_reduce_scatter``, which name it (the census's ``collectives``,
-    ``launch/dryrun.py``, counts the bytes each of them receives)."""
+def _stacked(mesh: Mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
+    """The ranks' ``t`` along ``axis`` (``all_gather``) stacked ``[n,
+    *t.shape]`` in their order along it: on the host under gloo for a
+    CUDA ``t`` (gloo's transport is the host's; the ranks may share one
+    card), else on ``t``'s device."""
     group = mesh.groups[axis]
     via_host = t.is_cuda and dist.get_backend(group) == "gloo"
     src = t.cpu() if via_host else t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
-    dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts, dim=dim)
-    return out.to(t.device) if via_host else out
+    parts = src.new_empty((mesh.shape[axis], *src.shape))
+    dist.all_gather(list(parts.unbind(0)), src, group=group)
+    return parts
+
+
+def _exchange(mesh: Mesh, axis: str, t: torch.Tensor, dim: int
+              ) -> torch.Tensor:
+    """The ranks' ``t`` along ``axis`` (``all_gather``) concatenated on
+    ``dim`` in their order along it, on ``t``'s device; from the host a
+    part at a time into its place. Every collective of the port goes
+    through one of ``_gather``, ``_sum_axis`` and ``_reduce_scatter``,
+    which name it (the census's ``collectives``, ``launch/dryrun.py``,
+    counts the bytes each of them receives)."""
+    parts = _stacked(mesh, axis, t)
+    if parts.device == t.device:
+        return torch.cat(list(parts.unbind(0)), dim)
+    size = t.shape[dim]
+    shape = list(t.shape)
+    shape[dim] *= parts.shape[0]
+    out = torch.empty(shape, dtype=t.dtype, device=t.device)
+    for i, part in enumerate(parts.unbind(0)):
+        out.narrow(dim, i * size, size).copy_(part)
+    return out
 
 
 def _gather(mesh: Mesh, axis: str, t: torch.Tensor, dim: int
@@ -146,18 +163,27 @@ def _sum_axis(mesh: Mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def slice_sum(parts: torch.Tensor, dim: int, start: int, size: int,
+              device) -> torch.Tensor:
+    """The sum over ``parts`` [n, ...] of each part's slice ``[start,
+    start + size)`` along ``dim`` (of a part), added in rank order in the
+    parts' dtype, on ``device``: each slice moved there on its own, so
+    that only the slices, never the whole parts, reach it."""
+    acc = parts[0].narrow(dim, start, size).to(device, copy=True)
+    for part in parts[1:]:
+        acc += part.narrow(dim, start, size).to(device)
+    return acc
+
+
 def _reduce_scatter(mesh: Mesh, axis: str, g: torch.Tensor, dim: int
                     ) -> torch.Tensor:
     """This rank's block along ``dim`` of the ranks' ``g`` summed over
     ``axis``, in rank order: a gather of every ``g`` (n x its bytes; gloo
-    has no reduce-scatter) and a sum of this rank's slice of each."""
+    has no reduce-scatter) and a sum of this rank's slice of each
+    (``slice_sum``)."""
     size = g.shape[dim] // mesh.shape[axis]
-    start = mesh.axis_index(axis) * size
-    parts = _exchange(mesh, axis, g[None], 0)
-    acc = parts[0].narrow(dim, start, size)
-    for part in parts[1:]:
-        acc = acc + part.narrow(dim, start, size)
-    return acc
+    return slice_sum(_stacked(mesh, axis, g), dim,
+                     mesh.axis_index(axis) * size, size, g.device)
 
 
 def psum(mesh: Mesh, axes: Sequence[str], t: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,10 @@ from repro.core.graph_search import greedy_search as ref_greedy  # noqa: E402
 from repro.core.graph_search import robust_prune as ref_prune  # noqa: E402
 from repro_torch.carry import pag_from_arrays  # noqa: E402
 from repro_torch.core.graph_search import (  # noqa: E402
+    INF,
+    SearchResult,
+    _merge_beam,
+    _rows_dist2,
     greedy_search,
     robust_prune,
 )
@@ -73,6 +77,80 @@ def test_finished_queries_stay_frozen(carried, small_ds):
         assert (path[hops[qi]:] == m_cap).all()
     alone = greedy_search(tA, tn, tnn, tentry, q[:1], L=16, K=16)
     np.testing.assert_array_equal(alone.path.numpy()[0], res.path.numpy()[0])
+
+
+def _per_hop_loop(A, nbrs, n_nodes, entry, queries, *, L, K, max_hops=0):
+    """The hop loop as it was before the blocks: one host check of the
+    frontier before every hop, the state rebuilt each hop."""
+    dev = A.device
+    m_cap = A.shape[0]
+    max_hops = max_hops or (L + 32)
+    q = queries.float()
+    qn = q.shape[0]
+    rows = torch.arange(qn, device=dev)
+    entries = torch.as_tensor(entry, dtype=torch.long,
+                              device=dev).expand(qn)
+    c_ids = torch.full((qn, L), m_cap, dtype=torch.long, device=dev)
+    c_ids[:, 0] = entries
+    c_d = torch.full((qn, L), INF, dtype=torch.float32, device=dev)
+    c_d[:, 0] = _rows_dist2(q, A[entries][:, None, :])[:, 0]
+    c_exp = torch.zeros((qn, L), dtype=torch.bool, device=dev)
+    visited = torch.zeros((qn, m_cap + 1), dtype=torch.bool, device=dev)
+    visited[rows, entries] = True
+    path = torch.full((qn, max_hops), m_cap, dtype=torch.long, device=dev)
+    path_d = torch.full((qn, max_hops), INF, dtype=torch.float32,
+                        device=dev)
+    hop = torch.zeros(qn, dtype=torch.long, device=dev)
+    for _ in range(max_hops):
+        active = ((~c_exp) & (c_d < INF)).any(1)
+        if not bool(active.any()):
+            break
+        live = active[:, None]
+        j = c_d.masked_fill(c_exp, INF).argmin(1)
+        cur, cur_d = c_ids[rows, j], c_d[rows, j]
+        exp_new = c_exp.clone()
+        exp_new[rows, j] = True
+        at = hop.clamp(max=max_hops - 1)[:, None]
+        path.scatter_(1, at, torch.where(live, cur[:, None],
+                                         path.gather(1, at)))
+        path_d.scatter_(1, at, torch.where(live, cur_d[:, None],
+                                           path_d.gather(1, at)))
+        nb = nbrs[cur.clamp(max=m_cap - 1)]
+        nb = nb.masked_fill(cur[:, None] >= m_cap, m_cap)
+        nb_v = nb.clamp(max=m_cap)
+        valid = (nb < n_nodes) & ~visited.gather(1, nb_v)
+        nd = _rows_dist2(q, A[nb.clamp(max=m_cap - 1)]).masked_fill(~valid,
+                                                                    INF)
+        visited.scatter_(1, nb_v.masked_fill(~live, m_cap), True)
+        n_ids, n_d, n_exp = _merge_beam(c_ids, c_d, exp_new, nb, nd, L)
+        c_ids = torch.where(live, n_ids, c_ids)
+        c_d = torch.where(live, n_d, c_d)
+        c_exp = torch.where(live, n_exp, c_exp)
+        hop = hop + active.long()
+    order = torch.argsort(c_d, dim=1, stable=True)[:, :K]
+    return SearchResult(c_ids.gather(1, order), c_d.gather(1, order), path,
+                        path_d, hop)
+
+
+@pytest.mark.parametrize("L,max_hops", [(16, 0), (32, 0), (32, 11)])
+@pytest.mark.parametrize("block", [1, 4, 16])
+def test_hop_blocks_equal_the_per_hop_loop(carried, small_ds, block, L,
+                                           max_hops):
+    # hops in blocks with one frontier check a block: a hop on frozen
+    # queries changes nothing, so every output is the per-hop loop's bit
+    # for bit (max_hops 11 ends on a short block)
+    tA, tn, tnn, tentry = carried.pg.device_arrays("cpu")
+    q = torch.from_numpy(small_ds.queries)
+    want = _per_hop_loop(tA, tn, tnn, tentry, q, L=L, K=L,
+                         max_hops=max_hops)
+    got = greedy_search(tA, tn, tnn, tentry, q, L=L, K=L,
+                        max_hops=max_hops, block=block)
+    for name, w, g in zip(SearchResult._fields, want, got):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=name)
+    # several blocks ran; with max_hops the cap ended the walk
+    assert int(got.n_hops.max()) == max_hops if max_hops else \
+        int(got.n_hops.max()) > block
 
 
 def test_robust_prune_matches_reference(built_pag, carried, small_ds):
