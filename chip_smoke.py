@@ -11,7 +11,7 @@ each kernel against its plain PyTorch
 version on the card (edge cases, the sliding window and meta tokens
 included, in the forward and in the backward, and exact-tie inputs),
 prefills each dense, moe, hybrid, audio and vlm REDUCED config through
-the attention kernel against the plain attention, then drives eighteen
+the attention kernel against the plain attention, then drives nineteen
 paths, each with its kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
@@ -226,6 +226,17 @@ paths, each with its kernel launches counted from zero and checked:
   every head on every rank. E runs B's prompts (f32 forced run, bf16
   generate) and D's hymba decode of one and train step, held to B's and
   D's unsharded runs under the same gates, its launches gated apart.
+* tp_hd: case M of the head-dim placement, TinyLlama-1.1B at its
+  published widths on (data 1, model 8), 8 gloo ranks on the card: the
+  query heads divide model and the 4 kv heads do not, so a rank holds 4
+  of the 32 query heads of ``wq``/``wo`` and 8 of the 64 columns of each
+  kv head of ``wk``/``wv``, and of its decode cache; k and v are gathered
+  over model and rotated whole, and ``flash_attention`` (and
+  ``flash_attention_bwd``) runs on the rank's 4 query heads over the kv
+  head they read. M1 (all 22 layers) runs tp's phase A, M2 (TP_B_DEPTH
+  layers) its phase B on the same mesh, held to tp's unsharded runs under
+  tp's gates; the weights' widths and both caches' head-dim blocks
+  gated.
 * census: ``launch/dryrun.py``'s whole grid in this process (10 archs
   x 4 shapes x 2 meshes, and the ANNS cells: 3 x 2 kinds x 2 meshes; no
   cell may FAIL), then one rank's share of anns-bigann-1b (d 128) and
@@ -282,7 +293,8 @@ internvl2's at 4 x 1024, dp_train's layer 0 of a rank, TinyLlama's
 at 4 x 2048 and DBRX's at 4 x 512, tp's layer 0 of a rank in phase
 A (4 x 512, 8 / 1 heads, bf16), and a rank's hymba-1.5b windowed layer
 in tp_families' phases B and E and whisper-small's encoder layer in its
-phase C; ``flash_attention_bwd`` seven times:
+phase C, and tp_hd's M1 layer 0 of a rank (4 x 512, 4 / 1 heads, bf16);
+``flash_attention_bwd`` eight times (tp_hd's M2 layer, f32, the eighth):
 the train path's layer 0, long_train's hymba layer 1, windowed,
 whisper's encoder layer and cross-attention, internvl2's layer 0 and
 dp_train's two layers, each under its own mask, two calls
@@ -677,8 +689,9 @@ DP_LAYER_RTOL = 1e-5
 T3_ROWS = 2
 # elements a parameter's bit fingerprint sums at a time
 FINGERPRINT_ROW = 4096
-# The dp_train, tp and tp_families ranks each start (spawn_ranks) while
-# the rank path before theirs runs (ep, dp_train and tp): a fresh rank's
+# The dp_train, tp, tp_families and tp_hd ranks each start (spawn_ranks)
+# while the rank path before theirs runs (ep, dp_train, tp and
+# tp_families): a fresh rank's
 # Python start-up and the torch._dynamo import that its first checkpointed
 # step makes (torch.utils.checkpoint's dynamo-disabling wrapper; on an
 # H100 host the first step took 15.3 s against 1.0 s for the next) then
@@ -698,8 +711,8 @@ DP_WAIT_S = 900
 # tokens and TP_NEW - 1 greedy decode steps, in f32 with the unsharded f32
 # run's tokens fed (its logits and greedy choices gated) and in bf16 through
 # Engine.generate. Phase B, mesh (data 2, model 2), the model cut to TP_B_DEPTH
-# layers (each decode step gathers every weight's data block through host
-# memory), f32: a batch of one decoded, TP_B_NEW tokens (its cache's slots
+# layers (each decode step gathers every weight's data block through the
+# shared host segment), f32: a batch of one decoded, TP_B_NEW tokens (its cache's slots
 # split over data: TP_PROMPT + TP_B_NEW slots), then one AdamW step on TP_BATCH
 # x TP_PROMPT
 TP_RANKS = 4
@@ -767,6 +780,20 @@ TPF_CAPTURE = {
     "B": lambda a, kw: kw.get("window", 0) > 0,
     "E": lambda a, kw: kw.get("window", 0) > 0,
     "C": lambda a, kw: not kw["causal"] and a[0].shape[1] == a[1].shape[1]}
+
+# The tp_hd path: case M of the reference's head-dim placement
+# (DistConfig(shard_head_dim_fallback=True), where the query heads divide
+# model and the kv heads do not), TinyLlama-1.1B at its published widths
+# on (data 1, model 8): 8 gloo ranks sharing the card (started while
+# tp_families' run, each waiting for its go). A rank holds 4 of the 32
+# query heads (wq and wo split by heads) and 8 of the 64 dims of each of
+# the 4 kv heads (wk and wv), and its decode cache that head-dim block.
+# M1, all 22 layers: phase A's prompts, f32 forced run and bf16
+# Engine.generate; M2 at TP_B_DEPTH layers, f32: phase B's decode of one
+# and train step. Both held to tp_reference's unsharded runs (the same
+# seed, prompts and depth) under tp's gates
+TP_HD_RANKS = 8
+TP_HD_MESH = ((1, 8), ("data", "model"))
 
 # The reference's chunked attention pads K and V with zero keys to a
 # multiple of this chunk (when longer) that only a causal mask hides, so
@@ -3121,8 +3148,8 @@ def pod_rank(rank: int, init: str, out: str, src: str) -> None:
             end.record()
             torch.cuda.synchronize()
             rep["assign_scan_ms"] = start.elapsed_time(end)
-        # the merges alone, every rank in them: all_gathers (through host
-        # memory under gloo) and the stable top-k
+        # the merges alone, every rank in them: all_gathers (through the
+        # shared host segment) and the stable top-k
         gids, a_gids = local + r * db.shape[0], a_local + mi * agg.shape[0]
         rep["serve_merge_ms"] = 1e3 * ranks_wall(lambda: pd.merge_topk(
             mesh, mesh.axis_names, d2, gids, POD_K), 10)
@@ -4064,32 +4091,180 @@ def tp_census_bytes(cfg, mesh_shape, dist=None) -> int:
                              param_specs(model, mesh, dist), mesh)
 
 
-def tp_rank(rank: int, init: str, tmp: str, src: str) -> None:
-    """One gloo rank of the tp path (started by ``spawn_ranks``; waits for
-    ``tmp/tp_go``): phase A on (data 1, model 4), the seeded model placed
-    (its bytes against the census's), f32 ``forced_run`` with the unsharded
-    run's tokens, then bf16 ``Engine.generate`` under ``CollectiveTimer``
-    (layer 0's attention call kept); phase B on (data 2, model 2) at
-    TP_B_DEPTH layers, f32: a batch of one's generate, then one train
-    step under ``CollectiveTimer`` and the updated parameters gathered
-    whole (rank 0 keeps them). Launches counted from 0 over all of A and
-    B; then phase T3 (``t3_rank``), its launches apart. Saves it all to
-    ``tmp/tp<rank>.pt``."""
-    sys.path.insert(0, src)
-    import datetime
+def tp_placed(rep: dict, tag: str, c, mesh, shape, dev, dist_cfg=None):
+    """The seeded model ``c`` placed on ``mesh`` (its ``shape``) under
+    ``dist_cfg``: its init seconds, its bytes against the census's
+    (``placed_bytes_check``) and its blocks into ``rep`` under ``tag``."""
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.models.model import init_params
+    from repro_torch.models.moe import block_specs
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with mesh_context(mesh, dist_cfg):
+        model = init_params(c, TP_SEED, dev)
+    torch.cuda.synchronize()
+    rep[f"{tag}_init_s"] = time.perf_counter() - t0
+    rep[f"{tag}_bytes"] = placed_bytes_check(
+        f"tp {tag} parameters", list(model.parameters()),
+        torch.cuda.memory_allocated() - before,
+        tp_census_bytes(c, shape, dist_cfg))
+    rep[f"{tag}_blocks"] = len(block_specs(model))
+    return model
 
-    import torch._dynamo  # noqa: F401  (see DP_WAIT_S)
+
+def tp_serve(rep: dict, tag: str, mesh, shape, ref: dict, dev, part,
+             dist_cfg=None) -> None:
+    """Phase A's runs (``tp_rank``; M1 of ``tphd_rank``) on ``mesh`` (its
+    ``shape``) under ``dist_cfg``, every layer of TinyLlama-1.1B: the f32
+    model placed, ``forced_run`` with the unsharded run's tokens, its
+    decode cache's layout; then the bf16 model's ``Engine.generate`` under
+    ``CollectiveTimer``, layer 0's attention call kept. Into ``rep`` under
+    ``tag``_...; launches through ``part``."""
     import torch.distributed as dist
-    from repro_torch.distributed import compat
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_cache
+    from repro_torch.serving.engine import Engine, ServeConfig
+    cfg, cfg32, _ = tp_configs()
+    prompt = ref["prompt"].to(dev)
+    model = tp_placed(rep, f"{tag}_f32", cfg32, mesh, shape, dev, dist_cfg)
+    attn = model.blocks[0].attn
+    rep[f"{tag}_heads"] = (attn.wq.shape[1], attn.wk.shape[1],
+                           model.blocks[0].mlp.w_gate.shape[1],
+                           model.tok_embed.shape[0])
+    rep[f"{tag}_widths"] = {n: list(getattr(attn, n).shape)
+                            for n in ("wq", "wk", "wv", "wo")}
+    with mesh_context(mesh, dist_cfg, batch=TP_BATCH), \
+            torch.inference_mode():
+        dist.barrier()
+        with CollectiveTimer() as timer:
+            rep[f"{tag}_f32_logits"], rep[f"{tag}_f32_picks"], \
+                rep[f"{tag}_f32_walls"] = part(lambda: forced_run(
+                    model, cfg32, {"tokens": prompt}, ref["f32_gen"], TP_NEW))
+        rep[f"{tag}_f32_collectives"] = timer.record()
+        cache = init_cache(cfg32, TP_BATCH, TP_PROMPT + TP_NEW, device=dev)
+        rep[f"{tag}_cache"] = {"first_slot": cache.first_slot,
+                               "seq_axes": list(cache.seq_axes),
+                               "k": list(cache["k"].shape)}
+        del cache
+    del model
+    torch.cuda.empty_cache()
+    model = tp_placed(rep, f"{tag}_bf16", cfg, mesh, shape, dev, dist_cfg)
+    cap = Capture(ops, "flash_attention", lambda a, kw: True)
+    with mesh_context(mesh, dist_cfg, batch=TP_BATCH), \
+            torch.inference_mode():
+        engine = Engine(cfg, model, ServeConfig(max_new_tokens=TP_NEW))
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with cap, CollectiveTimer() as timer:
+            rep[f"{tag}_bf16_gen"] = torch.from_numpy(part(
+                lambda: engine.generate({"tokens": prompt})))
+        rep[f"{tag}_bf16_wall_s"] = time.perf_counter() - t0
+        rep[f"{tag}_bf16_timing"] = dict(engine.timing)
+        rep[f"{tag}_bf16_collectives"] = timer.record()
+        rep[f"{tag}_bf16_peak_gib"] = torch.cuda.max_memory_allocated() \
+            / 2 ** 30
+    (q, k, v), kw = cap.args
+    rep[f"{tag}_call"] = ((q.cpu(), k.cpu(), v.cpu()), kw)
+    del model, engine, cap
+    torch.cuda.empty_cache()
+
+
+def tp_step(rep: dict, tag: str, mesh, shape, ref: dict, dev, part,
+            rank: int, dist_cfg=None) -> None:
+    """Phase B's runs (``tp_rank``; M2 of ``tphd_rank``) on ``mesh`` (its
+    ``shape``) under ``dist_cfg``, TinyLlama-1.1B at TP_B_DEPTH layers,
+    f32: a batch of one's generate (its cache's layout kept), then one
+    train step from a barrier under ``CollectiveTimer``, its first
+    attention call with gradients kept, its updated parameters gathered
+    whole (rank 0 keeps them). Into ``rep`` under ``tag``_...; launches
+    through ``part``."""
+    import torch.distributed as dist
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.context import mesh_context
     from repro_torch.kernels import ops
-    from repro_torch.launch import mesh as pm
-    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.models.model import init_cache
     from repro_torch.models.moe import block_specs
     from repro_torch.serving.engine import Engine, ServeConfig
     from repro_torch.training.optimizer import init_state
     from repro_torch.training.train_step import TrainConfig, make_train_step
+    cfg_b = tp_configs()[2]
+    prompt = ref["prompt"].to(dev)
+    rep[f"{tag}_coords"] = mesh.coords
+    model = tp_placed(rep, tag, cfg_b, mesh, shape, dev, dist_cfg)
+    with mesh_context(mesh, dist_cfg, batch=1), torch.inference_mode():
+        cache = init_cache(cfg_b, 1, TP_PROMPT + TP_B_NEW, device=dev)
+        rep[f"{tag}_cache"] = {"first_slot": cache.first_slot,
+                               "seq_axes": list(cache.seq_axes),
+                               "k": list(cache["k"].shape)}
+        del cache
+        engine = Engine(cfg_b, model, ServeConfig(max_new_tokens=TP_B_NEW))
+        dist.barrier()
+        with CollectiveTimer() as timer:
+            rep[f"{tag}_gen"] = torch.from_numpy(part(
+                lambda: engine.generate({"tokens": prompt[:1]})))
+        rep[f"{tag}_gen_timing"] = dict(engine.timing)
+        rep[f"{tag}_gen_collectives"] = timer.record()
+    model.requires_grad_()
+    specs = block_specs(model)
+    ocfg, batch = tp_train_setup(cfg_b, dev)
+    state = init_state(dict(model.named_parameters()), ocfg, mesh, specs)
+    step = make_train_step(cfg_b, ocfg, TrainConfig())
+    block = {key: shd.local_block(v, shd.batch_spec(
+        TP_BATCH, mesh, extra_dims=v.dim() - 1), mesh)
+        for key, v in batch.items()}
+    cap = Capture(ops, "flash_attention", lambda a, kw: a[0].requires_grad)
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with cap, CollectiveTimer() as timer, \
+            mesh_context(mesh, dist_cfg, batch=TP_BATCH):
+        _, state, m = part(lambda: step(model, state, block))
+    torch.cuda.synchronize()
+    rep[f"{tag}_step_s"] = time.perf_counter() - t0
+    rep[f"{tag}_step_collectives"] = timer.record()
+    rep[f"{tag}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rep[f"{tag}_loss"], rep[f"{tag}_gnorm"] = float(m["loss"]), \
+        float(m["grad_norm"])
+    (q, k, v), kw = cap.args
+    rep[f"{tag}_step_call"] = ((q.cpu(), k.cpu(), v.cpu()), kw)
+    whole = {n: shd.whole_tensor(p.detach(), specs[n], mesh)
+             if n in specs else p.detach()
+             for n, p in model.named_parameters()}
+    if rank == 0:
+        rep[f"{tag}_params"] = {n: t.cpu() for n, t in whole.items()}
+    del model, state, step, batch, block, whole, m, cap
+    torch.cuda.empty_cache()
+
+
+def counting(ops, launches: dict):
+    """``part(fn)``: ``fn()`` with the kernels' launches counted from 0
+    and added into ``launches``."""
+    def part(fn):
+        ops.reset_launch_counts()
+        try:
+            return fn()
+        finally:
+            for k, c in ops.launch_counts().items():
+                launches[k] = launches.get(k, 0) + c
+    return part
+
+
+def tp_rank(rank: int, init: str, tmp: str, src: str) -> None:
+    """One gloo rank of the tp path (started by ``spawn_ranks``; waits for
+    ``tmp/tp_go``): phase A on (data 1, model 4) (``tp_serve``), phase B on
+    (data 2, model 2) at TP_B_DEPTH layers (``tp_step``), launches counted
+    from 0 over all of A and B; then phase T3 (``t3_rank``), its launches
+    apart. Saves it all to ``tmp/tp<rank>.pt``."""
+    sys.path.insert(0, src)
+    import datetime
+
+    import torch._dynamo  # noqa: F401  (see DP_WAIT_S)
+    from repro_torch.distributed import compat
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
 
     deadline = time.monotonic() + DP_WAIT_S
     while not Path(tmp, "tp_go").exists():
@@ -4102,113 +4277,13 @@ def tp_rank(rank: int, init: str, tmp: str, src: str) -> None:
                       timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
     try:
         ref = torch.load(f"{tmp}/tp_in.pt")
-        cfg, cfg32, cfg_b = tp_configs()
         rep, launches = {"rank": rank}, {}
-
-        def part(fn):
-            ops.reset_launch_counts()
-            try:
-                return fn()
-            finally:
-                for k, c in ops.launch_counts().items():
-                    launches[k] = launches.get(k, 0) + c
-
-        def placed(tag, c, mesh, shape):
-            torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated()
-            t0 = time.perf_counter()
-            with mesh_context(mesh):
-                model = init_params(c, TP_SEED, dev)
-            torch.cuda.synchronize()
-            rep[f"{tag}_init_s"] = time.perf_counter() - t0
-            rep[f"{tag}_bytes"] = placed_bytes_check(
-                f"tp {tag} parameters", list(model.parameters()),
-                torch.cuda.memory_allocated() - before,
-                tp_census_bytes(c, shape))
-            rep[f"{tag}_blocks"] = len(block_specs(model))
-            return model
-
-        # phase A: (data 1, model 4), every layer
-        mesh = pm.make_mesh(*TP_MESHES["A"])
-        prompt = ref["prompt"].to(dev)
-        model = placed("A_f32", cfg32, mesh, TP_MESHES["A"])
-        rep["A_heads"] = (model.blocks[0].attn.wq.shape[1],
-                          model.blocks[0].attn.wk.shape[1],
-                          model.blocks[0].mlp.w_gate.shape[1],
-                          model.tok_embed.shape[0])
-        with mesh_context(mesh, batch=TP_BATCH), torch.inference_mode():
-            dist.barrier()
-            rep["A_f32_logits"], rep["A_f32_picks"], rep["A_f32_walls"] = \
-                part(lambda: forced_run(model, cfg32, {"tokens": prompt},
-                                        ref["f32_gen"], TP_NEW))
-        del model
-        torch.cuda.empty_cache()
-        model = placed("A_bf16", cfg, mesh, TP_MESHES["A"])
-        cap = Capture(ops, "flash_attention", lambda a, kw: True)
-        with mesh_context(mesh, batch=TP_BATCH), torch.inference_mode():
-            engine = Engine(cfg, model, ServeConfig(max_new_tokens=TP_NEW))
-            torch.cuda.reset_peak_memory_stats()
-            dist.barrier()
-            t0 = time.perf_counter()
-            with cap, CollectiveTimer() as timer:
-                rep["A_bf16_gen"] = torch.from_numpy(part(
-                    lambda: engine.generate({"tokens": prompt})))
-            rep["A_bf16_wall_s"] = time.perf_counter() - t0
-            rep["A_bf16_timing"] = dict(engine.timing)
-            rep["A_bf16_collectives"] = timer.record()
-            rep["A_bf16_peak_gib"] = torch.cuda.max_memory_allocated() \
-                / 2 ** 30
-        (q, k, v), kw = cap.args
-        rep["A_call"] = ((q.cpu(), k.cpu(), v.cpu()), kw)
-        del model, engine, cap
-        torch.cuda.empty_cache()
-
-        # phase B: (data 2, model 2), TP_B_DEPTH layers, f32
-        mesh = pm.make_mesh(*TP_MESHES["B"])
-        rep["B_coords"] = mesh.coords
-        model = placed("B", cfg_b, mesh, TP_MESHES["B"])
-        with mesh_context(mesh, batch=1), torch.inference_mode():
-            cache = init_cache(cfg_b, 1, TP_PROMPT + TP_B_NEW, device=dev)
-            rep["B_cache"] = {"first_slot": cache.first_slot,
-                              "seq_axes": list(cache.seq_axes),
-                              "k": list(cache["k"].shape)}
-            del cache
-            engine = Engine(cfg_b, model, ServeConfig(
-                max_new_tokens=TP_B_NEW))
-            dist.barrier()
-            with CollectiveTimer() as timer:
-                rep["B_gen"] = torch.from_numpy(part(
-                    lambda: engine.generate({"tokens": prompt[:1]})))
-            rep["B_gen_timing"] = dict(engine.timing)
-            rep["B_gen_collectives"] = timer.record()
-        model.requires_grad_()
-        specs = block_specs(model)
-        ocfg, batch = tp_train_setup(cfg_b, dev)
-        state = init_state(dict(model.named_parameters()), ocfg, mesh, specs)
-        step = make_train_step(cfg_b, ocfg, TrainConfig())
-        block = {key: shd.local_block(v, shd.batch_spec(
-            TP_BATCH, mesh, extra_dims=v.dim() - 1), mesh)
-            for key, v in batch.items()}
-        torch.cuda.reset_peak_memory_stats()
-        dist.barrier()
-        t0 = time.perf_counter()
-        with CollectiveTimer() as timer, \
-                mesh_context(mesh, batch=TP_BATCH):
-            _, state, m = part(lambda: step(model, state, block))
-        torch.cuda.synchronize()
-        rep["B_step_s"] = time.perf_counter() - t0
-        rep["B_step_collectives"] = timer.record()
-        rep["B_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        rep["B_loss"], rep["B_gnorm"] = float(m["loss"]), \
-            float(m["grad_norm"])
-        whole = {n: shd.whole_tensor(p.detach(), specs[n], mesh)
-                 if n in specs else p.detach()
-                 for n, p in model.named_parameters()}
-        if rank == 0:
-            rep["B_params"] = {n: t.cpu() for n, t in whole.items()}
-        del model, state, step, batch, block, whole, m
+        part = counting(ops, launches)
+        tp_serve(rep, "A", pm.make_mesh(*TP_MESHES["A"]), TP_MESHES["A"],
+                 ref, dev, part)
+        tp_step(rep, "B", pm.make_mesh(*TP_MESHES["B"]), TP_MESHES["B"],
+                ref, dev, part, rank)
         rep["launches"] = launches
-        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         rep["T3"] = t3_rank(tmp, dev)
         rep["T3_s"] = time.perf_counter() - t0
@@ -4427,89 +4502,122 @@ def check_t3(ranks: list, ref: dict) -> tuple:
     return out, bad
 
 
-def check_tp(r: dict, ref: dict, t3_ref: dict) -> dict:
-    """The tp path's gates. A, f32: every rank's logits bit for bit the
-    same and, at the prefill's last position and each decode step, within
-    TP_LOGITS_RTOL of the row's largest |logit| of the unsharded model's;
-    the ranks' greedy choices (the vocab-parallel argmax) the unsharded
-    run's tokens. A, bf16: the ranks' tokens the same (their agreement
-    with the unsharded bf16 tokens reported). B: the ranks' tokens of the
-    batch of one the unsharded run's, the cache's slots split over data;
-    the step's loss and grad norm on every rank within TP_LOSS_RTOL and
-    TP_GNORM_RTOL of the unsharded step's, its updated parameters
-    gathered whole within TP_PARAM_TOL but for TP_PARAM_OUTLIERS of their
-    elements, each within 3 lr. Launches: exactly one ``flash_attention``
-    a layer and prefill (two in a train step's forward, remat) and one
-    ``flash_attention_bwd`` a layer, on every rank. The parameter bytes
-    were held to the census's on the ranks."""
-    ranks, cfg = r["ranks"], tp_configs()[0]
-    out, bad = {}, []
-    logits = ranks[0]["A_f32_logits"]
-    out["A_f32_logits_identical_on_ranks"] = all(
-        torch.equal(x["A_f32_logits"], logits) for x in ranks)
+def check_tp_serve(tag: str, ranks: list, ref: dict, out: dict,
+                   bad: list) -> None:
+    """Phase A's gates on the runs under ``tag`` (``tp_serve``), into
+    ``out``; failures appended to ``bad``. f32: every rank's logits bit
+    for bit the same and, at the prefill's last position and each decode
+    step, within TP_LOGITS_RTOL of the row's largest |logit| of the
+    unsharded model's; the ranks' greedy choices (the vocab-parallel
+    argmax) the unsharded run's tokens. bf16: the ranks' tokens the same
+    (their agreement with the unsharded bf16 tokens reported)."""
+    cfg = tp_configs()[0]
+    logits = ranks[0][f"{tag}_f32_logits"]
+    out[f"{tag}_f32_logits_identical_on_ranks"] = all(
+        torch.equal(x[f"{tag}_f32_logits"], logits) for x in ranks)
     want = ref["f32_logits"]
     rel = ((logits - want).abs().amax(-1)
            / want.abs().amax(-1)).amax(-1)           # [TP_NEW]
-    out["A_f32_logits_rel"] = [float(x) for x in rel]
-    out["A_f32_picks_equal_unsharded"] = all(
-        torch.equal(x["A_f32_picks"], ref["f32_gen"]) for x in ranks)
+    out[f"{tag}_f32_logits_rel"] = [float(x) for x in rel]
+    out[f"{tag}_f32_picks_equal_unsharded"] = all(
+        torch.equal(x[f"{tag}_f32_picks"], ref["f32_gen"]) for x in ranks)
     out["unsharded_f32_forced_reproduces_its_tokens"] = bool(
         (want[..., :cfg.vocab_size].argmax(-1).T
          == ref["f32_gen"]).all())
-    gen = ranks[0]["A_bf16_gen"]
-    out["A_bf16_tokens_identical_on_ranks"] = all(
-        torch.equal(x["A_bf16_gen"], gen) for x in ranks)
-    out["A_bf16_generated_equal_unsharded"] = int(
+    gen = ranks[0][f"{tag}_bf16_gen"]
+    out[f"{tag}_bf16_tokens_identical_on_ranks"] = all(
+        torch.equal(x[f"{tag}_bf16_gen"], gen) for x in ranks)
+    out[f"{tag}_bf16_generated_equal_unsharded"] = int(
         (gen == ref["bf16_gen"]).sum())
-    out["A_bf16_generated_of"] = int(gen.numel())
-    out["A_bf16_first_token_equal_unsharded"] = int(
+    out[f"{tag}_bf16_generated_of"] = int(gen.numel())
+    out[f"{tag}_bf16_first_token_equal_unsharded"] = int(
         (gen[:, 0] == ref["bf16_gen"][:, 0]).sum())
-    out["A_heads_a_rank"] = ranks[0]["A_heads"]
-    out["B_cache"] = ranks[0]["B_cache"]
-    out["B_tokens_equal_unsharded"] = all(
-        torch.equal(x["B_gen"], ref["b_gen"]) for x in ranks)
-    out["B_loss"] = [x["B_loss"] for x in ranks]
-    out["B_loss_unsharded"] = ref["b_loss"]
-    out["B_gnorm"] = [x["B_gnorm"] for x in ranks]
-    out["B_gnorm_unsharded"] = ref["b_gnorm"]
-    errs, beyond, elems, worst = {}, 0, 0, 0.0
+    out[f"{tag}_heads_a_rank"] = ranks[0][f"{tag}_heads"]
+    out[f"{tag}_widths_a_rank"] = ranks[0][f"{tag}_widths"]
+    out[f"{tag}_cache"] = ranks[0][f"{tag}_cache"]
+    if not out[f"{tag}_f32_logits_identical_on_ranks"]:
+        bad.append(f"{tag}: ranks' f32 logits differ")
+    if max(out[f"{tag}_f32_logits_rel"]) > TP_LOGITS_RTOL:
+        bad.append(f"{tag}: f32 logits off the unsharded model's")
+    if not out[f"{tag}_f32_picks_equal_unsharded"] \
+            or not out["unsharded_f32_forced_reproduces_its_tokens"]:
+        bad.append(f"{tag}: f32 greedy tokens differ from the unsharded "
+                   f"run's")
+    if not out[f"{tag}_bf16_tokens_identical_on_ranks"]:
+        bad.append(f"{tag}: ranks generated different bf16 tokens")
+
+
+def check_tp_step(tag: str, ranks: list, ref: dict, out: dict,
+                  bad: list) -> None:
+    """Phase B's gates on the runs under ``tag`` (``tp_step``), into
+    ``out``; failures appended to ``bad``: the ranks' tokens of the batch
+    of one the unsharded run's; the step's loss and grad norm on every
+    rank within TP_LOSS_RTOL and TP_GNORM_RTOL of the unsharded step's,
+    its updated parameters gathered whole within TP_PARAM_TOL but for
+    TP_PARAM_OUTLIERS of their elements, each within 3 lr."""
+    out[f"{tag}_cache"] = ranks[0][f"{tag}_cache"]
+    out[f"{tag}_tokens_equal_unsharded"] = all(
+        torch.equal(x[f"{tag}_gen"], ref["b_gen"]) for x in ranks)
+    out[f"{tag}_loss"] = [x[f"{tag}_loss"] for x in ranks]
+    out[f"{tag}_loss_unsharded"] = ref["b_loss"]
+    out[f"{tag}_gnorm"] = [x[f"{tag}_gnorm"] for x in ranks]
+    out[f"{tag}_gnorm_unsharded"] = ref["b_gnorm"]
+    beyond, elems, worst = 0, 0, 0.0
     for n, w in ref["b_params"].items():
-        g = ranks[0]["B_params"][n]
+        g = ranks[0][f"{tag}_params"][n]
         err = (g.float() - w.float()).abs()
         tol = TP_PARAM_TOL["atol"] + TP_PARAM_TOL["rtol"] * w.float().abs()
         beyond += int((err > tol).sum())
         elems += err.numel()
         worst = max(worst, float(err.max()))
-        errs[n] = float(err.max())
-    out["B_params_beyond_tol"], out["B_params_of"] = beyond, elems
-    out["B_params_max_abs"] = worst
-    launches = {"flash_attention": 2 * cfg.n_layers + TP_B_DEPTH
-                + 2 * TP_B_DEPTH, "flash_attention_bwd": TP_B_DEPTH}
-    out["launches_a_rank"] = [{k: x["launches"].get(k, 0) for k in launches}
-                              for x in ranks]
-    out["launches_want"] = launches
-    print(f"tp checks: {json.dumps(out)}", flush=True)
-    if not out["A_f32_logits_identical_on_ranks"]:
-        bad.append("A: ranks' f32 logits differ")
-    if max(out["A_f32_logits_rel"]) > TP_LOGITS_RTOL:
-        bad.append("A: f32 logits off the unsharded model's")
-    if not out["A_f32_picks_equal_unsharded"] \
-            or not out["unsharded_f32_forced_reproduces_its_tokens"]:
-        bad.append("A: f32 greedy tokens differ from the unsharded run's")
-    if not out["A_bf16_tokens_identical_on_ranks"]:
-        bad.append("A: ranks generated different bf16 tokens")
-    if not out["B_tokens_equal_unsharded"] \
-            or out["B_cache"]["seq_axes"] != ["data"]:
-        bad.append(f"B: decode of one sequence ({out['B_cache']})")
+    out[f"{tag}_params_beyond_tol"], out[f"{tag}_params_of"] = beyond, elems
+    out[f"{tag}_params_max_abs"] = worst
+    if not out[f"{tag}_tokens_equal_unsharded"]:
+        bad.append(f"{tag}: decode of one sequence")
     for x in ranks:
-        if abs(x["B_loss"] - ref["b_loss"]) > TP_LOSS_RTOL * abs(
-                ref["b_loss"]) or abs(x["B_gnorm"] - ref["b_gnorm"]) \
+        if abs(x[f"{tag}_loss"] - ref["b_loss"]) > TP_LOSS_RTOL * abs(
+                ref["b_loss"]) or abs(x[f"{tag}_gnorm"] - ref["b_gnorm"]) \
                 > TP_GNORM_RTOL * ref["b_gnorm"]:
-            bad.append(f"B: rank {x['rank']} loss or grad norm")
-        if any(x["launches"].get(k, 0) != n for k, n in launches.items()):
-            bad.append(f"rank {x['rank']} launches {x['launches']}")
+            bad.append(f"{tag}: rank {x['rank']} loss or grad norm")
     if beyond > TP_PARAM_OUTLIERS * elems or worst > 3 * TRAIN_LR:
-        bad.append("B: updated parameters off the unsharded step's")
+        bad.append(f"{tag}: updated parameters off the unsharded step's")
+
+
+def tp_launches_want() -> dict:
+    """A rank's launches over a serve phase and a step phase (tp's A and
+    B, tp_hd's M1 and M2): one ``flash_attention`` a layer and prefill
+    (the f32 and bf16 runs' and the decode of one's; two a layer in the
+    train step's forward, remat) and one ``flash_attention_bwd`` a layer
+    in its backward."""
+    cfg = tp_configs()[0]
+    return {"flash_attention": 2 * cfg.n_layers + TP_B_DEPTH
+            + 2 * TP_B_DEPTH, "flash_attention_bwd": TP_B_DEPTH}
+
+
+def check_launches(key: str, ranks: list, want: dict, out: dict,
+                   bad: list) -> None:
+    """Every rank's ``key`` launches exactly ``want``."""
+    out[f"{key}_a_rank"] = [{k: x[key].get(k, 0) for k in want}
+                            for x in ranks]
+    out[f"{key}_want"] = want
+    for x in ranks:
+        if any(x[key].get(k, 0) != n for k, n in want.items()):
+            bad.append(f"rank {x['rank']} {key} {x[key]}")
+
+
+def check_tp(r: dict, ref: dict, t3_ref: dict) -> dict:
+    """The tp path's gates: phase A's (``check_tp_serve``) and B's
+    (``check_tp_step``, the cache's slots split over data), launches as
+    ``tp_launches_want`` on every rank, and T3's (``check_t3``). The
+    parameter bytes were held to the census's on the ranks."""
+    ranks = r["ranks"]
+    out, bad = {}, []
+    check_tp_serve("A", ranks, ref, out, bad)
+    check_tp_step("B", ranks, ref, out, bad)
+    if out["B_cache"]["seq_axes"] != ["data"]:
+        bad.append(f"B: the cache's slots not over data ({out['B_cache']})")
+    check_launches("launches", ranks, tp_launches_want(), out, bad)
+    print(f"tp checks: {json.dumps(out)}", flush=True)
     out["T3"], t3_bad = check_t3(ranks, t3_ref)
     print(f"tp T3 checks: {json.dumps(out['T3'])}", flush=True)
     bad += t3_bad
@@ -4518,40 +4626,48 @@ def check_tp(r: dict, ref: dict, t3_ref: dict) -> dict:
     return out
 
 
+def tp_rank_row(x: dict, a: str, b: str, path: str, card: str) -> dict:
+    """A rank's numbers of a serve phase ``a`` and a step phase ``b``
+    (``tp_serve``, ``tp_step``), printed on a line of their own: walls,
+    the collectives' seconds and calls (timed with the card synchronised
+    around each: the rest of the wall is compute and the host's
+    launches), peaks and parameter bytes."""
+    f32, bf, st, bg = (x[f"{a}_f32_collectives"], x[f"{a}_bf16_collectives"],
+                       x[f"{b}_step_collectives"], x[f"{b}_gen_collectives"])
+    row = {"rank": x["rank"], f"{a}_f32_walls": x[f"{a}_f32_walls"],
+           f"{a}_f32_collectives": f32,
+           f"{a}_bf16_wall_s": x[f"{a}_bf16_wall_s"],
+           f"{a}_bf16_timing": x[f"{a}_bf16_timing"],
+           f"{a}_bf16_collectives": bf,
+           f"{a}_bf16_peak_gib": x[f"{a}_bf16_peak_gib"],
+           f"{b}_gen_timing": x[f"{b}_gen_timing"],
+           f"{b}_gen_collectives": bg, f"{b}_step_s": x[f"{b}_step_s"],
+           f"{b}_step_collectives": st, f"{b}_peak_gib": x[f"{b}_peak_gib"],
+           **{f"{t}_init_s": x[f"{t}_init_s"]
+              for t in (f"{a}_f32", f"{a}_bf16", b)},
+           **{f"{t}_bytes": x[f"{t}_bytes"]
+              for t in (f"{a}_f32", f"{a}_bf16", b)}}
+    print(f"{path} rank {x['rank']}: {a} f32 prefill "
+          f"{x[f'{a}_f32_walls']['prefill_s']:.3f} s, {TP_NEW - 1} decode "
+          f"steps {x[f'{a}_f32_walls']['decode_s']:.3f} s (collectives "
+          f"{f32['total_s']:.3f} s in {sum(f32['calls'].values())} calls); "
+          f"{a} bf16 generate {x[f'{a}_bf16_wall_s']:.3f} s (prefill "
+          f"{x[f'{a}_bf16_timing']['prefill_s']:.3f}), collectives "
+          f"{bf['total_s']:.3f} s in {sum(bf['calls'].values())} calls; {b} "
+          f"generate {sum(x[f'{b}_gen_timing'].values()):.3f} s, "
+          f"collectives {bg['total_s']:.3f} s; {b} step "
+          f"{x[f'{b}_step_s']:.3f} s, collectives {st['total_s']:.3f} s "
+          f"({json.dumps(st['seconds'])}); peaks {a} "
+          f"{x[f'{a}_bf16_peak_gib']:.2f} / {b} {x[f'{b}_peak_gib']:.2f} GiB; "
+          f"parameter bytes {a} {x[f'{a}_bf16_bytes']['census_bytes']} "
+          f"(census) ({card})", flush=True)
+    return row
+
+
 def report_tp(r: dict, checks: dict, card: str) -> None:
     """The tp path's numbers, each on its own line, then one JSON line:
-    per rank and phase the walls, the collectives' seconds by kind (timed
-    with the card synchronised around each: the rest of the wall is
-    compute and the host's launches), peaks and parameter bytes."""
-    per_rank = []
-    for x in r["ranks"]:
-        a, b, bg = (x["A_bf16_collectives"], x["B_step_collectives"],
-                    x["B_gen_collectives"])
-        row = {"rank": x["rank"], "A_f32_walls": x["A_f32_walls"],
-               "A_bf16_wall_s": x["A_bf16_wall_s"],
-               "A_bf16_timing": x["A_bf16_timing"],
-               "A_bf16_collectives": a, "A_bf16_peak_gib":
-               x["A_bf16_peak_gib"], "B_gen_timing": x["B_gen_timing"],
-               "B_gen_collectives": bg, "B_step_s": x["B_step_s"],
-               "B_step_collectives": b, "B_peak_gib": x["B_peak_gib"],
-               **{f"{t}_init_s": x[f"{t}_init_s"]
-                  for t in ("A_f32", "A_bf16", "B")},
-               **{f"{t}_bytes": x[f"{t}_bytes"]
-                  for t in ("A_f32", "A_bf16", "B")}}
-        per_rank.append(row)
-        print(f"tp rank {x['rank']}: A f32 prefill "
-              f"{x['A_f32_walls']['prefill_s']:.3f} s, {TP_NEW - 1} decode "
-              f"steps {x['A_f32_walls']['decode_s']:.3f} s; A bf16 generate "
-              f"{x['A_bf16_wall_s']:.3f} s (prefill "
-              f"{x['A_bf16_timing']['prefill_s']:.3f}), collectives "
-              f"{a['total_s']:.3f} s in {sum(a['calls'].values())} calls; B "
-              f"generate {sum(x['B_gen_timing'].values()):.3f} s, "
-              f"collectives {bg['total_s']:.3f} s; B step "
-              f"{x['B_step_s']:.3f} s, collectives {b['total_s']:.3f} s "
-              f"({json.dumps(b['seconds'])}); peaks A "
-              f"{x['A_bf16_peak_gib']:.2f} / B {x['B_peak_gib']:.2f} GiB; "
-              f"parameter bytes A {x['A_bf16_bytes']['census_bytes']} "
-              f"(census) ({card})")
+    per rank and phase (``tp_rank_row``; T3's ``t3_report_row``)."""
+    per_rank = [tp_rank_row(x, "A", "B", "tp", card) for x in r["ranks"]]
     ph = DP_PHASES["T3"]
     t3 = {"phase": {**ph, "mesh": [[2, 2], ["data", "model"]],
                     "reduced": {"n_layers": [40, ph["depth"]]}},
@@ -5015,12 +5131,7 @@ def check_tp_families(r: dict, ref: dict) -> dict:
                    f"({out['E2']['cache']})")
     for key, want in (("launches", tpf_launches_want(configs)),
                       ("launches_E", tpf_e_launches_want(configs))):
-        out[f"{key}_a_rank"] = [{k: x[key].get(k, 0) for k in want}
-                                for x in ranks]
-        out[f"{key}_want"] = want
-        for x in ranks:
-            if any(x[key].get(k, 0) != n for k, n in want.items()):
-                bad.append(f"rank {x['rank']} {key} {x[key]}")
+        check_launches(key, ranks, want, out, bad)
     print(f"tp_families checks: {json.dumps(out)}", flush=True)
     if bad:
         raise AssertionError(f"tp_families: {bad}")
@@ -5160,6 +5271,144 @@ def tpf_kernel_rows(r: dict, dev) -> list:
             "the prefills of phase B's, C's and E's f32 and bf16 runs, "
             "phase D's and E's hymba generate and train step)")]))
     return rows
+
+def tphd_rank(rank: int, init: str, tmp: str, src: str) -> None:
+    """One gloo rank of the tp_hd path (started by ``spawn_ranks``; waits
+    for ``tmp/tphd_go``), on (data 1, model 8) under
+    ``DistConfig(shard_head_dim_fallback=True)``: M1 as tp's phase A
+    (``tp_serve``), then M2 as its phase B (``tp_step``) on the same mesh,
+    launches counted from 0 over both. Saves it all to
+    ``tmp/tphd<rank>.pt``."""
+    sys.path.insert(0, src)
+    import datetime
+
+    import torch._dynamo  # noqa: F401  (see DP_WAIT_S)
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import DistConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
+
+    deadline = time.monotonic() + DP_WAIT_S
+    while not Path(tmp, "tphd_go").exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"tp_hd rank {rank}: no go in {DP_WAIT_S} s")
+        time.sleep(0.05)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    compat.init_ranks("gloo", init, rank, TP_HD_RANKS,
+                      timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+    try:
+        ref = torch.load(f"{tmp}/tphd_in.pt")
+        rep, launches = {"rank": rank}, {}
+        part = counting(ops, launches)
+        head_dim = DistConfig(shard_head_dim_fallback=True)
+        mesh = pm.make_mesh(*TP_HD_MESH)
+        t0 = time.perf_counter()
+        tp_serve(rep, "M1", mesh, TP_HD_MESH, ref, dev, part, head_dim)
+        t1 = time.perf_counter()
+        tp_step(rep, "M2", mesh, TP_HD_MESH, ref, dev, part, rank, head_dim)
+        rep["M1_s"], rep["M2_s"] = t1 - t0, time.perf_counter() - t1
+        rep["launches"] = launches
+        torch.save(rep, f"{tmp}/tphd{rank}.pt")
+    finally:
+        compat.shutdown()
+
+
+def tp_hd(ref: dict, spawned: dict) -> dict:
+    """The tp_hd path: the ranks ``spawn_ranks(tphd_rank, TP_HD_RANKS)``
+    started, given the unsharded side's prompts and f32 tokens
+    (``tp_reference``) and then the go; joined."""
+    torch.save({"prompt": ref["prompt"], "f32_gen": ref["f32_gen"]},
+               f"{spawned['tmp']}/tphd_in.pt")
+    return join_ranks(spawned, "tphd_go", "tphd")
+
+
+def check_tp_hd(r: dict, ref: dict) -> dict:
+    """The tp_hd path's gates against ``tp_reference``'s unsharded runs:
+    M1's as phase A's (``check_tp_serve``) and M2's as phase B's
+    (``check_tp_step``); case M's placement on every rank: 4 query heads
+    whole (``wq``, ``wo``) and the head-dim block of every kv head
+    (``wk``, ``wv``), the decode caches of M1 and M2 holding that block of
+    k (its last dim hd // 8, the slots whole); launches as
+    ``tp_launches_want`` on every rank. The parameter bytes were held to
+    the census's under the flag on the ranks."""
+    ranks = r["ranks"]
+    cfg = tp_configs()[0]
+    m, hd = TP_HD_MESH[0][1], cfg.resolved_head_dim
+    out, bad = {}, []
+    check_tp_serve("M1", ranks, ref, out, bad)
+    check_tp_step("M2", ranks, ref, out, bad)
+    d, h, kvh = cfg.d_model, cfg.n_heads // m, cfg.n_kv_heads
+    want = {"wq": [d, h, hd], "wk": [d, kvh, hd // m],
+            "wv": [d, kvh, hd // m], "wo": [h, hd, d]}
+    out["widths_want"] = want
+    if any(x["M1_widths"] != want for x in ranks):
+        bad.append(f"M1: not case M's placement "
+                   f"({[x['M1_widths'] for x in ranks]})")
+    for tag in ("M1", "M2"):
+        cache = out[f"{tag}_cache"]
+        if cache["k"][-1] != hd // m or cache["seq_axes"]:
+            bad.append(f"{tag}: cache not split over the head dim "
+                       f"({cache})")
+    out["param_bytes_a_rank"] = {t: ranks[0][f"{t}_bytes"]["census_bytes"]
+                                 for t in ("M1_f32", "M1_bf16", "M2")}
+    check_launches("launches", ranks, tp_launches_want(), out, bad)
+    print(f"tp_hd checks: {json.dumps(out)}", flush=True)
+    if bad:
+        raise AssertionError(f"tp_hd: {bad}")
+    return out
+
+
+def report_tp_hd(r: dict, checks: dict, card: str) -> None:
+    """The tp_hd path's numbers: a line a rank (``tp_rank_row``, M1 and
+    M2), then one JSON line."""
+    per_rank = []
+    for x in r["ranks"]:
+        per_rank.append({**tp_rank_row(x, "M1", "M2", "tp_hd", card),
+                         "M1_s": x["M1_s"], "M2_s": x["M2_s"]})
+    rep = {"card": card, "backend": "gloo", "transport": "shared host "
+           "segment (distributed/shm.py)", "ranks_on_one_card": TP_HD_RANKS,
+           "dist": "DistConfig(shard_head_dim_fallback=True)",
+           "mesh": TP_HD_MESH, "batch": TP_BATCH, "prompt": TP_PROMPT,
+           "new": TP_NEW, "M2": {"depth": TP_B_DEPTH, "new": TP_B_NEW,
+                                 "reduced": {"n_layers": [22, TP_B_DEPTH]}},
+           "per_rank": per_rank, "ranks_s": r["ranks_s"],
+           "ranks_started_s_before": r["waited_s"],
+           "held_before_go": r["held_before_go"], **checks}
+    print(f"tp_hd report: {json.dumps(rep, default=str)}", flush=True)
+
+
+def tphd_kernel_rows(r: dict, dev) -> list:
+    """The kernel rows at case M's per-rank shapes (rank 0's calls):
+    ``flash_attention`` at M1's bf16 prefill layer (4 x 512, the rank's 4
+    query heads over the one kv head they read) and
+    ``flash_attention_bwd`` at M2's f32 train layer; launches: the path's
+    over its 8 ranks."""
+    ranks = r["ranks"]
+
+    def on_card(key):
+        (q, k, v), kw = ranks[0][key]
+        return tuple(t.to(dev) for t in (q, k, v)), kw
+
+    def launched(name):
+        return sum(x["launches"].get(name, 0) for x in ranks)
+    rows = [flash_row(types.SimpleNamespace(args=on_card("M1_call")),
+                      launched("flash_attention"),
+                      "tp_hd M1 bf16 prefill layer a rank, 4 x 512, 4 / 1 "
+                      "heads"),
+            flash_bwd_row(on_card("M2_step_call"),
+                          launched("flash_attention_bwd"),
+                          "tp_hd M2 f32 train layer a rank, 4 x 512, 4 / 1 "
+                          "heads")]
+    for row in rows:
+        row["path"] = "tp_hd"
+        row["note"] = "; ".join(filter(None, [row.get("note"), (
+            "case M of the head-dim placement, TinyLlama-1.1B on (1, 8); "
+            "launches: the tp_hd path's over its 8 ranks (a rank: the "
+            "prefills of M1's f32 and bf16 runs and of M2's decode, M2's "
+            "train step)")]))
+    return rows
+
 
 def placed_bytes_check(what: str, tensors, allocated: int,
                        census: int) -> dict:
@@ -5717,7 +5966,9 @@ def flash_bwd_row(call, launches: int, what: str) -> dict:
         lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
                                     retain_graph=True),
         (q, k, v, out, lse, dout), launches,
-        nbytes=nbytes, n_ops=n_ops, ops_per_s=BF16_OPS_PER_S,
+        nbytes=nbytes, n_ops=n_ops,
+        ops_per_s=FP32_OPS_PER_S if q.dtype == torch.float32
+        else BF16_OPS_PER_S,
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:136",
         check=lambda got, want: flash_bwd_check(got, want, what),
@@ -6457,7 +6708,8 @@ def main() -> int:
     (q, k, v), kw = tp_run["ranks"][0]["T3"]["call"]
     caps["tp T3"] = types.SimpleNamespace(
         args=(tuple(t.to(dev) for t in (q, k, v)), kw))
-    del tp_run, tp_ref, t3_ref
+    # tp_ref stays for the tp_hd path
+    del tp_run, t3_ref
     torch.cuda.empty_cache()
 
     # the ssm, hybrid and audio families placed by the reference's specs:
@@ -6468,9 +6720,11 @@ def main() -> int:
                "hymba-1.5b and whisper-small f32 and bf16 generates; "
                "2-layer train steps and a decode of one)"):
         tpf_ref = tpf_reference(dev)
+    tphd_ranks = spawn_ranks(tphd_rank, TP_HD_RANKS)
     with phase("tp_families: 4 gloo ranks on one card, A-C (data 1, model "
                "4) f32 and bf16, then D (data 2, model 2) decode and train "
-               "steps, then E (hymba-1.5b, head dim split) on both"):
+               "steps, then E (hymba-1.5b, head dim split) on both (tp_hd's "
+               "8 ranks starting meanwhile)"):
         tpf_run = tp_families(tpf_ref, tpf_ranks)
     print(f"[phase] tp_families E (head dim split; rank 0, within the ranks' "
           f"phase above): {tpf_run['ranks'][0]['E_s']:.3f} s", flush=True)
@@ -6499,6 +6753,38 @@ def main() -> int:
                                               "launches", "launches_E")}
                            for x in tpf_run["ranks"]]}
     del tpf_run, tpf_ref
+    torch.cuda.empty_cache()
+
+    # case M of the head-dim placement: TinyLlama-1.1B on (data 1, model
+    # 8), eight gloo ranks on the card (started with tp_families' go),
+    # held to tp's unsharded side; each counts its own launches from 0
+    # over the path, and the path's counts are their sum
+    with phase("tp_hd: 8 gloo ranks on one card, M1 (data 1, model 8, "
+               "TinyLlama-1.1B's head dim split) f32 and bf16, then M2 "
+               "decode and train step"):
+        tphd_run = tp_hd(tp_ref, tphd_ranks)
+    for tag in ("M1", "M2"):
+        print(f"[phase] tp_hd {tag} (rank 0, within the ranks' phase "
+              f"above): {tphd_run['ranks'][0][f'{tag}_s']:.3f} s",
+              flush=True)
+    counts["tp_hd"] = {k: sum(x["launches"].get(k, 0)
+                              for x in tphd_run["ranks"])
+                       for k in counts["pod"]}
+    print(f"[launches] tp_hd: {json.dumps(counts['tp_hd'])}", flush=True)
+    missing = [k for k in ("flash_attention", "flash_attention_bwd")
+               if counts["tp_hd"][k] == 0]
+    if missing:
+        raise AssertionError(f"tp_hd: not launched: {missing}")
+    with phase("tp_hd: checks (ranks agree, f32 logits and greedy tokens "
+               "vs the unsharded model, case M's placement and caches, the "
+               "decode of one sequence, the train step)"):
+        tphd_checks = check_tp_hd(tphd_run, tp_ref)
+    print(card)
+    report_tp_hd(tphd_run, tphd_checks, card)
+    tphd_calls = {"ranks": [{k: x[k] for k in ("M1_call", "M2_step_call",
+                                               "launches")}
+                            for x in tphd_run["ranks"]]}
+    del tphd_run, tp_ref
     torch.cuda.empty_cache()
 
     # the census grid in process, then one rank's share of the two 1B rows
@@ -6551,7 +6837,8 @@ def main() -> int:
                      "tp": counts["tp"], "tp T3": counts["tp T3"],
                      **moe_launches}
         rows = time_kernels(caps, by_kernel) \
-            + tpf_kernel_rows(tpf_calls, dev) + census_rows
+            + tpf_kernel_rows(tpf_calls, dev) \
+            + tphd_kernel_rows(tphd_calls, dev) + census_rows
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}
     print(card)

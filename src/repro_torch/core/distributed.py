@@ -28,6 +28,7 @@ import torch.distributed as dist
 from repro_torch.core.pag import PAG
 from repro_torch.core.search import SearchConfig, search_pag
 from repro_torch.device import DeviceLike
+from repro_torch.distributed import shm
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import Mesh, data_axes
 from repro_torch.storage.simulator import ComputeModel, ObjectStore
@@ -105,37 +106,45 @@ class ShardedServing:
 # pod-scale data plane (torch.distributed over a launch.mesh.Mesh)
 # --------------------------------------------------------------------------
 
+def _via_host(mesh: Mesh, axis: str, t: torch.Tensor) -> bool:
+    """A CUDA ``t`` under a gloo group: ranks that share one card, whose
+    exchanges go through the axis's shared host segment
+    (``distributed/shm.py``)."""
+    return t.is_cuda and dist.get_backend(mesh.groups[axis]) == "gloo"
+
+
+def _segment(mesh: Mesh, axis: str, t: torch.Tensor) -> shm.Segment:
+    """The axis group's shared segment, made on its first exchange."""
+    seg = mesh.segments.get(axis)
+    if seg is None:
+        seg = mesh.segments[axis] = shm.Segment(mesh.groups[axis], t.device)
+    return seg
+
+
 def _stacked(mesh: Mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
     """The ranks' ``t`` along ``axis`` (``all_gather``) stacked ``[n,
-    *t.shape]`` in their order along it: on the host under gloo for a
-    CUDA ``t`` (gloo's transport is the host's; the ranks may share one
-    card), else on ``t``'s device."""
-    group = mesh.groups[axis]
-    via_host = t.is_cuda and dist.get_backend(group) == "gloo"
-    src = t.cpu() if via_host else t.contiguous()
-    parts = src.new_empty((mesh.shape[axis], *src.shape))
-    dist.all_gather(list(parts.unbind(0)), src, group=group)
+    *t.shape]`` in their order along it, on ``t``'s device (not for a
+    ``_via_host`` exchange)."""
+    parts = t.new_empty((mesh.shape[axis], *t.shape))
+    dist.all_gather(list(parts.unbind(0)), t.contiguous(),
+                    group=mesh.groups[axis])
     return parts
 
 
 def _exchange(mesh: Mesh, axis: str, t: torch.Tensor, dim: int
               ) -> torch.Tensor:
     """The ranks' ``t`` along ``axis`` (``all_gather``) concatenated on
-    ``dim`` in their order along it, on ``t``'s device; from the host a
-    part at a time into its place. Every collective of the port goes
-    through one of ``_gather``, ``_sum_axis`` and ``_reduce_scatter``,
-    which name it (the census's ``collectives``, ``launch/dryrun.py``,
-    counts the bytes each of them receives)."""
-    parts = _stacked(mesh, axis, t)
-    if parts.device == t.device:
-        return torch.cat(list(parts.unbind(0)), dim)
-    size = t.shape[dim]
-    shape = list(t.shape)
-    shape[dim] *= parts.shape[0]
-    out = torch.empty(shape, dtype=t.dtype, device=t.device)
-    for i, part in enumerate(parts.unbind(0)):
-        out.narrow(dim, i * size, size).copy_(part)
-    return out
+    ``dim`` in their order along it, on ``t``'s device: through the
+    axis's shared host segment for ranks sharing a card, each part
+    copied from the host into its place. Every collective of the port
+    goes through one of ``_gather``, ``_sum_axis`` and
+    ``_reduce_scatter``, which name it (the census's ``collectives``,
+    ``launch/dryrun.py``, counts the bytes each of them receives)."""
+    if _via_host(mesh, axis, t):
+        if mesh.shape[axis] == 1:
+            return t.clone()
+        return _segment(mesh, axis, t).gather(t, dim)
+    return torch.cat(list(_stacked(mesh, axis, t).unbind(0)), dim)
 
 
 def _gather(mesh: Mesh, axis: str, t: torch.Tensor, dim: int
@@ -151,11 +160,11 @@ def _sum_axis(mesh: Mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
     half a gather's bytes (``t``'s received); more ranks gather every
     ``t`` (n x its bytes)."""
     if mesh.shape[axis] == 2:
-        group = mesh.groups[axis]
-        via_host = t.is_cuda and dist.get_backend(group) == "gloo"
-        out = t.cpu() if via_host else t.clone()
-        dist.all_reduce(out, group=group)
-        return out.to(t.device) if via_host else out
+        if _via_host(mesh, axis, t):
+            return _segment(mesh, axis, t).sum_pair(t)
+        out = t.clone()
+        dist.all_reduce(out, group=mesh.groups[axis])
+        return out
     parts = _exchange(mesh, axis, t[None], 0)
     acc = parts[0]
     for part in parts[1:]:
@@ -180,7 +189,12 @@ def _reduce_scatter(mesh: Mesh, axis: str, g: torch.Tensor, dim: int
     """This rank's block along ``dim`` of the ranks' ``g`` summed over
     ``axis``, in rank order: a gather of every ``g`` (n x its bytes; gloo
     has no reduce-scatter) and a sum of this rank's slice of each
-    (``slice_sum``)."""
+    (``slice_sum``; through the shared segment, only that slice of each
+    part reaches the card)."""
+    if _via_host(mesh, axis, g):
+        if mesh.shape[axis] == 1:
+            return g.clone()
+        return _segment(mesh, axis, g).reduce_scatter(g, dim)
     size = g.shape[dim] // mesh.shape[axis]
     return slice_sum(_stacked(mesh, axis, g), dim,
                      mesh.axis_index(axis) * size, size, g.device)
@@ -271,9 +285,9 @@ def gather_axis(mesh: Mesh, axis: str, t: torch.Tensor,
                 dim: int = 1) -> torch.Tensor:
     """``jax.lax.all_gather(t, axis, axis=dim, tiled=True)``: the blocks of
     the ranks along ``axis`` concatenated on ``dim`` in their order along
-    it. Under gloo a CUDA tensor crosses through host memory, copied out
-    and back here (gloo's transport is the host's; the ranks may share
-    one card); under nccl it stays on the card. Its gradient is the
+    it. Under gloo a CUDA tensor crosses through the axis's shared host
+    segment (the ranks share one card; ``distributed/shm.py``); under
+    nccl it stays on the card. Its gradient is the
     reduce-scatter: each rank gets its block of the gathered gradient
     summed over the axis."""
     return _Gather.apply(t, mesh, axis, dim)

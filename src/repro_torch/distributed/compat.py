@@ -10,9 +10,10 @@ trying one and catching its error:
 * ``"nccl"`` where every rank has a card of its own (a multi-card host:
   the collectives run on the cards). NCCL refuses two ranks on one
   device ("Duplicate GPU detected").
-* ``"gloo"`` where ranks share one card, or run on the CPU. Its
-  transport is host memory: the merges of ``core/distributed.py`` copy
-  their candidates to the host and back for it.
+* ``"gloo"`` where ranks share one card, or run on the CPU. Ranks that
+  share a card exchange their CUDA tensors through a host segment shared
+  by each axis's ranks (``distributed/shm.py``); gloo itself carries the
+  CPU tensors and each segment's set-up.
 """
 from __future__ import annotations
 

@@ -25,6 +25,10 @@ class Mesh:
     axis_sizes: Tuple[int, ...]
     coords: Tuple[int, ...]             # this rank's index along each axis
     groups: Dict[str, dist.ProcessGroup]  # this rank's line of each axis
+    # each axis's shared host segment, made by core/distributed.py on the
+    # axis's first exchange of a CUDA tensor under gloo
+    segments: Dict[str, object] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:

@@ -44,7 +44,10 @@ from repro_torch.kernels.flash_attention import (
 def attention(q, k, v, *, causal=True, window=0, meta_tokens=0,
               disable_window=False):
     """q [B, Sq, H, D]; k, v [B, Sk, KVH, D] -> [B, Sq, H, D]. Positions
-    follow from the shapes: q is the causal suffix of k."""
+    follow from the shapes: q is the causal suffix of k. The kernel takes
+    contiguous inputs: a view (case M's kv heads of the rank's query
+    heads, ``Attention.kv_for_queries``) is copied first."""
+    q, k, v = (t.contiguous() for t in (q, k, v))
     return ops.flash_attention(q, k, v, causal=bool(causal),
                                window=0 if disable_window else window,
                                meta_tokens=meta_tokens)

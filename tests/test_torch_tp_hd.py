@@ -5,7 +5,7 @@ under ``param_shardings``, on the same seeded numpy weights and inputs.
 
 ``tests/test_torch_tp.py``'s harness, under the flag: one JAX subprocess
 on 8 forced host devices runs the reference; one set of gloo rank
-processes, a world of 4 and then of 2, runs the port (each rank holding
+processes, a world of 8, then of 4 and of 2, runs the port (each rank holding
 its blocks, ``carry.lm_params_from_arrays(..., mesh=, dist=)``). All
 float32 REDUCED configs. Two layouts:
 
@@ -15,7 +15,9 @@ float32 REDUCED configs. Two layouts:
   kv heads of 16 dims on (1, 4), its encoder and cross-attention too);
 * case M, the query heads divide ``model`` and the kv heads do not: ``wq``
   and ``wo`` split over the heads, ``wk``/``wv`` over the head dim
-  (TinyLlama's and hymba's 4 heads and 2 kv heads on (1, 4); hymba with
+  (TinyLlama's and hymba's 4 heads and 2 kv heads on (1, 4); a TinyLlama
+  of 8 heads and 4 kv heads of 16 dims on (1, 8), the layout
+  TinyLlama-1.1B's 32 / 4 heads take at model 8; hymba with
   its 8 meta tokens and window of 32; InternVL2's with vision
   embeddings and DBRX's beside its experts, forward only).
 
@@ -67,6 +69,8 @@ from repro_torch.models.layers import apply_rope, rope_cos_sin  # noqa: E402
 
 S, NEW, SLOTS, STEPS = tp.S, tp.NEW, tp.SLOTS, tp.STEPS
 HEADS3 = {"n_heads": 3, "n_kv_heads": 3, "head_dim": 16}
+HEADS8 = {"n_heads": 8, "n_kv_heads": 4, "head_dim": 16}
+WORLD = 8   # rank processes: a world of 8, then of 4 and of 2
 # name: (kind, world, mesh shape (data, model), arch, config changes, B)
 # (a decode case's prefill logits are held as a forward case's)
 CASES = {
@@ -78,6 +82,10 @@ CASES = {
     "dec/tinyllama-1x4": ("decode", 4, (1, 4), "tinyllama-1.1b", {}, 2),
     "dec/hymba-1x4": ("decode", 4, (1, 4), "hymba-1.5b", {}, 2),
     "dec/whisper3-1x4": ("decode", 4, (1, 4), "whisper-small", HEADS3, 2),
+    # case M at model 8, as TinyLlama-1.1B's 32 / 4 heads take it: 8 query
+    # heads split by heads, 4 kv heads of 16 dims by their head dim
+    "dec/tinyllama8-1x8": ("decode", 8, (1, 8), "tinyllama-1.1b",
+                           HEADS8, 2),
     "dec/qwen-2x2-b1": ("decode", 4, (2, 2), "qwen1.5-4b", {}, 1),
     "train/qwen-2x2": ("train", 4, (2, 2), "qwen1.5-4b", {}, 4),
     "train/tinyllama-1x4": ("train", 4, (1, 4), "tinyllama-1.1b", {}, 4),
@@ -120,7 +128,24 @@ _PORT = _derived(tp._PORT, [
      "                        model, logits).numpy()"),
     ('"--arch", "tinyllama-1.1b"', f'"--arch", "{CKPT_ARCH}"'),
     ('"--ckpt-every", "2"])', '"--ckpt-every", "2",\n'
-     '            "--shard-hd-fallback"])')])
+     '            "--shard-hd-fallback"])'),
+    # whether the attention kernel's inputs are contiguous, as the CUDA
+    # kernel takes them (its plain version here takes any strides)
+    ("torch.set_num_threads(1)\n",
+     "torch.set_num_threads(1)\n"
+     "from repro_torch.kernels import ops as kernel_ops\n"
+     "contiguous, kernel_call = [], kernel_ops.flash_attention\n"
+     "def recorded(q, k, v, *a, **kw):\n"
+     "    contiguous.append(all(t.is_contiguous() for t in (q, k, v)))\n"
+     "    return kernel_call(q, k, v, *a, **kw)\n"
+     "kernel_ops.flash_attention = recorded\n"),
+    ('np.savez(out + f"/port{rank}.npz", **res)',
+     'res["kernel_inputs_contiguous"] = np.array(contiguous)\n'
+     'np.savez(out + f"/port{rank}.npz", **res)'),
+    # case M on (1, 8) in a world of 8 before the others; the seeded blocks
+    # on the worlds of 4 and 2 alone
+    ("for world in (4, 2):", "for world in (8, 4, 2):"),
+    ("        for arch in seeded:", "        for arch in (seeded if world < 8 else ()):")])
 
 
 def _inputs():
@@ -139,7 +164,7 @@ def _inputs():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both sides: {"x", "ref", "port": [rank 0..3], "out"}. The
+    """Both sides: {"x", "ref", "port": [rank 0..7], "out"}. The
     reference's forward, decode and train cases run in three JAX
     subprocesses side by side (each compiles its own steps)."""
     out = tmp_path_factory.mktemp("tp_hd")
@@ -173,12 +198,13 @@ def runs(tmp_path_factory):
         [sys.executable, str(out / "port.py"), str(r), str(out),
          repr(CASES), repr(tp.OCFG), str(STEPS), str(NEW), repr(tp.SEEDED),
          str(S), "{}"], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(4)]
+        stderr=subprocess.PIPE, text=True) for r in range(WORLD)]
     for p in procs:
         so, se = p.communicate(timeout=300)
         assert p.returncode == 0, so + se
     return {"x": x, "ref": want, "out": out,
-            "port": [dict(np.load(out / f"port{r}.npz")) for r in range(4)]}
+            "port": [dict(np.load(out / f"port{r}.npz"))
+                     for r in range(WORLD)]}
 
 
 def _ranks(runs, name):
@@ -216,6 +242,7 @@ LAYOUTS = {"dec/qwen-1x4": {"k": (SLOTS, SLOTS, 5, 3, "")},
                              "ssm": (2, 36)},
            "dec/whisper3-1x4": {"k": (SLOTS, SLOTS, 3, 4, ""),
                                 "xk": (30, 30, 3, 4, "")},
+           "dec/tinyllama8-1x8": {"k": (SLOTS, SLOTS, 4, 2, "")},
            "dec/qwen-2x2-b1": {"k": (SLOTS, SLOTS // 2, 5, 6, "data")}}
 
 
@@ -300,7 +327,7 @@ def test_checkpoint_under_the_flag_resumes_and_loads_whole(runs):
     (the blocks gathered whole by spec) loads into a model and optimizer
     state on one device, whose next step agrees with the mesh's to the
     bf16 rounding of the REDUCED config."""
-    for port in runs["port"]:
+    for port in runs["port"][:4]:    # the world of 4's
         for key in tp.METRICS:
             assert port[f"ckpt/resumed/{key}"] == \
                 port[f"ckpt/unbroken/{key}"], key
@@ -320,6 +347,15 @@ def test_checkpoint_under_the_flag_resumes_and_loads_whole(runs):
     np.testing.assert_allclose(float(m["loss"]),
                                runs["port"][0]["ckpt/unbroken/loss"],
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("rank", range(WORLD))
+def test_the_attention_kernel_gets_contiguous_inputs(runs, rank):
+    """Every ``flash_attention`` call of every case on the rank (case M's
+    kv heads of the rank's query heads included: a slice of the gathered
+    heads) passes contiguous q, k and v, as the CUDA kernel requires."""
+    got = runs["port"][rank]["kernel_inputs_contiguous"]
+    assert got.size > 0 and got.all(), (int((~got).sum()), got.size)
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-4b", "hymba-1.5b"])
