@@ -11,7 +11,7 @@ each kernel against its plain PyTorch
 version on the card (edge cases, the sliding window and meta tokens
 included, in the forward and in the backward, and exact-tie inputs),
 prefills each dense, moe, hybrid, audio and vlm REDUCED config through
-the attention kernel against the plain attention, then drives nineteen
+the attention kernel against the plain attention, then drives twenty
 paths, each with its kernel launches counted from zero and checked:
 
 * quality and main: ``make_dataset`` (ground truth through ``l2_topk``)
@@ -237,6 +237,20 @@ paths, each with its kernel launches counted from zero and checked:
   layers) its phase B on the same mesh, held to tp's unsharded runs under
   tp's gates; the weights' widths and both caches' head-dim blocks
   gated.
+* tp_ssd: the SSD layouts where a concatenated leaf divides model only
+  as a whole or not at all (``models/ssm.py``'s ``Split``; TP_SSD_WORLDS),
+  5 gloo ranks on the card, two worlds in turn. S1: hymba-1.5b uncut on
+  (data 1, model 5), its 50 SSD heads split (10 a rank, and ``h``) while
+  ``in_proj`` (6482 columns) and the conv (3232 channels, and its window)
+  stay whole; tp_families' hymba prompts, the f32 forced run and bf16
+  ``Engine.generate``; S2: its 2-layer train step there. S3: the first 3
+  ranks on (1, 3), mamba2-370m uncut, its conv's 2304 channels (2048 +
+  128 + 128) in contiguous blocks of 768 (and its window), ``in_proj``
+  and the heads whole, as tp_families' phase A; S4: its 2-layer step.
+  Held under tp_families' gates (the steps' losses within
+  TP_SSD_LOSS_RTOL) to the unsharded runs of the same seeds: S1's own,
+  S2-S4's tp_families' (kept from that path); each rank's ``in_proj``,
+  conv and cache widths gated.
 * census: ``launch/dryrun.py``'s whole grid in this process (10 archs
   x 4 shapes x 2 meshes, and the ANNS cells: 3 x 2 kinds x 2 meshes; no
   cell may FAIL), then one rank's share of anns-bigann-1b (d 128) and
@@ -293,8 +307,10 @@ internvl2's at 4 x 1024, dp_train's layer 0 of a rank, TinyLlama's
 at 4 x 2048 and DBRX's at 4 x 512, tp's layer 0 of a rank in phase
 A (4 x 512, 8 / 1 heads, bf16), and a rank's hymba-1.5b windowed layer
 in tp_families' phases B and E and whisper-small's encoder layer in its
-phase C, and tp_hd's M1 layer 0 of a rank (4 x 512, 4 / 1 heads, bf16);
-``flash_attention_bwd`` eight times (tp_hd's M2 layer, f32, the eighth):
+phase C, tp_hd's M1 layer 0 of a rank (4 x 512, 4 / 1 heads, bf16), and
+tp_ssd's S1 windowed layer of a rank (4 x 640, 5 / 1 heads, bf16);
+``flash_attention_bwd`` nine times (tp_hd's M2 layer and tp_ssd's S2
+layer 0, f32, the last two):
 the train path's layer 0, long_train's hymba layer 1, windowed,
 whisper's encoder layer and cross-attention, internvl2's layer 0 and
 dp_train's two layers, each under its own mask, two calls
@@ -320,6 +336,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -779,7 +796,9 @@ TPF_CAPTURE = {
     "A": lambda a, kw: False,
     "B": lambda a, kw: kw.get("window", 0) > 0,
     "E": lambda a, kw: kw.get("window", 0) > 0,
-    "C": lambda a, kw: not kw["causal"] and a[0].shape[1] == a[1].shape[1]}
+    "C": lambda a, kw: not kw["causal"] and a[0].shape[1] == a[1].shape[1],
+    "S1": lambda a, kw: kw.get("window", 0) > 0,
+    "S3": lambda a, kw: False}
 
 # The tp_hd path: case M of the reference's head-dim placement
 # (DistConfig(shard_head_dim_fallback=True), where the query heads divide
@@ -794,6 +813,33 @@ TPF_CAPTURE = {
 # seed, prompts and depth) under tp's gates
 TP_HD_RANKS = 8
 TP_HD_MESH = ((1, 8), ("data", "model"))
+
+# The tp_ssd path: the SSD layouts of the reference's specs where a
+# concatenated leaf divides model only as a whole or not at all
+# (models/ssm.py's Split), at published widths on gloo ranks sharing the
+# card (started while tp_hd's run, each waiting for its go), two worlds in
+# turn. World 1, (data 1, model 5), hymba-1.5b: its 50 SSD heads split (10
+# a rank, and the decode state h) while in_proj (6482 columns) and the
+# conv (3232 channels, and its window) stay whole on every rank; its 25 /
+# 5 attention heads split (5 / 1 a rank); the MLP (d_ff 5504) and the
+# vocabulary (32,128 padded) whole. S1, all 32 layers: TPF_PHASES' hymba
+# prompts (TPF_BATCH x 512, and the 128 meta tokens), the f32 forced run
+# of TPF_NEW - 1 decode steps fed the unsharded run's tokens and the bf16
+# Engine.generate, as tp_families' serve phases; S2: tp_families' D step
+# of hymba (TPF_D_DEPTH layers, f32, TP_BATCH x TP_PROMPT). World 2, the
+# first 3 ranks again on (data 1, model 3), mamba2-370m: the conv's 2304
+# channels (2048 + 128 + 128) in contiguous blocks of 768 (and its window),
+# in_proj (4384 columns) and the 32 SSD heads whole, the vocabulary
+# (50,304 padded) split; S3 all 48 layers as tp_families' phase A, S4 its
+# D step of mamba2. Held under tp_families' gates (the steps' losses
+# within TP_SSD_LOSS_RTOL) to the unsharded runs of the same seeds: S1's
+# own (tpssd_reference), S2-S4's tp_families' (kept from that path)
+TP_SSD_RANKS = 5
+# (serve phase, step phase, arch, mesh, the serve phase's unsharded runs)
+TP_SSD_WORLDS = (
+    ("S1", "S2", "hymba-1.5b", ((1, 5), ("data", "model")), "S1"),
+    ("S3", "S4", "mamba2-370m", ((1, 3), ("data", "model")), "A"))
+TP_SSD_LOSS_RTOL = 1e-6
 
 # The reference's chunked attention pads K and V with zero keys to a
 # multiple of this chunk (when longer) that only a causal mask hides, so
@@ -4091,10 +4137,12 @@ def tp_census_bytes(cfg, mesh_shape, dist=None) -> int:
                              param_specs(model, mesh, dist), mesh)
 
 
-def tp_placed(rep: dict, tag: str, c, mesh, shape, dev, dist_cfg=None):
-    """The seeded model ``c`` placed on ``mesh`` (its ``shape``) under
-    ``dist_cfg``: its init seconds, its bytes against the census's
-    (``placed_bytes_check``) and its blocks into ``rep`` under ``tag``."""
+def tp_placed(rep: dict, tag: str, c, mesh, shape, dev, dist_cfg=None,
+              seed: int = TP_SEED):
+    """The model ``c`` seeded with ``seed`` placed on ``mesh`` (its
+    ``shape``) under ``dist_cfg``: its init seconds, its bytes against the
+    census's (``placed_bytes_check``) and its blocks into ``rep`` under
+    ``tag``."""
     from repro_torch.distributed.context import mesh_context
     from repro_torch.models.model import init_params
     from repro_torch.models.moe import block_specs
@@ -4102,7 +4150,7 @@ def tp_placed(rep: dict, tag: str, c, mesh, shape, dev, dist_cfg=None):
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     with mesh_context(mesh, dist_cfg):
-        model = init_params(c, TP_SEED, dev)
+        model = init_params(c, seed, dev)
     torch.cuda.synchronize()
     rep[f"{tag}_init_s"] = time.perf_counter() - t0
     rep[f"{tag}_bytes"] = placed_bytes_check(
@@ -4856,14 +4904,8 @@ def tpf_rank(rank: int, init: str, tmp: str, src: str) -> None:
     import torch.distributed as dist
     from repro_torch.distributed import compat
     from repro_torch.distributed import sharding as shd
-    from repro_torch.distributed.context import mesh_context
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as pm
-    from repro_torch.models.model import init_cache, init_params
-    from repro_torch.models.moe import block_specs
-    from repro_torch.serving.engine import Engine, ServeConfig
-    from repro_torch.training.optimizer import init_state
-    from repro_torch.training.train_step import TrainConfig, make_train_step
 
     deadline = time.monotonic() + DP_WAIT_S
     while not Path(tmp, "tpf_go").exists():
@@ -4880,150 +4922,171 @@ def tpf_rank(rank: int, init: str, tmp: str, src: str) -> None:
         rep, launches, launches_e = {"rank": rank}, {}, {}
         head_dim = shd.DistConfig(shard_head_dim_fallback=True)
 
-        def part(fn, *also):
-            ops.reset_launch_counts()
-            try:
-                return fn()
-            finally:
-                for k, c in ops.launch_counts().items():
-                    for into in (launches, *also):
-                        into[k] = into.get(k, 0) + c
+        part = counting(ops, launches)
 
-        def placed(tag, c, mesh, shape, dist_cfg=None):
-            torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated()
-            with mesh_context(mesh, dist_cfg):
-                model = init_params(c, TPF_SEED, dev)
-            torch.cuda.synchronize()
-            rep[f"{tag}_bytes"] = placed_bytes_check(
-                f"tp_families {tag} parameters", list(model.parameters()),
-                torch.cuda.memory_allocated() - before,
-                tp_census_bytes(c, shape, dist_cfg))
-            return model
-
-        def serve(tag, held_to, cfg, cfg32, shape, dist_cfg=None, *also):
-            """A serve phase on ``shape``: the f32 forced run fed the
-            tokens of ``held_to``'s unsharded run, then bf16 generate."""
-            mesh = pm.make_mesh(*shape)
-            batch = tpf_batch(held_to, cfg, ref[f"{held_to}_prompt"].to(dev))
-            model = placed(f"{tag}_f32", cfg32, mesh, shape, dist_cfg)
-            blk = model.blocks[0]
-            rep[f"{tag}_widths"] = {
-                n: tuple(p.shape) for n, p in blk.named_parameters()
-                if n.split(".")[-1] in TPF_WIDTHS}
-            with mesh_context(mesh, dist_cfg, batch=TPF_BATCH), \
-                    torch.inference_mode():
-                dist.barrier()
-                with CollectiveTimer() as timer:
-                    out = part(lambda: forced_run(model, cfg32, batch,
-                                                  ref[f"{held_to}_f32_gen"],
-                                                  TPF_NEW), *also)
-                rep[f"{tag}_f32_logits"], rep[f"{tag}_f32_picks"], \
-                    rep[f"{tag}_f32_walls"] = out
-                rep[f"{tag}_f32_collectives"] = timer.record()
-                cache = init_cache(cfg32, TPF_BATCH, 8, device=dev)
-                rep[f"{tag}_cache"] = {
-                    k: list(t.shape) for k, t in cache.items()}
-                rep[f"{tag}_cache"]["seq_axes"] = list(cache.seq_axes)
-                del cache
-            del model
-            torch.cuda.empty_cache()
-            model = placed(f"{tag}_bf16", cfg, mesh, shape, dist_cfg)
-            cap = Capture(ops, "flash_attention", TPF_CAPTURE[tag])
-            with mesh_context(mesh, dist_cfg, batch=TPF_BATCH), \
-                    torch.inference_mode():
-                engine = Engine(cfg, model, ServeConfig(
-                    max_new_tokens=TPF_NEW))
-                torch.cuda.reset_peak_memory_stats()
-                dist.barrier()
-                t0 = time.perf_counter()
-                with cap, CollectiveTimer() as timer:
-                    rep[f"{tag}_bf16_gen"] = torch.from_numpy(part(
-                        lambda: engine.generate(batch), *also))
-                rep[f"{tag}_bf16_wall_s"] = time.perf_counter() - t0
-                rep[f"{tag}_bf16_timing"] = dict(engine.timing)
-                rep[f"{tag}_bf16_collectives"] = timer.record()
-                rep[f"{tag}_bf16_peak_gib"] = \
-                    torch.cuda.max_memory_allocated() / 2 ** 30
-            if cap.args is not None:
-                (q, k, v), kw = cap.args
-                rep[f"{tag}_call"] = ((q.cpu(), k.cpu(), v.cpu()), kw)
-            del model, engine, cap, batch
-            torch.cuda.empty_cache()
-
-        def steps(tag, arch, mesh, dist_cfg=None, *also):
-            """Phase D's runs of ``arch`` on ``mesh`` (D's hymba decode of
-            one, then a train step), under the keys ``tag``_..."""
-            c = tpf_cut(arch, TPF_D_DEPTH, "float32")
-            model = placed(f"{tag}_{arch}", c, mesh, TPF_D_MESH, dist_cfg)
-            if arch == TPF_D_DECODE:
-                with mesh_context(mesh, dist_cfg, batch=1), \
-                        torch.inference_mode():
-                    cache = init_cache(c, 1, TP_PROMPT + TPF_D_NEW,
-                                       device=dev)
-                    rep[f"{tag}_cache"] = {"first_slot": cache.first_slot,
-                                           "seq_axes": list(cache.seq_axes),
-                                           "k": list(cache["k"].shape)}
-                    del cache
-                    engine = Engine(c, model, ServeConfig(
-                        max_new_tokens=TPF_D_NEW))
-                    dist.barrier()
-                    with CollectiveTimer() as timer:
-                        rep[f"{tag}_gen"] = torch.from_numpy(part(
-                            lambda: engine.generate(
-                                {"tokens": ref["D_prompt"].to(dev)}), *also))
-                    rep[f"{tag}_gen_timing"] = dict(engine.timing)
-                    rep[f"{tag}_gen_collectives"] = timer.record()
-                    del engine
-            model.requires_grad_()
-            specs = block_specs(model)
-            ocfg, batch = tp_train_setup(c, dev)
-            state = init_state(dict(model.named_parameters()), ocfg, mesh,
-                               specs)
-            step = make_train_step(c, ocfg, TrainConfig())
-            block = {key: shd.local_block(v, shd.batch_spec(
-                TP_BATCH, mesh, extra_dims=v.dim() - 1), mesh)
-                for key, v in batch.items()}
-            torch.cuda.reset_peak_memory_stats()
-            dist.barrier()
-            t0 = time.perf_counter()
-            with CollectiveTimer() as timer, \
-                    mesh_context(mesh, dist_cfg, batch=TP_BATCH):
-                _, state, m = part(lambda: step(model, state, block), *also)
-            torch.cuda.synchronize()
-            rep[f"{tag}_{arch}_step_s"] = time.perf_counter() - t0
-            rep[f"{tag}_{arch}_collectives"] = timer.record()
-            rep[f"{tag}_{arch}_peak_gib"] = torch.cuda.max_memory_allocated() \
-                / 2 ** 30
-            rep[f"{tag}_{arch}_loss"] = float(m["loss"])
-            rep[f"{tag}_{arch}_gnorm"] = float(m["grad_norm"])
-            whole = {n: shd.whole_tensor(p.detach(), specs[n], mesh)
-                     if n in specs else p.detach()
-                     for n, p in model.named_parameters()}
-            if rank == 0:
-                rep[f"{tag}_{arch}_params"] = {n: t.cpu()
-                                               for n, t in whole.items()}
-            del model, state, step, batch, block, whole, m
-            torch.cuda.empty_cache()
+        def part_e(fn):
+            return counting(ops, launches_e)(lambda: part(fn))
 
         configs = tpf_configs()
         for tag, (cfg, cfg32) in configs.items():
-            serve(tag, tag, cfg, cfg32, TPF_PHASES[tag]["mesh"])
+            tpf_serve(rep, ref, dev, part, tag, tag, cfg, cfg32,
+                      TPF_PHASES[tag]["mesh"])
         # phase D: (data 2, model 2), TPF_D_DEPTH layers, f32
         mesh = pm.make_mesh(*TPF_D_MESH)
         for arch in TPF_D_ARCHS:
-            steps("D", arch, mesh)
+            tpf_step(rep, ref, dev, part, rank, "D", arch, mesh, TPF_D_MESH,
+                     decode=arch == TPF_D_DECODE)
         # phase E: hymba-1.5b with the head dim split over model, held to
         # phase B's unsharded runs on (1, 4) and to D's on (2, 2)
         dist.barrier()
         t0 = time.perf_counter()
-        serve("E", "B", *configs["B"], TPF_E_MESH, head_dim, launches_e)
-        steps("E2", TPF_D_DECODE, mesh, head_dim, launches_e)
+        tpf_serve(rep, ref, dev, part_e, "E", "B", *configs["B"], TPF_E_MESH,
+                  head_dim)
+        tpf_step(rep, ref, dev, part_e, rank, "E2", TPF_D_DECODE, mesh,
+                 TPF_D_MESH, head_dim, decode=True)
         rep["E_s"] = time.perf_counter() - t0
         rep["launches"], rep["launches_E"] = launches, launches_e
         torch.save(rep, f"{tmp}/tpf{rank}.pt")
     finally:
         compat.shutdown()
+
+
+def tpf_serve(rep: dict, ref: dict, dev, part, tag: str, held_to: str,
+              cfg, cfg32, shape, dist_cfg=None) -> None:
+    """A serve phase of a rank (``tpf_rank``, ``tpssd_rank``) on the mesh
+    ``shape``: the seeded f32 model placed (its bytes against the
+    census's), ``forced_run`` fed the tokens of ``held_to``'s unsharded
+    run (``ref``'s ``<held_to>_prompt`` and ``_f32_gen``), its peak and
+    cache layout, then the bf16 model's ``Engine.generate`` under
+    ``CollectiveTimer`` (the attention call ``TPF_CAPTURE[tag]`` accepts
+    kept). Into ``rep`` under ``tag``_...; launches through ``part``."""
+    import torch.distributed as dist
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
+    from repro_torch.models.model import init_cache
+    from repro_torch.serving.engine import Engine, ServeConfig
+    mesh = pm.make_mesh(*shape)
+    batch = tpf_batch(held_to, cfg, ref[f"{held_to}_prompt"].to(dev))
+    model = tp_placed(rep, f"{tag}_f32", cfg32, mesh, shape, dev, dist_cfg,
+                      TPF_SEED)
+    blk = model.blocks[0]
+    rep[f"{tag}_widths"] = {
+        n: tuple(p.shape) for n, p in blk.named_parameters()
+        if n.split(".")[-1] in TPF_WIDTHS}
+    with mesh_context(mesh, dist_cfg, batch=TPF_BATCH), \
+            torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        with CollectiveTimer() as timer:
+            rep[f"{tag}_f32_logits"], rep[f"{tag}_f32_picks"], \
+                rep[f"{tag}_f32_walls"] = part(lambda: forced_run(
+                    model, cfg32, batch, ref[f"{held_to}_f32_gen"],
+                    TPF_NEW))
+        rep[f"{tag}_f32_collectives"] = timer.record()
+        rep[f"{tag}_f32_peak_gib"] = torch.cuda.max_memory_allocated() \
+            / 2 ** 30
+        cache = init_cache(cfg32, TPF_BATCH, 8, device=dev)
+        rep[f"{tag}_cache"] = {k: list(t.shape) for k, t in cache.items()}
+        rep[f"{tag}_cache"]["seq_axes"] = list(cache.seq_axes)
+        del cache
+    del model
+    torch.cuda.empty_cache()
+    model = tp_placed(rep, f"{tag}_bf16", cfg, mesh, shape, dev, dist_cfg,
+                      TPF_SEED)
+    cap = Capture(ops, "flash_attention", TPF_CAPTURE[tag])
+    with mesh_context(mesh, dist_cfg, batch=TPF_BATCH), \
+            torch.inference_mode():
+        engine = Engine(cfg, model, ServeConfig(max_new_tokens=TPF_NEW))
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with cap, CollectiveTimer() as timer:
+            rep[f"{tag}_bf16_gen"] = torch.from_numpy(part(
+                lambda: engine.generate(batch)))
+        rep[f"{tag}_bf16_wall_s"] = time.perf_counter() - t0
+        rep[f"{tag}_bf16_timing"] = dict(engine.timing)
+        rep[f"{tag}_bf16_collectives"] = timer.record()
+        rep[f"{tag}_bf16_peak_gib"] = torch.cuda.max_memory_allocated() \
+            / 2 ** 30
+    if cap.args is not None:
+        (q, k, v), kw = cap.args
+        rep[f"{tag}_call"] = ((q.cpu(), k.cpu(), v.cpu()), kw)
+    del model, engine, cap, batch
+    torch.cuda.empty_cache()
+
+
+def tpf_step(rep: dict, ref: dict, dev, part, rank: int, tag: str,
+             arch: str, mesh, shape, dist_cfg=None, *,
+             decode: bool = False) -> None:
+    """A train phase of a rank (``tpf_rank``, ``tpssd_rank``): ``arch``
+    at TPF_D_DEPTH layers, f32, placed on ``mesh`` (its ``shape``); with
+    ``decode``, a generate of ``ref``'s batch of one first (its cache's
+    layout kept); then one AdamW step on ``tp_train_setup``'s batch from
+    a barrier under ``CollectiveTimer``, its first attention call with
+    gradients kept, its updated parameters gathered whole (rank 0 keeps
+    them). Into ``rep`` under ``tag``_``arch``_...; launches through
+    ``part``."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_cache
+    from repro_torch.models.moe import block_specs
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    c = tpf_cut(arch, TPF_D_DEPTH, "float32")
+    model = tp_placed(rep, f"{tag}_{arch}", c, mesh, shape, dev, dist_cfg,
+                      TPF_SEED)
+    if decode:
+        with mesh_context(mesh, dist_cfg, batch=1), torch.inference_mode():
+            cache = init_cache(c, 1, TP_PROMPT + TPF_D_NEW, device=dev)
+            rep[f"{tag}_cache"] = {"first_slot": cache.first_slot,
+                                   "seq_axes": list(cache.seq_axes),
+                                   "k": list(cache["k"].shape)}
+            del cache
+            engine = Engine(c, model, ServeConfig(max_new_tokens=TPF_D_NEW))
+            dist.barrier()
+            with CollectiveTimer() as timer:
+                rep[f"{tag}_gen"] = torch.from_numpy(part(
+                    lambda: engine.generate(
+                        {"tokens": ref["D_prompt"].to(dev)})))
+            rep[f"{tag}_gen_timing"] = dict(engine.timing)
+            rep[f"{tag}_gen_collectives"] = timer.record()
+            del engine
+    model.requires_grad_()
+    specs = block_specs(model)
+    ocfg, batch = tp_train_setup(c, dev)
+    state = init_state(dict(model.named_parameters()), ocfg, mesh, specs)
+    step = make_train_step(c, ocfg, TrainConfig())
+    block = {key: shd.local_block(v, shd.batch_spec(
+        TP_BATCH, mesh, extra_dims=v.dim() - 1), mesh)
+        for key, v in batch.items()}
+    cap = Capture(ops, "flash_attention", lambda a, kw: a[0].requires_grad)
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with cap, CollectiveTimer() as timer, \
+            mesh_context(mesh, dist_cfg, batch=TP_BATCH):
+        _, state, m = part(lambda: step(model, state, block))
+    torch.cuda.synchronize()
+    rep[f"{tag}_{arch}_step_s"] = time.perf_counter() - t0
+    rep[f"{tag}_{arch}_collectives"] = timer.record()
+    rep[f"{tag}_{arch}_peak_gib"] = torch.cuda.max_memory_allocated() \
+        / 2 ** 30
+    rep[f"{tag}_{arch}_loss"] = float(m["loss"])
+    rep[f"{tag}_{arch}_gnorm"] = float(m["grad_norm"])
+    if cap.args is not None:
+        (q, k, v), kw = cap.args
+        rep[f"{tag}_{arch}_step_call"] = ((q.cpu(), k.cpu(), v.cpu()), kw)
+    whole = {n: shd.whole_tensor(p.detach(), specs[n], mesh)
+             if n in specs else p.detach()
+             for n, p in model.named_parameters()}
+    if rank == 0:
+        rep[f"{tag}_{arch}_params"] = {n: t.cpu() for n, t in whole.items()}
+    del model, state, step, batch, block, whole, m, cap
+    torch.cuda.empty_cache()
 
 
 def tp_families(ref: dict, spawned: dict) -> dict:
@@ -5079,41 +5142,8 @@ def check_tp_families(r: dict, ref: dict) -> dict:
     ranks, configs = r["ranks"], tpf_configs()
     out, bad = {}, []
     for tag, held_to in (*((t, t) for t in configs), ("E", "B")):
-        cfg = configs[held_to][0]
-        logits = ranks[0][f"{tag}_f32_logits"]
-        same = all(torch.equal(x[f"{tag}_f32_logits"], logits)
-                   for x in ranks)
-        # the real vocabulary: the padded entries are -1e30 on both sides
-        want = ref[f"{held_to}_f32_logits"][..., :cfg.vocab_size]
-        logits = logits[..., :cfg.vocab_size]
-        rel = ((logits - want).abs().amax(-1)
-               / want.abs().amax(-1)).amax(-1)
-        picks = all(torch.equal(x[f"{tag}_f32_picks"],
-                                ref[f"{held_to}_f32_gen"]) for x in ranks)
-        own = bool((want.argmax(-1).T == ref[f"{held_to}_f32_gen"]).all())
-        gen = ranks[0][f"{tag}_bf16_gen"]
-        out[tag] = {
-            "arch": cfg.arch_id, "layers": cfg.n_layers,
-            "f32_logits_identical_on_ranks": same,
-            "f32_logits_rel": [float(x) for x in rel],
-            "f32_picks_equal_unsharded": picks,
-            "unsharded_f32_forced_reproduces_its_tokens": own,
-            "bf16_tokens_identical_on_ranks": all(
-                torch.equal(x[f"{tag}_bf16_gen"], gen) for x in ranks),
-            "bf16_generated_equal_unsharded": int(
-                (gen == ref[f"{held_to}_bf16_gen"]).sum()),
-            "bf16_generated_of": int(gen.numel()),
-            "widths_a_rank": ranks[0][f"{tag}_widths"],
-            "cache_a_rank": ranks[0][f"{tag}_cache"]}
-        if not same:
-            bad.append(f"{tag}: ranks' f32 logits differ")
-        if max(out[tag]["f32_logits_rel"]) > TP_LOGITS_RTOL:
-            bad.append(f"{tag}: f32 logits off the unsharded model's")
-        if not picks or not own:
-            bad.append(f"{tag}: f32 greedy tokens differ from the unsharded "
-                       f"run's")
-        if not out[tag]["bf16_tokens_identical_on_ranks"]:
-            bad.append(f"{tag}: ranks generated different bf16 tokens")
+        out[tag] = tpf_check_serve(tag, held_to, configs[held_to][0], ranks,
+                                   ref, bad)
     hd = configs["B"][0].resolved_head_dim
     cache = out["E"]["cache_a_rank"]
     e_hd = {n: w for n, w in out["E"]["widths_a_rank"].items()
@@ -5138,6 +5168,46 @@ def check_tp_families(r: dict, ref: dict) -> dict:
     return out
 
 
+def tpf_check_serve(tag: str, held_to: str, cfg, ranks, ref,
+                    bad: list) -> dict:
+    """A serve phase's gates on the ranks' runs under the keys ``tag``_...
+    against ``held_to``'s unsharded runs in ``ref`` (``cfg``: its bf16
+    config); failures appended to ``bad``."""
+    logits = ranks[0][f"{tag}_f32_logits"]
+    same = all(torch.equal(x[f"{tag}_f32_logits"], logits) for x in ranks)
+    # the real vocabulary: the padded entries are -1e30 on both sides
+    want = ref[f"{held_to}_f32_logits"][..., :cfg.vocab_size]
+    logits = logits[..., :cfg.vocab_size]
+    rel = ((logits - want).abs().amax(-1) / want.abs().amax(-1)).amax(-1)
+    picks = all(torch.equal(x[f"{tag}_f32_picks"],
+                            ref[f"{held_to}_f32_gen"]) for x in ranks)
+    own = bool((want.argmax(-1).T == ref[f"{held_to}_f32_gen"]).all())
+    gen = ranks[0][f"{tag}_bf16_gen"]
+    out = {
+        "arch": cfg.arch_id, "layers": cfg.n_layers,
+        "f32_logits_identical_on_ranks": same,
+        "f32_logits_rel": [float(x) for x in rel],
+        "f32_picks_equal_unsharded": picks,
+        "unsharded_f32_forced_reproduces_its_tokens": own,
+        "bf16_tokens_identical_on_ranks": all(
+            torch.equal(x[f"{tag}_bf16_gen"], gen) for x in ranks),
+        "bf16_generated_equal_unsharded": int(
+            (gen == ref[f"{held_to}_bf16_gen"]).sum()),
+        "bf16_generated_of": int(gen.numel()),
+        "widths_a_rank": ranks[0][f"{tag}_widths"],
+        "cache_a_rank": ranks[0][f"{tag}_cache"]}
+    if not same:
+        bad.append(f"{tag}: ranks' f32 logits differ")
+    if max(out["f32_logits_rel"]) > TP_LOGITS_RTOL:
+        bad.append(f"{tag}: f32 logits off the unsharded model's")
+    if not picks or not own:
+        bad.append(f"{tag}: f32 greedy tokens differ from the unsharded "
+                   f"run's")
+    if not out["bf16_tokens_identical_on_ranks"]:
+        bad.append(f"{tag}: ranks generated different bf16 tokens")
+    return out
+
+
 def tpf_check_steps(tag: str, archs, ranks, ref, bad: list) -> dict:
     """Phase D's gates on the ranks' runs under the keys ``tag``_...,
     against D's unsharded runs; failures appended to ``bad``."""
@@ -5147,31 +5217,42 @@ def tpf_check_steps(tag: str, archs, ranks, ref, bad: list) -> dict:
             or "data" not in d["cache"]["seq_axes"]:
         bad.append(f"{tag}: decode of one sequence ({d['cache']})")
     for arch in archs:
-        loss, gnorm = ref[f"D_{arch}_loss"], ref[f"D_{arch}_gnorm"]
-        d[arch] = {"loss": [x[f"{tag}_{arch}_loss"] for x in ranks],
-                   "loss_unsharded": loss,
-                   "gnorm": [x[f"{tag}_{arch}_gnorm"] for x in ranks],
-                   "gnorm_unsharded": gnorm}
-        for x in ranks:
-            if abs(x[f"{tag}_{arch}_loss"] - loss) > TP_LOSS_RTOL * abs(loss) \
-                    or abs(x[f"{tag}_{arch}_gnorm"] - gnorm) \
-                    > TP_GNORM_RTOL * gnorm:
-                bad.append(f"{tag} {arch}: rank {x['rank']} loss or grad "
-                           f"norm")
-        beyond, elems, worst = 0, 0, 0.0
-        for n, w in ref[f"D_{arch}_params"].items():
-            g = ranks[0][f"{tag}_{arch}_params"][n]
-            err = (g.float() - w.float()).abs()
-            tol = TP_PARAM_TOL["atol"] \
-                + TP_PARAM_TOL["rtol"] * w.float().abs()
-            beyond += int((err > tol).sum())
-            elems += err.numel()
-            worst = max(worst, float(err.max()))
-        d[arch].update(params_beyond_tol=beyond, params_of=elems,
-                       params_max_abs=worst)
-        if beyond > TP_PARAM_OUTLIERS * elems or worst > 3 * TRAIN_LR:
-            bad.append(f"{tag} {arch}: updated parameters off the "
-                       f"unsharded step's")
+        d[arch] = tpf_check_step(tag, arch, ranks, ref, bad)
+    return d
+
+
+def tpf_check_step(tag: str, arch: str, ranks, ref, bad: list,
+                   loss_rtol: float = TP_LOSS_RTOL) -> dict:
+    """A train step's gates (``tpf_step`` under the keys
+    ``tag``_``arch``_...) against D's unsharded step of ``arch``: the
+    loss within ``loss_rtol`` and the grad norm within TP_GNORM_RTOL on
+    every rank, the updated parameters gathered whole within
+    TP_PARAM_TOL but for TP_PARAM_OUTLIERS of their elements, each within
+    3 lr; failures appended to ``bad``."""
+    loss, gnorm = ref[f"D_{arch}_loss"], ref[f"D_{arch}_gnorm"]
+    d = {"loss": [x[f"{tag}_{arch}_loss"] for x in ranks],
+         "loss_unsharded": loss,
+         "gnorm": [x[f"{tag}_{arch}_gnorm"] for x in ranks],
+         "gnorm_unsharded": gnorm}
+    d["loss_bit_for_bit"] = all(x == loss for x in d["loss"])
+    for x in ranks:
+        if abs(x[f"{tag}_{arch}_loss"] - loss) > loss_rtol * abs(loss) \
+                or abs(x[f"{tag}_{arch}_gnorm"] - gnorm) \
+                > TP_GNORM_RTOL * gnorm:
+            bad.append(f"{tag} {arch}: rank {x['rank']} loss or grad norm")
+    beyond, elems, worst = 0, 0, 0.0
+    for n, w in ref[f"D_{arch}_params"].items():
+        g = ranks[0][f"{tag}_{arch}_params"][n]
+        err = (g.float() - w.float()).abs()
+        tol = TP_PARAM_TOL["atol"] + TP_PARAM_TOL["rtol"] * w.float().abs()
+        beyond += int((err > tol).sum())
+        elems += err.numel()
+        worst = max(worst, float(err.max()))
+    d.update(params_beyond_tol=beyond, params_of=elems,
+             params_max_abs=worst)
+    if beyond > TP_PARAM_OUTLIERS * elems or worst > 3 * TRAIN_LR:
+        bad.append(f"{tag} {arch}: updated parameters off the unsharded "
+                   f"step's")
     return d
 
 
@@ -5407,6 +5488,240 @@ def tphd_kernel_rows(r: dict, dev) -> list:
             "launches: the tp_hd path's over its 8 ranks (a rank: the "
             "prefills of M1's f32 and bf16 runs and of M2's decode, M2's "
             "train step)")]))
+    return rows
+
+
+def tpssd_reference(dev) -> dict:
+    """The unsharded side of the tp_ssd path's S1, on the host:
+    hymba-1.5b uncut, TPF_PHASES' hymba prompts, its f32 generate's tokens
+    and, those fed, its logits, and its bf16 generate's tokens (the
+    models freed). S2-S4 are held to tp_families' unsharded runs."""
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+    arch = TP_SSD_WORLDS[0][2]
+    g = torch.Generator(dev).manual_seed(TPF_SEED)
+    cfg = tpf_cut(arch, None)
+    prompt = torch.randint(0, cfg.vocab_size, (TPF_BATCH, TPF_PHASES["B"][
+        "prompt"]), generator=g, device=dev)
+    out = {"S1_prompt": prompt.cpu()}
+    with torch.inference_mode():
+        for kind, c in (("f32", tpf_cut(arch, None, "float32")),
+                        ("bf16", cfg)):
+            model = init_params(c, TPF_SEED, dev)
+            gen = Engine(c, model, ServeConfig(
+                max_new_tokens=TPF_NEW)).generate({"tokens": prompt})
+            out[f"S1_{kind}_gen"] = torch.from_numpy(gen)
+            if kind == "f32":
+                out["S1_f32_logits"], _, _ = forced_run(
+                    model, c, {"tokens": prompt}, out["S1_f32_gen"],
+                    TPF_NEW)
+            del model
+            torch.cuda.empty_cache()
+    return out
+
+
+def tpssd_rank(rank: int, init: str, tmp: str, src: str) -> None:
+    """One gloo rank of the tp_ssd path (started by ``spawn_ranks``; waits
+    for ``tmp/tpssd_go``): each world of TP_SSD_WORLDS in turn, the ranks
+    of its mesh (the first of them) joining it (``init`` and the world's
+    size), its serve phase (``tpf_serve``) and step phase (``tpf_step``),
+    launches counted from 0 over all of it. Saves it all to
+    ``tmp/tpssd<rank>.pt``."""
+    sys.path.insert(0, src)
+    import datetime
+
+    import torch._dynamo  # noqa: F401  (see DP_WAIT_S)
+    from repro_torch.distributed import compat
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pm
+
+    deadline = time.monotonic() + DP_WAIT_S
+    while not Path(tmp, "tpssd_go").exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"tp_ssd rank {rank}: no go in {DP_WAIT_S} s")
+        time.sleep(0.05)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    ref = torch.load(f"{tmp}/tpssd_in.pt")
+    rep, launches = {"rank": rank}, {}
+    part = counting(ops, launches)
+    for serve, step, arch, shape, held_to in TP_SSD_WORLDS:
+        world = math.prod(shape[0])
+        if rank >= world:
+            break
+        compat.init_ranks("gloo", f"{init}{world}", rank, world,
+                          timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+        try:
+            t0 = time.perf_counter()
+            tpf_serve(rep, ref, dev, part, serve, held_to,
+                      *(tpf_cut(arch, None, dt)
+                        for dt in ("bfloat16", "float32")), shape)
+            t1 = time.perf_counter()
+            tpf_step(rep, ref, dev, part, rank, step, arch,
+                     pm.make_mesh(*shape), shape)
+            rep[f"{serve}_s"], rep[f"{step}_s"] = t1 - t0, \
+                time.perf_counter() - t1
+        finally:
+            compat.shutdown()
+    rep["launches"] = launches
+    torch.save(rep, f"{tmp}/tpssd{rank}.pt")
+
+
+def tp_ssd(ref: dict, tpf_ref: dict, spawned: dict) -> dict:
+    """The tp_ssd path: the ranks ``spawn_ranks(tpssd_rank,
+    TP_SSD_RANKS)`` started, given the unsharded sides' prompts and f32
+    tokens (S1's ``tpssd_reference``, S3's tp_families' phase A) and then
+    the go; joined."""
+    torch.save({k: v for k, v in {**tpf_ref, **ref}.items()
+                if k.endswith("_prompt") or k.endswith("_f32_gen")},
+               f"{spawned['tmp']}/tpssd_in.pt")
+    return join_ranks(spawned, "tpssd_go", "tpssd")
+
+
+def tpssd_launches_want() -> dict:
+    """A rank's launches over the tp_ssd path: S1's prefill in its f32 and
+    bf16 runs and S2's step (each layer forward twice, remat, and
+    backward once) on every rank of world 1; mamba2-370m launches no
+    kernel."""
+    cfg = tpf_cut(TP_SSD_WORLDS[0][2], None)
+    return {"flash_attention": 2 * prefill_launches(cfg) + 2 * TPF_D_DEPTH,
+            "flash_attention_bwd": TPF_D_DEPTH}
+
+
+def check_tp_ssd(r: dict, ref: dict, tpf_ref: dict) -> dict:
+    """The tp_ssd path's gates: each world's serve phase under
+    tp_families' (``tpf_check_serve``: the ranks' f32 logits bit for bit
+    the same and within TP_LOGITS_RTOL of the row's largest of the
+    unsharded run's, every greedy choice its token, the ranks' bf16 tokens
+    the same), its step under ``tpf_check_step`` with the loss within
+    TP_SSD_LOSS_RTOL; the SSD's placement on every rank: S1's ``in_proj``
+    and conv whole, its cache's ``h`` the rank's 10 of 50 heads and its
+    conv window whole; S3's ``in_proj`` whole, its conv and conv window
+    768 of 2304 channels, ``h`` whole; launches as
+    ``tpssd_launches_want``. The parameter bytes were held to the
+    census's on the ranks."""
+    ranks = r["ranks"]
+    held = {**tpf_ref, **ref}
+    out, bad = {}, []
+    for serve, step, arch, shape, held_to in TP_SSD_WORLDS:
+        m = shape[0][1]
+        on = ranks[:math.prod(shape[0])]
+        cfg = tpf_cut(arch, None)
+        out[serve] = tpf_check_serve(serve, held_to, cfg, on, held, bad)
+        out[step] = tpf_check_step(step, arch, on, tpf_ref, bad,
+                                   TP_SSD_LOSS_RTOL)
+        di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        conv, proj = di + 2 * n, 2 * di + 2 * n + nh
+        heads = nh // m if nh % m == 0 else nh
+        channels = conv // m if conv % m == 0 else conv
+        want = {"in_proj": [cfg.d_model, proj if proj % m else proj // m],
+                "conv_w": [cfg.ssm_conv, channels],
+                "h": [cfg.n_layers, TPF_BATCH, heads, cfg.ssm_head_dim, n],
+                "conv": [cfg.n_layers, TPF_BATCH, cfg.ssm_conv - 1,
+                         channels]}
+        for x in on:
+            got = {k: list(w) for k, w in x[f"{serve}_widths"].items()
+                   if k.split(".")[-1] in ("in_proj", "conv_w")}
+            got = {k.split(".")[-1]: w for k, w in got.items()}
+            got.update({k: x[f"{serve}_cache"][k] for k in ("h", "conv")})
+            if got != want:
+                bad.append(f"{serve}: rank {x['rank']} holds {got}, want "
+                           f"{want}")
+        out[serve]["ssd_a_rank_want"] = want
+        out[serve]["peak_f32_gib"] = [x[f"{serve}_f32_peak_gib"] for x in on]
+    check_launches("launches", ranks, tpssd_launches_want(), out, bad)
+    print(f"tp_ssd checks: {json.dumps(out)}", flush=True)
+    if bad:
+        raise AssertionError(f"tp_ssd: {bad}")
+    return out
+
+
+def report_tp_ssd(r: dict, checks: dict, card: str) -> None:
+    """The tp_ssd path's numbers: a line a rank and world (walls, the
+    collectives' seconds and calls, peaks, parameter bytes), then one
+    JSON line."""
+    per_rank = []
+    for x in r["ranks"]:
+        row = {"rank": x["rank"]}
+        for serve, step, arch, shape, _ in TP_SSD_WORLDS:
+            if f"{serve}_s" not in x:
+                continue
+            f32, bf, st = (x[f"{serve}_f32_collectives"],
+                           x[f"{serve}_bf16_collectives"],
+                           x[f"{step}_{arch}_collectives"])
+            row[serve] = {
+                "s": x[f"{serve}_s"], "f32_walls": x[f"{serve}_f32_walls"],
+                "f32_collectives": f32,
+                "f32_peak_gib": x[f"{serve}_f32_peak_gib"],
+                "bf16_wall_s": x[f"{serve}_bf16_wall_s"],
+                "bf16_timing": x[f"{serve}_bf16_timing"],
+                "bf16_collectives": bf,
+                "bf16_peak_gib": x[f"{serve}_bf16_peak_gib"],
+                "bytes": {k: x[f"{serve}_{k}_bytes"]
+                          for k in ("f32", "bf16")}}
+            row[step] = {"s": x[f"{step}_s"],
+                         "step_s": x[f"{step}_{arch}_step_s"],
+                         "collectives": st,
+                         "peak_gib": x[f"{step}_{arch}_peak_gib"],
+                         "bytes": x[f"{step}_{arch}_bytes"]}
+            print(f"tp_ssd rank {x['rank']} {arch} on {shape[0]}: {serve} "
+                  f"f32 prefill {x[f'{serve}_f32_walls']['prefill_s']:.3f} s"
+                  f" + {TPF_NEW - 1} steps "
+                  f"{x[f'{serve}_f32_walls']['decode_s']:.3f} s "
+                  f"(collectives {f32['total_s']:.3f} s in "
+                  f"{sum(f32['calls'].values())} calls, peak "
+                  f"{x[f'{serve}_f32_peak_gib']:.2f} GiB), bf16 generate "
+                  f"{x[f'{serve}_bf16_wall_s']:.3f} s (collectives "
+                  f"{bf['total_s']:.3f} s in {sum(bf['calls'].values())} "
+                  f"calls, peak {x[f'{serve}_bf16_peak_gib']:.2f} GiB); "
+                  f"{step} step {x[f'{step}_{arch}_step_s']:.3f} s "
+                  f"(collectives {st['total_s']:.3f} s, peak "
+                  f"{x[f'{step}_{arch}_peak_gib']:.2f} GiB); parameter bytes "
+                  f"{serve} f32 "
+                  f"{x[f'{serve}_f32_bytes']['census_bytes']} (census) "
+                  f"({card})", flush=True)
+        per_rank.append(row)
+    rep = {"card": card, "backend": "gloo", "transport": "shared host "
+           "segment (distributed/shm.py)", "ranks_on_one_card": TP_SSD_RANKS,
+           "worlds": TP_SSD_WORLDS, "batch": TPF_BATCH, "new": TPF_NEW,
+           "steps": {"depth": TPF_D_DEPTH, "batch": TP_BATCH,
+                     "prompt": TP_PROMPT,
+                     "reduced": {"n_layers": TPF_D_DEPTH}},
+           "per_rank": per_rank, "ranks_s": r["ranks_s"],
+           "ranks_started_s_before": r["waited_s"],
+           "held_before_go": r["held_before_go"], **checks}
+    print(f"tp_ssd report: {json.dumps(rep, default=str)}", flush=True)
+
+
+def tpssd_kernel_rows(r: dict, dev) -> list:
+    """The kernel rows at S1's and S2's per-rank shapes (rank 0's calls):
+    ``flash_attention`` at S1's bf16 windowed prefill layer (4 x 640, the
+    rank's 5 query heads over its kv head, window 1024, 128 meta tokens)
+    and ``flash_attention_bwd`` at S2's f32 train layer; launches: the
+    path's over its 5 ranks."""
+    ranks = r["ranks"]
+    arch = TP_SSD_WORLDS[0][2]
+
+    def on_card(key):
+        (q, k, v), kw = ranks[0][key]
+        return tuple(t.to(dev) for t in (q, k, v)), kw
+
+    def launched(name):
+        return sum(x["launches"].get(name, 0) for x in ranks)
+    rows = [flash_row(types.SimpleNamespace(args=on_card("S1_call")),
+                      launched("flash_attention"),
+                      "tp_ssd S1 bf16 windowed prefill layer a rank, hymba-"
+                      "1.5b on (1, 5), 4 x 640, 5 / 1 heads"),
+            flash_bwd_row(on_card(f"S2_{arch}_step_call"),
+                          launched("flash_attention_bwd"),
+                          "tp_ssd S2 f32 train layer 0 (global) a rank, "
+                          "hymba-1.5b on (1, 5), 4 x 640, 5 / 1 heads")]
+    for row in rows:
+        row["path"] = "tp_ssd"
+        row["note"] = "; ".join(filter(None, [row.get("note"), (
+            "the SSD heads split over a whole in_proj; launches: the tp_ssd "
+            "path's over its 5 ranks (a rank of world 1: the prefills of "
+            "S1's f32 and bf16 runs, S2's train step)")]))
     return rows
 
 
@@ -6720,11 +7035,9 @@ def main() -> int:
                "hymba-1.5b and whisper-small f32 and bf16 generates; "
                "2-layer train steps and a decode of one)"):
         tpf_ref = tpf_reference(dev)
-    tphd_ranks = spawn_ranks(tphd_rank, TP_HD_RANKS)
     with phase("tp_families: 4 gloo ranks on one card, A-C (data 1, model "
                "4) f32 and bf16, then D (data 2, model 2) decode and train "
-               "steps, then E (hymba-1.5b, head dim split) on both (tp_hd's "
-               "8 ranks starting meanwhile)"):
+               "steps, then E (hymba-1.5b, head dim split) on both"):
         tpf_run = tp_families(tpf_ref, tpf_ranks)
     print(f"[phase] tp_families E (head dim split; rank 0, within the ranks' "
           f"phase above): {tpf_run['ranks'][0]['E_s']:.3f} s", flush=True)
@@ -6752,11 +7065,32 @@ def main() -> int:
     tpf_calls = {"ranks": [{k: x[k] for k in ("B_call", "C_call", "E_call",
                                               "launches", "launches_E")}
                            for x in tpf_run["ranks"]]}
-    del tpf_run, tpf_ref
+    # tpf_ref stays for the tp_ssd path
+    del tpf_run
     torch.cuda.empty_cache()
 
+
+
+
+    # tp_hd's and tp_ssd's ranks start while a one-process path runs (the
+    # census, then main), not beside another rank path's ranks: the
+    # starting processes' imports take the host's cores from that path's
+    # small exchanges
+    tphd_ranks = spawn_ranks(tphd_rank, TP_HD_RANKS)
+    # the census grid in process, then one rank's share of the two 1B rows
+    # (each share's scans counted from 0, their launches gated there) and
+    # the long_500k decodes, which launch no kernel
+    census_rows = []
+    census_run = census(dev, census_rows)
+    counts["census"] = {k: sum(a["launches"][k] for a in census_run["anns"])
+                        for k in counts["pod"]}
+    print(f"[launches] census: {json.dumps(counts['census'])}", flush=True)
+    print(card)
+    report_census(census_run, card)
+    del census_run
+
     # case M of the head-dim placement: TinyLlama-1.1B on (data 1, model
-    # 8), eight gloo ranks on the card (started with tp_families' go),
+    # 8), eight gloo ranks on the card (started before the census),
     # held to tp's unsharded side; each counts its own launches from 0
     # over the path, and the path's counts are their sum
     with phase("tp_hd: 8 gloo ranks on one card, M1 (data 1, model 8, "
@@ -6787,18 +7121,7 @@ def main() -> int:
     del tphd_run, tp_ref
     torch.cuda.empty_cache()
 
-    # the census grid in process, then one rank's share of the two 1B rows
-    # (each share's scans counted from 0, their launches gated there) and
-    # the long_500k decodes, which launch no kernel
-    census_rows = []
-    census_run = census(dev, census_rows)
-    counts["census"] = {k: sum(a["launches"][k] for a in census_run["anns"])
-                        for k in counts["pod"]}
-    print(f"[launches] census: {json.dumps(counts['census'])}", flush=True)
-    print(card)
-    report_census(census_run, card)
-    del census_run
-
+    tpssd_ranks = spawn_ranks(tpssd_rank, TP_SSD_RANKS)
     caps.update({
         "l2_topk_masked": Capture(ops, "l2_topk_masked",
                                   lambda a, kw: a[0].shape[0] == MAX_BATCH),
@@ -6816,6 +7139,47 @@ def main() -> int:
     with path("main", serve_kernels), caps["l2_topk_masked"], \
             caps["pq_adc_masked"], caps["l2_topk"]:
         index_and_serve("main", N, N_QUERIES, SCALE_FLOOR, dev)
+
+    with phase("tp_ssd: one process unsharded (hymba-1.5b uncut, f32 and "
+               "bf16 generates)"):
+        tpssd_ref = tpssd_reference(dev)
+
+    # the SSD layouts of a leaf split only as a whole: hymba-1.5b's SSD
+    # heads split over a whole in_proj on (data 1, model 5), then
+    # mamba2-370m's conv cut across its parts on (1, 3); five gloo ranks on
+    # the card (started before the main path), the first three re-joined for
+    # the second world, held to tp_families' and tpssd_reference's
+    # unsharded runs; each counts its own launches from 0 over the path,
+    # and the path's counts are their sum
+    with phase("tp_ssd: 5 gloo ranks on one card, S1 (hymba-1.5b on (data "
+               "1, model 5), SSD heads split over a whole in_proj) f32 and "
+               "bf16 and S2 train step, then 3 of them, S3 (mamba2-370m on "
+               "(1, 3), conv cut across its parts) and S4"):
+        tpssd_run = tp_ssd(tpssd_ref, tpf_ref, tpssd_ranks)
+    for tag in ("S1", "S2", "S3", "S4"):
+        print(f"[phase] tp_ssd {tag} (rank 0, within the ranks' phase "
+              f"above): {tpssd_run['ranks'][0][f'{tag}_s']:.3f} s",
+              flush=True)
+    counts["tp_ssd"] = {k: sum(x["launches"].get(k, 0)
+                               for x in tpssd_run["ranks"])
+                        for k in counts["pod"]}
+    print(f"[launches] tp_ssd: {json.dumps(counts['tp_ssd'])}", flush=True)
+    missing = [k for k in ("flash_attention", "flash_attention_bwd")
+               if counts["tp_ssd"][k] == 0]
+    if missing:
+        raise AssertionError(f"tp_ssd: not launched: {missing}")
+    with phase("tp_ssd: checks (ranks agree, f32 logits and greedy tokens "
+               "vs the unsharded models, the SSD's placement and caches, "
+               "the train steps)"):
+        tpssd_checks = check_tp_ssd(tpssd_run, tpssd_ref, tpf_ref)
+    print(card)
+    report_tp_ssd(tpssd_run, tpssd_checks, card)
+    tpssd_calls = {"ranks": [{k: v for k, v in x.items()
+                              if k.endswith("call") or k == "launches"}
+                             for x in tpssd_run["ranks"]]}
+    del tpssd_run, tpssd_ref, tpf_ref
+    torch.cuda.empty_cache()
+
     with path("compare", ("l2_topk", "l2_topk_masked", "pq_adc_rows")), \
             caps["pq_adc_rows"], caps["l2_topk_closure"]:
         comparison(dev)
@@ -6838,7 +7202,8 @@ def main() -> int:
                      **moe_launches}
         rows = time_kernels(caps, by_kernel) \
             + tpf_kernel_rows(tpf_calls, dev) \
-            + tphd_kernel_rows(tphd_calls, dev) + census_rows
+            + tphd_kernel_rows(tphd_calls, dev) \
+            + tpssd_kernel_rows(tpssd_calls, dev) + census_rows
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}
     print(card)

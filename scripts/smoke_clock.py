@@ -8,7 +8,8 @@ columns of PERF.md's clock table), in the smoke's order. A phase belongs
 to the path its name starts with; ``device``, ``build``, the edge checks
 and the REDUCED prefills have columns of their own. A phase timed
 inside another (``PARTS``: phase E of ``tp_families``, phase T3 of
-``tp`` and ``tp_hd``'s M1 and M2, each run in its path's ranks' phase)
+``tp``, ``tp_hd``'s M1 and M2 and ``tp_ssd``'s S1-S4, each run in its
+path's ranks' phase)
 has a column of its own after the sum, and is not summed.
 """
 import re
@@ -24,14 +25,16 @@ COLUMNS = (
     ("audio/vlm_train", ("audio_train", "vlm_train")),
     ("pod", ("pod",)), ("ep", ("ep:",)), ("dp_train", ("dp_train",)),
     ("tp", ("tp:",)), ("tp_families", ("tp_families",)),
-    ("tp_hd", ("tp_hd",)),
+    ("tp_hd", ("tp_hd",)), ("tp_ssd", ("tp_ssd",)),
     ("census", ("census",)), ("main", ("main",)),
     ("compare", ("compare", "cmp")), ("kernel rows", ("kernel timing",)))
 # phases timed inside another path's phase: shown, not summed
 PARTS = (("of which tp_families E", ("tp_families E",)),
          ("of which tp T3", ("tp T3",)),
          ("of which tp_hd M1", ("tp_hd M1",)),
-         ("of which tp_hd M2", ("tp_hd M2",)))
+         ("of which tp_hd M2", ("tp_hd M2",)),
+         *((f"of which tp_ssd {t}", (f"tp_ssd {t}",))
+           for t in ("S1", "S2", "S3", "S4")))
 PHASE = re.compile(r"^\[phase\] (.*): ([0-9.]+) s$")
 
 

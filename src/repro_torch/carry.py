@@ -97,8 +97,8 @@ def lm_params_from_arrays(cfg: ModelConfig, params: Dict[str, Any],
     ``distributed.sharding.DistConfig``) the model is this rank's, built
     under that mesh context: the parameters it holds as blocks (every
     weight ``sharding.placed_specs`` splits, the SSD's concatenated
-    ``in_proj`` and conv per part, and the experts of an expert-parallel
-    MoE layer) get this rank's block of the whole weight
+    ``in_proj`` and conv per part or contiguous, and the experts of an
+    expert-parallel MoE layer) get this rank's block of the whole weight
     (``moe.block_specs``, cut by ``local_block``); run it under the same
     context.
     Raises unless every parameter of the model is given exactly once,

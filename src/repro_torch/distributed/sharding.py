@@ -29,14 +29,18 @@ blocks of their factored optimizer statistics, ``gather_data`` the FSDP
 gather before use and ``whole_tensor`` the whole tensor again (a
 checkpoint).
 
-A concatenated leaf is cut per part. The SSD's ``in_proj [d, 2 di + 2 N +
-H]`` holds z, x, B, C and dt side by side, and ``conv_w``, ``conv_b`` and
-the ``conv`` cache hold x, B and C (``LEAF_PARTS``). The reference's
-block of such a leaf is a contiguous run of columns, which on mamba2-370m
-over 4 ranks would straddle z and x; the port's block is the rank's share
-of each part, in part order (``PartSpec``): the same bytes in another
-order. ``local_block``, ``whole_tensor`` and ``stat_spec`` cut and join
-by it; checkpoints are written whole, so they do not see it.
+A concatenated leaf is cut per part where every part divides the axis.
+The SSD's ``in_proj [d, 2 di + 2 N + H]`` holds z, x, B, C and dt side by
+side, and ``conv_w``, ``conv_b`` and the ``conv`` cache hold x, B and C
+(``LEAF_PARTS``). The reference's block of such a leaf is a contiguous
+run of columns, which on mamba2-370m over 4 ranks would straddle z and x;
+there the port's block is the rank's share of each part, in part order
+(``PartSpec``): the same bytes in another order. Where the whole dim
+divides the axis and a part does not (mamba2-370m's conv, 2048 + 128 +
+128 channels, over 3), the port takes the reference's contiguous block:
+the plain spec. ``local_block``, ``whole_tensor`` and ``stat_spec`` cut
+and join by the spec (``cut_cols``); checkpoints are written whole, so
+they do not see it.
 
 The reference's ``constrain`` (``with_sharding_constraint``) is not
 ported: it is a hint to XLA's partitioner, which the port does not have,
@@ -167,19 +171,23 @@ class PartSpec(tuple):
 
 def with_parts(name: str, spec: Spec, mesh, cfg) -> Spec:
     """``spec`` as a ``PartSpec`` where the leaf ``name`` (a port name;
-    its last component is the leaf's) concatenates parts and its spec
-    splits the last dim; else ``spec``. Raises ``NotImplementedError``
-    naming the leaf where the dim splits but a part does not."""
+    its last component is the leaf's) concatenates parts, its spec splits
+    the last dim and every part divides that dim's group; else ``spec``
+    (where a part does not divide, the rank's contiguous block of the
+    whole dim, the reference's)."""
     leaf = name.split(".")[-1]
     if leaf not in LEAF_PARTS or spec[-1] is None:
         return spec
     parts = LEAF_PARTS[leaf](cfg)
-    n = group_size(mesh, spec[-1])
-    if any(w % n for w in parts):
-        raise NotImplementedError(
-            f"{name}: its parts {parts} do not each split over "
-            f"{entry_axes(spec[-1])} ({n}), though the whole leaf does")
+    if any(w % group_size(mesh, spec[-1]) for w in parts):
+        return spec
     return PartSpec(spec, parts)
+
+
+def parts_of(spec: Spec) -> Optional[Tuple[int, ...]]:
+    """The part widths a ``PartSpec`` cuts its last dim by; None for a
+    plain spec (contiguous blocks)."""
+    return spec.parts if isinstance(spec, PartSpec) else None
 
 
 def cut_parts(t: torch.Tensor, dim: int, parts: Sequence[int], n: int,
@@ -202,6 +210,16 @@ def join_parts(t: torch.Tensor, dim: int, parts: Sequence[int], n: int
               for b in t.chunk(n, dim)]
     return torch.cat([blocks[r][j] for j in range(len(parts))
                       for r in range(n)], dim)
+
+
+def cut_cols(t: torch.Tensor, dim: int, parts: Optional[Sequence[int]],
+             n: int, index: int) -> torch.Tensor:
+    """Block ``index`` of ``n`` of ``t`` along ``dim``: of each part
+    (``cut_parts``) where ``parts`` is given, else the contiguous one."""
+    if parts is not None:
+        return cut_parts(t, dim, parts, n, index)
+    size = t.shape[dim] // n
+    return t.narrow(dim, index * size, size)
 
 
 def _leaf_rule(path: Tuple[str, ...]
@@ -360,7 +378,7 @@ def whole_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
         for dim, entry in enumerate(spec):
             for a in reversed(entry_axes(entry)):
                 t = gather_axis(mesh, a, t, dim=dim)
-        if isinstance(spec, PartSpec):
+        if parts_of(spec) is not None:
             t = join_parts(t, t.dim() - 1, spec.parts,
                            group_size(mesh, spec[-1]))
     return t
@@ -401,11 +419,8 @@ def local_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
         if t.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
                              f"over {axes} ({n})")
-        if isinstance(spec, PartSpec) and dim == t.dim() - 1:
-            t = cut_parts(t, dim, spec.parts, n, block_index(mesh, entry))
-            continue
-        size = t.shape[dim] // n
-        t = t.narrow(dim, block_index(mesh, entry) * size, size)
+        t = cut_cols(t, dim, parts_of(spec) if dim == t.dim() - 1 else None,
+                     n, block_index(mesh, entry))
     return t
 
 
@@ -463,13 +478,19 @@ def cache_spec(cfg, batch_size: int, mesh,
     kv = (None, flat(b_ax), flat(s_axes), kv_ax, hd_ax)
     specs: Dict[str, Spec] = {key: kv for key in ("k", "v", "xk", "xv")}
     # ssm state [L, B, H, P, N]; conv [L, B, K-1, C]
-    nh = cfg.ssm_heads if cfg.ssm_state else 0
-    h_ax = "model" if (m > 1 and nh and nh % m == 0) else None
+    h_ax = "model" if ssd_heads_split(cfg, mesh) else None
     specs["h"] = (None, flat(b_ax), h_ax, None, None)
     conv_dim = cfg.d_inner + 2 * cfg.ssm_state if cfg.ssm_state else 0
     c_ax = "model" if (m > 1 and conv_dim and conv_dim % m == 0) else None
     specs["conv"] = (None, flat(b_ax), None, c_ax)
     return specs
+
+
+def ssd_heads_split(cfg, mesh) -> bool:
+    """Whether ``model`` splits the SSD's heads: the decode state ``h``
+    by ``cache_spec``, and the placed layer's scan (``models/ssm.py``)."""
+    m = mesh.shape.get("model", 1)
+    return bool(m > 1 and cfg.ssm_state and cfg.ssm_heads % m == 0)
 
 
 def token_act_spec(mesh, batch: int) -> Spec:

@@ -19,7 +19,7 @@ holds:
 * ``port_argument_bytes``: what the port places on a rank: every
   parameter's ``param_specs`` block (``models/model.py:place``; an
   expert-parallel MoE layer's experts in its blocks, a concatenated SSD
-  leaf per part; a decode counts the parameters it reads, as the
+  leaf per part or contiguous; a decode counts the parameters it reads, as the
   argument size does), their optimizer state, the rank's block of the
   batch, the decode cache the rank's ``init_cache`` holds under the mesh
   (its ``cache_spec`` block) and ``cur_pos``: equal to the argument size
@@ -112,7 +112,7 @@ from repro_torch.models.model import (
     global_flags,
     init_cache,
 )
-from repro_torch.models.ssm import SSM
+from repro_torch.models.ssm import BLOCK, PART, SSM
 from repro_torch.models.moe import (
     EXPERT_WEIGHTS,
     MoE,
@@ -754,13 +754,18 @@ def _ssm_traffic(tr: Traffic, cfg: ModelConfig, ssm, mesh, b: int, s: int,
                  *, forwards: int, backward: bool, last: bool,
                  decode: bool = False) -> None:
     """An SSD's collectives (``models/ssm.py``'s cases): the FSDP
-    gathers; case 1 the B/C gather (reduce-scattered back), the norm's sum
-    of squares and, in the backward, the copies of the input, of
-    ``A_log``, ``D`` and ``dt_bias`` and of the norm's sum; case 2 the
-    conv output's gather (``gather_own``: no backward traffic) and, in
-    the backward, the copies of the conv's input and of the normed output;
-    the out projection's sum over ``model`` (once under remat where it is
-    the block's last product). A decode step's conv output is f32."""
+    gathers; ``in_proj`` per part: the B/C gather (reduce-scattered back)
+    and, in the backward, the copy of the input; contiguous: the gather of
+    its output (``gather_own``: no backward traffic) and the copy of the
+    input; a split conv under a whole output: the gather of the conv's
+    output (``gather_own``) and the copy of its input; the heads split
+    under a whole output: in the backward, the copies of z, the conv's
+    output and dt; the heads split: the norm's sum of squares and, in the
+    backward, the copies of ``A_log``, ``D`` and ``dt_bias`` and of the
+    norm's sum; the heads whole and the rows split: the copy of the
+    normed output in the backward; the out projection's sum over
+    ``model`` (once under remat where it is the block's last product). A
+    decode step's conv output is f32."""
     _gathers(tr, mesh, ssm, SSM_WEIGHTS, forwards, backward)
     sp = ssm.split_of()
     if sp is None:
@@ -768,28 +773,36 @@ def _ssm_traffic(tr: Traffic, cfg: ModelConfig, ssm, mesh, b: int, s: int,
     dtb = getattr(torch, cfg.dtype).itemsize
     cb = 4 if decode else dtb
     t, m = b * s, sp.m
-    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    xbc, whole_heads = di + 2 * n, sp.heads and sp.proj != PART
     for _ in range(forwards):
-        if sp.heads:
+        if sp.proj == BLOCK:
+            tr.gather(mesh, "model", t * (2 * di + 2 * n + nh) // m * dtb)
+        if sp.proj == PART:
             tr.gather(mesh, "model", t * 2 * n // m * cb)
+        elif sp.conv is not None:
+            tr.gather(mesh, "model", t * xbc // m * cb)
+        if sp.heads:
             tr.psum(mesh, MODEL, t * 4)
-        elif sp.channels:
-            tr.gather(mesh, "model", t * (di + 2 * n) // m * cb)
     if sp.rows:
         for _ in range(1 if last else forwards):
             tr.psum(mesh, MODEL, t * d * dtb)
     if not backward:
         return
-    if sp.heads:
+    if sp.proj is not None:
         tr.psum(mesh, MODEL, t * d * dtb)
+    if sp.proj == PART:
         tr.reduce_scatter(mesh, "model", t * 2 * n * dtb)
+    elif sp.conv is not None:
+        tr.psum(mesh, MODEL, t * xbc * dtb)
+    if whole_heads:
+        for width in (di, xbc, nh):
+            tr.psum(mesh, MODEL, t * width * dtb)
+    if sp.heads:
         for _ in range(3):
-            tr.psum(mesh, MODEL, cfg.ssm_heads * 4)
+            tr.psum(mesh, MODEL, nh * 4)
         tr.psum(mesh, MODEL, t * 4)
-        return
-    if sp.channels:
-        tr.psum(mesh, MODEL, t * (di + 2 * n) * dtb)
-    if sp.rows:
+    elif sp.rows:
         tr.psum(mesh, MODEL, t * di * 4)
 
 

@@ -47,8 +47,8 @@ def abstract_params(cfg: ModelConfig, mesh=None,
     """The model on the meta device. Under ``mesh`` (a ``MeshShape`` will
     do) it is one rank's, as the port places it: every parameter its
     ``param_specs`` block (the experts as their expert-parallel layer
-    takes them; the SSD's concatenated leaves per part, the same
-    bytes)."""
+    takes them; the SSD's concatenated leaves per part where every
+    part divides ``model``, the same bytes)."""
     if mesh is None:
         return LM(cfg, device=META)
     with mesh_context(mesh, dist):

@@ -25,7 +25,8 @@ nccl with one card a rank), ``setup`` does what the reference's ``main``
 does with ``make_local_mesh()`` and ``mesh_context``: it lays the ranks
 out as a (data, model) mesh (``--model-axis`` ranks a model line), builds
 the model under it (the rank holds its blocks of the weights by the
-reference's specs, the SSD's concatenated leaves per part, and of an
+reference's specs, the SSD's concatenated leaves per part or
+contiguous, and of an
 expert-parallel MoE layer's experts) and returns a step that takes
 ``batch_at``'s whole batch, keeps this rank's ``batch_spec`` block and
 runs the train step under ``mesh_context(mesh, batch=B)``

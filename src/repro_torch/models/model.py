@@ -63,8 +63,9 @@ the model is one rank's: its inputs are the rank's block of the batch
 built there holds every parameter as the block ``sharding.param_specs``
 gives the rank (``place``; an expert-parallel MoE layer's experts as
 ``models/moe.py`` takes them; the SSD's concatenated ``in_proj`` and conv
-per part, ``sharding.PartSpec``), and seeded there it holds the unsharded
-model's weights for the same seed (each drawn whole and cut). The
+per part, ``sharding.PartSpec``, or contiguous), and seeded there it
+holds the unsharded model's weights for the same seed (each drawn whole
+and cut). The
 products follow the reference's activation specs (``constrain_*``),
 which the port does not port but lays its tensors out by: between
 blocks ``[B, S, d]`` is the rank's rows, whole across ``model``; inside
@@ -78,9 +79,8 @@ computes the whole attention, where the kv heads do not it computes
 every kv head and takes those of its query heads; under
 ``DistConfig(shard_head_dim_fallback=True)`` ``model`` splits the head
 dim there instead (``Attention``: each rank projects its head-dim block,
-the blocks are gathered and rotated whole). The SSD's three cases
-(its heads split, its heads whole with its channels split, the gated
-norm over split channels) are ``models/ssm.py``'s. The dims the specs
+the blocks are gathered and rotated whole). The SSD's layouts are
+``models/ssm.py``'s (``Split``). The dims the specs
 split over the data axes are all-gathered before use (FSDP,
 ``Placed.weight``; reduce-scattered in the backward). The embedding and
 the LM head are vocab-parallel: each rank looks up its vocabulary block
@@ -229,17 +229,17 @@ class Attention(Placed):
         ``model``: ``shard_head_dim_fallback``, cases H and M)."""
         return self.split("wk", 2)
 
-    def _proj(self, x, name: str):
+    def _proj(self, x, name: str, gather: bool = True):
         """x [B, S, d] through ``w<name>`` [d, n, hd] -> [B, S, n, hd], plus
         ``b<name>`` where the config has qkv biases (this rank's heads);
         where ``model`` splits the weight's head dim, the ranks' blocks
         gathered over it (``gather_axis``: its gradient the
-        reduce-scatter)."""
+        reduce-scatter) unless ``gather`` is false."""
         w = self.weight("w" + name)
         y = (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:2], *w.shape[1:])
         if "b" + name in self._parameters:
             y = y + self.weight("b" + name)
-        if self.split("w" + name, 2):
+        if gather and self.split("w" + name, 2):
             y = gather_axis(self.mesh, "model", y, dim=3)
         return y
 
@@ -255,14 +255,18 @@ class Attention(Placed):
         every rank, k and v leave through it instead (each rank reads the
         kv heads of its own query heads). Where ``model`` splits the head
         dim, x and kv enter through ``copy_over`` and the blocks leave
-        through the head-dim gather (``_proj``)."""
+        through the head-dim gather (``_proj``; k's and v's in one
+        exchange)."""
         same = kv is x
         if self.tp or self.split("wq", 2):
             x = copy_over(self.mesh, MODEL, x)
         if (self.tp and not self._kv_whole()) or self.hd:
             kv = x if same else copy_over(self.mesh, MODEL, kv)
-        q, k, v = self._proj(x, "q"), self._proj(kv, "k"), \
-            self._proj(kv, "v")
+        q, k, v = self._proj(x, "q"), self._proj(kv, "k", False), \
+            self._proj(kv, "v", False)
+        if self.hd:
+            k, v = gather_axis(self.mesh, "model", torch.cat([k, v], 2),
+                               dim=3).split(k.shape[2], dim=2)
         if self._kv_whole() and not self.hd:
             k, v = copy_over(self.mesh, MODEL, k), copy_over(self.mesh, MODEL,
                                                              v)
@@ -962,7 +966,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     does not divide) split the sequence (``Cache.first_slot``, ``Cache.seq_axes``; ``xk``/``xv`` by
     their own spec at ``enc_frames``, ``Cache.x_first_slot``,
     ``Cache.x_seq_axes``), the SSD's heads of ``h`` and channels of
-    ``conv`` (per part) where they divide ``model``."""
+    ``conv`` (as the conv's weights hold them) where they divide
+    ``model``."""
     check_family(cfg)
     dtype = dtype or _dtype(cfg)
     dev = resolve_device(device)

@@ -22,37 +22,57 @@ holding z, x, B, C, dt; ``conv_w [K, di + 2 N]``; ``out_proj [di, d]``),
 so carrying them is a copy.
 
 Built under a mesh (``models/model.py:place``) the layer holds its
-``param_specs`` blocks, a concatenated leaf cut per part
-(``sharding.PartSpec``), and runs on them (``Split``). One rule sets every
+``param_specs`` blocks and runs on them (``Split``). A concatenated leaf
+(``in_proj``: z, x, B, C, dt; ``conv_w``/``conv_b``: x, B, C) is held per
+part where every part divides ``model`` (``sharding.PartSpec``), as the
+reference's contiguous block where only the whole leaf does, and whole
+where it does not divide. Three facts, each read from the specs, set the
+layer's work: how ``in_proj``'s output columns are held (per part,
+contiguous or whole), how the conv's channels are (the same three), and
+whether the SSD heads (and so ``h``) are split. One rule sets every
 backward: a value every rank computes whole and alike has the same
 gradient on every rank, and the gradient is summed over ``model`` once,
-where the ranks' work first differs.
+where the ranks' work first differs (``copy_over``); a value gathered
+whole that every rank then uses alike keeps only its own block of the
+gradient (``gather_own``).
 
-1. The heads divide ``model`` (mamba2-370m: 32 heads): ``in_proj`` is
-   column-parallel per part, its input read through ``copy_over``; the
-   conv runs on the rank's channels; the one B/C group is all-gathered
-   over ``model`` after it (``gather_axis``: each rank's heads use B and
-   C, so the gradient is reduce-scattered); ``A_log``, ``D`` and
-   ``dt_bias`` (whole) are read through ``copy_over`` and sliced to the
-   rank's heads; the SSD runs on those heads; the gated RMS norm sums its
-   split sum of squares over ``model`` (``rms_norm(..., split=)``); the
-   row-parallel ``out_proj`` is summed over ``model``.
-2. The heads do not divide ``model`` and the channels do (hymba-1.5b: 50
-   heads, 3232 conv channels): ``in_proj`` is whole, so every rank holds
-   the whole z, x, B, C and dt; the conv runs on the rank's channels of
-   them (read through ``copy_over``: there the ranks' work first differs)
-   and its output is gathered whole (``gather_own``: every rank uses all
-   of it alike, so its gradient is only the rank's block); the SSD, the
-   gate and the norm's statistic run on every head alike; the ranks
-   differ again where each takes its ``d_inner`` rows of the normed
-   output (read through ``copy_over``) for the row-parallel ``out_proj``.
-3. The gated norm over a split ``d_inner`` (case 1) is ``rms_norm``'s
-   ``split``: each rank scales its channels by the total, so its
-   backward sums too.
+1. ``in_proj`` per part (its parts, and so the heads, divide ``model``;
+   mamba2-370m on 2, 4, 8, 16, 32): column-parallel, its input read
+   through ``copy_over``; the conv runs on the rank's channels of each
+   part; the one B/C group is all-gathered over ``model`` after it
+   (``gather_axis``: each rank's heads use B and C, so the gradient is
+   reduce-scattered); the SSD runs on the rank's heads.
+2. ``in_proj`` contiguous (hymba-1.5b on 7 and 14): column-parallel on
+   the rank's run of columns, its input read through ``copy_over``, its
+   output gathered whole (``gather_own``); from there every rank holds
+   z, x, B, C and dt whole and alike, as with ``in_proj`` whole.
+3. The conv split where ``in_proj``'s output is whole (per part:
+   hymba-1.5b on 2 and 4; contiguous: mamba2-370m on 3, 6, 9 and 12):
+   the conv runs on the rank's channels of the whole raw xBC (read
+   through ``copy_over``: there the ranks' work first differs) and its
+   output is gathered whole (``gather_own``); else every rank runs the
+   whole conv alike.
+4. The heads split where ``in_proj``'s output is whole (hymba-1.5b on 5
+   and 10: 50 heads, ``in_proj`` 6482 and conv 3232 columns): z, the
+   conv's whole output and dt, whole and alike, are read through
+   ``copy_over`` and cut to the rank's heads (z, x, dt; B and C whole);
+   the SSD runs on the rank's heads.
+
+Where the heads are split (1, 4), ``A_log``, ``D`` and ``dt_bias`` (whole)
+are read through ``copy_over`` and sliced to the rank's heads, and the
+gated RMS norm over the rank's ``d_inner`` channels sums its split sum of
+squares over ``model`` (``rms_norm(..., split=)``: each rank scales its
+channels by the total, so its backward sums too). Where they are whole,
+the SSD, the gate and the norm's statistic run on every head alike, and
+where ``ssm_norm``'s rows split the ranks differ where each takes its
+``d_inner`` rows of the normed output (read through ``copy_over``).
+Either way a split ``out_proj`` is row-parallel and summed over
+``model``.
 
 The decode cache follows ``sharding.cache_spec``: ``h`` holds the rank's
 heads where they divide ``model`` (else all of them, alike), ``conv`` the
-rank's channels per part where they divide.
+raw conv inputs of the rank's channels as the conv's weights hold them
+(per part, contiguous, or whole and alike).
 """
 from __future__ import annotations
 
@@ -72,8 +92,10 @@ from repro_torch.core.distributed import (
 )
 from repro_torch.distributed.sharding import (
     LEAF_PARTS,
-    cut_parts,
+    cut_cols,
     join_parts,
+    parts_of,
+    ssd_heads_split,
 )
 from repro_torch.models.layers import Placed, dense_init, rms_norm
 
@@ -85,18 +107,24 @@ F32_PARAMS = ("A_log", "D", "dt_bias")   # float32 in any model dtype
 MODEL = ("model",)
 
 
+PART, BLOCK = "part", "block"   # a leaf's columns per part, contiguous
+
+
 @dataclasses.dataclass(frozen=True)
 class Split:
     """How a placed SSD layer's work is split over ``model`` (``m`` ranks,
-    this one ``index``): ``heads`` (case 1: ``in_proj`` per part, the
-    rank's heads and channels), ``channels`` (the conv's channels per
-    part) and ``rows`` (``ssm_norm`` and ``out_proj``'s ``d_inner``
-    rows)."""
+    this one ``index``): ``proj`` and ``conv`` say how ``in_proj``'s
+    output columns and the conv's channels are held (``PART``: the rank's
+    block of each part; ``BLOCK``: its contiguous block, the reference's;
+    None: whole), ``heads`` whether the SSD heads (and ``h``) are split,
+    ``rows`` whether ``ssm_norm`` and ``out_proj``'s ``d_inner`` rows
+    are."""
     mesh: object
     m: int
     index: int
+    proj: Optional[str]
+    conv: Optional[str]
     heads: bool
-    channels: bool
     rows: bool
 
     def local(self, n: int) -> int:
@@ -126,35 +154,75 @@ def _split_proj(proj: torch.Tensor, di: int, n: int):
         proj[..., 2 * di + 2 * n:]
 
 
+def _project(x: torch.Tensor, params: Params, cfg: ModelConfig,
+             sp: Optional[Split]):
+    """z, raw xBC and dt: the rank's block of each part where ``in_proj``
+    is held per part (its input read through ``copy_over``), else whole
+    and alike on every rank (a contiguous ``in_proj`` column-parallel,
+    its input read through ``copy_over``, its output gathered whole with
+    ``gather_own``)."""
+    if sp is not None and sp.proj is not None:
+        x = copy_over(sp.mesh, MODEL, x)
+    proj = x @ params["in_proj"]
+    if sp is not None and sp.proj == PART:
+        return _split_proj(proj, sp.local(cfg.d_inner),
+                           sp.local(cfg.ssm_state))
+    if sp is not None and sp.proj == BLOCK:
+        proj = gather_own(sp.mesh, "model", proj, -1)
+    return _split_proj(proj, cfg.d_inner, cfg.ssm_state)
+
+
 def _mine(xbc: torch.Tensor, cfg: ModelConfig, sp: Optional[Split]):
-    """The rank's conv channels of the whole raw xBC (case 2: read through
-    ``copy_over``, since each rank's conv uses only its channels), else
+    """The raw xBC of the rank's conv channels: where ``in_proj``'s output
+    is whole and the conv split, the rank's channels of it (read through
+    ``copy_over``, since each rank's conv uses only its channels); else
     ``xbc``."""
-    if sp is None or sp.heads or not sp.channels:
+    if sp is None or sp.proj == PART or sp.conv is None:
         return xbc
-    return cut_parts(copy_over(sp.mesh, MODEL, xbc), -1,
-                     LEAF_PARTS["conv"](cfg), sp.m, sp.index)
+    parts = LEAF_PARTS["conv"](cfg) if sp.conv == PART else None
+    return cut_cols(copy_over(sp.mesh, MODEL, xbc), -1, parts, sp.m,
+                    sp.index)
 
 
 def _after_conv(xbc: torch.Tensor, cfg: ModelConfig, sp: Optional[Split]):
     """The conv's output on the rank's channels -> (x of the rank's heads,
-    the whole B, the whole C): case 1 gathers B and C over ``model``
-    (reduce-scattered back), case 2 the whole output (``gather_own``)."""
+    the whole B, the whole C): with ``in_proj`` per part B and C are
+    gathered over ``model`` (reduce-scattered back); else a split conv's
+    output is gathered whole (``gather_own``), and where the heads split
+    the whole output is read through ``copy_over`` (there the ranks' work
+    first differs) and its x cut to the rank's heads."""
     di, n = cfg.d_inner, cfg.ssm_state
-    if sp is not None and sp.heads:
+    if sp is not None and sp.proj == PART:
         dl = di // sp.m
         bc = join_parts(gather_axis(sp.mesh, "model", xbc[..., dl:], -1),
                         -1, (n, n), sp.m)
         return xbc[..., :dl], bc[..., :n], bc[..., n:]
-    if sp is not None and sp.channels:
-        xbc = join_parts(gather_own(sp.mesh, "model", xbc, -1), -1,
-                         LEAF_PARTS["conv"](cfg), sp.m)
-    return xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
+    if sp is not None and sp.conv is not None:
+        xbc = gather_own(sp.mesh, "model", xbc, -1)
+        if sp.conv == PART:
+            xbc = join_parts(xbc, -1, LEAF_PARTS["conv"](cfg), sp.m)
+    x0, x1 = 0, di
+    if sp is not None and sp.heads:
+        xbc = copy_over(sp.mesh, MODEL, xbc)
+        x0, x1 = sp.index * di // sp.m, (sp.index + 1) * di // sp.m
+    return xbc[..., x0:x1], xbc[..., di:di + n], xbc[..., di + n:]
+
+
+def _own_heads(z: torch.Tensor, dt_raw: torch.Tensor, cfg: ModelConfig,
+               sp: Optional[Split]):
+    """z and dt of the rank's heads where the heads are split but
+    ``in_proj``'s output is whole: each read through ``copy_over`` and
+    cut; else as they are."""
+    if sp is None or not sp.heads or sp.proj == PART:
+        return z, dt_raw
+    dl, hl = cfg.d_inner // sp.m, cfg.ssm_heads // sp.m
+    return tuple(copy_over(sp.mesh, MODEL, t).narrow(-1, sp.index * w, w)
+                 for t, w in ((z, dl), (dt_raw, hl)))
 
 
 def _heads(params: Params, name: str, sp: Optional[Split]) -> torch.Tensor:
-    """A whole per-head parameter; in case 1 read through ``copy_over``
-    (its gradient summed) and sliced to the rank's heads."""
+    """A whole per-head parameter; where the heads are split, read through
+    ``copy_over`` (its gradient summed) and sliced to the rank's heads."""
     t = params[name]
     if sp is None or not sp.heads:
         return t
@@ -186,10 +254,10 @@ def _gate_out(y: torch.Tensor, z: torch.Tensor, params: Params,
               cfg: ModelConfig, dtype: torch.dtype,
               sp: Optional[Split] = None) -> torch.Tensor:
     """y (f32) gated by SiLU(z), cast to ``dtype``, RMS-normed by
-    ``ssm_norm`` and projected out. Case 1: y and z are the rank's
-    channels (the norm's statistic summed over ``model``); case 2: whole,
-    the rank's rows of the normed output taken; either way the
-    row-parallel product is summed over ``model``."""
+    ``ssm_norm`` and projected out. Heads split: y and z are the rank's
+    channels (the norm's statistic summed over ``model``); heads whole and
+    rows split: whole, the rank's rows of the normed output taken; either
+    way the row-parallel product is summed over ``model``."""
     y = (y * F.silu(z.float())).to(dtype)
     if sp is None or not sp.rows:
         return rms_norm(y, params["ssm_norm"], cfg.norm_eps) \
@@ -227,13 +295,11 @@ def ssd_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     s = s0 + pad
     nc = s // q
 
-    if sp is not None and sp.heads:
-        x = copy_over(sp.mesh, MODEL, x)
-    z, xbc_raw, dt_raw = _split_proj(
-        x @ params["in_proj"], di, sp.local(n) if sp else n)
+    z, xbc_raw, dt_raw = _project(x, params, cfg, sp)
     xbc_raw = _mine(xbc_raw, cfg, sp)
     xs, B, C = _after_conv(
         _causal_conv(xbc_raw, params["conv_w"], params["conv_b"]), cfg, sp)
+    z, dt_raw = _own_heads(z, dt_raw, cfg, sp)
     dt = _dt(dt_raw, params, sp)                               # [B,S0,H]
     if pad:  # pad the tail after the conv; dt is 0 there, so state and
         # outputs are unaffected
@@ -306,10 +372,7 @@ def ssd_decode_step(params: Params, x: torch.Tensor, cache: State,
     di = sp.local(cfg.d_inner) if sp else cfg.d_inner
     nh = sp.local(cfg.ssm_heads) if sp else cfg.ssm_heads
 
-    if sp is not None and sp.heads:
-        x = copy_over(sp.mesh, MODEL, x)
-    z, xbc, dt_raw = _split_proj(x[:, 0] @ params["in_proj"], di,
-                                 sp.local(n) if sp else n)
+    z, xbc, dt_raw = _project(x[:, 0], params, cfg, sp)
     # the conv over the window [cache ; new row]
     xbc = _mine(xbc, cfg, sp)
     win = torch.cat([cache["conv"], xbc[:, None, :].to(cache["conv"].dtype)],
@@ -317,6 +380,7 @@ def ssd_decode_step(params: Params, x: torch.Tensor, cache: State,
     conv = (win.float() * params["conv_w"].float()).sum(1)
     conv = F.silu(conv + params["conv_b"].float())
     xs, B, C = _after_conv(conv, cfg, sp)
+    z, dt_raw = _own_heads(z, dt_raw, cfg, sp)
     xs = xs.reshape(b, nh, p_dim)
 
     dt = _dt(dt_raw, params, sp)                               # [B,H]
@@ -349,19 +413,24 @@ class SSM(Placed):
 
     def split_of(self) -> Optional[Split]:
         """This layer's ``Split`` over ``model``, or None where nothing is
-        split over it. Raises where the heads split the decode state
-        (``cache_spec``) but not ``in_proj``, a layout not ported."""
-        heads, channels = self.split("in_proj", 1), self.split("conv_w", 1)
+        split over it: ``in_proj``'s and the conv's cuts as their specs
+        give them, the heads as ``sharding.ssd_heads_split`` says (the
+        decode state's ``cache_spec``)."""
+        proj, conv = self._cut("in_proj"), self._cut("conv_w")
+        heads = self.mesh is not None and ssd_heads_split(self.cfg,
+                                                          self.mesh)
         rows = self.split("ssm_norm", 0)
-        if not (heads or channels or rows):
+        if not (proj or conv or heads or rows):
             return None
-        m = self.mesh.shape["model"]
-        if (self.cfg.ssm_heads % m == 0) != heads:
-            raise NotImplementedError(
-                f"ssm: {self.cfg.ssm_heads} heads over model {m} with "
-                f"in_proj {'split' if heads else 'whole'}")
-        return Split(self.mesh, m, self.model_index(), heads, channels,
-                     rows)
+        return Split(self.mesh, self.mesh.shape["model"], self.model_index(),
+                     proj, conv, heads, rows)
+
+    def _cut(self, name: str) -> Optional[str]:
+        """How the rank holds the last dim of the concatenated leaf
+        ``name``: ``PART``, ``BLOCK`` or None (whole)."""
+        if not self.split(name, -1):
+            return None
+        return PART if parts_of(self.specs[name]) is not None else BLOCK
 
     def params(self) -> Dict[str, torch.Tensor]:
         return {name: self.weight(name) for name, _ in

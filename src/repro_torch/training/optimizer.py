@@ -33,7 +33,8 @@ tensor) and a copy of the shared column.
 Under a mesh (``apply_updates(..., mesh=, specs=)``) a parameter that a
 rank holds as a block (``specs``, ``moe.block_specs``: every weight a
 placed model splits, ``wq [d/dp, H/mp, hd]``, ``tok_embed [V/mp, d/dp]``,
-the SSD's ``in_proj [d/dp, (2 di + 2 N + H)/mp]`` per part, and the
+the SSD's ``in_proj [d/dp, (2 di + 2 N + H)/mp]`` per part or as the
+reference's contiguous block, and the
 experts of an expert-parallel MoE layer, ``w_gate [E/mp, d/dp, f]``)
 updates as the reference's global array does: its squares enter the
 global norm summed over the mesh axes its spec shards it on (a whole

@@ -21,11 +21,14 @@
   is pinned cell by cell, as is the masked attention the kernel skips.
 * ``collectives`` against the bytes recorded through
   ``core/distributed.py``'s ``_gather``, ``_sum_axis`` and
-  ``_reduce_scatter`` in gloo CPU worlds of 4 and 2 ranks: the pod serve
-  and assign steps, TinyLlama's and DBRX's REDUCED train steps, DBRX's
-  prefill and decode, with expert parallelism, FSDP and microbatches;
-  mamba2's train step (its SSD heads split), hymba's decode and
-  whisper's prefill (its encoder and cross-attention); and under
+  ``_reduce_scatter`` in gloo CPU worlds of 5, 4, 3 and 2 ranks: the pod
+  serve and assign steps, TinyLlama's and DBRX's REDUCED train steps,
+  DBRX's prefill and decode, with expert parallelism, FSDP and
+  microbatches; mamba2's train step (its SSD heads split), hymba's decode
+  and whisper's prefill (its encoder and cross-attention); hymba's train
+  step with its SSD heads split over a whole ``in_proj`` on (1, 5) and
+  mamba2's with its conv cut across its parts on (1, 3), whose argument
+  bytes are also held to XLA's on those meshes; and under
   ``DistConfig(shard_head_dim_fallback=True)`` qwen's and TinyLlama's
   train steps, hymba's decode and qwen's decode of one on (2, 2), each
   with ``FlopCounterMode`` over the step, its count the census's
@@ -333,6 +336,7 @@ from repro.launch import hlo_costs, specs as RS
 from repro.configs import ARCH_IDS, SHAPES, ShapeConfig, get_config
 cells, anns_cut, out = json.loads(sys.argv[1]), json.loads(sys.argv[2]), \
     sys.argv[3]
+placed = json.loads(sys.argv[4])
 res = {"policy": {}}
 for arch in ARCH_IDS:
     a = arch.replace("_", "-")
@@ -367,6 +371,15 @@ def keep(txt, entry=None):
 hlo_costs.analyze = keep
 D.get_config = lambda a: get_config(a, reduced=True)
 D.ANNS_CELLS = {"cut": anns_cut}
+for name, (arch, kind, b, s, mesh, changes) in placed.items():
+    use_mesh(mesh)
+    D.get_config = lambda a: dataclasses.replace(get_config(a, reduced=True),
+                                                 **changes)
+    D.SHAPES = {kind: ShapeConfig(kind, s, b, kind)}
+    rec = D.lower_cell(arch, kind, False)
+    assert rec["status"] == "OK", rec
+    res[f"{name}/{mesh}"] = {"memory": rec["memory"]}
+D.get_config = lambda a: get_config(a, reduced=True)
 for mesh in ((2, 4), (1, 1)):
     use_mesh(mesh)
     for name, (arch, kind, b, s) in cells.items():
@@ -408,12 +421,43 @@ def compiled(tmp_path_factory):
     t0 = time.perf_counter()
     run = subprocess.run([sys.executable, str(out / "reference.py"),
                           json.dumps(CELLS), json.dumps(ANNS_CUT),
-                          str(out / "reference.json")], env=env,
+                          str(out / "reference.json"),
+                          json.dumps(PLACED_CELLS)], env=env,
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stdout + run.stderr
     res = json.loads((out / "reference.json").read_text())
     res["seconds"] = time.perf_counter() - t0
     return res
+
+
+# REDUCED cells on the meshes where the SSD takes a layout the (2, 4) mesh
+# does not meet, their configs changed so that it arises: name: (arch,
+# kind, batch, seq, mesh, config changes)
+PLACED_CELLS = {
+    # 10 SSD heads (d_model 80) split over 5, in_proj (346) and conv (176)
+    # whole
+    "hymba/train, SSD heads over a whole in_proj": (
+        "hymba-1.5b", "train", 4, 32, (1, 5), {"d_model": 80}),
+    # conv 144 = 128 + 8 + 8 in contiguous blocks of 48, in_proj (280)
+    # whole
+    "mamba2/train, conv cut across its parts": (
+        "mamba2-370m", "train", 4, 32, (1, 3), {"ssm_state": 8}),
+}
+
+
+@pytest.mark.parametrize("name", list(PLACED_CELLS))
+def test_argument_bytes_of_the_ssd_layouts_equal_the_compiled_reference(
+        compiled, name):
+    """The census's argument bytes on the cell's mesh are XLA's exactly,
+    the SSD's leaves held as the reference's contiguous blocks."""
+    arch, kind, b, s, mesh, changes = PLACED_CELLS[name]
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **changes)
+    shape = ShapeConfig(kind, s, b, kind)
+    got = D.lm_record(cfg, shape, shd.MeshShape(("data", "model"), mesh),
+                      None, D.arch_opt_config(arch),
+                      D.arch_train_config(arch, shape, False))["memory"]
+    assert got["argument_size_in_bytes"] == compiled[
+        f"{name}/{list(mesh)}"]["memory"]["argument_size_in_bytes"]
 
 
 def _census(name, mesh):
@@ -603,6 +647,7 @@ from torch.utils.flop_counter import FlopCounterMode
 torch.set_num_threads(1)
 rank, out, cases, anns, flagged = int(sys.argv[1]), sys.argv[2], \
     json.loads(sys.argv[3]), json.loads(sys.argv[4]), json.loads(sys.argv[5])
+changes = json.loads(sys.argv[6])
 
 record = {"bytes": {}, "calls": 0, "dist_calls": 0}
 def add(kind, nbytes):
@@ -629,7 +674,7 @@ def measured(fn):
     return dict(record)
 
 res = {}
-for world in (4, 2):
+for world in (5, 4, 3, 2):
     if rank >= world:
         break
     compat.init_ranks("gloo", f"file://{out}/rendezvous{world}", rank, world)
@@ -655,7 +700,8 @@ for world in (4, 2):
                                                 row_chunk=32, col_chunk=64)
                 res[f"{name}/{rank}"] = measured(lambda: step(r, a))
             continue
-        cfg = get_config(arch, reduced=True)
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  **changes.get(name, {}))
         dist_cfg = shd.DistConfig(shard_head_dim_fallback=name in flagged)
         with mesh_context(mesh, dist_cfg):
             model = init_params(cfg, 0, "cpu")
@@ -731,6 +777,18 @@ WORLD_CASES = {
         4, (1, 4), "decode", "hymba-1.5b", 4, 16, 1),
     "qwen decode, (2, 2), batch of one: head dim split, case H": (
         4, (2, 2), "decode", "qwen1.5-4b", 1, 16, 1),
+    # the SSD layouts of PLACED_CELLS' configs: case A, hymba's 10 SSD
+    # heads split over 5 with in_proj and the conv whole; case B,
+    # mamba2's conv cut across its parts on 3
+    "hymba train, (1, 5): SSD heads over a whole in_proj": (
+        5, (1, 5), "train", "hymba-1.5b", 4, 16, 1),
+    "mamba2 train, (1, 3): conv cut across its parts": (
+        3, (1, 3), "train", "mamba2-370m", 4, 16, 1),
+}
+# config changes of a world case
+WORLD_CHANGES = {
+    "hymba train, (1, 5): SSD heads over a whole in_proj": {"d_model": 80},
+    "mamba2 train, (1, 3): conv cut across its parts": {"ssm_state": 8},
 }
 FLAGGED = [name for name in WORLD_CASES if "head dim split" in name]
 HEAD_DIM = shd.DistConfig(shard_head_dim_fallback=True)
@@ -743,7 +801,7 @@ ANNS_SMALL = dict(D.ANNS_CELLS["anns-sift-10m"], n=32768, d=16, q=16, k=8,
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Each case's bytes by kind on every rank, recorded in gloo worlds of
-    4 and then 2 CPU ranks."""
+    5, 4, 3 and then 2 CPU ranks."""
     out = tmp_path_factory.mktemp("census_worlds")
     (out / "world.py").write_text(_WORLD)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
@@ -751,14 +809,14 @@ def worlds(tmp_path_factory):
     procs = [subprocess.Popen(
         [sys.executable, str(out / "world.py"), str(r), str(out),
          json.dumps(WORLD_CASES), json.dumps(ANNS_SMALL),
-         json.dumps(FLAGGED)], env=env,
+         json.dumps(FLAGGED), json.dumps(WORLD_CHANGES)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(4)]
+        for r in range(5)]
     for p in procs:
         so, se = p.communicate(timeout=300)
         assert p.returncode == 0, so + se
     res = {}
-    for r in range(4):
+    for r in range(5):
         res.update(json.loads((out / f"world{r}.json").read_text()))
     return res
 
@@ -785,7 +843,8 @@ def test_collectives_equal_the_recorded_bytes(worlds, name):
 
 def _world_record(name):
     world, shape, kind, arch, b, s, n = WORLD_CASES[name]
-    return D.lm_record(get_config(arch, reduced=True),
+    return D.lm_record(dataclasses.replace(get_config(arch, reduced=True),
+                                           **WORLD_CHANGES.get(name, {})),
                        ShapeConfig(kind, s, b, kind),
                        shd.MeshShape(("data", "model"), shape),
                        HEAD_DIM if name in FLAGGED else None,

@@ -562,10 +562,18 @@ def test_train_step_matches_the_reference_sharded(runs, name, i):
     ``tests/test_torch_train.py``'s tolerances and its
     one-in-a-thousand rule; qwen's key biases to the outlier bound in
     every element, as ``tests/test_torch_modal_train.py`` holds them."""
-    _, _, _, arch, changes, _ = CASES[name]
+    check_train_step(runs, CASES, name, i)
+
+
+def check_train_step(runs, cases, name, i):
+    """Case ``name`` of ``cases`` after step i: each rank's metrics, and
+    rank 0's parameters and moments gathered whole, against the
+    reference's (``test_train_step_matches_the_reference_sharded``'s
+    rules)."""
+    _, world, _, arch, changes, _ = cases[name]
     cfg = _cfg(get_config, arch, changes)
     ref = runs["ref"]
-    for r, port in enumerate(_ranks(runs, name)):
+    for r, port in enumerate(runs["port"][:world]):
         for key in METRICS:
             np.testing.assert_allclose(
                 port[f"{name}/{i}/metrics/{key}"],

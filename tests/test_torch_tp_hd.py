@@ -57,10 +57,6 @@ import test_torch_tp as tp  # noqa: E402
 from test_torch_tp import base  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.models.layers import apply_rope as ref_apply_rope  # noqa: E402
-from repro_torch.carry import (  # noqa: E402
-    lm_params_from_arrays,
-    opt_state_from_arrays,
-)
 from repro_torch.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.lm import batch_at  # noqa: E402
@@ -287,37 +283,7 @@ def test_train_step_matches_the_reference_head_dim_split(runs, name, i):
     gathered whole on rank 0, are the reference's after step i, under
     ``tests/test_torch_tp.py``'s rules (qwen's key biases to the outlier
     bound in every element)."""
-    _, _, _, arch, changes, _ = CASES[name]
-    cfg = tp._cfg(get_config, arch, changes)
-    ref = runs["ref"]
-    for r, port in enumerate(_ranks(runs, name)):
-        for key in tp.METRICS:
-            np.testing.assert_allclose(
-                port[f"{name}/{i}/metrics/{key}"],
-                ref[f"{name}/{i}/metrics/{key}"],
-                rtol=base.LOSS_RTOL if "loss" in key else 1e-4, atol=1e-7,
-                err_msg=f"rank {r} {key}")
-    port = runs["port"][0]
-
-    def pick(what):
-        prefix = f"{name}/{i}/{what}/"
-        return {k[len(prefix):]: v for k, v in port.items()
-                if k.startswith(prefix)}
-    want_p = dict(lm_params_from_arrays(cfg, tp._unflatten(
-        ref, f"{name}/{i}/p/"), "cpu").named_parameters())
-    st = opt_state_from_arrays(cfg, tp._unflatten(ref, f"{name}/{i}/state/"),
-                               "cpu")
-    got_p, want_p = pick("p"), base._port_flat(want_p)
-    bound = base._param_outliers(i + 1)["outlier_atol"]
-    for key in [k for k in want_p if k.endswith(".bk")]:
-        err = np.abs(got_p.pop(key) - want_p.pop(key))
-        assert (err <= bound).all(), (key, float(err.max()))
-    base._assert_trees(got_p, want_p, base.PARAM_TOL, f"{name} p",
-                       **base._param_outliers(i + 1))
-    for what in ("m", "v"):
-        base._assert_trees(pick(what), base._port_flat(st[what]),
-                           base.STEP_TOL, f"{name} {what}",
-                           **base.MOMENT_OUTLIERS)
+    tp.check_train_step(runs, CASES, name, i)
 
 
 def test_checkpoint_under_the_flag_resumes_and_loads_whole(runs):
